@@ -1,0 +1,258 @@
+"""Controlled SD UNet, the denoiser (mirrors ``unirestore_tpu/models/unet.py``).
+
+sd-turbo UNet (SD 2.1 architecture): block_out_channels (320, 640, 1280,
+1280), CrossAttnDownBlock2D x3 + DownBlock2D, heads (5, 10, 20, 20),
+cross-attention dim 1024, linear transformer projections, GroupNorm(32,
+eps=1e-5). Control type ``scedit`` only: the 12 skip tensors of the down
+path pass through SC-Tuner adapters fed by the Controller's maps. NHWC maps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..nn import embeddings as E
+from ..nn import layers as L
+from ..nn import resnet as R
+from ..nn import transformer as T
+from . import scedit as SC
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: tuple = (320, 640, 1280, 1280)
+    # True for CrossAttnDownBlock2D (and the mirrored up block)
+    cross_attention: tuple = (True, True, True, False)
+    heads: tuple = (5, 10, 20, 20)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 1024
+    norm_num_groups: int = 32
+    eps: float = 1e-5
+    control_type: str = "scedit"  # "scedit" | "none"
+    control_channels: int = 256
+
+    @property
+    def time_embed_dim(self):
+        return self.block_out_channels[0] * 4
+
+    def skip_channels(self):
+        """Channels of down_block_res_samples, in capture order."""
+        chans = [self.block_out_channels[0]]  # conv_in output
+        for i, c in enumerate(self.block_out_channels):
+            chans += [c] * self.layers_per_block
+            if i < len(self.block_out_channels) - 1:
+                chans.append(c)  # downsample output
+        return chans
+
+    def skip_scale_indices(self):
+        """Control-scale index (0 = full latent res) per skip tensor."""
+        idxs = [0]
+        for i in range(len(self.block_out_channels)):
+            idxs += [i] * self.layers_per_block
+            if i < len(self.block_out_channels) - 1:
+                idxs.append(i + 1)
+        return idxs
+
+
+def tiny_unet_config(control_type: str = "scedit"):
+    return UNetConfig(block_out_channels=(32, 64, 64, 64), heads=(2, 2, 2, 2),
+                      cross_attention_dim=64, control_type=control_type,
+                      control_channels=32)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def unet_init(ini, cfg: UNetConfig):
+    chans = cfg.block_out_channels
+    temb = cfg.time_embed_dim
+    p = {
+        "conv_in": L.conv2d_init(ini, cfg.in_channels, chans[0], 3),
+        "time_embedding": E.timestep_mlp_init(ini, chans[0], temb),
+    }
+
+    def attn(c, i):
+        return T.transformer_2d_init(ini, c, cfg.heads[i], cfg.cross_attention_dim)
+
+    down = []
+    cin = chans[0]
+    for i, cout in enumerate(chans):
+        blk = {"resnets": [], "attentions": []}
+        for j in range(cfg.layers_per_block):
+            blk["resnets"].append(R.resnet_block_init(ini, cin if j == 0 else cout, cout, temb))
+            if cfg.cross_attention[i]:
+                blk["attentions"].append(attn(cout, i))
+        if i < len(chans) - 1:
+            blk["downsample"] = R.downsample_init(ini, cout)
+        down.append(blk)
+        cin = cout
+    p["down_blocks"] = down
+
+    cmid = chans[-1]
+    p["mid"] = {
+        "resnet1": R.resnet_block_init(ini, cmid, cmid, temb),
+        "attn": attn(cmid, -1),
+        "resnet2": R.resnet_block_init(ini, cmid, cmid, temb),
+    }
+
+    up = []
+    skip_chans = cfg.skip_channels()
+    prev_out = cmid
+    for i, cout in enumerate(reversed(chans)):
+        blk_idx = len(chans) - 1 - i  # mirrored down block index
+        blk = {"resnets": [], "attentions": []}
+        for j in range(cfg.layers_per_block + 1):
+            res_in = (prev_out if j == 0 else cout) + skip_chans.pop()
+            blk["resnets"].append(R.resnet_block_init(ini, res_in, cout, temb))
+            if cfg.cross_attention[blk_idx]:
+                blk["attentions"].append(attn(cout, blk_idx))
+        if i < len(chans) - 1:
+            blk["upsample"] = R.upsample_init(ini, cout)
+        up.append(blk)
+        prev_out = cout
+    p["up_blocks"] = up
+
+    p["conv_norm_out"] = L.norm_init(ini, chans[0])
+    p["conv_out"] = L.conv2d_init(ini, chans[0], cfg.out_channels, 3)
+    return p
+
+
+def control_adapters_init(ini, cfg: UNetConfig):
+    """Trainable control-injection params (``scedit`` or ``none``)."""
+    if cfg.control_type == "scedit":
+        return {"csc_editors": SC.sc_tuner_init(ini, cfg.skip_channels(),
+                                                cfg.control_channels)}
+    if cfg.control_type == "none":
+        return {}
+    raise NotImplementedError(f"control_type {cfg.control_type!r} is not ported")
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+
+def _unit(cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states):
+    """One (ResnetBlock2D, Transformer2D) unit; ``attn_p`` may be None."""
+    h = R.resnet_block(res_p, h, temb, groups=cfg.norm_num_groups, eps=cfg.eps)
+    if attn_p is not None:
+        h = T.transformer_2d(attn_p, h, encoder_hidden_states,
+                             heads=cfg.heads[scale_idx], groups=cfg.norm_num_groups)
+    return h
+
+
+def _use_scedit(control, control_params):
+    return (control is not None and control_params is not None
+            and "csc_editors" in control_params)
+
+
+def unet_time_embedding(p, cfg: UNetConfig, timesteps, dtype):
+    temb = E.sinusoidal_timestep_embedding(timesteps, cfg.block_out_channels[0])
+    return E.timestep_mlp(p["time_embedding"], temb.to(dtype))
+
+
+def unet_encode(p, cfg: UNetConfig, sample, emb, encoder_hidden_states,
+                control=None, control_params=None):
+    """Down path + mid + SC-Tuner skip injection. Returns (h_mid, skips)."""
+    h = L.conv2d(p["conv_in"], sample, padding=1)
+    skips = [h]
+    for i, blk in enumerate(p["down_blocks"]):
+        for j, res in enumerate(blk["resnets"]):
+            attn = blk["attentions"][j] if blk["attentions"] else None
+            h = _unit(cfg, i, res, attn, h, emb, encoder_hidden_states)
+            skips.append(h)
+        if "downsample" in blk:
+            h = R.downsample(blk["downsample"], h)
+            skips.append(h)
+
+    mid = p["mid"]
+    h = _unit(cfg, -1, mid["resnet1"], mid["attn"], h, emb, encoder_hidden_states)
+    h = R.resnet_block(mid["resnet2"], h, emb, groups=cfg.norm_num_groups, eps=cfg.eps)
+
+    if _use_scedit(control, control_params):
+        skips = [SC.csce_adapter(ed, s, control[si])
+                 for ed, s, si in zip(control_params["csc_editors"], skips,
+                                      cfg.skip_scale_indices())]
+    return h, skips
+
+
+def _head(p, cfg, h):
+    h = L.silu(L.group_norm(p["conv_norm_out"], h, groups=cfg.norm_num_groups, eps=cfg.eps))
+    return L.conv2d(p["conv_out"], h, padding=1)
+
+
+def unet_decode(p, cfg: UNetConfig, h, skips, emb, encoder_hidden_states,
+                control=None, control_params=None, return_deep: bool = False):
+    """Up path + head; ``skips`` is not mutated.
+
+    With ``return_deep=True`` also returns the input of the shallowest up
+    block (after the previous block's upsample), the feature the ``deep``
+    cache mode keeps.
+    """
+    skips = list(skips)
+    n_levels = len(cfg.block_out_channels)
+    deep = None
+    for i, blk in enumerate(p["up_blocks"]):
+        if i == len(p["up_blocks"]) - 1:
+            deep = h
+        for j, res in enumerate(blk["resnets"]):
+            h = torch.cat([h, skips.pop()], dim=-1)
+            attn = blk["attentions"][j] if blk["attentions"] else None
+            h = _unit(cfg, n_levels - 1 - i, res, attn, h, emb, encoder_hidden_states)
+        if "upsample" in blk:
+            h = R.upsample(blk["upsample"], h)
+    h = _head(p, cfg, h)
+    return (h, deep) if return_deep else h
+
+
+def unet_down_shallow(p, cfg: UNetConfig, sample, emb, encoder_hidden_states,
+                      control=None, control_params=None):
+    """Level-0 down path only (conv_in + the first down block's units, no
+    downsample). Returns the three full-resolution skips, after SC-Tuner
+    injection when configured."""
+    h = L.conv2d(p["conv_in"], sample, padding=1)
+    skips = [h]
+    blk = p["down_blocks"][0]
+    for j, res in enumerate(blk["resnets"]):
+        attn = blk["attentions"][j] if blk["attentions"] else None
+        h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states)
+        skips.append(h)
+    if _use_scedit(control, control_params):
+        # the first len(skips) editors are the level-0 ones
+        skips = [SC.csce_adapter(ed, s, control[0])
+                 for ed, s in zip(control_params["csc_editors"], skips)]
+    return skips
+
+
+def unet_up_shallow(p, cfg: UNetConfig, deep, skips0, emb,
+                    encoder_hidden_states, control=None, control_params=None):
+    """Shallowest up block + head, fed by the cached deep feature and the
+    level-0 skips from ``unet_down_shallow``."""
+    skips = list(skips0)
+    blk = p["up_blocks"][-1]
+    h = deep
+    for j, res in enumerate(blk["resnets"]):
+        h = torch.cat([h, skips.pop()], dim=-1)
+        attn = blk["attentions"][j] if blk["attentions"] else None
+        h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states)
+    return _head(p, cfg, h)
+
+
+def unet_apply(p, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,
+               control=None, control_params=None):
+    """Full controlled UNet forward.
+
+    sample (B, h, w, 4) NHWC; timesteps (B,) int; encoder_hidden_states
+    (B, 77, 1024); control: per-scale maps from the Controller, or None.
+    """
+    emb = unet_time_embedding(p, cfg, timesteps, sample.dtype)
+    h, skips = unet_encode(p, cfg, sample, emb, encoder_hidden_states,
+                           control, control_params)
+    return unet_decode(p, cfg, h, skips, emb, encoder_hidden_states,
+                       control, control_params)

@@ -1,0 +1,288 @@
+"""UniRestore composite model (mirrors ``unirestore_tpu/models/unirestore.py``).
+
+A frozen SD VAE + UNet with four adapter families (CFRM, Controller,
+SC-Tuner, TFA). Parameters are two trees, ``frozen`` and ``trainable``, shaped
+like the JAX pytrees. The DDIM loop is a Python loop over the static timestep
+table; the ``none`` / ``encoder`` / ``deep`` cache modes keep the JAX
+function's exact step order: warmup steps first, then groups of ``stride``
+(one full key step and its cached followers), then the remainder as full
+steps.
+
+Randomness is injectable: ``restore_padded`` / ``encode`` / ``diffuse`` take
+the posterior and diffusion noise as tensors, and draw from a passed
+``torch.Generator`` only where a tensor is omitted. Entry points run under
+``torch.inference_mode()`` on the card unless ``device`` says otherwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..device import resolve_device
+from ..diffusion import schedules as D
+from ..nn.init import make_init
+from ..ops import resize as RS
+from . import controller as CTRL
+from . import unet as UN
+from . import vae as VAE
+
+# fixed train-time noising timestep buffer
+TRAIN_TIMESTEPS = (249, 499, 749, 999, 999, 999)
+
+
+@dataclasses.dataclass(frozen=True)
+class UniRestoreConfig:
+    vae: VAE.VAEConfig = dataclasses.field(default_factory=VAE.VAEConfig)
+    unet: UN.UNetConfig = dataclasses.field(default_factory=UN.UNetConfig)
+    controller: CTRL.ControllerConfig = dataclasses.field(
+        default_factory=CTRL.ControllerConfig)
+    use_cfrm: bool = True
+    control_type: str = "scedit"  # "scedit" | "none" (no Controller)
+    tasks: tuple = ("ir",)
+    prompt_len: int = 1
+    use_tfa: bool = False
+    num_inference_steps: int = 1
+    # "none" = exact; "encoder" = reuse Controller + UNet encoder features at
+    # follower steps; "deep" = reuse the deep UNet feature and recompute
+    # only the full-resolution level at follower steps
+    cache_mode: str = "none"
+    cache_stride: int = 2
+    cache_warmup: int = 0
+    # preprocessing: upscale the short side to >= min_size, pad to a multiple
+    min_size: int = 512
+    pad_multiple: int = 64
+    text_seq_len: int = 77
+
+    @property
+    def use_cnet(self):
+        return self.control_type == "scedit"
+
+
+def tiny_config(use_tfa: bool = True, control_type: str = "scedit",
+                tasks=("ir", "cls", "seg")):
+    return UniRestoreConfig(
+        vae=VAE.tiny_vae_config(),
+        unet=UN.tiny_unet_config(control_type),
+        controller=CTRL.tiny_controller_config(),
+        tasks=tasks, use_tfa=use_tfa, control_type=control_type,
+        min_size=64, pad_multiple=64,
+    )
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init(cfg: UniRestoreConfig, generator=None, *, device=None, dtype=torch.float32,
+         seed: int = 0):
+    """Returns (frozen, trainable) parameter trees drawn on ``device``.
+
+    ``device="meta"`` gives the trees' shapes without memory (used by
+    ``bridge`` to check converted params). Zero-init leaves stay zero.
+    """
+    ini = make_init(generator, resolve_device(device), dtype, seed)
+    frozen = {
+        "vae": VAE.vae_init(ini, cfg.vae),
+        # null-prompt CLIP embedding; replaced by weights/sd_null_emb.npy when used
+        "null_emb": ini.zeros((1, cfg.text_seq_len, cfg.unet.cross_attention_dim)),
+    }
+    trainable = {}
+    if cfg.use_cnet:
+        frozen["unet"] = UN.unet_init(ini, cfg.unet)
+        trainable["controller"] = CTRL.controller_init(ini, cfg.controller)
+        trainable["control"] = UN.control_adapters_init(ini, cfg.unet)
+    if cfg.use_cfrm:
+        trainable["cfrm"] = VAE.cfrm_adapter_init(ini, cfg.vae)
+    if cfg.use_tfa:
+        trainable["tfa"] = VAE.tfa_adapter_init(ini, cfg.vae, cfg.tasks, cfg.prompt_len)
+    return frozen, trainable
+
+
+def schedule(cfg: UniRestoreConfig, device="cpu") -> D.DiffusionSchedule:
+    return D.make_schedule(device=device)
+
+
+# ---------------------------------------------------------------------------
+# core pieces
+# ---------------------------------------------------------------------------
+
+
+def encode(frozen, trainable, cfg, images, noise=None, generator=None, enable_fr=True,
+           sample=True):
+    """VAE encode with optional CFRM; images in [0,1] NHWC. Returns (latents, skips)."""
+    fr = trainable.get("cfrm") if (enable_fr and cfg.use_cfrm) else None
+    return VAE.encode(frozen["vae"], images, cfg.vae, noise=noise, generator=generator,
+                      fr_params=fr, enable_fr=fr is not None, sample=sample)
+
+
+def decode(frozen, trainable, cfg, latents, skips=None, task=None):
+    """VAE decode with optional TFA task routing."""
+    tfa = trainable.get("tfa") if cfg.use_tfa else None
+    return VAE.decode(frozen["vae"], latents, cfg.vae, skips=skips, tfa_params=tfa,
+                      task=task if tfa is not None else None, prompt_len=cfg.prompt_len)
+
+
+def diffuse(sched, latents, noise=None, generator=None, timesteps=None):
+    """DDPM-noise latents; returns (noised, noise, timesteps).
+
+    Without ``timesteps``, each sample draws one from ``TRAIN_TIMESTEPS``;
+    without ``noise``, a standard normal draw. Both draws use ``generator``.
+    """
+    if (timesteps is None or noise is None) and generator is None:
+        raise ValueError("diffuse: pass the timesteps and noise, or a generator")
+    if timesteps is None:
+        buf = torch.tensor(TRAIN_TIMESTEPS, dtype=torch.int32, device=latents.device)
+        idx = torch.randint(0, len(buf), (latents.shape[0],), generator=generator,
+                            device=latents.device)
+        timesteps = buf[idx]
+    if noise is None:
+        noise = torch.randn(latents.shape, generator=generator, device=latents.device,
+                            dtype=latents.dtype)
+    noise = noise.to(latents.dtype)
+    return D.add_noise(sched, latents, noise, timesteps), noise, timesteps
+
+
+def _null_context(frozen, bsz, dtype):
+    null = frozen["null_emb"]
+    return null.expand((bsz,) + tuple(null.shape[1:])).to(dtype)
+
+
+def predict_eps(frozen, trainable, cfg, zt, conditions, timesteps):
+    """Controller -> controlled UNet -> predicted noise."""
+    control = CTRL.controller_apply(trainable["controller"], cfg.controller,
+                                    conditions, timesteps)
+    return UN.unet_apply(frozen["unet"], cfg.unet, zt, timesteps,
+                         _null_context(frozen, zt.shape[0], zt.dtype), control=control,
+                         control_params=trainable.get("control"))
+
+
+def ddim_denoise(frozen, trainable, cfg, sched, zt, z0_lq, num_inference_steps=None,
+                 cache_mode=None, cache_stride=None, cache_warmup=None):
+    """DDIM loop with per-step Controller control.
+
+    Cache modes as the JAX function: ``encoder`` runs the Controller and UNet
+    encoder only at key steps and the decoder alone at followers; ``deep``
+    keeps the feature entering the shallowest up block and recomputes only
+    the full-resolution level at followers. Steps: ``warmup`` full steps,
+    then groups of ``stride`` (key + followers), then the remainder as full
+    steps.
+    """
+    n = num_inference_steps or cfg.num_inference_steps
+    mode = cache_mode if cache_mode is not None else cfg.cache_mode
+    if mode not in ("none", "encoder", "deep"):
+        raise ValueError(f"cache_mode must be 'none', 'encoder' or 'deep', got {mode!r}")
+    stride = cache_stride if cache_stride is not None else cfg.cache_stride
+    warmup = cache_warmup if cache_warmup is not None else cfg.cache_warmup
+    if warmup < 0:
+        raise ValueError(f"cache_warmup must be >= 0, got {warmup}")
+    ts = [int(t) for t in D.ddim_timesteps(n)]
+    bsz = zt.shape[0]
+
+    def tvec(t):
+        return torch.full((bsz,), t, dtype=torch.int32, device=zt.device)
+
+    def full_step(z, t):
+        eps = predict_eps(frozen, trainable, cfg, z, z0_lq, tvec(t))
+        return D.ddim_step(sched, z, eps, t, n)
+
+    z = zt
+    if mode == "none" or n < 2 or stride < 2 or warmup >= n:
+        for t in ts:
+            z = full_step(z, t)
+        return z
+
+    unet_p = frozen["unet"]
+    null = _null_context(frozen, bsz, zt.dtype)
+    ctrl_params = trainable.get("control")
+
+    for t in ts[:warmup]:  # exact warmup steps before caching kicks in
+        z = full_step(z, t)
+    ts = ts[warmup:]
+    n_groups = len(ts) // stride
+    for g in range(n_groups):
+        group = ts[g * stride:(g + 1) * stride]
+        # key step: Controller + full UNet, caching features
+        tb0 = tvec(group[0])
+        control = CTRL.controller_apply(trainable["controller"], cfg.controller, z0_lq, tb0)
+        emb0 = UN.unet_time_embedding(unet_p, cfg.unet, tb0, z.dtype)
+        h, skips = UN.unet_encode(unet_p, cfg.unet, z, emb0, null, control, ctrl_params)
+        eps0, deep = UN.unet_decode(unet_p, cfg.unet, h, skips, emb0, null, control,
+                                    ctrl_params, return_deep=True)
+        z = D.ddim_step(sched, z, eps0, group[0], n)
+        # follower steps: cached features + fresh timestep embedding
+        for t in group[1:]:
+            embj = UN.unet_time_embedding(unet_p, cfg.unet, tvec(t), z.dtype)
+            if mode == "deep":
+                skips0 = UN.unet_down_shallow(unet_p, cfg.unet, z, embj, null, control,
+                                              ctrl_params)
+                epsj = UN.unet_up_shallow(unet_p, cfg.unet, deep, skips0, embj, null,
+                                          control, ctrl_params)
+            else:
+                epsj = UN.unet_decode(unet_p, cfg.unet, h, skips, embj, null, control,
+                                      ctrl_params)
+            z = D.ddim_step(sched, z, epsj, t, n)
+    for t in ts[n_groups * stride:]:  # trailing remainder runs in full
+        z = full_step(z, t)
+    return z
+
+
+def restore_padded(frozen, trainable, cfg, sched, images, task, generator=None,
+                   num_inference_steps=None, *, posterior_noise=None,
+                   diffusion_noise=None, device=None):
+    """Restore images whose H/W are already multiples of pad_multiple.
+
+    encode (CFRM on) -> noise to t=999 -> DDIM loop -> decode (TFA task).
+    ``posterior_noise`` (shape of the /8 latent mean) and ``diffusion_noise``
+    (shape of the latents) are used when given, else drawn from ``generator``.
+    """
+    dev = resolve_device(device)
+    with torch.inference_mode():
+        images = torch.as_tensor(images, device=dev)
+        sched = sched.to(dev)
+        if posterior_noise is not None:
+            posterior_noise = torch.as_tensor(posterior_noise, device=dev)
+        if diffusion_noise is not None:
+            diffusion_noise = torch.as_tensor(diffusion_noise, device=dev)
+        z0, skips = encode(frozen, trainable, cfg, images, noise=posterior_noise,
+                           generator=generator, enable_fr=True)
+        zt = z0
+        if cfg.use_cnet:
+            t999 = torch.full((images.shape[0],), 999, dtype=torch.int32, device=dev)
+            zt, _, _ = diffuse(sched, z0, noise=diffusion_noise, generator=generator,
+                               timesteps=t999)
+            zt = ddim_denoise(frozen, trainable, cfg, sched, zt, z0, num_inference_steps)
+        return decode(frozen, trainable, cfg, zt, skips, task)
+
+
+def preprocess_shape(h: int, w: int, cfg: UniRestoreConfig):
+    """Upscale the short side to >= min_size (Python's banker's ``round``),
+    then pad to a multiple of pad_multiple. Returns (h, w, pad_h, pad_w)."""
+    if h < cfg.min_size or w < cfg.min_size:
+        s = cfg.min_size / min(h, w)
+        h, w = round(h * s), round(w * s)
+    m = cfg.pad_multiple
+    return h, w, (m - h % m) % m, (m - w % m) % m
+
+
+def restore(frozen, trainable, cfg, sched, images, task, generator=None,
+            num_inference_steps=None, *, posterior_noise=None, diffusion_noise=None,
+            device=None):
+    """Full restore: resize and reflect-pad, ``restore_padded``, crop and resize back."""
+    dev = resolve_device(device)
+    with torch.inference_mode():
+        x = torch.as_tensor(images, device=dev)
+        org_h, org_w = x.shape[1:3]
+        h, w, pad_h, pad_w = preprocess_shape(org_h, org_w, cfg)
+        if (h, w) != (org_h, org_w):
+            x = RS.resize_bicubic(x, (h, w))
+        x = RS.reflect_pad_hw(x, pad_h, pad_w)
+        preds = restore_padded(frozen, trainable, cfg, sched, x, task, generator,
+                               num_inference_steps, posterior_noise=posterior_noise,
+                               diffusion_noise=diffusion_noise, device=dev)
+        preds = preds[:, :h, :w]
+        if (h, w) != (org_h, org_w):
+            preds = RS.resize_bicubic(preds, (org_h, org_w))
+        return preds

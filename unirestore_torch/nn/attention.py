@@ -1,0 +1,104 @@
+"""Attention for the SD VAE/UNet/Controller (mirrors ``unirestore_tpu/nn/attention.py``).
+
+``mha`` routes by shape alone, with the JAX package's predicates:
+
+- self-attention, T >= 1024, T % 256 == 0, d = 64: channel-flat kernel
+  (``fused_attention_btc_prescaled``) on the (B, T, inner) projections;
+- self-attention, T >= 256, d in {64, 128}: head-major kernel
+  (``fused_attention_bh_prescaled``);
+- self-attention, 128 < d <= 512, T >= 1024, T % 1024 == 0: streaming kernel
+  (``streaming_attention_bh_prescaled``);
+- everything else (77-token cross-attention, short sequences): plain
+  matmul / fp32 softmax / matmul, as ``jax.nn.dot_product_attention``.
+
+The kernel routes fold ``scale * log2(e)`` into the q weights in the
+activation dtype and take a base-2 softmax, as the JAX function does
+(attention.py:227-234, 251-252). On CPU tensors the kernel wrappers compute
+their plain PyTorch versions. Tokens are (B, T, C), feature maps NHWC.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import attention_kernels as K
+from . import layers as L
+
+
+def mha_init(ini, query_dim: int, heads: int, dim_head: int,
+             context_dim: int | None = None, qkv_bias: bool = False):
+    inner = heads * dim_head
+    ctx = context_dim if context_dim is not None else query_dim
+    return {
+        "to_q": L.linear_init(ini, query_dim, inner, bias=qkv_bias),
+        "to_k": L.linear_init(ini, ctx, inner, bias=qkv_bias),
+        "to_v": L.linear_init(ini, ctx, inner, bias=qkv_bias),
+        "to_out": L.linear_init(ini, inner, query_dim, bias=True),
+    }
+
+
+def _prescaled_linear(pp, x, gain: float):
+    """``x @ (w * gain) + b * gain`` with ``gain`` rounded to x's dtype."""
+    g = torch.tensor(gain, dtype=x.dtype, device=x.device)
+    y = x @ (pp["w"].to(x.dtype) * g)
+    if "b" in pp:
+        y = y + pp["b"].to(x.dtype) * g
+    return y
+
+
+def _head_major(y, heads: int):
+    """(B, T, H*D) -> contiguous (B*H, T, D); for B = 1 the reshape alone
+    would return a strided view, which the kernels do not take."""
+    b, t, inner = y.shape
+    y = y.reshape(b, t, heads, inner // heads).transpose(1, 2)
+    return y.reshape(b * heads, t, -1).contiguous()
+
+
+def mha(p, x, context=None, heads: int = 8):
+    """Multi-head attention over (B, T, C) with optional (B, S, Cctx) context."""
+    ctx = x if context is None else context
+    b, t, _ = x.shape
+    s = ctx.shape[1]
+    inner = p["to_q"]["w"].shape[1]
+    dim_head = inner // heads
+    scale = float(dim_head) ** -0.5
+
+    use_fused = K.supported(t, s, dim_head)
+    if use_fused and K.btc_supported(t, s, inner, dim_head):
+        qf = _prescaled_linear(p["to_q"], x, scale * K.LOG2E)
+        of = K.fused_attention_btc_prescaled(qf, L.linear(p["to_k"], ctx),
+                                             L.linear(p["to_v"], ctx))
+        return L.linear(p["to_out"], of)
+    use_streaming = not use_fused and K.stream_supported(t, s, dim_head)
+    if use_fused or use_streaming:
+        qb = _head_major(_prescaled_linear(p["to_q"], x, scale * K.LOG2E), heads)
+        kb = _head_major(L.linear(p["to_k"], ctx), heads)
+        vb = _head_major(L.linear(p["to_v"], ctx), heads)
+        kernel = (K.fused_attention_bh_prescaled if use_fused
+                  else K.streaming_attention_bh_prescaled)
+        ob = kernel(qb, kb, vb)  # (B*H, T, D)
+        o = ob.reshape(b, heads, t, dim_head).transpose(1, 2).reshape(b, t, inner)
+        return L.linear(p["to_out"], o)
+
+    q = L.linear(p["to_q"], x).reshape(b, t, heads, dim_head).transpose(1, 2)
+    k = L.linear(p["to_k"], ctx).reshape(b, s, heads, dim_head).transpose(1, 2)
+    v = L.linear(p["to_v"], ctx).reshape(b, s, heads, dim_head).transpose(1, 2)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    o = torch.matmul(probs, v)  # (B, H, T, D)
+    return L.linear(p["to_out"], o.transpose(1, 2).reshape(b, t, inner))
+
+
+def spatial_self_attention_init(ini, channels: int, heads: int):
+    return {
+        "group_norm": L.norm_init(ini, channels),
+        "attn": mha_init(ini, channels, heads, channels // heads, qkv_bias=True),
+    }
+
+
+def spatial_self_attention(p, x, heads: int, groups: int = 32, eps: float = 1e-6):
+    """VAE/Controller-style residual spatial self-attention on an NHWC map."""
+    b, h, w, c = x.shape
+    y = L.group_norm(p["group_norm"], x, groups=groups, eps=eps)
+    y = mha(p["attn"], y.reshape(b, h * w, c), heads=heads)
+    return x + y.reshape(b, h, w, c)
