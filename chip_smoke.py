@@ -8,22 +8,35 @@ Run from the repository root with no arguments:
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. environment: card name, ``nvidia-smi`` name and power limit, TF32 off;
-2. build the CUDA kernels from ``unirestore_torch/csrc/`` with ``nvcc``;
+2. build the CUDA kernels from ``unirestore_torch/csrc/`` (one ``nvcc`` per
+   source, all at once);
 3. each kernel against its plain PyTorch version at every shape the 512 px
-   restore gives it (batch 8, bf16), with kernel, plain, library
-   (``scaled_dot_product_attention``, timed as a yardstick only) and bound
-   times;
+   batch-8 main paths give it (bf16), with kernel, plain, library
+   (``scaled_dot_product_attention``; ``F.conv2d(groups=16)`` in
+   ``channels_last``; timed as yardsticks only) and bound times; and each
+   attention kernel's gradient (its autograd function) against autograd
+   through its plain version at one main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
    bf16, 20 DDIM steps) in the exact, encoder (stride 2) and deep (stride
    17, warmup 3) modes: finite outputs, launch counts equal to the counts the
    routing implies, img/s, and PSNR of each cached mode against exact;
 5. the same widths on a 256 px input in fp32, on the card and on the CPU
-   (where the kernels' plain versions run): the outputs must agree;
-6. a ``kernels`` JSON line, then the last line
+   (where the kernels' plain versions run): the restores must agree;
+6. the stage-1 training step at full width (sd-turbo widths without TFA,
+   512 px, batch 8, bf16 frozen weights and fp32 trainable masters, AdamW
+   from the stage-1 YAML's kwargs, remat on) on a seeded synthetic pair: one
+   warm-up and five timed steps with exact per-step launch counts (forward,
+   remat recompute and backward counted apart), finite losses and gradient
+   norms, every CFRM / Controller / SC-Tuner leaf changed, every frozen byte
+   unchanged;
+7. one stage-1 loss and gradient at full width, 256 px, batch 1, fp32, on the
+   card and on the CPU: the losses and each family's gradient norm agree;
+8. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
-   ``launches`` is the sum over phase 4's three restores; ``ms``,
-   ``plain_ms``, ``bound_ms`` and ``library_ms`` are sums of one call at each
-   of its main-path shapes, which ``shapes`` lists one by one.
+   ``launches`` is the sum over phase 4's three restores and phase 6's six
+   steps; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are sums of
+   one call at each of its main-path shapes, which ``shapes`` lists one by
+   one.
 
 It needs one CUDA device and imports nothing of JAX.
 """
@@ -46,15 +59,45 @@ BATCH = 8
 RES = 512
 STEPS = 20
 MODES = (("none", 2, 0), ("encoder", 2, 0), ("deep", 17, 3))
-# launches per 512 px restore at 20 steps: (btc, bh, stream)
-EXPECTED = {"none": (280, 140, 2), "encoder": (200, 100, 2), "deep": (136, 28, 2)}
-# bf16 kernel vs plain: attention_kernels.bf16_tolerance_ratio(out, ref) <= 1,
-# i.e. |out - ref| <= 2^-7 |ref| + 0.03 rms(ref) elementwise (one bf16 ulp of
-# the output plus the probabilities' rounding; the reasoning is beside it).
+# launches per 512 px restore at 20 steps, in the order of ``kernels.KERNELS``:
+# (btc, bh, stream, grouped conv); the grouped conv runs once per CFRM stage
+# in the one encode
+EXPECTED = {"none": (280, 140, 2, 3), "encoder": (200, 100, 2, 3), "deep": (136, 28, 2, 3)}
+# launches per stage-1 training step, (forward, remat recompute, backward):
+# the Controller (btc 4, bh 2, not rematerialised) and the UNet (btc 10, bh 5)
+# run once; only the UNet's up path carries gradients (SC-Tuner edits the
+# skips after the down path and the mid block), and its units are
+# rematerialised (btc 6, bh 3); the VAE mid-block attention runs in both
+# encodes behind the latent path's detach; the three CFRM grouped convs run in
+# the lq encode, each in a rematerialised AdaNAF block
+EXPECTED_TRAIN = {"ur_attention_btc": (14, 6, 10), "ur_attention_bh": (7, 3, 5),
+                  "ur_attention_stream": (2, 0, 0), "ur_grouped_conv3": (3, 3, 3)}
+TRAIN_STEPS = 5
+# the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
+# base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
+# gradient accumulation 2
+STAGE1_OPT = {"opt": "adamw", "base_lr": "1e-4", "base_bsz": 64, "weight_decay": "1e-2"}
+STAGE1_SCHED = {"sched": "onecycle"}
+STAGE1_MAX_STEPS, STAGE1_ACCUM = 200000, 2
+# bf16 kernel vs plain: ``attention_kernels.bf16_tolerance_ratio`` and
+# ``grouped_conv.bf16_tolerance_ratio`` <= 1, elementwise limits of a few bf16
+# ulps of the output (the reasoning is beside each).
+# bf16 attention gradients vs autograd through the plain version: rms of the
+# difference over rms of the plain gradient <= 2^-6 per input. The two
+# backward functions round at other places (the probabilities before or after
+# the division by the row sum, 2^-9 relative each, and the bf16 gradients
+# themselves); sound runs read a few 1e-3, a wrong scale (ln 2) or a dropped
+# query chunk reads 0.3 or more.
+BWD_RMS_TOL = 2.0 ** -6
 # fp32 card vs CPU over the whole restore: other conv algorithms and summation
 # orders (about 1e-6 relative), amplified by the t=999 DDIM update
 # (1/sqrt(alpha_bar)); sound runs read about 4e-6.
 REFERENCE_ATOL = 1e-4
+# fp32 card vs CPU over one stage-1 loss and gradient: the same 1e-6-level
+# differences through a forward and a backward pass at t up to 999; relative
+# limits on each loss term and on each family's gradient norm.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
@@ -82,13 +125,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms, what bounds it) at the card's peak bf16 rate and memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def rms_rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
 def kernel_shapes(K):
-    """(kernel, q shape, heads) at every shape the 512 px restore gives each kernel."""
+    """(kernel, q shape, heads) at every shape the 512 px main paths give each kernel."""
     b = BATCH
     return [
         (K.fused_attention_btc_prescaled, (b, 4096, 320), 5),   # UNet level 0
@@ -101,6 +155,18 @@ def kernel_shapes(K):
     ]
 
 
+def backward_shapes(K):
+    """One main-path shape per attention kernel for the gradient check."""
+    return [(K.fused_attention_btc_prescaled, (BATCH, 4096, 320), 5),
+            (K.fused_attention_bh_prescaled, (BATCH * 20, 256, 64), 1),
+            (K.streaming_attention_bh_prescaled, (BATCH, 4096, 512), 1)]
+
+
+def gconv_shapes():
+    """x shapes of the CFRM grouped conv at 512 px, batch 8 (dw = 4 x 128/256/512)."""
+    return [(BATCH, 256, 256, 512), (BATCH, 128, 128, 1024), (BATCH, 64, 64, 2048)]
+
+
 def kernel_inputs(K, kern, shape, heads, gen):
     """Seeded bf16 q (prescaled by d^-1/2 log2 e), k, v on the card, and the head width d."""
     d = shape[2] // heads if kern is K.fused_attention_btc_prescaled else shape[2]
@@ -109,15 +175,32 @@ def kernel_inputs(K, kern, shape, heads, gen):
     return (q.float() * (d ** -0.5 * K.LOG2E)).to(torch.bfloat16), k, v, d
 
 
+def gconv_inputs(shape, gen, dtype=torch.bfloat16):
+    """Seeded x, OIHW weights (unit-variance outputs) and bias for the grouped conv."""
+    c = shape[-1]
+    cg = c // 16
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((c, cg, 3, 3), generator=gen, device="cuda") * (9 * cg) ** -0.5).to(dtype)
+    b = (torch.randn((c,), generator=gen, device="cuda") * 0.1).to(dtype)
+    return x, w.contiguous(memory_format=torch.channels_last), b
+
+
 def compare_kernel(K, kern, q, k, v) -> dict:
     """The kernel against its plain version on the same inputs."""
     out = kern(q, k, v)
     ref = kern.plain(q, k, v)
     diff = out.float() - ref.float()
-    return {"max_abs_err": diff.abs().max().item(),
-            "rms_err_over_rms_ref": (diff.square().mean().sqrt()
-                                     / ref.float().square().mean().sqrt()).item(),
+    return {"max_abs_err": diff.abs().max().item(), "rms_err_over_rms_ref": rms_rel(out, ref),
             "tolerance_ratio": K.bf16_tolerance_ratio(out, ref)}
+
+
+def compare_gconv(G, x, w, b) -> dict:
+    """The grouped-conv kernel against its plain version on the same inputs."""
+    out = G.grouped_conv3(x, w, b, 16)
+    ref = G.grouped_conv3_plain(x, w, b, 16)
+    return {"max_abs_err": (out.float() - ref.float()).abs().max().item(),
+            "rms_err_over_rms_ref": rms_rel(out, ref),
+            "tolerance_ratio": G.bf16_tolerance_ratio(out, ref)}
 
 
 def check_kernel(K, kern, shape, heads, gen):
@@ -137,9 +220,7 @@ def check_kernel(K, kern, shape, heads, gen):
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         split(q), split(k), split(v), scale=math.log(2.0)), 10)
     flops = 4.0 * n * heads * t * t * d
-    nbytes = 4.0 * q.numel() * q.element_size()
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    bound_ms, bound_by = bound(flops, 4.0 * q.numel() * q.element_size())
     row = {"shape": list(shape), "heads": heads, "d": d, **err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "tflops": flops / (ms * 1e-3) / 1e12}
@@ -149,6 +230,54 @@ def check_kernel(K, kern, shape, heads, gen):
         f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms "
         f"bound {bound_ms:.4f} ms ({bound_by})")
     return row
+
+
+def check_gconv(G, shape, gen):
+    x, w, b = gconv_inputs(shape, gen)
+    err = compare_gconv(G, x, w, b)
+    if err["tolerance_ratio"] > 1.0:
+        raise AssertionError(f"{G.grouped_conv3.symbol} {shape}: kernel and plain version "
+                             f"disagree: {err}")
+    ms = cuda_ms(lambda: G.grouped_conv3(x, w, b, 16), 10)
+    plain_ms = cuda_ms(lambda: G.grouped_conv3_plain(x, w, b, 16), 3)
+    xc = x.permute(0, 3, 1, 2)  # NCHW view of channels_last memory
+    library_ms = cuda_ms(lambda: F.conv2d(xc, w, b, padding=1, groups=16), 10)
+    bsz, h, wd, c = shape
+    flops = 2.0 * bsz * h * wd * c * 9 * (c // 16)
+    nbytes = (2 * x.numel() + w.numel() + b.numel()) * x.element_size()
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = {"shape": list(shape), "groups": 16, **err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    log(f"kernel {G.grouped_conv3.symbol} {tuple(shape)} cg={c // 16}: max_abs "
+        f"{err['max_abs_err']:.3e} rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} "
+        f"tolerance ratio {err['tolerance_ratio']:.3f} | {ms:.3f} ms "
+        f"({row['tflops']:.1f} TFLOP/s) plain {plain_ms:.3f} ms library {library_ms:.3f} ms "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return row
+
+
+def check_backward(K, kern, shape, heads, gen) -> dict:
+    """The kernel's autograd function against autograd through its plain version."""
+    q, k, v, d = kernel_inputs(K, kern, shape, heads, gen)
+    g = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    def grads(fn):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fn(*xs), xs, g)
+
+    ours, ref = grads(kern), grads(kern.plain)
+    errs = {name: rms_rel(a, b) for name, a, b in zip(("dq", "dk", "dv"), ours, ref)}
+    finite = all(torch.isfinite(x).all() for x in ours)
+    if not finite or max(errs.values()) > BWD_RMS_TOL:
+        raise AssertionError(f"{kern.symbol} {shape}: gradients disagree with autograd "
+                             f"through the plain version: {errs} (finite {finite})")
+    del ours, ref
+    bwd_ms = cuda_ms(lambda: kern.vjp(q, k, v, g), 3)
+    log(f"backward {kern.symbol} {tuple(shape)}: rms err/rms ref "
+        + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (limit {BWD_RMS_TOL:.3e}) | recompute backward {bwd_ms:.3f} ms")
+    return {"shape": list(shape), "rms_err_over_rms_ref": errs, "ms": bwd_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -165,9 +294,13 @@ def fill_zero_leaves(bridge, tree, gen, std=1e-2):
     return tree
 
 
-def make_params(UR, bridge, cfg, dtype, seed):
+def make_params(UR, bridge, cfg, dtype, seed, trainable_dtype=None):
+    """Seeded (frozen, trainable) on the card; trainable in ``trainable_dtype`` if given."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    frozen, trainable = UR.init(cfg, gen, device="cuda", dtype=dtype)
+    frozen, trainable = UR.init(cfg, gen, device="cuda", dtype=trainable_dtype or dtype)
+    if trainable_dtype is not None:
+        frozen = bridge.unflatten_like({k: v.to(dtype) for k, v in
+                                        bridge.flatten(frozen).items()}, frozen)
     frozen["null_emb"] = bridge.load_null_embedding(REPO / "weights" / "sd_null_emb.npy",
                                                     device="cuda", dtype=dtype)
     return frozen, fill_zero_leaves(bridge, trainable, gen)
@@ -197,25 +330,29 @@ def restore_inputs(UR, cfg, frozen, trainable, gen):
     return images, restore
 
 
-def run_modes(UR, K, cfg, frozen, trainable, gen):
+def counts_of(KN) -> tuple:
+    return tuple(kern.launches for kern in KN.KERNELS)
+
+
+def run_modes(UR, KN, cfg, frozen, trainable, gen):
     images, restore = restore_inputs(UR, cfg, frozen, trainable, gen)
     t0 = time.perf_counter()
     restore(cfg, 1)  # warm-up: lazy library init, every shape once
     torch.cuda.synchronize()
     log(f"warm-up restore (1 step): {time.perf_counter() - t0:.2f} s")
 
-    outs, results, launches = {}, {}, {kern.symbol: 0 for kern in K.KERNELS}
+    outs, results, launches = {}, {}, {kern.symbol: 0 for kern in KN.KERNELS}
     for mode, stride, warmup in MODES:
         c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride, cache_warmup=warmup)
         torch.cuda.reset_peak_memory_stats()
-        K.reset_launches()
+        KN.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = restore(c, STEPS)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = tuple(kern.launches for kern in K.KERNELS)
-        for kern in K.KERNELS:
+        counts = counts_of(KN)
+        for kern in KN.KERNELS:
             launches[kern.symbol] += kern.launches
         if out.shape != images.shape or not torch.isfinite(out).all():
             raise AssertionError(f"{mode}: output shape {tuple(out.shape)} or non-finite values")
@@ -226,7 +363,7 @@ def run_modes(UR, K, cfg, frozen, trainable, gen):
                          "img_per_s": BATCH / sec, "launches": counts,
                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
         log(f"restore {mode} (stride {stride}, warmup {warmup}): {sec:.3f} s, "
-            f"{BATCH / sec:.3f} img/s, launches btc/bh/stream {counts}, "
+            f"{BATCH / sec:.3f} img/s, launches btc/bh/stream/gconv {counts}, "
             f"peak {results[mode]['peak_mem_gib']:.1f} GiB")
     for mode in ("encoder", "deep"):
         results[mode]["psnr_vs_exact"] = psnr_u8(outs["none"], outs[mode])
@@ -234,7 +371,12 @@ def run_modes(UR, K, cfg, frozen, trainable, gen):
     return results, launches
 
 
-def reference_check(UR, K, bridge, cfg):
+def to_cpu(bridge, tree):
+    return bridge.unflatten_like({k: v.detach().cpu() for k, v in bridge.flatten(tree).items()},
+                                 tree)
+
+
+def reference_check(UR, KN, bridge, cfg):
     """Full widths, 256 px, fp32, 2 steps: card (kernels) vs CPU (plain versions)."""
     frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=5)
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -249,24 +391,170 @@ def reference_check(UR, K, bridge, cfg):
                                  posterior_noise=post.to(device),
                                  diffusion_noise=diff.to(device), device=device)
 
-    def to_cpu(tree):
-        return bridge.unflatten_like({k: v.cpu() for k, v in bridge.flatten(tree).items()},
-                                     tree)
-
-    K.reset_launches()
+    KN.reset_counts()
     gpu = run("cuda", frozen, trainable).cpu()
-    counts = tuple(kern.launches for kern in K.KERNELS)
+    counts = counts_of(KN)
     t0 = time.perf_counter()
-    cpu = run("cpu", to_cpu(frozen), to_cpu(trainable))
+    cpu = run("cpu", to_cpu(bridge, frozen), to_cpu(bridge, trainable))
     err = (gpu - cpu).abs().max().item()
     log(f"reference 256 px fp32, 2 steps: card vs CPU max abs {err:.3e} "
-        f"(tolerance {REFERENCE_ATOL}), card launches btc/bh/stream {counts}, "
+        f"(tolerance {REFERENCE_ATOL}), card launches btc/bh/stream/gconv {counts}, "
         f"CPU {time.perf_counter() - t0:.1f} s")
     if not (torch.isfinite(gpu).all() and err <= REFERENCE_ATOL):
         raise AssertionError(f"card and CPU restores differ: max abs {err:.3e}")
     if min(counts) == 0:
         raise AssertionError(f"a kernel did not run in the reference restore: {counts}")
     return err
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the stage-1 training step
+# ---------------------------------------------------------------------------
+
+
+def synthetic_pair(gen, batch: int, res: int, dtype) -> dict:
+    """A seeded smooth image ``hq`` and its degradation ``lq`` (2x blur, Gaussian
+    noise of sigma 0.05), NHWC in [0, 1] on the card."""
+    coarse = torch.rand((batch, 3, res // 16, res // 16), generator=gen, device="cuda")
+    hq = F.interpolate(coarse, size=(res, res), mode="bicubic", align_corners=False)
+    hq = (hq + 0.05 * torch.randn(hq.shape, generator=gen, device="cuda")).clamp(0, 1)
+    blur = F.interpolate(F.avg_pool2d(hq, 2), size=(res, res), mode="bilinear",
+                         align_corners=False)
+    lq = (blur + 0.05 * torch.randn(hq.shape, generator=gen, device="cuda")).clamp(0, 1)
+    return {"hq": hq.permute(0, 2, 3, 1).contiguous().to(dtype),
+            "lq": lq.permute(0, 2, 3, 1).contiguous().to(dtype)}
+
+
+def train_counts(KN) -> dict:
+    return {kern.symbol: (kern.launches - kern.recompute_launches, kern.recompute_launches,
+                          kern.backwards) for kern in KN.KERNELS}
+
+
+def train_setup(UR, bridge, TS, OPT):
+    """The stage-1 setup of phase 6: sd-turbo widths without TFA, bf16 frozen
+    weights, fp32 trainable masters, AdamW from the stage-1 YAML's kwargs,
+    remat on. Returns (frozen, trainable, stage, peak lr, next_inputs, run):
+    ``next_inputs()`` makes a seeded synthetic batch and its noise, and
+    ``run(batch, noise)`` takes one step (updating ``trainable`` and the
+    optimizer state in place) and returns its logs."""
+    cfg = UR.UniRestoreConfig()
+    frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=3,
+                                    trainable_dtype=torch.float32)
+    stage = TS.StageConfig(train_cfrm=True, train_cnet=True, train_tfa=False)
+    tx, peak_lr = OPT.build(STAGE1_OPT, STAGE1_SCHED, STAGE1_MAX_STEPS, BATCH, STAGE1_ACCUM, 1)
+    opt_state = tx.init(TS.trained_leaves(stage, trainable))
+    step = TS.make_train_step(frozen, cfg, UR.schedule(cfg, device="cuda"), stage, tx, "ir",
+                              remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def next_inputs():
+        batch = synthetic_pair(gen, BATCH, RES, torch.bfloat16)
+        return batch, TS.draw_noise(cfg, batch, gen)
+
+    def run(batch, noise):
+        return step(trainable, opt_state, batch, noise)[2]
+
+    return frozen, trainable, stage, peak_lr, next_inputs, run
+
+
+def run_training(UR, KN, bridge, TS, OPT):
+    """Phase 6: the full-width stage-1 step, one warm-up and TRAIN_STEPS timed."""
+    frozen, trainable, stage, peak_lr, next_inputs, run = train_setup(UR, bridge, TS, OPT)
+    frozen_before = {k: v.clone() for k, v in bridge.flatten(frozen).items()}
+    trained_before = {k: v.clone() for k, v in TS.trained_leaves(stage, trainable).items()}
+    n_trained = sum(v.numel() for v in trained_before.values())
+    log(f"training: stage 1, {n_trained / 1e6:.1f} M trainable fp32 params, frozen bf16, "
+        f"AdamW peak lr {peak_lr:.3e}, accumulation {STAGE1_ACCUM}, remat on")
+
+    rows, launches = [], {kern.symbol: 0 for kern in KN.KERNELS}
+    for i in range(1 + TRAIN_STEPS):
+        batch, noise = next_inputs()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        KN.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = run(batch, noise)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = train_counts(KN)
+        for kern in KN.KERNELS:
+            launches[kern.symbol] += kern.launches
+        logs = {k: v.item() for k, v in logs.items()}
+        log(f"train step {i}{' (warm-up)' if i == 0 else ''}: {sec * 1e3:.1f} ms, "
+            + " ".join(f"{k.split('/')[-1]} {v:.5g}" for k, v in logs.items())
+            + " | launches (forward, recompute, backward) "
+            + " ".join(f"{s.split('_', 1)[1]} {c}" for s, c in counts.items()))
+        if not all(math.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"train step {i}: non-finite loss or gradient norm {logs}")
+        if counts != EXPECTED_TRAIN:
+            raise AssertionError(f"train step {i}: launches {counts} != {EXPECTED_TRAIN}")
+        rows.append({"seconds": sec, "logs": logs})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    unchanged = [k for k, v in TS.trained_leaves(stage, trainable).items()
+                 if torch.equal(v, trained_before[k])]
+    if unchanged:
+        raise AssertionError(f"{len(unchanged)} trainable leaves did not change: {unchanged[:5]}")
+    touched = [k for k, v in bridge.flatten(frozen).items() if not torch.equal(v, frozen_before[k])]
+    if touched:
+        raise AssertionError(f"frozen leaves changed: {touched[:5]}")
+    sec = [r["seconds"] for r in rows[1:]]
+    mean = sum(sec) / len(sec)
+    result = {"batch": BATCH, "res": RES, "steps_timed": TRAIN_STEPS, "ms_per_step": mean * 1e3,
+              "ms_per_step_each": [s * 1e3 for s in sec], "train_img_per_s": BATCH / mean,
+              "peak_mem_gib": peak, "launches_per_step": EXPECTED_TRAIN,
+              "losses": [r["logs"] for r in rows]}
+    log(f"training: {mean * 1e3:.1f} ms/step over {TRAIN_STEPS} steps "
+        f"({min(sec) * 1e3:.1f}-{max(sec) * 1e3:.1f}), {BATCH / mean:.3f} train img/s, "
+        f"peak {peak:.1f} GiB; every trained leaf changed, frozen bytes unchanged")
+    return result, launches
+
+
+def train_reference_check(UR, KN, bridge, TS):
+    """Phase 7: one stage-1 loss and gradient, full widths, 256 px, fp32, card vs CPU."""
+    cfg = UR.UniRestoreConfig()
+    frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batch = synthetic_pair(gen, 1, 256, torch.float32)
+    noise = TS.draw_noise(cfg, batch, gen)
+    stage = TS.StageConfig(train_cfrm=True, train_cnet=True, train_tfa=False)
+    cfg_r = TS.with_remat(cfg)
+
+    def run(device, tree_f, tree_t):
+        leaves = TS.trained_leaves(stage, tree_t)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        nz = TS.StepNoise(noise.hq.to(device), noise.lq.to(device),
+                          noise.diffusion.to(device), noise.timesteps.to(device))
+        loss, logs = TS.compute_losses(tree_f, tree_t, cfg_r, UR.schedule(cfg, device=device),
+                                       stage, {k: v.to(device) for k, v in batch.items()},
+                                       nz, "ir")
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        norms = {}
+        for k, g in zip(leaves, grads):
+            fam = k.split("//")[0]
+            norms[fam] = norms.get(fam, 0.0) + g.double().square().sum().item()
+        return {k: v.item() for k, v in logs.items()}, {f: n ** 0.5 for f, n in norms.items()}
+
+    KN.reset_counts()
+    gpu_logs, gpu_norms = run("cuda", frozen, trainable)
+    counts = train_counts(KN)
+    t0 = time.perf_counter()
+    cpu_logs, cpu_norms = run("cpu", to_cpu(bridge, frozen), to_cpu(bridge, trainable))
+    cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(gpu_logs[k] - cpu_logs[k]) / abs(cpu_logs[k]) for k in cpu_logs)
+    grad_err = max(abs(gpu_norms[f] - cpu_norms[f]) / cpu_norms[f] for f in cpu_norms)
+    log(f"training reference 256 px fp32: card vs CPU max relative loss error {loss_err:.3e} "
+        f"(limit {TRAIN_LOSS_RTOL}), gradient norm error {grad_err:.3e} "
+        f"(limit {TRAIN_GRAD_RTOL}); norms card {gpu_norms} CPU {cpu_norms}; "
+        f"card launches {counts}; CPU {cpu_s:.1f} s")
+    finite = all(math.isfinite(v) for v in (*gpu_logs.values(), *gpu_norms.values()))
+    if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
+        raise AssertionError("card and CPU training steps differ")
+    if min(c[0] for c in counts.values()) == 0:
+        raise AssertionError(f"a kernel did not run in the reference training step: {counts}")
+    return {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err, "cpu_seconds": cpu_s}
 
 
 def main() -> int:
@@ -276,6 +564,10 @@ def main() -> int:
     from unirestore_torch import bridge
     from unirestore_torch.models import unirestore as UR
     from unirestore_torch.nn import attention_kernels as K
+    from unirestore_torch.nn import grouped_conv as G
+    from unirestore_torch.nn import kernels as KN
+    from unirestore_torch.train import optim as OPT
+    from unirestore_torch.train import steps as TS
 
     # phase 1: environment
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -289,19 +581,23 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    lib_path = K.build()
-    K.library()
-    log(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or ("spill" in line and "0 bytes spill" not in line):
-            log(f"  ptxas: {line.strip()}")
+    libs = KN.build_all()
+    log(f"built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or ("spill" in line and "0 bytes spill" not in line):
+                log(f"  ptxas {lib.stem.split('-')[0]}: {line.strip()}")
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {kern.symbol: [] for kern in K.KERNELS}
+    rows = {kern.symbol: [] for kern in KN.KERNELS}
     with torch.inference_mode():
         for kern, shape, heads in kernel_shapes(K):
             rows[kern.symbol].append(check_kernel(K, kern, shape, heads, gen))
+        for shape in gconv_shapes():
+            rows[G.grouped_conv3.symbol].append(check_gconv(G, shape, gen))
+    backward = {kern.symbol: check_backward(K, kern, shape, heads, gen)
+                for kern, shape, heads in backward_shapes(K)}
     torch.cuda.empty_cache()
 
     # phase 4: full-width restore in three modes
@@ -311,32 +607,47 @@ def main() -> int:
     n_params = sum(v.numel() for tree in (frozen, trainable)
                    for v in bridge.flatten(tree).values())
     log(f"init {n_params / 1e6:.1f} M params (bf16) in {time.perf_counter() - t0:.1f} s")
-    modes, launches = run_modes(UR, K, cfg, frozen, trainable, gen)
+    modes, launches = run_modes(UR, KN, cfg, frozen, trainable, gen)
     del frozen, trainable
     torch.cuda.empty_cache()
 
     # phase 5: agreement with the CPU on a small input
-    ref_err = reference_check(UR, K, bridge, cfg)
+    ref_err = reference_check(UR, KN, bridge, cfg)
+    torch.cuda.empty_cache()
 
-    # phase 6: report
+    # phase 6: the full-width stage-1 training step
+    training, train_launches = run_training(UR, KN, bridge, TS, OPT)
+    torch.cuda.empty_cache()
+
+    # phase 7: training, card vs CPU
+    training["reference"] = train_reference_check(UR, KN, bridge, TS)
+
+    # phase 8: report
     entries = []
-    for kern in K.KERNELS:
+    for kern in KN.KERNELS:
         r = rows[kern.symbol]
-        if launches[kern.symbol] == 0:
-            raise AssertionError(f"{kern.symbol} never ran on the restore path")
-        entries.append({
+        total = launches[kern.symbol] + train_launches[kern.symbol]
+        if launches[kern.symbol] == 0 or train_launches[kern.symbol] == 0:
+            raise AssertionError(f"{kern.symbol} never ran on a main path")
+        source = ("unirestore_torch/csrc/grouped_conv.cu" if kern is G.grouped_conv3
+                  else "unirestore_torch/csrc/attention.cu")
+        entry = {
             "name": kern.symbol, "route": "cuda", "status": "ported",
-            "source": "unirestore_torch/csrc/attention.cu", "replaces": kern.replaces,
-            "launches": launches[kern.symbol],
+            "source": source, "replaces": kern.replaces, "launches": total,
+            "launches_restore": launches[kern.symbol], "launches_train": train_launches[kern.symbol],
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r), "plain_ms": sum(x["plain_ms"] for x in r),
             "bound_ms": sum(x["bound_ms"] for x in r),
-            "bound_by": r[0]["bound_by"],
+            "bound_by": max(r, key=lambda x: x["bound_ms"])["bound_by"],
             "library_ms": sum(x["library_ms"] for x in r),
             "shapes": r,
-        })
+        }
+        if kern.symbol in backward:
+            entry["backward"] = backward[kern.symbol]
+        entries.append(entry)
     log(json.dumps({"restore": {"batch": BATCH, "res": RES, "steps": STEPS, "dtype": "bf16",
                                 "modes": modes, "reference_max_abs_err": ref_err}}))
+    log(json.dumps({"training": training}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,6 +12,7 @@ The plain versions are held against the Pallas kernels run in interpret mode
   folded into the weights); exp(x) vs exp2(x*log2 e) differ by a few ulps.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,3 +166,72 @@ def test_bf16_tolerance_passes_tiled_arithmetic_and_rejects_faults(shape, fault)
         bad = ref.clone()
         bad[0, 0, 0] = torch.nan
         assert K.bf16_tolerance_ratio(bad, ref) == float("inf")
+
+
+# ---------------------------------------------------------------------------
+# gradients: the wrappers' autograd functions (chunked recompute backward)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind,shape", [("btc", (2, 256, 2 * 64)), ("bh", (4, 256, 64)),
+                                        ("bh", (2, 192, 128))])
+def test_chunked_backward_matches_jax_vjp(kind, shape):
+    """The recompute backward over 64-query chunks (T = 192-256) == the VJP of
+    ``_xla_reference_btc`` / ``_xla_reference_bh`` at scale ln 2, fp32, 1e-5."""
+    d = 64 if kind == "btc" else shape[-1]
+    q, k, v = _qkv(40, shape, d)
+    g = nhwc(44, *shape)
+    if kind == "btc":
+        ref_fn = lambda a, b, c: PA._xla_reference_btc(a, b, c, PA._LN2, 64)  # noqa: E731
+        ours = K.attention_btc_vjp
+    else:
+        ref_fn = lambda a, b, c: PA._xla_reference_bh(a, b, c, PA._LN2)  # noqa: E731
+        ours = K.attention_vjp
+    _, vjp = jax.vjp(ref_fn, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    got = ours(*map(torch.from_numpy, (q, k, v, g)), chunk=64)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(to_np(a), np.asarray(b), **TOL, err_msg=name)
+
+
+def test_wrapper_gradient_is_the_recompute_backward():
+    """A CPU tensor that requires grad goes through the autograd function: its
+    backward is ``attention_vjp`` (counted in ``backwards``), not the plain
+    version's autograd graph."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(50, (2, 256, 64), 64))
+    g = torch.from_numpy(nhwc(51, 2, 256, 64))
+    kern = K.fused_attention_bh_prescaled
+    before = kern.backwards
+    grads = torch.autograd.grad(kern(q, k, v), (q, k, v), g)
+    assert kern.backwards == before + 1 and kern.launches == 0
+    want = K.attention_vjp(q.detach(), k.detach(), v.detach(), g)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_train_attn_chunk_matches_jax():
+    with JA.force_xla_attention():
+        for t in (64, 256, 1024, 1025, 1296, 2304, 4096, 4900, 16384):
+            assert K.train_attn_chunk(t) == (JA._train_attn_chunk(t, t) or t), t
+
+
+def test_attention_gradients_under_remat():
+    """A rematerialised unit with a kernel route (T = 256, d = 64) gives the same
+    gradients as without remat: the autograd function recomputes cleanly."""
+    from unirestore_torch.nn import remat as TRM
+    pj = jax_params(JA.mha_init, 128, 2, 64, None, True)
+    pt = port_params(pj, TA.mha_init, 128, 2, 64, None, True)
+    x = torch.from_numpy(nhwc(60, 2, 256, 128)).requires_grad_()
+    leaves = [x, pt["to_q"]["w"].requires_grad_(), pt["to_k"]["w"].requires_grad_()]
+
+    def loss(remat):
+        y = TRM.checkpoint(TA.mha, pt, x, None, 2) if remat else TA.mha(pt, x, heads=2)
+        return (y ** 2).sum()
+
+    assert K.supported(256, 256, 64)
+    plain = torch.autograd.grad(loss(False), leaves)
+    before = K.fused_attention_bh_prescaled.backwards
+    rematted = torch.autograd.grad(loss(True), leaves)
+    assert K.fused_attention_bh_prescaled.backwards == before + 1
+    for a, b in zip(rematted, plain):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)

@@ -1,4 +1,4 @@
-"""The CUDA attention kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card, with gradients.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with a
 card (which has no JAX, so the repo's conftest is left out):
@@ -8,7 +8,12 @@ card (which has no JAX, so the repo's conftest is left out):
 Tolerances: fp32 1e-5 (same fp32 arithmetic, other summation order); bf16
 ``attention_kernels.bf16_tolerance_ratio <= 1``, the limit chip_smoke.py holds
 the kernels to: |out - ref| <= 2^-7 |ref| + 0.03 rms(ref) elementwise (one
-bf16 ulp of the output, plus the probabilities' rounding near zero).
+bf16 ulp of the output, plus the probabilities' rounding near zero); for the
+grouped conv ``grouped_conv.bf16_tolerance_ratio <= 1`` (two bf16 ulps plus
+2^-10 rms(ref)). Gradients through the autograd functions against autograd
+through the plain versions: fp32 1e-4 (the recompute backward differentiates
+softmax_e(ln2 s) where the plain version takes exp2 and divides at the end),
+bf16 rms error <= 2^-6 of the reference's rms (chip_smoke.BWD_RMS_TOL).
 """
 
 import pytest
@@ -16,6 +21,7 @@ import torch
 
 from unirestore_torch.nn import attention as TA
 from unirestore_torch.nn import attention_kernels as K
+from unirestore_torch.nn import grouped_conv as G
 from unirestore_torch.nn import layers as TL
 
 pytestmark = pytest.mark.cuda
@@ -74,10 +80,40 @@ def test_kernel_wrapper_raises_on_what_it_cannot_run(cuda):
     shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)  # 4 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         kern(shifted, k, v)
-    with pytest.raises(RuntimeError, match="grad"):
-        kern(q.requires_grad_(), k, v)
     with pytest.raises(ValueError, match="CUDA device"):
-        kern(q.detach(), k.cpu(), v)
+        kern(q, k.cpu(), v)
+
+
+def _rms_rel(a, b):
+    return ((a.float() - b.float()).square().mean().sqrt() / b.float().square().mean().sqrt()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape,d", [
+    ("btc", (2, 4096, 128), 64),   # T > 1024: the backward recomputes 512-query chunks
+    ("bh", (3, 264, 64), 64),
+    ("stream", (1, 1024, 512), 512),
+])
+def test_kernel_gradient_matches_plain_autograd(cuda, dtype, name, shape, d):
+    kern = {"btc": K.fused_attention_btc_prescaled, "bh": K.fused_attention_bh_prescaled,
+            "stream": K.streaming_attention_bh_prescaled}[name]
+    q, k, v = _qkv(shape, d, dtype, seed=3)
+    g = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda").to(dtype)
+
+    def grads(fn):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fn(*xs), xs, g)
+
+    launches, backwards = kern.launches, kern.backwards
+    ours = grads(kern)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.backwards) == (launches + 1, backwards + 1)
+    for a, b in zip(ours, grads(kern.plain)):
+        if dtype == torch.bfloat16:
+            assert _rms_rel(a, b) <= 2.0 ** -6
+        else:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("t,dim,heads", [(1024, 128, 2), (256, 256, 2), (1024, 512, 1)])
@@ -107,3 +143,70 @@ def test_conv2d_channels_last_on_card(cuda):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     torch.testing.assert_close(out.cpu(), TL.conv2d(p, x, padding=1, groups=16), **FP32_TOL)
+
+
+def _gconv_inputs(shape, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    cg = c // 16
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    w = (torch.randn((c, cg, 3, 3), generator=g, device="cuda") * (9 * cg) ** -0.5).to(dtype)
+    b = (torch.randn((c,), generator=g, device="cuda") * 0.1).to(dtype)
+    return x, w.contiguous(memory_format=torch.channels_last), b
+
+
+@pytest.fixture
+def no_tf32():
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsum in fp32
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (8, 256, 256, 512), (8, 128, 128, 1024), (8, 64, 64, 2048),  # the 512 px main path
+    (2, 37, 45, 256),   # ragged H and W against the 4 x 32 tiles, cg = 16
+])
+def test_grouped_conv_matches_plain(cuda, no_tf32, dtype, shape):
+    x, w, b = _gconv_inputs(shape, dtype)
+    before = G.grouped_conv3.launches
+    out = G.grouped_conv3(x, w, b, 16)
+    torch.cuda.synchronize()
+    assert G.grouped_conv3.launches == before + 1
+    ref = G.grouped_conv3_plain(x, w, b, 16)
+    if dtype == torch.bfloat16:
+        assert G.bf16_tolerance_ratio(out, ref) <= 1.0
+    else:
+        torch.testing.assert_close(out, ref, **FP32_TOL)
+
+
+def test_grouped_conv_gradient_matches_plain_autograd(cuda, no_tf32):
+    x, w, b = _gconv_inputs((2, 32, 48, 1024), torch.float32, seed=1)
+    gy = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                     device="cuda")
+
+    def grads(fn):
+        xs = [t.detach().requires_grad_() for t in (x, w, b)]
+        return torch.autograd.grad(fn(*xs, 16), xs, gy)
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the backward's convolutions in fp32
+    try:
+        ours, ref = grads(G.grouped_conv3), grads(G.grouped_conv3_plain)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    # the weight gradient sums B*H*W = 3072 products per entry, in cuDNN's
+    # order against the einsum's: 1e-4 of each gradient's largest entry
+    for a, r in zip(ours, ref):
+        torch.testing.assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=1e-4)
+
+
+def test_grouped_conv_wrapper_raises_on_what_it_cannot_run(cuda):
+    x, w, b = _gconv_inputs((1, 8, 8, 512), torch.float32)
+    with pytest.raises(TypeError):
+        G.grouped_conv3(x.half(), w.half(), b.half(), 16)
+    with pytest.raises(ValueError, match="unsupported"):
+        G.grouped_conv3(x[..., :320].contiguous(), w[:320, :20].contiguous(), None, 16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        G.grouped_conv3(x, w.cpu(), b, 16)

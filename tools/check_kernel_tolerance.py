@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Show that chip_smoke.py's bf16 kernel tolerance rejects planted kernel faults.
+"""Show that chip_smoke.py's bf16 kernel tolerances reject planted kernel faults.
 
 For each fault in ``FAULTS`` this copies ``unirestore_torch/`` and
 ``chip_smoke.py`` into ``WORKDIR/<fault>/``, plants the fault in the copy's
-``csrc/attention.cu`` (the repository's own files are never changed), builds
-every copy with ``nvcc`` at once, and then runs chip_smoke's kernel-vs-plain
-comparison at every main-path shape (batch 8, bf16, the same seeded inputs)
-against each copy in turn. It prints one JSON line per fault and shape, and
-exits 0 only if the unchanged copy (``none``) agrees at every shape and every
-planted fault is rejected at every shape. Run on a machine with one CUDA
+CUDA source (the repository's own files are never changed), builds every
+copy with ``nvcc`` at once, and then runs chip_smoke's kernel-vs-plain
+comparisons at every main-path shape (batch 8, bf16, the same seeded inputs)
+against each copy in turn: the three attention kernels (``csrc/attention.cu``)
+and the grouped conv (``csrc/grouped_conv.cu``). It prints one JSON line per
+fault, kernel and shape, and exits 0 only if the unchanged copy (``none``)
+agrees at every shape and every planted fault is rejected at every shape of
+the kernels of the source it was planted in. Run on a machine with one CUDA
 device, with a work directory outside the repository:
 
     python3 tools/check_kernel_tolerance.py --workdir /tmp/kernel-faults
@@ -24,28 +26,41 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+ATTENTION, GCONV = "attention.cu", "grouped_conv.cu"
 
-# fault -> exact (old, new) edits of the bf16 tensor-core kernel in attention.cu
+# fault -> (source in csrc/, exact (old, new) edits of its bf16 tensor-core kernel)
 FAULTS = {
-    "none": [],
+    "none": (None, []),
     # every key of the last 64-key tile masked: the tile drops out of the softmax
-    "last_key_tile_dropped": [
+    "last_key_tile_dropped": (ATTENTION, [
         ("if (k0 + kBK > seq) {", "if (k0 + kBK >= seq) {"),
         ("if (k0 + n * 8 + 2 * t4 + (e & 1) >= seq) s[n][e] = kNegBig;",
          "s[n][e] = kNegBig;"),
-    ],
+    ]),
     # O is not rescaled when the running maximum grows
-    "accumulator_not_rescaled": [
+    "accumulator_not_rescaled": (ATTENTION, [
         ("acc[n][2 * r] *= corr;", "acc[n][2 * r] *= 1.f;"),
         ("acc[n][2 * r + 1] *= corr;", "acc[n][2 * r + 1] *= 1.f;"),
-    ],
+    ]),
     # the row sum is not rescaled when the running maximum grows
-    "row_sum_not_rescaled": [("l[r] = l[r] * corr + sum;", "l[r] = l[r] + sum;")],
+    "row_sum_not_rescaled": (ATTENTION, [("l[r] = l[r] * corr + sum;", "l[r] = l[r] + sum;")]),
+    # the last tap (dy = dx = 2) adds nothing
+    "gconv_tap_dropped": (GCONV, [
+        ("for (int kk = 0; kk < KS; ++kk) {", "for (int kk = 0; kk < (tap == 8 ? 0 : KS); ++kk) {"),
+    ]),
+    # the halo row below the tile is zero-filled (its bound off by one row)
+    "gconv_halo_row_off_by_one": (GCONV, [
+        ("const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;\n    cp_async16(",
+         "const bool ok = yy >= 0 && yy < y0 + kTH && yy < H && xx >= 0 && xx < W;\n"
+         "    cp_async16("),
+    ]),
 }
 
 
-def plant(root: Path, edits) -> None:
-    src = root / "unirestore_torch" / "csrc" / "attention.cu"
+def plant(root: Path, source: str | None, edits) -> None:
+    if source is None:
+        return
+    src = root / "unirestore_torch" / "csrc" / source
     text = src.read_text()
     for old, new in edits:
         if text.count(old) != 1:
@@ -61,17 +76,22 @@ def child(root: Path) -> int:
 
     import chip_smoke as CS
     from unirestore_torch.nn import attention_kernels as K
+    from unirestore_torch.nn import grouped_conv as G
 
-    assert K.SOURCE.is_relative_to(root), K.SOURCE
+    assert K.SOURCE.is_relative_to(root) and G.SOURCE.is_relative_to(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         for kern, shape, heads in CS.kernel_shapes(K):
             q, k, v, _ = CS.kernel_inputs(K, kern, shape, heads, gen)
             err = CS.compare_kernel(K, kern, q, k, v)
-            print(json.dumps({"kernel": kern.symbol, "shape": list(shape), **err}),
-                  flush=True)
+            print(json.dumps({"kernel": kern.symbol, "source": ATTENTION, "shape": list(shape),
+                              **err}), flush=True)
             del q, k, v
+        for shape in CS.gconv_shapes():
+            err = CS.compare_gconv(G, *CS.gconv_inputs(shape, gen))
+            print(json.dumps({"kernel": G.grouped_conv3.symbol, "source": GCONV,
+                              "shape": list(shape), **err}), flush=True)
     return 0
 
 
@@ -89,17 +109,16 @@ def main() -> int:
         ap.error("--workdir must lie outside the repository")
 
     roots = {}
-    for fault, edits in FAULTS.items():
+    for fault, (source, edits) in FAULTS.items():
         root = work / fault
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(REPO / "unirestore_torch", root / "unirestore_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy2(REPO / "chip_smoke.py", root / "chip_smoke.py")
-        plant(root, edits)
+        plant(root, source, edits)
         roots[fault] = root
     builds = {fault: subprocess.Popen(
-        [sys.executable, "-c",
-         "from unirestore_torch.nn import attention_kernels as K; K.build()"],
+        [sys.executable, "-c", "from unirestore_torch.nn import kernels; kernels.build_all()"],
         cwd=root) for fault, root in roots.items()}
     for fault, proc in builds.items():
         if proc.wait() != 0:
@@ -107,10 +126,13 @@ def main() -> int:
 
     ok = True
     for fault, root in roots.items():
+        source = FAULTS[fault][0]
         res = subprocess.run([sys.executable, __file__, "--child", str(root)],
                              capture_output=True, text=True, check=True)
         for line in res.stdout.splitlines():
             row = json.loads(line)
+            if source is not None and row["source"] != source:
+                continue  # the other source is unchanged in this copy
             rejected = row["tolerance_ratio"] > 1.0
             ok &= rejected == (fault != "none")
             print(json.dumps({"fault": fault, "rejected": rejected, **row}), flush=True)

@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's parameter trees -> the port's tensors.
+"""Weight bridge: the JAX package's parameter trees <-> the port's tensors.
 
 Takes a tree as nested numpy dicts/lists (``jax.tree.map(np.asarray, tree)``)
 or as a flat ``//``-keyed mapping or ``.npz`` (the format of
@@ -8,7 +8,11 @@ kernels go from HWIO ``(kh, kw, cin/g, cout)`` to OIHW in ``channels_last``
 memory, the layout ``nn/layers.py:conv2d`` hands to cuDNN. Dict keys, such as
 the TFA ``task_prompts`` task names, are kept. The port's own parameter tree
 (from ``models/unirestore.init(..., device="meta")``) fixes the expected keys
-and shapes: a key missing on either side, or a shape that differs, raises.
+and shapes: a key missing on either side, or a shape that differs, raises
+(``strict=False`` keeps the template's leaf for a missing key and ignores
+extra keys, as checkpoint loading does). ``to_numpy_tree`` is the inverse: the
+port's tree as nested numpy arrays in the JAX layout, which
+``train/checkpoints.py`` writes so that each package reads the other's files.
 """
 
 from __future__ import annotations
@@ -67,21 +71,27 @@ def _read_flat(src, prefix: str | None) -> dict:
     return flat
 
 
-def load_tree(src, template, *, device=None, dtype=torch.float32, prefix: str | None = None):
+def load_tree(src, template, *, device=None, dtype=torch.float32, prefix: str | None = None,
+              strict: bool = True):
     """Convert ``src`` (nested tree, flat mapping or ``.npz`` path) to ``template``'s shape.
 
     ``prefix`` selects the keys under one top-level name of a flat source
-    (e.g. ``"trainable"`` in a checkpoint); other keys are then ignored.
+    (e.g. ``"trainable"`` in a checkpoint); other keys are then ignored. With
+    ``strict=False`` a key missing from ``src`` keeps the template's leaf and a
+    key ``template`` lacks is ignored.
     """
     dev = resolve_device(device)
     flat = _read_flat(src, prefix)
     want = flatten(template)
     missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
-    if missing or extra:
+    if strict and (missing or extra):
         raise KeyError(f"parameter keys differ: missing {missing[:8]} "
                        f"({len(missing)}), unexpected {extra[:8]} ({len(extra)})")
     out = {}
     for key, ref in want.items():
+        if key not in flat:
+            out[key] = ref
+            continue
         arr = np.asarray(flat[key])
         conv = _is_conv_kernel(key, arr)
         if conv:
@@ -91,6 +101,18 @@ def load_tree(src, template, *, device=None, dtype=torch.float32, prefix: str | 
         t = torch.tensor(np.asarray(arr, np.float32)).to(device=dev, dtype=dtype)
         out[key] = t.contiguous(memory_format=torch.channels_last) if conv else t
     return unflatten_like(out, template)
+
+
+def to_numpy_tree(tree):
+    """The port's tree -> the same tree of float32 numpy arrays in the JAX layout
+    (conv kernels OIHW -> HWIO)."""
+    out = {}
+    for key, t in flatten(tree).items():
+        arr = t.detach().float().cpu().numpy()
+        if _is_conv_kernel(key, arr):
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+        out[key] = arr
+    return unflatten_like(out, tree)
 
 
 def from_jax(frozen, trainable, cfg, *, device=None, dtype=torch.float32):

@@ -3,13 +3,18 @@
 A stage is N NAFBlocks followed by one AdaNAFV2 block: 1x1 expand x4 ->
 GroupNorm(16) -> grouped 3x3 (16 groups) -> GELU -> intra-group SE ->
 inter-group attention -> 1x1 project -> residual -> NAFBlock. The grouped 3x3
-is ``F.conv2d(groups=16)``, which is what the JAX package runs off the TPU
-(cfrm.py:122-123); its TPU-only lowerings are not ported.
+goes through the hand-written kernel ``nn/grouped_conv.py:grouped_conv3`` (the
+port of the TPU kernel ``pallas_grouped_conv.py``) for every shape its
+``supported`` admits, which includes the sd-turbo widths (dw = 512 / 1024 /
+2048, 32 / 64 / 128 channels per group); other shapes, such as the tiny test
+configs, take ``F.conv2d(groups=16)``. The choice is by shape alone.
 """
 
 from __future__ import annotations
 
+from ..nn import grouped_conv as GC
 from ..nn import layers as L
+from ..nn import remat as RM
 from .nafnet import naf_block, naf_block_init
 
 GROUPS = 16
@@ -29,11 +34,19 @@ def ada_naf_v2_init(ini, c: int):
     }
 
 
+def _grouped_conv3(p, x):
+    """The AdaNAF grouped 3x3: the kernel where it takes the shape, else cuDNN's."""
+    if GC.supported(x.shape, p["w"].shape, GROUPS):
+        b = p["b"].to(x.dtype) if "b" in p else None
+        return GC.grouped_conv3(x, p["w"].to(x.dtype), b, GROUPS)
+    return L.conv2d(p, x, padding=1, groups=GROUPS)
+
+
 def ada_naf_v2(p, x):
     dw = p["conv_in"]["w"].shape[0]
     h = L.conv2d(p["conv_in"], x, padding=0)
     h = L.group_norm(p["group_norm"], h, groups=GROUPS, eps=1e-5)
-    h = L.gelu(L.conv2d(p["group_conv"], h, padding=1, groups=GROUPS))
+    h = L.gelu(_grouped_conv3(p["group_conv"], h))
     # intra-group SE: grouped 1x1 on the global-average-pooled vector
     h = h * L.conv2d(p["intra_attn"], L.global_avg_pool(h), padding=0, groups=GROUPS)
     # inter-group attention: one scalar per channel-group
@@ -51,10 +64,11 @@ def cfrm_stage_init(ini, c: int, num_naf: int):
     }
 
 
-def cfrm_stage(p, x):
+def cfrm_stage(p, x, remat: bool = False):
+    """With ``remat`` each NAF/AdaNAF block is rematerialised in the backward pass."""
     for blk in p["naf"]:
-        x = naf_block(blk, x)
-    return ada_naf_v2(p["ada"], x)
+        x = RM.checkpoint(naf_block, blk, x) if remat else naf_block(blk, x)
+    return RM.checkpoint(ada_naf_v2, p["ada"], x) if remat else ada_naf_v2(p["ada"], x)
 
 
 def cfrm_init(ini, channels=(128, 256, 512), depths=(1, 1, 9)):

@@ -15,6 +15,7 @@ import torch
 
 from ..nn import embeddings as E
 from ..nn import layers as L
+from ..nn import remat as RM
 from ..nn import resnet as R
 from ..nn import transformer as T
 from . import scedit as SC
@@ -34,6 +35,9 @@ class UNetConfig:
     eps: float = 1e-5
     control_type: str = "scedit"  # "scedit" | "none"
     control_channels: int = 256
+    # rematerialise each (resnet, attention) unit and the mid block in the
+    # backward pass (JAX ``UNetConfig.remat``); the train step turns it on
+    remat: bool = False
 
     @property
     def time_embed_dim(self):
@@ -138,13 +142,26 @@ def control_adapters_init(ini, cfg: UNetConfig):
 # ---------------------------------------------------------------------------
 
 
-def _unit(cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states):
-    """One (ResnetBlock2D, Transformer2D) unit; ``attn_p`` may be None."""
+def _unit_body(cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states):
     h = R.resnet_block(res_p, h, temb, groups=cfg.norm_num_groups, eps=cfg.eps)
     if attn_p is not None:
         h = T.transformer_2d(attn_p, h, encoder_hidden_states,
                              heads=cfg.heads[scale_idx], groups=cfg.norm_num_groups)
     return h
+
+
+def _unit(cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states):
+    """One (ResnetBlock2D, Transformer2D) unit; ``attn_p`` may be None.
+
+    Rematerialised in the backward pass when ``cfg.remat``.
+    """
+    args = (cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states)
+    return RM.checkpoint(_unit_body, *args) if cfg.remat else _unit_body(*args)
+
+
+def _mid(cfg, mid, h, emb, encoder_hidden_states):
+    h = _unit_body(cfg, -1, mid["resnet1"], mid["attn"], h, emb, encoder_hidden_states)
+    return R.resnet_block(mid["resnet2"], h, emb, groups=cfg.norm_num_groups, eps=cfg.eps)
 
 
 def _use_scedit(control, control_params):
@@ -171,9 +188,8 @@ def unet_encode(p, cfg: UNetConfig, sample, emb, encoder_hidden_states,
             h = R.downsample(blk["downsample"], h)
             skips.append(h)
 
-    mid = p["mid"]
-    h = _unit(cfg, -1, mid["resnet1"], mid["attn"], h, emb, encoder_hidden_states)
-    h = R.resnet_block(mid["resnet2"], h, emb, groups=cfg.norm_num_groups, eps=cfg.eps)
+    args = (cfg, p["mid"], h, emb, encoder_hidden_states)
+    h = RM.checkpoint(_mid, *args) if cfg.remat else _mid(*args)
 
     if _use_scedit(control, control_params):
         skips = [SC.csce_adapter(ed, s, control[si])

@@ -10,8 +10,10 @@ steps.
 
 Randomness is injectable: ``restore_padded`` / ``encode`` / ``diffuse`` take
 the posterior and diffusion noise as tensors, and draw from a passed
-``torch.Generator`` only where a tensor is omitted. Entry points run under
-``torch.inference_mode()`` on the card unless ``device`` says otherwise.
+``torch.Generator`` only where a tensor is omitted. ``restore`` and
+``restore_padded`` run under ``torch.inference_mode()`` on the card unless
+``device`` says otherwise; ``encode``, ``diffuse`` and ``predict_z0`` (the
+training path, ``train/steps.py``) run with autograd as the caller has it.
 """
 
 from __future__ import annotations
@@ -157,6 +159,12 @@ def predict_eps(frozen, trainable, cfg, zt, conditions, timesteps):
     return UN.unet_apply(frozen["unet"], cfg.unet, zt, timesteps,
                          _null_context(frozen, zt.shape[0], zt.dtype), control=control,
                          control_params=trainable.get("control"))
+
+
+def predict_z0(frozen, trainable, cfg, sched, zt, conditions, timesteps):
+    """One-shot x0 prediction under Controller guidance."""
+    eps = predict_eps(frozen, trainable, cfg, zt, conditions, timesteps)
+    return D.predict_x0_from_eps(sched, zt, eps, timesteps)
 
 
 def ddim_denoise(frozen, trainable, cfg, sched, zt, z0_lq, num_inference_steps=None,

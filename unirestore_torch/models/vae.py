@@ -17,6 +17,7 @@ import torch
 
 from ..nn import attention as A
 from ..nn import layers as L
+from ..nn import remat as RM
 from ..nn import resnet as R
 from . import cfrm as CFRM
 from . import tfa as TFA
@@ -34,6 +35,9 @@ class VAEConfig:
     eps: float = 1e-6
     # CFRM stage depths (NAFBlocks before the AdaNAFV2) per skip scale
     cfrm_depths: tuple = (1, 1, 9)
+    # rematerialise each resnet, CFRM block and TFA adapter in the backward
+    # pass (JAX ``VAEConfig.remat``); the train step turns it on
+    remat: bool = False
 
     @property
     def skip_channels(self):
@@ -133,6 +137,11 @@ def _resnet(p, x, cfg: VAEConfig):
     return R.resnet_block(p, x, groups=cfg.norm_num_groups, eps=cfg.eps)
 
 
+def _res_unit(p, x, cfg: VAEConfig):
+    """A resnet block, rematerialised when ``cfg.remat`` (JAX ``_res_fn``)."""
+    return RM.checkpoint(_resnet, p, x, cfg) if cfg.remat else _resnet(p, x, cfg)
+
+
 def _mid_block(p, x, cfg: VAEConfig):
     x = _resnet(p["resnet1"], x, cfg)
     x = A.spatial_self_attention(p["attn"], x, heads=1, groups=cfg.norm_num_groups,
@@ -154,16 +163,16 @@ def encode_moments(p, x, cfg: VAEConfig, fr_params=None, enable_fr: bool = False
     blocks = enc["down_blocks"]
     for i, blk in enumerate(blocks[:-1]):
         for res in blk["resnets"]:
-            h = _resnet(res, h, cfg)
+            h = _res_unit(res, h, cfg)
         if "downsample" in blk:
             h = R.downsample(blk["downsample"], h, pad_mode="asym")
         if enable_fr:
-            h = CFRM.cfrm_stage(fr_params[i], h)
+            h = CFRM.cfrm_stage(fr_params[i], h, remat=cfg.remat)
         skips.append(h)
 
     h = h.detach()
     for res in blocks[-1]["resnets"]:
-        h = _resnet(res, h, cfg)
+        h = _res_unit(res, h, cfg)
     h = _mid_block(enc["mid"], h, cfg)
     h = L.silu(L.group_norm(enc["conv_norm_out"], h, groups=cfg.norm_num_groups, eps=cfg.eps))
     h = L.conv2d(enc["conv_out"], h, padding=1)
@@ -211,10 +220,11 @@ def decode(p, z, cfg: VAEConfig, skips=None, tfa_params=None, task=None,
     blocks = dec["up_blocks"]
     for i, blk in enumerate(blocks):
         if use_tfa and i < len(blocks) - 1:
-            h, cond = TFA.task_feature_adapter(tfa_params["task_editors"][i], h,
-                                               skips[-i - 1], cond, prompt_len)
+            args = (tfa_params["task_editors"][i], h, skips[-i - 1], cond, prompt_len)
+            h, cond = (RM.checkpoint(TFA.task_feature_adapter, *args) if cfg.remat
+                       else TFA.task_feature_adapter(*args))
         for res in blk["resnets"]:
-            h = _resnet(res, h, cfg)
+            h = _res_unit(res, h, cfg)
         if "upsample" in blk:
             h = R.upsample(blk["upsample"], h)
 

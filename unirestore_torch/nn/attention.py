@@ -15,6 +15,14 @@ The kernel routes fold ``scale * log2(e)`` into the q weights in the
 activation dtype and take a base-2 softmax, as the JAX function does
 (attention.py:227-234, 251-252). On CPU tensors the kernel wrappers compute
 their plain PyTorch versions. Tokens are (B, T, C), feature maps NHWC.
+
+Training keeps the same routes: each kernel wrapper is an autograd function
+whose backward recomputes the attention in plain PyTorch over query chunks
+(``attention_kernels.attention_vjp``). The JAX package traced its training
+under ``force_xla_attention`` (attention.py:59-80) only because its remote
+compiler could not take the mixed Pallas-forward / XLA-backward graph; the
+function is the same either way, and the card has no such compiler. The plain
+route (77-token cross-attention, short sequences) stays on plain autograd.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""The three attention kernels of the restore path, each beside its plain version.
+"""The three attention kernels, each beside its plain version, with gradients.
 
 Replaces the Pallas TPU kernels of ``unirestore_tpu/nn/pallas_attention.py``
-that the restore path launches:
+that the restore and training paths launch:
 
 ==============================================  ===================================
 wrapper (this module)                           TPU kernel it replaces
@@ -16,36 +16,39 @@ exp2, fp32 logits and statistics, probabilities rounded to v's dtype before
 the PV product, output divided by the row sum. The kernels are hand-written
 CUDA C++ for ``sm_90a`` in ``unirestore_torch/csrc/attention.cu``: bf16 on the
 tensor cores (``mma.sync``), fp32 on CUDA-core FMAs (the source says what
-bounds them on the H100 and what the design does about it). They are
-compiled with ``nvcc`` at first use into ``unirestore_torch/_build/`` (rebuilt
-when the source's content hash changes) and bound with ``ctypes``.
+bounds them on the H100 and what the design does about it), built and bound
+by ``cuda_lib``.
 
 A wrapper given CPU tensors computes the plain PyTorch version (the CPU tests
 use it); given CUDA tensors it launches its kernel on the current stream or
-raises. It never falls back. Each wrapper counts its launches in
-``.launches``.
+raises. It never falls back.
+
+Gradients: each wrapper is a ``torch.autograd.Function``, the analogue of the
+JAX custom VJPs (``_make_diffable_btc`` / ``_make_diffable_bh``,
+pallas_attention.py:342-432). The forward is the kernel; the backward
+recomputes ``softmax_e(ln2 * q k^T) v`` (= ``softmax_2(q k^T) v``, JAX's
+``_xla_reference_*`` at scale ln 2) in plain PyTorch over query chunks
+(``train_attn_chunk``, as JAX's ``_train_attn_chunk`` chunks its training
+attention) and differentiates it, so only one (chunk, T) slab per head is
+live. No TPU kernel has a backward kernel; neither has the port.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import subprocess
 from pathlib import Path
 
 import torch
 
-LOG2E = 1.4426950408889634
+from . import cuda_lib
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "attention.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+LOG2E = 1.4426950408889634
+LN2 = math.log(2.0)
+TRAIN_ATTN_CHUNK = 512
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "attention.cu"
 
 # ---------------------------------------------------------------------------
 # routing predicates (copies of pallas_attention.py's, by shape alone)
@@ -69,6 +72,20 @@ def stream_supported(t: int, s: int, d: int) -> bool:
             and d % 128 == 0)
 
 
+def train_attn_chunk(t: int, chunk: int = TRAIN_ATTN_CHUNK) -> int:
+    """Query rows per backward recompute (JAX ``_train_attn_chunk``, attention.py:138-174).
+
+    ``t`` itself when t <= 2 * chunk; else ``chunk`` when it divides t, else the
+    largest divisor of t not above ``chunk`` (``t`` when that is below 64).
+    """
+    if t <= 2 * chunk:
+        return t
+    if t % chunk == 0:
+        return chunk
+    best = max(d for d in range(1, chunk + 1) if t % d == 0)
+    return best if best >= 64 else t
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -83,14 +100,16 @@ def attention_bh_plain(q, k, v):
     return (o / l).to(q.dtype)
 
 
+def _heads(x):
+    """(B, T, H*64) -> (B, H, T, 64) view."""
+    b, t, inner = x.shape
+    return x.reshape(b, t, inner // 64, 64).transpose(1, 2)
+
+
 def attention_btc_plain(q, k, v):
     """``attention_bh_plain`` per 64-wide head window of (B, T, H*64) tensors."""
     b, t, inner = q.shape
-
-    def heads(x):
-        return x.reshape(b, t, inner // 64, 64).transpose(1, 2)
-
-    o = attention_bh_plain(heads(q), heads(k), heads(v))
+    o = attention_bh_plain(_heads(q), _heads(k), _heads(v))
     return o.transpose(1, 2).reshape(b, t, inner)
 
 
@@ -109,48 +128,60 @@ BF16_ATOL_RMS = 0.03
 
 def bf16_tolerance_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
     """max |out - ref| / (BF16_RTOL |ref| + BF16_ATOL_RMS rms(ref)); at most 1 to agree."""
-    out, ref = out.float(), ref.float()
-    limit = BF16_RTOL * ref.abs() + BF16_ATOL_RMS * ref.square().mean().sqrt()
-    ratio = ((out - ref).abs() / limit).max().item()
-    return ratio if math.isfinite(ratio) else math.inf  # NaN anywhere disagrees
+    return cuda_lib.tolerance_ratio(out, ref, BF16_RTOL, BF16_ATOL_RMS)
 
 
 # ---------------------------------------------------------------------------
-# build and bind
+# backward: JAX's reference function at scale ln 2, recomputed by query chunk
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+def attention_reference(q, k, v):
+    """softmax_e(ln2 * q k^T) v over (..., T, D): JAX ``_xla_reference_bh`` at scale ln 2."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * LN2
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p, v)
 
 
-def build() -> Path:
-    """Compile ``csrc/attention.cu`` unless a library of the same source hash exists.
+def attention_vjp(q, k, v, g, chunk: int | None = None):
+    """(dq, dk, dv) of ``attention_reference`` at cotangent ``g``, over (..., T, D).
 
-    Returns the shared library's path; ``nvcc``'s output (with ``-Xptxas -v``'s
-    register and shared-memory report) is kept beside it as ``.log``.
+    Queries go ``chunk`` rows at a time (default ``train_attn_chunk(T)``); the
+    key and value gradients sum over the chunks in fp32.
     """
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"attention-{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"attention-{tag}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    t = q.shape[-2]
+    chunk = chunk or train_attn_chunk(t)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        kk, vv = k.detach().requires_grad_(), v.detach().requires_grad_()
+        for i in range(0, t, chunk):
+            qc = q[..., i:i + chunk, :].detach().requires_grad_()
+            o = attention_reference(qc, kk, vv)
+            gq, gk, gv = torch.autograd.grad(o, (qc, kk, vv), g[..., i:i + chunk, :])
+            dq[..., i:i + chunk, :] = gq
+            dk += gk
+            dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_btc_vjp(q, k, v, g, chunk: int | None = None):
+    """``attention_vjp`` per 64-wide head window of (B, T, H*64) tensors."""
+    b, t, inner = q.shape
+    grads = attention_vjp(_heads(q), _heads(k), _heads(v), _heads(g), chunk)
+    return tuple(x.transpose(1, 2).reshape(b, t, inner) for x in grads)
+
+
+# ---------------------------------------------------------------------------
+# bind
+# ---------------------------------------------------------------------------
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    """``csrc/attention.cu``, built unless a library of the same source hash exists."""
+    lib = ctypes.CDLL(str(cuda_lib.build_all([SOURCE])[0]))
     for name in ("ur_attention_btc", "ur_attention_bh", "ur_attention_stream"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -163,29 +194,48 @@ def library() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 
-class AttentionKernel:
+class _AttentionFunction(torch.autograd.Function):
+    """Kernel forward, plain-PyTorch recompute backward (the JAX custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, kern, q, k, v):
+        ctx.kern = kern
+        ctx.save_for_backward(q, k, v)
+        return kern.forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        ctx.kern.backwards += 1
+        return (None, *ctx.kern.vjp(q, k, v, g))
+
+
+class AttentionKernel(cuda_lib.KernelWrapper):
     """One kernel entry: plain version on the CPU, the CUDA kernel on the card.
 
     ``dims(q)`` checks the shape against the kernel's predicate and returns the
-    three int arguments of the C entry ``symbol``; ``replaces`` is the TPU
-    kernel's file:line.
+    three int arguments of the C entry ``symbol``; ``vjp`` is the backward.
     """
 
-    def __init__(self, symbol: str, plain, dims, replaces: str):
+    def __init__(self, symbol: str, plain, vjp, dims, replaces: str):
         self.symbol = symbol
         self.plain = plain
+        self.vjp = vjp
         self.dims = dims
         self.replaces = replaces
-        self.launches = 0
+        super().__init__()
 
     def __call__(self, q, k, v):
+        return _AttentionFunction.apply(self, q, k, v)
+
+    def forward(self, q, k, v):
         devices = {q.device.type, k.device.type, v.device.type}
         if devices == {"cpu"}:
             return self.plain(q, k, v)
         if devices != {"cuda"} or len({q.device, k.device, v.device}) != 1:
             raise ValueError(f"{self.symbol}: q, k, v must lie on one CUDA device, "
                              f"got {q.device}, {k.device}, {v.device}")
-        if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
+        if q.dtype not in cuda_lib.DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
             raise TypeError(f"{self.symbol}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                             "want all float32 or all bfloat16")
         if not q.shape == k.shape == v.shape:
@@ -195,18 +245,13 @@ class AttentionKernel:
             raise ValueError(f"{self.symbol}: q, k, v must be contiguous")
         if any(x.data_ptr() % 16 for x in (q, k, v)):
             raise ValueError(f"{self.symbol}: q, k, v must start on 16-byte boundaries")
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
-            raise RuntimeError(f"{self.symbol}: forward-only kernel; inputs require grad")
         dims = self.dims(q)
         out = torch.empty_like(q)
         with torch.cuda.device(q.device):
             rc = getattr(library(), self.symbol)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims,
-                _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc}")
-        self.launches += 1
+                cuda_lib.DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        self.counted(rc)
         return out
 
 
@@ -229,19 +274,14 @@ def _stream_dims(q):
 
 
 fused_attention_btc_prescaled = AttentionKernel(
-    "ur_attention_btc", attention_btc_plain, _btc_dims,
+    "ur_attention_btc", attention_btc_plain, attention_btc_vjp, _btc_dims,
     "unirestore_tpu/nn/pallas_attention.py:220")
 fused_attention_bh_prescaled = AttentionKernel(
-    "ur_attention_bh", attention_bh_plain, _bh_dims,
+    "ur_attention_bh", attention_bh_plain, attention_vjp, _bh_dims,
     "unirestore_tpu/nn/pallas_attention.py:32")
 streaming_attention_bh_prescaled = AttentionKernel(
-    "ur_attention_stream", attention_bh_plain, _stream_dims,
+    "ur_attention_stream", attention_bh_plain, attention_vjp, _stream_dims,
     "unirestore_tpu/nn/pallas_attention.py:83")
 
 KERNELS = (fused_attention_btc_prescaled, fused_attention_bh_prescaled,
            streaming_attention_bh_prescaled)
-
-
-def reset_launches() -> None:
-    for kern in KERNELS:
-        kern.launches = 0

@@ -1,0 +1,25 @@
+"""Every hand-written kernel of the port, for callers that count or build them all."""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+from . import attention_kernels as AK
+from . import cuda_lib
+from . import grouped_conv as GC
+
+KERNELS = (*AK.KERNELS, GC.grouped_conv3)
+SOURCES = (AK.SOURCE, GC.SOURCE)
+
+
+def reset_counts() -> None:
+    for kern in KERNELS:
+        kern.reset()
+
+
+def build_all() -> list[Path]:
+    """Compile every kernel source at once (one ``nvcc`` each) and load the libraries."""
+    libs = cuda_lib.build_all(SOURCES)
+    AK.library()
+    GC.library()
+    return libs
