@@ -13,15 +13,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. each kernel against its plain PyTorch version at every shape the 512 px
    batch-8 main paths give it (bf16), with kernel, plain, library
    (``scaled_dot_product_attention``; ``F.conv2d(groups=16)`` in
-   ``channels_last``; timed as yardsticks only) and bound times; and each
-   attention kernel's gradient (its autograd function) against autograd
-   through its plain version at one main-path shape;
+   ``channels_last``; timed as yardsticks only) and bound times; for the
+   out-projection-fused kernel, which no single PyTorch call matches, the
+   unfused pairs ``ur_attention_btc`` + cuBLAS and SDPA + ``torch.matmul``
+   instead; and each attention kernel's gradient (its autograd function)
+   against autograd through its plain version at one main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
    bf16, 20 DDIM steps) in the exact, encoder (stride 2) and deep (stride
-   17, warmup 3) modes: finite outputs, launch counts equal to the counts the
-   routing implies, img/s, and PSNR of each cached mode against exact;
-5. the same widths on a 256 px input in fp32, on the card and on the CPU
-   (where the kernels' plain versions run): the restores must agree;
+   17, warmup 3) modes, and exact with the out-projection-fused attention
+   (``fused_out_attention=True``) on the same inputs and noise, exact and
+   fused twice each in turns: finite outputs, launch counts equal to the
+   counts the routing implies, img/s, PSNR of each cached mode and of the
+   fused route against exact;
+5. the same widths on a 256 px input in fp32, on the card (unfused and
+   fused) and on the CPU (where the kernels' plain versions run): the
+   restores must agree;
 6. the stage-1 training step at full width (sd-turbo widths without TFA,
    512 px, batch 8, bf16 frozen weights and fp32 trainable masters, AdamW
    from the stage-1 YAML's kwargs, remat on) on a seeded synthetic pair: one
@@ -31,12 +37,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    unchanged;
 7. one stage-1 loss and gradient at full width, 256 px, batch 1, fp32, on the
    card and on the CPU: the losses and each family's gradient norm agree;
-8. a ``kernels`` JSON line, then the last line
+8. the restore server (``unirestore_torch.serve``) in this process on
+   127.0.0.1 at an ephemeral port: full width, bf16, 20 steps, exact, batch
+   4 tiles of 512 px with overlap 64, fused out-projection on. It answers
+   ``/healthz``, an 800 x 1200 PNG (six tiles, two batches; sent twice, cold
+   and warm), a 256 x 384 PNG (restored whole at 512 x 768) and an unknown
+   task (400), each with the right status, size and per-request launch
+   counts; the tiled answer equals the in-process call within one uint8
+   level;
+9. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
-   ``launches`` is the sum over phase 4's three restores and phase 6's six
-   steps; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are sums of
-   one call at each of its main-path shapes, which ``shapes`` lists one by
-   one.
+   ``launches`` is the sum over the paths that drove it, which
+   ``launches_by_path`` lists (``restore``: phase 4's exact, encoder and deep
+   restores; ``restore_fused``: its fused ones; ``train``: phase 6's six
+   steps; ``serve``: phase 8's requests); each kernel must have run on every
+   path that routes to it. ``ms``, ``plain_ms``, ``bound_ms`` and
+   ``library_ms`` are sums of one call at each of its main-path shapes, which
+   ``shapes`` lists one by one.
 
 It needs one CUDA device and imports nothing of JAX.
 """
@@ -48,7 +65,10 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import torch
@@ -58,11 +78,17 @@ REPO = Path(__file__).resolve().parent
 BATCH = 8
 RES = 512
 STEPS = 20
-MODES = (("none", 2, 0), ("encoder", 2, 0), ("deep", 17, 3))
+# phase 4's restores in the order they run: (name, cache mode, stride,
+# warmup, fused out-projection); exact and fused twice each, in turns
+RUNS = (("none", "none", 2, 0, False), ("fused", "none", 2, 0, True),
+        ("encoder", "encoder", 2, 0, False), ("deep", "deep", 17, 3, False),
+        ("fused", "none", 2, 0, True), ("none", "none", 2, 0, False))
 # launches per 512 px restore at 20 steps, in the order of ``kernels.KERNELS``:
-# (btc, bh, stream, grouped conv); the grouped conv runs once per CFRM stage
-# in the one encode
-EXPECTED = {"none": (280, 140, 2, 3), "encoder": (200, 100, 2, 3), "deep": (136, 28, 2, 3)}
+# (btc, bh, stream, btc_out, grouped conv); the grouped conv runs once per
+# CFRM stage in the one encode. The fused route takes every btc launch: each
+# channel-flat self-attention's out-projection is 320, 640 or 256 wide.
+EXPECTED = {"none": (280, 140, 2, 0, 3), "encoder": (200, 100, 2, 0, 3),
+            "deep": (136, 28, 2, 0, 3), "fused": (0, 140, 2, 280, 3)}
 # launches per stage-1 training step, (forward, remat recompute, backward):
 # the Controller (btc 4, bh 2, not rematerialised) and the UNet (btc 10, bh 5)
 # run once; only the UNet's up path carries gradients (SC-Tuner edits the
@@ -71,7 +97,20 @@ EXPECTED = {"none": (280, 140, 2, 3), "encoder": (200, 100, 2, 3), "deep": (136,
 # encodes behind the latent path's detach; the three CFRM grouped convs run in
 # the lq encode, each in a rematerialised AdaNAF block
 EXPECTED_TRAIN = {"ur_attention_btc": (14, 6, 10), "ur_attention_bh": (7, 3, 5),
-                  "ur_attention_stream": (2, 0, 0), "ur_grouped_conv3": (3, 3, 3)}
+                  "ur_attention_stream": (2, 0, 0), "ur_attention_btc_out": (0, 0, 0),
+                  "ur_grouped_conv3": (3, 3, 3)}
+# phase 8: the server's flags, and per request (name, task, image H x W,
+# HTTP status, launches in KERNELS order). 800 x 1200 makes six 512 px tiles
+# at overlap 64 (rows 0/288, columns 0/448/688), two batch-4 restores; 256 x
+# 384 restores whole at 512 x 768, where UNet level 0/1/2 run T = 6144 /
+# 1536 / 384 and the VAE mid block T = 6144, the same routes as at 512 px.
+SERVE_FLAGS = ["--host", "127.0.0.1", "--port", "0", "--tasks", "ir,cls,seg", "--steps", "20",
+               "--cache-mode", "none", "--batch-tiles", "4", "--overlap", "64",
+               "--fused-out-attn"]
+SERVE_REQUESTS = (("tiled_cold", "ir", (800, 1200), 200, (0, 280, 4, 560, 6)),
+                  ("tiled", "ir", (800, 1200), 200, (0, 280, 4, 560, 6)),
+                  ("whole", "cls", (256, 384), 200, (0, 140, 2, 280, 3)),
+                  ("unknown_task", "nope", (64, 64), 400, (0, 0, 0, 0, 0)))
 TRAIN_STEPS = 5
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
@@ -79,9 +118,11 @@ TRAIN_STEPS = 5
 STAGE1_OPT = {"opt": "adamw", "base_lr": "1e-4", "base_bsz": 64, "weight_decay": "1e-2"}
 STAGE1_SCHED = {"sched": "onecycle"}
 STAGE1_MAX_STEPS, STAGE1_ACCUM = 200000, 2
-# bf16 kernel vs plain: ``attention_kernels.bf16_tolerance_ratio`` and
-# ``grouped_conv.bf16_tolerance_ratio`` <= 1, elementwise limits of a few bf16
-# ulps of the output (the reasoning is beside each).
+# bf16 kernel vs plain: each attention wrapper's ``bf16_tolerance_ratio``
+# (``attention_kernels.bf16_tolerance_ratio``, ``bf16_out_tolerance_ratio`` for
+# the fused kernel) and ``grouped_conv.bf16_tolerance_ratio`` <= 1,
+# elementwise limits of a few bf16 ulps of the output (the reasoning is beside
+# each).
 # bf16 attention gradients vs autograd through the plain version: rms of the
 # difference over rms of the plain gradient <= 2^-6 per input. The two
 # backward functions round at other places (the probabilities before or after
@@ -152,6 +193,12 @@ def kernel_shapes(K):
         (K.fused_attention_bh_prescaled, (b * 20, 256, 64), 1),  # UNet level 2
         (K.fused_attention_bh_prescaled, (b * 4, 256, 128), 1),  # Controller stage 2
         (K.streaming_attention_bh_prescaled, (b, 4096, 512), 1),  # VAE mid block
+        # the fused route's shapes are the channel-flat ones, each with its
+        # out-projection C = inner
+        (K.fused_attention_btc_out_prescaled, (b, 4096, 320), 5),
+        (K.fused_attention_btc_out_prescaled, (b, 1024, 640), 10),
+        (K.fused_attention_btc_out_prescaled, (b, 4096, 256), 4),
+        (K.fused_attention_btc_out_prescaled, (b, 1024, 256), 4),
     ]
 
 
@@ -159,7 +206,8 @@ def backward_shapes(K):
     """One main-path shape per attention kernel for the gradient check."""
     return [(K.fused_attention_btc_prescaled, (BATCH, 4096, 320), 5),
             (K.fused_attention_bh_prescaled, (BATCH * 20, 256, 64), 1),
-            (K.streaming_attention_bh_prescaled, (BATCH, 4096, 512), 1)]
+            (K.streaming_attention_bh_prescaled, (BATCH, 4096, 512), 1),
+            (K.fused_attention_btc_out_prescaled, (BATCH, 4096, 320), 5)]
 
 
 def gconv_shapes():
@@ -168,11 +216,18 @@ def gconv_shapes():
 
 
 def kernel_inputs(K, kern, shape, heads, gen):
-    """Seeded bf16 q (prescaled by d^-1/2 log2 e), k, v on the card, and the head width d."""
-    d = shape[2] // heads if kern is K.fused_attention_btc_prescaled else shape[2]
+    """Seeded bf16 inputs on the card and the head width d: q (prescaled by
+    d^-1/2 log2 e), k, v, and for the fused kernel an (inner, inner)
+    out-projection weight with unit-variance outputs."""
+    flat = kern in (K.fused_attention_btc_prescaled, K.fused_attention_btc_out_prescaled)
+    d = shape[2] // heads if flat else shape[2]
     q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
                for _ in range(3))
-    return (q.float() * (d ** -0.5 * K.LOG2E)).to(torch.bfloat16), k, v, d
+    xs = [(q.float() * (d ** -0.5 * K.LOG2E)).to(torch.bfloat16), k, v]
+    if kern is K.fused_attention_btc_out_prescaled:
+        wo = torch.randn((shape[2], shape[2]), generator=gen, device="cuda") * shape[2] ** -0.5
+        xs.append(wo.to(torch.bfloat16))
+    return xs, d
 
 
 def gconv_inputs(shape, gen, dtype=torch.bfloat16):
@@ -185,13 +240,13 @@ def gconv_inputs(shape, gen, dtype=torch.bfloat16):
     return x, w.contiguous(memory_format=torch.channels_last), b
 
 
-def compare_kernel(K, kern, q, k, v) -> dict:
+def compare_kernel(kern, *xs) -> dict:
     """The kernel against its plain version on the same inputs."""
-    out = kern(q, k, v)
-    ref = kern.plain(q, k, v)
+    out = kern(*xs)
+    ref = kern.plain(*xs)
     diff = out.float() - ref.float()
     return {"max_abs_err": diff.abs().max().item(), "rms_err_over_rms_ref": rms_rel(out, ref),
-            "tolerance_ratio": K.bf16_tolerance_ratio(out, ref)}
+            "tolerance_ratio": kern.bf16_tolerance_ratio(out, ref)}
 
 
 def compare_gconv(G, x, w, b) -> dict:
@@ -205,8 +260,9 @@ def compare_gconv(G, x, w, b) -> dict:
 
 def check_kernel(K, kern, shape, heads, gen):
     n, t, _ = shape
-    q, k, v, d = kernel_inputs(K, kern, shape, heads, gen)
-    err = compare_kernel(K, kern, q, k, v)
+    xs, d = kernel_inputs(K, kern, shape, heads, gen)
+    q, k, v = xs[:3]
+    err = compare_kernel(kern, *xs)
     if err["tolerance_ratio"] > 1.0:
         raise AssertionError(f"{kern.symbol} {shape}: kernel and plain version disagree: "
                              f"{err}")
@@ -214,21 +270,37 @@ def check_kernel(K, kern, shape, heads, gen):
     def split(x):  # (n, t, heads*d) -> (n, heads, t, d)
         return x.view(n, t, heads, d).transpose(1, 2)
 
-    ms = cuda_ms(lambda: kern(q, k, v), 10)
-    plain_ms = cuda_ms(lambda: kern.plain(q, k, v), 3)
-    # q is prescaled by d^-1/2 log2(e): softmax_e(x ln 2) == softmax_2(x)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        split(q), split(k), split(v), scale=math.log(2.0)), 10)
+    def sdpa():  # q is prescaled by d^-1/2 log2(e): softmax_e(x ln 2) == softmax_2(x)
+        return F.scaled_dot_product_attention(split(q), split(k), split(v), scale=math.log(2.0))
+
+    ms = cuda_ms(lambda: kern(*xs), 10)
+    plain_ms = cuda_ms(lambda: kern.plain(*xs), 3)
     flops = 4.0 * n * heads * t * t * d
-    bound_ms, bound_by = bound(flops, 4.0 * q.numel() * q.element_size())
+    nbytes = 4.0 * q.numel() * q.element_size()
+    extra = {}
+    if kern is K.fused_attention_btc_out_prescaled:
+        wo = xs[3]
+        flops += 2.0 * n * t * shape[2] * wo.shape[1]
+        nbytes += (wo.numel() + n * t * wo.shape[1] - q.numel()) * q.element_size()
+        # no one PyTorch call computes attention and its out-projection: the
+        # unfused pairs are the yardsticks
+        library_ms = None
+        extra = {"unfused_ms": cuda_ms(lambda: K.fused_attention_btc_prescaled(q, k, v) @ wo, 10),
+                 "sdpa_matmul_ms": cuda_ms(
+                     lambda: sdpa().transpose(1, 2).reshape(n, t, shape[2]) @ wo, 10)}
+    else:
+        library_ms = cuda_ms(sdpa, 10)
+    bound_ms, bound_by = bound(flops, nbytes)
     row = {"shape": list(shape), "heads": heads, "d": d, **err, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, **extra, "bound_ms": bound_ms,
            "bound_by": bound_by, "tflops": flops / (ms * 1e-3) / 1e12}
+    yardsticks = (f"library {library_ms:.3f} ms" if library_ms is not None else
+                  f"btc+matmul {extra['unfused_ms']:.3f} ms sdpa+matmul "
+                  f"{extra['sdpa_matmul_ms']:.3f} ms")
     log(f"kernel {kern.symbol} {tuple(shape)} d={d}: max_abs {err['max_abs_err']:.3e} "
         f"rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} tolerance ratio "
         f"{err['tolerance_ratio']:.3f} | {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s) "
-        f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+        f"plain {plain_ms:.3f} ms {yardsticks} bound {bound_ms:.4f} ms ({bound_by})")
     return row
 
 
@@ -259,21 +331,21 @@ def check_gconv(G, shape, gen):
 
 def check_backward(K, kern, shape, heads, gen) -> dict:
     """The kernel's autograd function against autograd through its plain version."""
-    q, k, v, d = kernel_inputs(K, kern, shape, heads, gen)
-    g = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    xs, _ = kernel_inputs(K, kern, shape, heads, gen)
+    g = torch.randn(kern.out_shape(*xs), generator=gen, device="cuda", dtype=torch.bfloat16)
 
     def grads(fn):
-        xs = [x.detach().requires_grad_() for x in (q, k, v)]
-        return torch.autograd.grad(fn(*xs), xs, g)
+        leaves = [x.detach().requires_grad_() for x in xs]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
 
     ours, ref = grads(kern), grads(kern.plain)
-    errs = {name: rms_rel(a, b) for name, a, b in zip(("dq", "dk", "dv"), ours, ref)}
+    errs = {name: rms_rel(a, b) for name, a, b in zip(("dq", "dk", "dv", "dwo"), ours, ref)}
     finite = all(torch.isfinite(x).all() for x in ours)
     if not finite or max(errs.values()) > BWD_RMS_TOL:
         raise AssertionError(f"{kern.symbol} {shape}: gradients disagree with autograd "
                              f"through the plain version: {errs} (finite {finite})")
     del ours, ref
-    bwd_ms = cuda_ms(lambda: kern.vjp(q, k, v, g), 3)
+    bwd_ms = cuda_ms(lambda: kern.vjp(*xs, g), 3)
     log(f"backward {kern.symbol} {tuple(shape)}: rms err/rms ref "
         + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
         + f" (limit {BWD_RMS_TOL:.3e}) | recompute backward {bwd_ms:.3f} ms")
@@ -335,15 +407,23 @@ def counts_of(KN) -> tuple:
 
 
 def run_modes(UR, KN, cfg, frozen, trainable, gen):
+    """Phase 4: the restores of ``RUNS`` on one seeded batch with one noise draw.
+
+    Returns (results by name, launches by path): ``restore`` sums the
+    unfused runs' launches, ``restore_fused`` the fused ones'."""
     images, restore = restore_inputs(UR, cfg, frozen, trainable, gen)
     t0 = time.perf_counter()
     restore(cfg, 1)  # warm-up: lazy library init, every shape once
+    restore(dataclasses.replace(cfg, fused_out_attention=True), 1)
     torch.cuda.synchronize()
-    log(f"warm-up restore (1 step): {time.perf_counter() - t0:.2f} s")
+    log(f"warm-up restores (1 step, unfused and fused): {time.perf_counter() - t0:.2f} s")
 
-    outs, results, launches = {}, {}, {kern.symbol: 0 for kern in KN.KERNELS}
-    for mode, stride, warmup in MODES:
-        c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride, cache_warmup=warmup)
+    outs, results = {}, {}
+    launches = {path: {kern.symbol: 0 for kern in KN.KERNELS}
+                for path in ("restore", "restore_fused")}
+    for name, mode, stride, warmup, fused in RUNS:
+        c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride, cache_warmup=warmup,
+                                fused_out_attention=fused)
         torch.cuda.reset_peak_memory_stats()
         KN.reset_counts()
         torch.cuda.synchronize()
@@ -352,22 +432,33 @@ def run_modes(UR, KN, cfg, frozen, trainable, gen):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = counts_of(KN)
+        path = launches["restore_fused" if fused else "restore"]
         for kern in KN.KERNELS:
-            launches[kern.symbol] += kern.launches
+            path[kern.symbol] += kern.launches
         if out.shape != images.shape or not torch.isfinite(out).all():
-            raise AssertionError(f"{mode}: output shape {tuple(out.shape)} or non-finite values")
-        if counts != EXPECTED[mode]:
-            raise AssertionError(f"{mode}: launches {counts} != expected {EXPECTED[mode]}")
-        outs[mode] = out
-        results[mode] = {"stride": stride, "warmup": warmup, "seconds": sec,
-                         "img_per_s": BATCH / sec, "launches": counts,
-                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-        log(f"restore {mode} (stride {stride}, warmup {warmup}): {sec:.3f} s, "
-            f"{BATCH / sec:.3f} img/s, launches btc/bh/stream/gconv {counts}, "
-            f"peak {results[mode]['peak_mem_gib']:.1f} GiB")
-    for mode in ("encoder", "deep"):
-        results[mode]["psnr_vs_exact"] = psnr_u8(outs["none"], outs[mode])
-        log(f"{mode} PSNR vs exact: {results[mode]['psnr_vs_exact']:.2f} dB")
+            raise AssertionError(f"{name}: output shape {tuple(out.shape)} or non-finite values")
+        if counts != EXPECTED[name]:
+            raise AssertionError(f"{name}: launches {counts} != expected {EXPECTED[name]}")
+        if name in outs and not torch.equal(out, outs[name]):
+            log(f"{name}: the repeat differs from the first run by max abs "
+                f"{(out.float() - outs[name].float()).abs().max().item():.3e}")
+        outs.setdefault(name, out)
+        row = results.setdefault(name, {"mode": mode, "stride": stride, "warmup": warmup,
+                                        "fused_out_attention": fused, "seconds": [],
+                                        "launches": counts})
+        row["seconds"].append(sec)
+        row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"restore {name} (mode {mode}, stride {stride}, warmup {warmup}, fused out-projection "
+            f"{fused}): {sec:.3f} s, {BATCH / sec:.3f} img/s, launches "
+            f"btc/bh/stream/btc_out/gconv {counts}, peak {row['peak_mem_gib']:.1f} GiB")
+    for row in results.values():
+        row["img_per_s"] = [BATCH / sec for sec in row["seconds"]]
+    for name in ("encoder", "deep", "fused"):
+        results[name]["psnr_vs_exact"] = psnr_u8(outs["none"], outs[name])
+        log(f"{name} PSNR vs exact: {results[name]['psnr_vs_exact']:.2f} dB")
+    ex, fu = (sum(results[n]["seconds"]) / len(results[n]["seconds"]) for n in ("none", "fused"))
+    log(f"exact restore, unfused vs fused out-projection (two runs each, in turns): "
+        f"{BATCH / ex:.3f} vs {BATCH / fu:.3f} img/s ({(ex / fu - 1) * 100:+.1f} % for fused)")
     return results, launches
 
 
@@ -377,7 +468,8 @@ def to_cpu(bridge, tree):
 
 
 def reference_check(UR, KN, bridge, cfg):
-    """Full widths, 256 px, fp32, 2 steps: card (kernels) vs CPU (plain versions)."""
+    """Full widths, 256 px, fp32, 2 steps: card (kernels; unfused and fused
+    out-projection) vs CPU (plain versions)."""
     frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=5)
     gen = torch.Generator(device="cuda").manual_seed(6)
     images = torch.rand((1, 256, 256, 3), generator=gen, device="cuda")
@@ -385,26 +477,37 @@ def reference_check(UR, KN, bridge, cfg):
     post = torch.randn(lat, generator=gen, device="cuda")
     diff = torch.randn(lat, generator=gen, device="cuda")
 
-    def run(device, tree_f, tree_t):
-        return UR.restore_padded(tree_f, tree_t, cfg, UR.schedule(cfg), images.to(device),
+    def run(device, c, tree_f, tree_t):
+        return UR.restore_padded(tree_f, tree_t, c, UR.schedule(c), images.to(device),
                                  "seg", num_inference_steps=2,
                                  posterior_noise=post.to(device),
                                  diffusion_noise=diff.to(device), device=device)
 
-    KN.reset_counts()
-    gpu = run("cuda", frozen, trainable).cpu()
-    counts = counts_of(KN)
+    gpu, counts = {}, {}
+    for fused in (False, True):
+        KN.reset_counts()
+        gpu[fused] = run("cuda", dataclasses.replace(cfg, fused_out_attention=fused),
+                         frozen, trainable).cpu()
+        counts[fused] = dict(zip((kern.symbol for kern in KN.KERNELS), counts_of(KN)))
     t0 = time.perf_counter()
-    cpu = run("cpu", to_cpu(bridge, frozen), to_cpu(bridge, trainable))
-    err = (gpu - cpu).abs().max().item()
-    log(f"reference 256 px fp32, 2 steps: card vs CPU max abs {err:.3e} "
-        f"(tolerance {REFERENCE_ATOL}), card launches btc/bh/stream/gconv {counts}, "
-        f"CPU {time.perf_counter() - t0:.1f} s")
-    if not (torch.isfinite(gpu).all() and err <= REFERENCE_ATOL):
-        raise AssertionError(f"card and CPU restores differ: max abs {err:.3e}")
-    if min(counts) == 0:
-        raise AssertionError(f"a kernel did not run in the reference restore: {counts}")
-    return err
+    cpu = run("cpu", cfg, to_cpu(bridge, frozen), to_cpu(bridge, trainable))
+    errs = {fused: (gpu[fused] - cpu).abs().max().item() for fused in gpu}
+    log(f"reference 256 px fp32, 2 steps: card vs CPU max abs {errs[False]:.3e} unfused, "
+        f"{errs[True]:.3e} fused out-projection (tolerance {REFERENCE_ATOL}); card launches "
+        f"unfused {counts[False]}, fused {counts[True]}; CPU {time.perf_counter() - t0:.1f} s")
+    for fused, out in gpu.items():
+        if not (torch.isfinite(out).all() and errs[fused] <= REFERENCE_ATOL):
+            raise AssertionError(f"card and CPU restores differ (fused {fused}): "
+                                 f"max abs {errs[fused]:.3e}")
+    # at 256 px UNet level 0 and Controller stage 0 run T = 1024 (btc, or btc_out
+    # when fused), UNet level 1 and Controller stage 1 T = 256 (bh)
+    unfused_ran = [s for s, n in counts[False].items() if n == 0 and s != "ur_attention_btc_out"]
+    if unfused_ran or counts[False]["ur_attention_btc_out"]:
+        raise AssertionError(f"unfused reference restore launches {counts[False]}")
+    if counts[True]["ur_attention_btc"] or not counts[True]["ur_attention_btc_out"]:
+        raise AssertionError(f"fused reference restore launches {counts[True]}")
+    return {"max_abs_err": errs[False], "max_abs_err_fused": errs[True],
+            "launches": counts[False], "launches_fused": counts[True]}
 
 
 # ---------------------------------------------------------------------------
@@ -552,20 +655,142 @@ def train_reference_check(UR, KN, bridge, TS):
     finite = all(math.isfinite(v) for v in (*gpu_logs.values(), *gpu_norms.values()))
     if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
         raise AssertionError("card and CPU training steps differ")
-    if min(c[0] for c in counts.values()) == 0:
+    if any(counts[s][0] == 0 for s, c in EXPECTED_TRAIN.items() if c[0]):
         raise AssertionError(f"a kernel did not run in the reference training step: {counts}")
     return {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err, "cpu_seconds": cpu_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the restore server
+# ---------------------------------------------------------------------------
+
+
+def smooth_image(gen, h: int, w: int):
+    """A seeded smooth uint8 RGB image (bicubic upsampling of 16x coarser noise), on the host."""
+    coarse = torch.rand((1, 3, max(h // 16, 2), max(w // 16, 2)), generator=gen, device="cuda")
+    img = F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=False).clamp(0, 1)
+    return (img[0].permute(1, 2, 0) * 255).round().to(torch.uint8).cpu().numpy()
+
+
+def post(url: str, body: bytes, timeout: float = 600.0) -> tuple[int, bytes]:
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "image/png"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def run_serving(KN, serve, png):
+    """Phase 8: the server in this process, answering real HTTP requests."""
+    import numpy as np
+
+    from unirestore_torch.ops import tiling as TIL
+
+    args = serve.parse_args(SERVE_FLAGS + ["--weights-dir", str(REPO / "weights")])
+    t0 = time.perf_counter()
+    restore, cfg = serve.build_restore(args)
+    server = serve.make_server(args, restore, cfg)
+    host, port = server.server_address[:2]
+    url = f"http://{host}:{port}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    log(f"server up on {url} in {time.perf_counter() - t0:.1f} s: {' '.join(SERVE_FLAGS)}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, launches = {}, {kern.symbol: 0 for kern in KN.KERNELS}
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        want = {"status": "ok", "tasks": ["ir", "cls", "seg"], "served": 0, "cache_mode": "none"}
+        if r.status != 200 or health != want:
+            raise AssertionError(f"/healthz: {r.status} {health}, want 200 {want}")
+        log(f"GET /healthz: {r.status} {health}")
+        images, sent = {}, {}
+        for name, task, (h, w), status, want_counts in SERVE_REQUESTS:
+            img = sent[name] = images.setdefault((h, w), smooth_image(gen, h, w))
+            body = png.encode(img)
+            KN.reset_counts()
+            t0 = time.perf_counter()
+            code, answer = post(f"{url}/restore?task={task}", body)
+            sec = time.perf_counter() - t0
+            counts = counts_of(KN)
+            for kern in KN.KERNELS:
+                launches[kern.symbol] += kern.launches
+            row = {"task": task, "size": [h, w], "status": code, "seconds": sec,
+                   "launches": counts}
+            if code == 200:
+                out = png.decode(answer)
+                row["out_size"] = list(out.shape[:2])
+                if out.shape != img.shape:
+                    raise AssertionError(f"{name}: answer {out.shape}, sent {img.shape}")
+                if h > cfg.min_size or w > cfg.min_size:
+                    tiles = len(TIL.plan_tiles(h, w, cfg.min_size, args.overlap))
+                    row.update(tiles=tiles, tiles_per_s=tiles / sec)
+                rows[name] = row
+                rows[name]["answer"] = out
+            else:
+                row["error"] = json.loads(answer).get("error")
+                rows[name] = row
+            log(f"POST /restore?task={task} {h}x{w}: {code} in {sec:.3f} s"
+                + (f", {row['tiles']} tiles, {row['tiles_per_s']:.3f} tiles/s"
+                   if "tiles" in row else "")
+                + f", launches btc/bh/stream/btc_out/gconv {counts}")
+            if code != status or counts != want_counts:
+                raise AssertionError(f"{name}: status {code} launches {counts}, want "
+                                     f"{status} {want_counts}")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            served = json.loads(r.read())["served"]
+        if served != 3:
+            raise AssertionError(f"/healthz counts {served} served requests, want 3")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+    # the tiled answer against the same function called in this process, and
+    # the host's share of a request: PNG decode and encode of the same image
+    t0 = time.perf_counter()
+    direct = restore(np.asarray(sent["tiled"], np.float32)[None] / 255.0, "ir")[0]
+    direct_s = time.perf_counter() - t0
+    direct = np.clip(direct * 255.0, 0, 255).astype(np.uint8)
+
+    def levels(a, b):
+        return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+    body = png.encode(sent["tiled"])
+    t0 = time.perf_counter()
+    png.decode(body)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    png.encode(direct)
+    encode_s = time.perf_counter() - t0
+    apart = levels(direct, rows["tiled"]["answer"])
+    cold = levels(rows["tiled_cold"]["answer"], rows["tiled"]["answer"])
+    log(f"tiled answer vs in-process restore_tiled: max {apart} uint8 levels apart (limit 1); "
+        f"cold vs warm answer {cold} levels; in-process call {direct_s:.3f} s, PNG decode "
+        f"{decode_s:.3f} s, encode {encode_s:.3f} s (the warm request took "
+        f"{rows['tiled']['seconds']:.3f} s)")
+    if apart > 1:
+        raise AssertionError(f"tiled answer differs from the in-process call by {apart} levels")
+    for row in rows.values():
+        row.pop("answer", None)
+    return {"flags": SERVE_FLAGS, "healthz": health, "requests": rows,
+            "uint8_levels_vs_in_process": apart, "uint8_levels_cold_vs_warm": cold,
+            "in_process_seconds": direct_s, "png_decode_seconds": decode_s,
+            "png_encode_seconds": encode_s}, launches
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from unirestore_torch import bridge
+    from unirestore_torch import bridge, serve
     from unirestore_torch.models import unirestore as UR
     from unirestore_torch.nn import attention_kernels as K
     from unirestore_torch.nn import grouped_conv as G
     from unirestore_torch.nn import kernels as KN
+    from unirestore_torch.ops import png
     from unirestore_torch.train import optim as OPT
     from unirestore_torch.train import steps as TS
 
@@ -575,7 +800,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"device: {kind} (count {torch.cuda.device_count()}); torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; nvidia-smi name, power limit: {card}")
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
@@ -600,54 +825,69 @@ def main() -> int:
                 for kern, shape, heads in backward_shapes(K)}
     torch.cuda.empty_cache()
 
-    # phase 4: full-width restore in three modes
+    # phase 4: full-width restore in three modes, and exact on the fused route
     cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
     t0 = time.perf_counter()
     frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=1)
     n_params = sum(v.numel() for tree in (frozen, trainable)
                    for v in bridge.flatten(tree).values())
     log(f"init {n_params / 1e6:.1f} M params (bf16) in {time.perf_counter() - t0:.1f} s")
-    modes, launches = run_modes(UR, KN, cfg, frozen, trainable, gen)
+    runs, paths = run_modes(UR, KN, cfg, frozen, trainable, gen)
     del frozen, trainable
     torch.cuda.empty_cache()
 
     # phase 5: agreement with the CPU on a small input
-    ref_err = reference_check(UR, KN, bridge, cfg)
+    reference = reference_check(UR, KN, bridge, cfg)
     torch.cuda.empty_cache()
 
     # phase 6: the full-width stage-1 training step
-    training, train_launches = run_training(UR, KN, bridge, TS, OPT)
+    training, paths["train"] = run_training(UR, KN, bridge, TS, OPT)
     torch.cuda.empty_cache()
 
     # phase 7: training, card vs CPU
     training["reference"] = train_reference_check(UR, KN, bridge, TS)
+    torch.cuda.empty_cache()
 
-    # phase 8: report
+    # phase 8: the restore server
+    serving, paths["serve"] = run_serving(KN, serve, png)
+
+    # phase 9: report; a path routes to a kernel when its expected count is not 0
+    routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
+                          for i in range(len(KN.KERNELS))],
+              "restore_fused": list(EXPECTED["fused"]),
+              "train": [EXPECTED_TRAIN[kern.symbol][0] for kern in KN.KERNELS],
+              "serve": [sum(r[4][i] for r in SERVE_REQUESTS) for i in range(len(KN.KERNELS))]}
     entries = []
-    for kern in KN.KERNELS:
+    for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
-        total = launches[kern.symbol] + train_launches[kern.symbol]
-        if launches[kern.symbol] == 0 or train_launches[kern.symbol] == 0:
-            raise AssertionError(f"{kern.symbol} never ran on a main path")
+        by_path = {path: paths[path][kern.symbol] for path in routes}
+        missing = [path for path, want in routes.items() if want[i] and not by_path[path]]
+        if missing or not any(by_path.values()):
+            raise AssertionError(f"{kern.symbol} never ran on {missing or 'any path'}: {by_path}")
         source = ("unirestore_torch/csrc/grouped_conv.cu" if kern is G.grouped_conv3
                   else "unirestore_torch/csrc/attention.cu")
+        library = [x["library_ms"] for x in r]
         entry = {
             "name": kern.symbol, "route": "cuda", "status": "ported",
-            "source": source, "replaces": kern.replaces, "launches": total,
-            "launches_restore": launches[kern.symbol], "launches_train": train_launches[kern.symbol],
+            "source": source, "replaces": kern.replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r), "plain_ms": sum(x["plain_ms"] for x in r),
             "bound_ms": sum(x["bound_ms"] for x in r),
             "bound_by": max(r, key=lambda x: x["bound_ms"])["bound_by"],
-            "library_ms": sum(x["library_ms"] for x in r),
+            "library_ms": None if None in library else sum(library),
             "shapes": r,
         }
+        for key in ("unfused_ms", "sdpa_matmul_ms"):
+            if key in r[0]:
+                entry[key] = sum(x[key] for x in r)
         if kern.symbol in backward:
             entry["backward"] = backward[kern.symbol]
         entries.append(entry)
     log(json.dumps({"restore": {"batch": BATCH, "res": RES, "steps": STEPS, "dtype": "bf16",
-                                "modes": modes, "reference_max_abs_err": ref_err}}))
+                                "runs": runs, "reference": reference}}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"serving": serving}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

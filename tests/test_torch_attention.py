@@ -10,7 +10,14 @@ The plain versions are held against the Pallas kernels run in interpret mode
   the XLA path there (natural-exp softmax, unscaled q), the port the kernel
   routes' plain versions (base-2 softmax on q prescaled by scale*log2(e)
   folded into the weights); exp(x) vs exp2(x*log2 e) differ by a few ulps.
+- the out-projection-fused kernel: the same 1e-5 for its plain version and
+  for ``mha`` on the fused route; its gradients within 1e-4 of each
+  gradient's largest entry (dwo sums over T queries); the whole restore on
+  the fused route 2e-4, as test_torch_pipeline.py.
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -235,3 +242,163 @@ def test_attention_gradients_under_remat():
     assert K.fused_attention_bh_prescaled.backwards == before + 1
     for a, b in zip(rematted, plain):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the out-projection-fused kernel (``_btc_out_kernel``)
+# ---------------------------------------------------------------------------
+
+
+def _qkvw(seed, shape, c_out):
+    q, k, v = _qkv(seed, shape, 64)
+    wo = nhwc(seed + 3, shape[-1], c_out, scale=shape[-1] ** -0.5)
+    return q, k, v, wo
+
+
+@pytest.mark.parametrize("c_out", [96, 128])
+def test_btc_out_plain_matches_pallas_interpret(c_out):
+    q, k, v, wo = _qkvw(70, (2, 256, 128), c_out)
+    ref = PA._fused_raw_btc_out(*map(jnp.asarray, (q, k, v, wo)), 64, interpret=True)
+    args = [torch.from_numpy(a) for a in (q, k, v, wo)]
+    out = K.attention_btc_out_plain(*args)
+    assert out.shape == (2, 256, c_out)
+    np.testing.assert_allclose(to_np(out), np.asarray(ref), **TOL)
+    kern = K.fused_attention_btc_out_prescaled
+    before = kern.launches
+    np.testing.assert_array_equal(to_np(kern(*args)), to_np(out))
+    assert kern.launches == before == 0
+
+
+@pytest.mark.parametrize("c_out,chunk", [(96, None), (128, None), (128, 64)])
+def test_btc_out_gradients_match_jax(c_out, chunk):
+    """dq, dk, dv and dwo of the autograd function (``chunk=None``; T = 256 is
+    one chunk) and of the 64-query chunked backward == ``jax.grad`` through the
+    JAX custom VJP, within 1e-4 of each gradient's largest entry."""
+    q, k, v, wo = _qkvw(80, (2, 256, 128), c_out)
+    g = nhwc(84, 2, 256, c_out)
+    fused = PA._make_diffable_btc_out(functools.partial(PA._fused_raw_btc_out, interpret=True))
+    want = jax.grad(lambda *xs: jnp.sum(fused(*xs, 64) * g), argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (q, k, v, wo)))
+    kern = K.fused_attention_btc_out_prescaled
+    if chunk is None:
+        xs = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, wo)]
+        before = kern.backwards
+        got = torch.autograd.grad(kern(*xs), xs, torch.from_numpy(g))
+        assert kern.backwards == before + 1
+    else:
+        got = K.attention_btc_out_vjp(*map(torch.from_numpy, (q, k, v, wo, g)), chunk=chunk)
+    for name, a, b in zip(("dq", "dk", "dv", "dwo"), got, want):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(to_np(a), b, atol=1e-4 * np.abs(b).max(), rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("c_out", [64, 96, 128, 256, 320, 448, 640, 1280])
+def test_fused_out_route_matches_jax(monkeypatch, c_out):
+    assert not TA._use_btc_fused_out(c_out) and not JA._use_btc_fused_out(c_out)
+    monkeypatch.setenv("UNIRESTORE_FUSED_OUT_ATTN", "1")
+    with TA.fused_out_projection(True):
+        assert TA._use_btc_fused_out(c_out) == JA._use_btc_fused_out(c_out)
+        with TA.fused_out_projection(False):
+            assert not TA._use_btc_fused_out(c_out)
+    assert not TA._use_btc_fused_out(c_out)
+
+
+class _Spy:
+    """Counts the calls to a kernel wrapper and records the widths it was given."""
+
+    def __init__(self, kern):
+        self.kern, self.calls = kern, []
+
+    def __call__(self, q, k, v, wo):
+        self.calls.append((tuple(q.shape), tuple(wo.shape)))
+        return self.kern(q, k, v, wo)
+
+
+def test_mha_fused_out_matches_jax(monkeypatch):
+    """T = 1024, C = 128 in two 64-wide heads: the fused route (bias added after
+    the kernel) == JAX's plain route on the CPU, 1e-5."""
+    spy = _Spy(K.fused_attention_btc_out_prescaled)
+    monkeypatch.setattr(K, "fused_attention_btc_out_prescaled", spy)
+    pj = jax_params(JA.mha_init, 128, 2, 64, None, True)
+    pt = port_params(pj, TA.mha_init, 128, 2, 64, None, True)
+    x = nhwc(90, 2, 1024, 128)
+    ref = JA.mha(pj, jnp.asarray(x), heads=2)
+    with TA.fused_out_projection(True):
+        out = TA.mha(pt, torch.from_numpy(x), heads=2)
+    assert spy.calls == [((2, 1024, 128), (128, 128))]
+    np.testing.assert_allclose(to_np(out), np.asarray(ref), **TOL)
+
+
+def test_restore_with_fused_out_attention_matches_jax(monkeypatch):
+    """A narrow config whose UNet level 0 holds 128 channels in two 64-wide
+    heads, at 256 px (T = 1024 there), 2 steps: ``fused_out_attention=True``
+    routes those self-attentions through the fused wrapper and the restore
+    equals JAX ``restore_padded`` (plain route on the CPU) within 2e-4."""
+    from test_torch_bridge import tiny_pair
+    from test_torch_pipeline import TOL as RESTORE_TOL
+    from test_torch_pipeline import _jax_noise
+    from unirestore_torch.models import unirestore as TUR
+    from unirestore_tpu.models import unirestore as JUR
+
+    def narrow(cfg):
+        return dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, block_out_channels=(128, 64, 64, 64)))
+
+    cj = narrow(JUR.tiny_config())
+    ct = dataclasses.replace(narrow(TUR.tiny_config()), fused_out_attention=True)
+    (fj, tj), (ft, tt) = tiny_pair(cj, ct, seed=31)
+    images = np.random.default_rng(32).uniform(size=(1, 256, 256, 3)).astype(np.float32)
+    rng = jax.random.PRNGKey(33)
+    post, diff = _jax_noise(cj, images.shape, rng)
+    ref = jax.jit(lambda f, t, x, r: JUR.restore_padded(f, t, cj, JUR.schedule(cj), x, "ir",
+                                                        r, 2))(fj, tj, images, rng)
+    spy = _Spy(K.fused_attention_btc_out_prescaled)
+    monkeypatch.setattr(K, "fused_attention_btc_out_prescaled", spy)
+    out = TUR.restore_padded(ft, tt, ct, TUR.schedule(ct), torch.from_numpy(images), "ir",
+                             num_inference_steps=2, posterior_noise=post, diffusion_noise=diff,
+                             device="cpu")
+    # two steps x (2 down + 3 up) level-0 transformer blocks, each (B, 1024, 128) @ (128, 128)
+    assert spy.calls == [((1, 1024, 128), (128, 128))] * 10
+    assert not TA._FUSED_OUT
+    np.testing.assert_allclose(to_np(out), np.asarray(ref), **RESTORE_TOL)
+
+
+def test_btc_out_dims_take_every_routed_shape():
+    for t, inner, c_out in [(4096, 320, 320), (1024, 640, 640), (4096, 256, 256),
+                            (1024, 256, 256), (1024, 1280, 1280), (1536, 640, 640)]:
+        q, wo = torch.empty(8, t, inner, device="meta"), torch.empty(inner, c_out, device="meta")
+        assert K._btc_out_dims(q, wo) == (8, t, inner, c_out)
+    for q_shape, wo_shape in [((2, 1024, 128), (128, 96)),     # C not routed
+                              ((2, 1000, 128), (128, 128)),    # T not routed
+                              ((2, 1024, 128), (256, 128)),    # wo rows != inner
+                              ((2, 1024, 2048), (2048, 256))]:  # O tile past shared memory
+        with pytest.raises(ValueError, match="unsupported"):
+            K._btc_out_dims(torch.empty(q_shape), torch.empty(wo_shape))
+
+
+def _online_attention_out(q, k, v, wo, fault):
+    """The bf16 fused kernel's arithmetic in plain torch, with one of its faults
+    planted: per head ``_online_attention`` rounded to bf16 into the O tile,
+    then the fp32 product over 64-row chunks of wo, rounded once."""
+    b, t, inner = q.shape
+    heads = inner // 64
+    o = _online_attention(*(x.reshape(b, t, heads, 64).transpose(1, 2).reshape(b * heads, t, 64)
+                            for x in (q, k, v)), "none")
+    o = o.reshape(b, heads, t, 64).transpose(1, 2).reshape(b, t, inner).float()
+    if fault == "head_left_out":  # the first head's slot of the O tile
+        o[..., :64] = 0.0
+    rows = inner - (64 if fault == "last_k_chunk_dropped" else 0)
+    return (o[..., :rows] @ wo[:rows].float()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fault", ["none", "head_left_out", "last_k_chunk_dropped"])
+@pytest.mark.parametrize("shape,c_out", [((1, 1024, 320), 320), ((1, 1024, 1280), 1280)])
+def test_btc_out_tolerance_passes_kernel_arithmetic_and_rejects_faults(shape, c_out, fault):
+    """chip_smoke.py holds the fused kernel to ``bf16_out_tolerance_ratio <= 1``:
+    the kernel's arithmetic passes it, the two planted faults read above 5."""
+    q, k, v, wo = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkvw(100, shape, c_out))
+    ref = K.attention_btc_out_plain(q, k, v, wo)
+    ratio = K.bf16_out_tolerance_ratio(_online_attention_out(q, k, v, wo, fault), ref)
+    assert ratio <= 1.0 if fault == "none" else ratio > 5.0, ratio

@@ -106,11 +106,27 @@ def test_bridge_rejects_mismatched_keys(change):
         bridge.load_tree(flat, fz_t, device="cpu")
 
 
-def test_entry_points_need_cuda_or_explicit_cpu():
+def test_entry_points_need_cuda_or_explicit_cpu(tmp_path):
+    """The model and the server default to the card and raise without one; the
+    zoo picks no device: merged weights take the device of the tree given."""
+    from unirestore_torch import serve, zoo
+
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         TUR.init(TUR.tiny_config())
+    assert serve.parse_args([]).device is None and not serve.parse_args([]).fused_out_attn
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build_restore(serve.parse_args(["--tiny", "--weights-dir", str(tmp_path)]))
+    cfg = TUR.tiny_config()
+    frozen, _ = TUR.init(cfg, device="cpu")
+    np.save(tmp_path / "sd_null_emb.npy", np.ones(tuple(frozen["null_emb"].shape), np.float32))
+    np.savez(tmp_path / "sd_turbo_vae.npz",
+             **{k: np.zeros(tuple(v.shape), np.float32)
+                for k, v in bridge.flatten(bridge.to_numpy_tree(frozen["vae"])).items()})
+    loaded = zoo.load_frozen_backbone(frozen, cfg, tmp_path)
+    assert {v.device.type for v in bridge.flatten(loaded).values()} == {"cpu"}
+    assert loaded["null_emb"].eq(1).all()
 
 
 def _port_sources():
@@ -149,6 +165,9 @@ for m in pkgutil.walk_packages(unirestore_torch.__path__, 'unirestore_torch.'):
 importlib.import_module('chip_smoke')
 bad = [m for m in sys.modules if m.split('.')[0] in BANNED]
 assert not bad, bad
+walked = {{'unirestore_torch.serve', 'unirestore_torch.zoo', 'unirestore_torch.ops.png',
+           'unirestore_torch.ops.tiling', 'unirestore_torch.nn.attention_kernels'}}
+assert walked <= set(sys.modules), walked - set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

@@ -14,6 +14,11 @@ grouped conv ``grouped_conv.bf16_tolerance_ratio <= 1`` (two bf16 ulps plus
 through the plain versions: fp32 1e-4 (the recompute backward differentiates
 softmax_e(ln2 s) where the plain version takes exp2 and divides at the end),
 bf16 rms error <= 2^-6 of the reference's rms (chip_smoke.BWD_RMS_TOL).
+The out-projection-fused kernel: bf16 ``bf16_out_tolerance_ratio <= 1``
+(|out - ref| <= 2^-7 |ref| + 2^-5 rms(ref), the reasoning beside it in
+``attention_kernels.py``); fp32 1e-5 of the output's largest entry, since each
+output sums ``inner`` (up to 1280) products in another order than the plain
+version's matmul.
 """
 
 import pytest
@@ -210,3 +215,94 @@ def test_grouped_conv_wrapper_raises_on_what_it_cannot_run(cuda):
         G.grouped_conv3(x[..., :320].contiguous(), w[:320, :20].contiguous(), None, 16)
     with pytest.raises(ValueError, match="CUDA device"):
         G.grouped_conv3(x, w.cpu(), b, 16)
+
+
+# ---------------------------------------------------------------------------
+# the out-projection-fused kernel (ur_attention_btc_out)
+# ---------------------------------------------------------------------------
+
+
+def _qkvw(shape, c_out, dtype, seed=0):
+    q, k, v = _qkv(shape, 64, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    wo = torch.randn((shape[-1], c_out), generator=g, device="cuda") * shape[-1] ** -0.5
+    return q, k, v, wo.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,c_out", [
+    ((2, 1024, 128), 128),
+    ((2, 1024, 320), 320),     # UNet level 0 widths
+    ((1, 1536, 640), 640),     # UNet level 1 of a 512 x 768 restore
+    ((1, 1024, 1280), 1280),   # UNet level 2 of an untiled 1024 px restore: the largest O tile
+    ((2, 1024, 256), 256),     # Controller stage 1
+])
+def test_btc_out_matches_plain(cuda, no_tf32, dtype, shape, c_out):
+    kern = K.fused_attention_btc_out_prescaled
+    xs = _qkvw(shape, c_out, dtype)
+    before = kern.launches
+    out = kern(*xs)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert out.shape == (*shape[:2], c_out) and out.dtype == dtype
+    ref = kern.plain(*xs)
+    if dtype == torch.bfloat16:
+        assert K.bf16_out_tolerance_ratio(out, ref) <= 1.0
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-5 * ref.abs().max().item(), rtol=1e-5)
+
+
+def test_btc_out_wrapper_raises_on_what_it_cannot_run(cuda):
+    kern = K.fused_attention_btc_out_prescaled
+    q, k, v, wo = _qkvw((1, 1024, 128), 128, torch.float32)
+    with pytest.raises(TypeError):
+        kern(q, k, v, wo.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        kern(q, k, v, wo.t().contiguous().t())
+    shifted = torch.empty(wo.numel() + 1, device="cuda")[1:].view(wo.shape)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        kern(q, k, v, shifted)
+    with pytest.raises(ValueError, match="unsupported"):
+        kern(q, k, v, wo[:, :96].contiguous())
+    with pytest.raises(ValueError, match="CUDA device"):
+        kern(q, k, v, wo.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_btc_out_gradient_matches_plain_autograd(cuda, no_tf32, dtype):
+    """dq, dk, dv and dwo; T = 4096 > 1024, so the backward recomputes 512-query chunks."""
+    kern = K.fused_attention_btc_out_prescaled
+    xs0 = _qkvw((2, 4096, 128), 128, dtype, seed=5)
+    g = torch.randn((2, 4096, 128), generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda").to(dtype)
+
+    def grads(fn):
+        xs = [x.detach().requires_grad_() for x in xs0]
+        return torch.autograd.grad(fn(*xs), xs, g)
+
+    launches, backwards = kern.launches, kern.backwards
+    ours = grads(kern)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.backwards) == (launches + 1, backwards + 1)
+    for a, b in zip(ours, grads(kern.plain)):
+        assert a.shape == b.shape
+        if dtype == torch.bfloat16:
+            assert _rms_rel(a, b) <= 2.0 ** -6
+        else:
+            torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(), rtol=1e-4)
+
+
+def test_mha_fused_out_on_card_matches_cpu(cuda, no_tf32):
+    """The fused route (bias added after the kernel) on the card == the CPU."""
+    g = torch.Generator().manual_seed(1)
+    p = {name: {"w": torch.randn(128, 128, generator=g) * 128 ** -0.5,
+                "b": torch.randn(128, generator=g) * 0.1}
+         for name in ("to_q", "to_k", "to_v", "to_out")}
+    x = torch.randn(2, 1024, 128, generator=g)
+    with TA.fused_out_projection(True):
+        cpu = TA.mha(p, x, heads=2)
+        p_cuda = {n: {k: v.cuda() for k, v in pp.items()} for n, pp in p.items()}
+        before = K.fused_attention_btc_out_prescaled.launches
+        out = TA.mha(p_cuda, x.cuda(), heads=2)
+    assert K.fused_attention_btc_out_prescaled.launches == before + 1
+    torch.testing.assert_close(out.cpu(), cpu, **FP32_TOL)

@@ -24,6 +24,7 @@ import torch
 
 from ..device import resolve_device
 from ..diffusion import schedules as D
+from ..nn import attention as ATT
 from ..nn.init import make_init
 from ..ops import resize as RS
 from . import controller as CTRL
@@ -56,6 +57,10 @@ class UniRestoreConfig:
     min_size: int = 512
     pad_multiple: int = 64
     text_seq_len: int = 77
+    # restore with the out-projection fused into the channel-flat attention
+    # kernel (``nn/attention.py:fused_out_projection``); off by default, as the
+    # JAX package's UNIRESTORE_FUSED_OUT_ATTN. Training never sets it.
+    fused_out_attention: bool = False
 
     @property
     def use_cnet(self):
@@ -242,12 +247,13 @@ def restore_padded(frozen, trainable, cfg, sched, images, task, generator=None,
                    diffusion_noise=None, device=None):
     """Restore images whose H/W are already multiples of pad_multiple.
 
-    encode (CFRM on) -> noise to t=999 -> DDIM loop -> decode (TFA task).
+    encode (CFRM on) -> noise to t=999 -> DDIM loop -> decode (TFA task),
+    with the out-projection-fused attention route if ``cfg.fused_out_attention``.
     ``posterior_noise`` (shape of the /8 latent mean) and ``diffusion_noise``
     (shape of the latents) are used when given, else drawn from ``generator``.
     """
     dev = resolve_device(device)
-    with torch.inference_mode():
+    with torch.inference_mode(), ATT.fused_out_projection(cfg.fused_out_attention):
         images = torch.as_tensor(images, device=dev)
         sched = sched.to(dev)
         if posterior_noise is not None:

@@ -3,7 +3,10 @@
 ``mha`` routes by shape alone, with the JAX package's predicates:
 
 - self-attention, T >= 1024, T % 256 == 0, d = 64: channel-flat kernel
-  (``fused_attention_btc_prescaled``) on the (B, T, inner) projections;
+  (``fused_attention_btc_prescaled``) on the (B, T, inner) projections; under
+  ``fused_out_projection(True)`` and for an out-projection width C with
+  C % 128 == 0 or C in (320, 640), the kernel with the out-projection fused
+  (``fused_attention_btc_out_prescaled``), the bias added after it;
 - self-attention, T >= 256, d in {64, 128}: head-major kernel
   (``fused_attention_bh_prescaled``);
 - self-attention, 128 < d <= 512, T >= 1024, T % 1024 == 0: streaming kernel
@@ -27,6 +30,8 @@ route (77-token cross-attention, short sequences) stays on plain autograd.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from . import attention_kernels as K
@@ -43,6 +48,32 @@ def mha_init(ini, query_dim: int, heads: int, dim_head: int,
         "to_v": L.linear_init(ini, ctx, inner, bias=qkv_bias),
         "to_out": L.linear_init(ini, inner, query_dim, bias=True),
     }
+
+
+# The JAX package reads UNIRESTORE_FUSED_OUT_ATTN=1 at trace time
+# (attention.py:111-126) and leaves the fused route off by default; the port
+# takes the switch from its caller (``UniRestoreConfig.fused_out_attention``).
+# Like the JAX package's ``force_xla_attention`` it is one flag for the
+# process (not per thread): callers that restore with different settings
+# serialise their calls, as the server does. Training never sets it.
+_FUSED_OUT = False
+
+
+@contextlib.contextmanager
+def fused_out_projection(enabled: bool = True):
+    """Within the block, channel-flat self-attention fuses the out-projection
+    into its kernel where ``_use_btc_fused_out`` admits the width."""
+    global _FUSED_OUT
+    prev, _FUSED_OUT = _FUSED_OUT, bool(enabled)
+    try:
+        yield
+    finally:
+        _FUSED_OUT = prev
+
+
+def _use_btc_fused_out(c_out: int) -> bool:
+    """JAX ``_use_btc_fused_out``: the switch, then the width test."""
+    return _FUSED_OUT and K.btc_out_supported(c_out)
 
 
 def _prescaled_linear(pp, x, gain: float):
@@ -74,9 +105,14 @@ def mha(p, x, context=None, heads: int = 8):
     use_fused = K.supported(t, s, dim_head)
     if use_fused and K.btc_supported(t, s, inner, dim_head):
         qf = _prescaled_linear(p["to_q"], x, scale * K.LOG2E)
-        of = K.fused_attention_btc_prescaled(qf, L.linear(p["to_k"], ctx),
-                                             L.linear(p["to_v"], ctx))
-        return L.linear(p["to_out"], of)
+        kf, vf = L.linear(p["to_k"], ctx), L.linear(p["to_v"], ctx)
+        po = p["to_out"]
+        # the kernel's per-head output tile must fit shared memory; every
+        # sd-turbo width does (inner <= 1280)
+        if _use_btc_fused_out(po["w"].shape[1]) and inner <= K.BTC_OUT_MAX_INNER:
+            out = K.fused_attention_btc_out_prescaled(qf, kf, vf, po["w"].to(x.dtype))
+            return out + po["b"].to(x.dtype) if "b" in po else out
+        return L.linear(po, K.fused_attention_btc_prescaled(qf, kf, vf))
     use_streaming = not use_fused and K.stream_supported(t, s, dim_head)
     if use_fused or use_streaming:
         qb = _head_major(_prescaled_linear(p["to_q"], x, scale * K.LOG2E), heads)

@@ -1,7 +1,6 @@
-"""The three attention kernels, each beside its plain version, with gradients.
+"""The four attention kernels, each beside its plain version, with gradients.
 
-Replaces the Pallas TPU kernels of ``unirestore_tpu/nn/pallas_attention.py``
-that the restore and training paths launch:
+Replaces the Pallas TPU kernels of ``unirestore_tpu/nn/pallas_attention.py``:
 
 ==============================================  ===================================
 wrapper (this module)                           TPU kernel it replaces
@@ -9,11 +8,15 @@ wrapper (this module)                           TPU kernel it replaces
 ``fused_attention_btc_prescaled``               ``_btc_kernel`` (via ``_fused_raw_btc``)
 ``fused_attention_bh_prescaled``                ``_kernel`` (via ``_fused_raw_bh``)
 ``streaming_attention_bh_prescaled``            ``_stream_kernel`` (via ``_streaming_raw_bh``)
+``fused_attention_btc_out_prescaled``           ``_btc_out_kernel`` (via ``_fused_raw_btc_out``)
 ==============================================  ===================================
 
 Each computes ``softmax_2(q k^T) v`` for q prescaled by d^-1/2 * log2(e):
 exp2, fp32 logits and statistics, probabilities rounded to v's dtype before
-the PV product, output divided by the row sum. The kernels are hand-written
+the PV product, output divided by the row sum. The fourth then multiplies the
+(B, T, inner) result, rounded to q's dtype per head, by the out-projection
+weight ``wo`` (inner, C) in fp32 and rounds once (the bias stays with the
+caller, as in the JAX package). The kernels are hand-written
 CUDA C++ for ``sm_90a`` in ``unirestore_torch/csrc/attention.cu``: bf16 on the
 tensor cores (``mma.sync``), fp32 on CUDA-core FMAs (the source says what
 bounds them on the H100 and what the design does about it), built and bound
@@ -30,7 +33,9 @@ recomputes ``softmax_e(ln2 * q k^T) v`` (= ``softmax_2(q k^T) v``, JAX's
 ``_xla_reference_*`` at scale ln 2) in plain PyTorch over query chunks
 (``train_attn_chunk``, as JAX's ``_train_attn_chunk`` chunks its training
 attention) and differentiates it, so only one (chunk, T) slab per head is
-live. No TPU kernel has a backward kernel; neither has the port.
+live. The fourth's backward multiplies that recompute by ``wo`` and returns a
+gradient for ``wo`` too (JAX ``_make_diffable_btc_out``). No TPU kernel has a
+backward kernel; neither has the port.
 """
 
 from __future__ import annotations
@@ -70,6 +75,17 @@ def stream_supported(t: int, s: int, d: int) -> bool:
     """Wide-head streaming kernel shapes (JAX ``stream_supported``)."""
     return (t == s and t >= 1024 and t % 1024 == 0 and 128 < d <= 512
             and d % 128 == 0)
+
+
+def btc_out_supported(c_out: int) -> bool:
+    """Out-projection widths the fused kernel takes (JAX ``_use_btc_fused_out``'s
+    shape test, attention.py:125-126), on top of ``btc_supported``."""
+    return c_out % 128 == 0 or c_out in (320, 640)
+
+
+# The fused kernel's (64, inner) bf16 tile of per-head outputs must fit the
+# card's 227 KB of shared memory beside the q/k/v tiles (csrc/attention.cu).
+BTC_OUT_MAX_INNER = 1536
 
 
 def train_attn_chunk(t: int, chunk: int = TRAIN_ATTN_CHUNK) -> int:
@@ -131,6 +147,24 @@ def bf16_tolerance_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
     return cuda_lib.tolerance_ratio(out, ref, BF16_RTOL, BF16_ATOL_RMS)
 
 
+# The out-projection-fused kernel agrees with its plain version when, elementwise,
+#     |out - ref| <= BF16_RTOL * |ref| + BF16_OUT_ATOL_RMS * rms(ref).
+# Both round each per-head output o_i to bf16, where near one ulp (at most
+# 2^-7 |o_i|) can flip between them, as above; then each output sums the
+# ``inner`` products o_i * wo_ij in fp32 and rounds once. The flips enter that
+# sum with random signs, so their effect has an rms of at most 2^-7 rms(ref)
+# even if every term flipped a whole ulp; the absolute term is four times that
+# bound, 2^-5 rms(ref). The final rounding adds at most one ulp, 2^-7 |ref|.
+# A head left out of the sum, or a dropped 64-row chunk of wo, removes about
+# rms(ref) / sqrt(H) (0.22 at H = 20, 0.45 at H = 5) and reads 7 or more.
+BF16_OUT_ATOL_RMS = 2.0 ** -5
+
+
+def bf16_out_tolerance_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| / (BF16_RTOL |ref| + BF16_OUT_ATOL_RMS rms(ref)); at most 1 to agree."""
+    return cuda_lib.tolerance_ratio(out, ref, BF16_RTOL, BF16_OUT_ATOL_RMS)
+
+
 # ---------------------------------------------------------------------------
 # backward: JAX's reference function at scale ln 2, recomputed by query chunk
 # ---------------------------------------------------------------------------
@@ -173,6 +207,42 @@ def attention_btc_vjp(q, k, v, g, chunk: int | None = None):
     return tuple(x.transpose(1, 2).reshape(b, t, inner) for x in grads)
 
 
+def attention_btc_out_plain(q, k, v, wo):
+    """``attention_btc_plain`` (rounded to q's dtype), then @ wo in fp32, rounded once."""
+    o = attention_btc_plain(q, k, v)
+    return (o.float() @ wo.float()).to(q.dtype)
+
+
+def attention_btc_out_vjp(q, k, v, wo, g, chunk: int | None = None):
+    """(dq, dk, dv, dwo) of ``attention_reference`` per head, times ``wo``.
+
+    JAX ``_make_diffable_btc_out``'s backward (pallas_attention.py:435-456):
+    queries go ``chunk`` rows at a time as in ``attention_vjp``; the key,
+    value and ``wo`` gradients sum over the chunks in fp32.
+    """
+    b, t, inner = q.shape
+    chunk = chunk or train_attn_chunk(t)
+    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    dq = torch.empty(qh.shape, dtype=q.dtype, device=q.device)
+    dk = torch.zeros(kh.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(vh.shape, dtype=torch.float32, device=v.device)
+    dwo = torch.zeros(wo.shape, dtype=torch.float32, device=wo.device)
+    with torch.enable_grad():
+        kk, vv = kh.detach().requires_grad_(), vh.detach().requires_grad_()
+        w = wo.detach().requires_grad_()
+        for i in range(0, t, chunk):
+            qc = qh[..., i:i + chunk, :].detach().requires_grad_()
+            o = attention_reference(qc, kk, vv)  # (B, H, chunk, 64)
+            out = o.transpose(1, 2).reshape(b, -1, inner) @ w
+            gq, gk, gv, gw = torch.autograd.grad(out, (qc, kk, vv, w), g[:, i:i + chunk])
+            dq[..., i:i + chunk, :] = gq
+            dk += gk
+            dv += gv
+            dwo += gw
+    return (*(x.transpose(1, 2).reshape(b, t, inner).to(q.dtype) for x in (dq, dk, dv)),
+            dwo.to(wo.dtype))
+
+
 # ---------------------------------------------------------------------------
 # bind
 # ---------------------------------------------------------------------------
@@ -186,6 +256,9 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.ur_attention_btc_out.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                                         + [ctypes.c_void_p])
+    lib.ur_attention_btc_out.restype = ctypes.c_int
     return lib
 
 
@@ -198,58 +271,65 @@ class _AttentionFunction(torch.autograd.Function):
     """Kernel forward, plain-PyTorch recompute backward (the JAX custom VJP)."""
 
     @staticmethod
-    def forward(ctx, kern, q, k, v):
+    def forward(ctx, kern, *xs):
         ctx.kern = kern
-        ctx.save_for_backward(q, k, v)
-        return kern.forward(q, k, v)
+        ctx.save_for_backward(*xs)
+        return kern.forward(*xs)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
         ctx.kern.backwards += 1
-        return (None, *ctx.kern.vjp(q, k, v, g))
+        return (None, *ctx.kern.vjp(*ctx.saved_tensors, g))
 
 
 class AttentionKernel(cuda_lib.KernelWrapper):
     """One kernel entry: plain version on the CPU, the CUDA kernel on the card.
 
-    ``dims(q)`` checks the shape against the kernel's predicate and returns the
-    three int arguments of the C entry ``symbol``; ``vjp`` is the backward.
+    Takes q, k, v (the out-projection-fused entry also ``wo``). ``dims(q, *rest)``
+    checks the shapes against the kernel's predicate and returns the int
+    arguments of the C entry ``symbol``; ``vjp`` is the backward; the output
+    has q's dtype and the shape ``out_shape(q, k, v, *rest)``. ``bf16_tolerance_ratio``
+    is the limit a bf16 launch is held to against ``plain``.
     """
 
-    def __init__(self, symbol: str, plain, vjp, dims, replaces: str):
+    def __init__(self, symbol: str, plain, vjp, dims, replaces: str,
+                 out_shape=lambda q, *rest: q.shape, tolerance=bf16_tolerance_ratio):
         self.symbol = symbol
         self.plain = plain
         self.vjp = vjp
         self.dims = dims
+        self.out_shape = out_shape
+        self.bf16_tolerance_ratio = tolerance
         self.replaces = replaces
         super().__init__()
 
-    def __call__(self, q, k, v):
-        return _AttentionFunction.apply(self, q, k, v)
+    def __call__(self, q, k, v, *rest):
+        return _AttentionFunction.apply(self, q, k, v, *rest)
 
-    def forward(self, q, k, v):
-        devices = {q.device.type, k.device.type, v.device.type}
+    def forward(self, q, k, v, *rest):
+        xs = (q, k, v, *rest)
+        devices = {x.device.type for x in xs}
         if devices == {"cpu"}:
-            return self.plain(q, k, v)
-        if devices != {"cuda"} or len({q.device, k.device, v.device}) != 1:
-            raise ValueError(f"{self.symbol}: q, k, v must lie on one CUDA device, "
-                             f"got {q.device}, {k.device}, {v.device}")
-        if q.dtype not in cuda_lib.DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
-            raise TypeError(f"{self.symbol}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
+            return self.plain(*xs)
+        names = "q, k, v" + ", wo" * len(rest)
+        if devices != {"cuda"} or len({x.device for x in xs}) != 1:
+            raise ValueError(f"{self.symbol}: {names} must lie on one CUDA device, "
+                             f"got {', '.join(str(x.device) for x in xs)}")
+        if q.dtype not in cuda_lib.DTYPE_CODES or any(x.dtype != q.dtype for x in xs):
+            raise TypeError(f"{self.symbol}: dtypes {', '.join(str(x.dtype) for x in xs)}; "
                             "want all float32 or all bfloat16")
         if not q.shape == k.shape == v.shape:
             raise ValueError(f"{self.symbol}: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                              f"{tuple(v.shape)} differ")
-        if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-            raise ValueError(f"{self.symbol}: q, k, v must be contiguous")
-        if any(x.data_ptr() % 16 for x in (q, k, v)):
-            raise ValueError(f"{self.symbol}: q, k, v must start on 16-byte boundaries")
-        dims = self.dims(q)
-        out = torch.empty_like(q)
+        if not all(x.is_contiguous() for x in xs):
+            raise ValueError(f"{self.symbol}: {names} must be contiguous")
+        if any(x.data_ptr() % 16 for x in xs):
+            raise ValueError(f"{self.symbol}: {names} must start on 16-byte boundaries")
+        dims = self.dims(q, *rest)
+        out = torch.empty(self.out_shape(*xs), dtype=q.dtype, device=q.device)
         with torch.cuda.device(q.device):
             rc = getattr(library(), self.symbol)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims,
+                *(x.data_ptr() for x in xs), out.data_ptr(), *dims,
                 cuda_lib.DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
         self.counted(rc)
         return out
@@ -273,6 +353,17 @@ def _stream_dims(q):
     return q.shape[0], q.shape[1], q.shape[2]
 
 
+def _btc_out_dims(q, wo):
+    """Every shape the fused route admits (``btc_supported`` and
+    ``btc_out_supported``) up to ``BTC_OUT_MAX_INNER``."""
+    if (q.dim() != 3 or wo.dim() != 2 or wo.shape[0] != q.shape[2]
+            or not btc_supported(q.shape[1], q.shape[1], q.shape[2], 64)
+            or not btc_out_supported(wo.shape[1]) or q.shape[2] > BTC_OUT_MAX_INNER):
+        raise ValueError(f"out-projection-fused attention: unsupported shapes q "
+                         f"{tuple(q.shape)}, wo {tuple(wo.shape)}")
+    return q.shape[0], q.shape[1], q.shape[2], wo.shape[1]
+
+
 fused_attention_btc_prescaled = AttentionKernel(
     "ur_attention_btc", attention_btc_plain, attention_btc_vjp, _btc_dims,
     "unirestore_tpu/nn/pallas_attention.py:220")
@@ -282,6 +373,10 @@ fused_attention_bh_prescaled = AttentionKernel(
 streaming_attention_bh_prescaled = AttentionKernel(
     "ur_attention_stream", attention_bh_plain, attention_vjp, _stream_dims,
     "unirestore_tpu/nn/pallas_attention.py:83")
+fused_attention_btc_out_prescaled = AttentionKernel(
+    "ur_attention_btc_out", attention_btc_out_plain, attention_btc_out_vjp, _btc_out_dims,
+    "unirestore_tpu/nn/pallas_attention.py:269",
+    out_shape=lambda q, k, v, wo: (*q.shape[:2], wo.shape[1]), tolerance=bf16_out_tolerance_ratio)
 
 KERNELS = (fused_attention_btc_prescaled, fused_attention_bh_prescaled,
-           streaming_attention_bh_prescaled)
+           streaming_attention_bh_prescaled, fused_attention_btc_out_prescaled)
