@@ -9,15 +9,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. environment: card name, ``nvidia-smi`` name and power limit, TF32 off;
 2. build the CUDA kernels from ``unirestore_torch/csrc/`` (one ``nvcc`` per
-   source, all at once);
+   source, all three at once);
 3. each kernel against its plain PyTorch version at every shape the 512 px
    batch-8 main paths give it (bf16), with kernel, plain, library
    (``scaled_dot_product_attention``; ``F.conv2d(groups=16)`` in
    ``channels_last``; timed as yardsticks only) and bound times; for the
    out-projection-fused kernel, which no single PyTorch call matches, the
    unfused pairs ``ur_attention_btc`` + cuBLAS and SDPA + ``torch.matmul``
-   instead; and each attention kernel's gradient (its autograd function)
-   against autograd through its plain version at one main-path shape;
+   instead; for the channel-flat kernel, whose bf16 launches take
+   ``ur_attention_btc_sm90`` (``csrc/attention_sm90.cu``), also the time of
+   the ``mma.sync`` kernel of ``csrc/attention.cu`` it replaced (``prev_ms``,
+   called directly as a yardstick, timed in turns with the kernel); and each
+   attention kernel's gradient (its autograd function) against autograd
+   through its plain version at one main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
    bf16, 20 DDIM steps) in the exact, encoder (stride 2) and deep (stride
    17, warmup 3) modes, and exact with the out-projection-fused attention
@@ -139,6 +143,8 @@ REFERENCE_ATOL = 1e-4
 # limits on each loss term and on each family's gradient norm.
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
+# the milestone of csrc/attention_sm90.cu's redesign that ships (its head comment)
+BTC_SM90_DESIGN = "M1"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
@@ -240,6 +246,30 @@ def gconv_inputs(shape, gen, dtype=torch.bfloat16):
     return x, w.contiguous(memory_format=torch.channels_last), b
 
 
+def kernel_source(K, G, kern) -> str:
+    """The source, in the repository, of a kernel's bf16 main-path launches."""
+    if kern is G.grouped_conv3:
+        src = G.SOURCE
+    elif kern is K.fused_attention_btc_prescaled:
+        src = K.SOURCE_SM90
+    else:
+        src = K.SOURCE
+    return str(src.relative_to(REPO))
+
+
+def btc_prev(K, q, k, v):
+    """``ur_attention_btc`` of csrc/attention.cu (the ``mma.sync`` kernel bf16
+    launches took before ``ur_attention_btc_sm90``), called directly: a
+    yardstick, never routed."""
+    out = torch.empty_like(q)
+    rc = K.library().ur_attention_btc(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      *q.shape, 1 if q.dtype == torch.bfloat16 else 0,
+                                      torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ur_attention_btc: CUDA error {rc}")
+    return out
+
+
 def compare_kernel(kern, *xs) -> dict:
     """The kernel against its plain version on the same inputs."""
     out = kern(*xs)
@@ -273,11 +303,22 @@ def check_kernel(K, kern, shape, heads, gen):
     def sdpa():  # q is prescaled by d^-1/2 log2(e): softmax_e(x ln 2) == softmax_2(x)
         return F.scaled_dot_product_attention(split(q), split(k), split(v), scale=math.log(2.0))
 
-    ms = cuda_ms(lambda: kern(*xs), 10)
+    extra = {}
+    if kern is K.fused_attention_btc_prescaled:
+        # the mma.sync kernel it replaced, against the same plain version, and
+        # both timed in turns (kernel, previous, previous, kernel)
+        prev = btc_prev(K, q, k, v)
+        extra["prev_tolerance_ratio"] = kern.bf16_tolerance_ratio(prev, kern.plain(*xs))
+        if extra["prev_tolerance_ratio"] > 1.0:
+            raise AssertionError(f"ur_attention_btc {shape}: disagrees with the plain version")
+        turns = [cuda_ms(fn, 10) for fn in (lambda: kern(*xs), lambda: btc_prev(K, q, k, v),
+                                             lambda: btc_prev(K, q, k, v), lambda: kern(*xs))]
+        ms, extra["prev_ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    else:
+        ms = cuda_ms(lambda: kern(*xs), 10)
     plain_ms = cuda_ms(lambda: kern.plain(*xs), 3)
     flops = 4.0 * n * heads * t * t * d
     nbytes = 4.0 * q.numel() * q.element_size()
-    extra = {}
     if kern is K.fused_attention_btc_out_prescaled:
         wo = xs[3]
         flops += 2.0 * n * t * shape[2] * wo.shape[1]
@@ -297,6 +338,9 @@ def check_kernel(K, kern, shape, heads, gen):
     yardsticks = (f"library {library_ms:.3f} ms" if library_ms is not None else
                   f"btc+matmul {extra['unfused_ms']:.3f} ms sdpa+matmul "
                   f"{extra['sdpa_matmul_ms']:.3f} ms")
+    if "prev_ms" in extra:
+        yardsticks += (f" prev (mma.sync) {extra['prev_ms']:.3f} ms, tolerance ratio "
+                       f"{extra['prev_tolerance_ratio']:.3f}")
     log(f"kernel {kern.symbol} {tuple(shape)} d={d}: max_abs {err['max_abs_err']:.3e} "
         f"rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} tolerance ratio "
         f"{err['tolerance_ratio']:.3f} | {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s) "
@@ -864,12 +908,11 @@ def main() -> int:
         missing = [path for path, want in routes.items() if want[i] and not by_path[path]]
         if missing or not any(by_path.values()):
             raise AssertionError(f"{kern.symbol} never ran on {missing or 'any path'}: {by_path}")
-        source = ("unirestore_torch/csrc/grouped_conv.cu" if kern is G.grouped_conv3
-                  else "unirestore_torch/csrc/attention.cu")
         library = [x["library_ms"] for x in r]
         entry = {
             "name": kern.symbol, "route": "cuda", "status": "ported",
-            "source": source, "replaces": kern.replaces, "launches": sum(by_path.values()),
+            "source": kernel_source(K, G, kern), "replaces": kern.replaces,
+            "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r), "plain_ms": sum(x["plain_ms"] for x in r),
@@ -878,9 +921,12 @@ def main() -> int:
             "library_ms": None if None in library else sum(library),
             "shapes": r,
         }
-        for key in ("unfused_ms", "sdpa_matmul_ms"):
+        for key in ("unfused_ms", "sdpa_matmul_ms", "prev_ms"):
             if key in r[0]:
                 entry[key] = sum(x[key] for x in r)
+        if kern is K.fused_attention_btc_prescaled:
+            entry["symbols"] = {"bfloat16": "ur_attention_btc_sm90", "float32": "ur_attention_btc"}
+            entry["design"] = BTC_SM90_DESIGN
         if kern.symbol in backward:
             entry["backward"] = backward[kern.symbol]
         entries.append(entry)

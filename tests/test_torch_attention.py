@@ -24,6 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from test_torch_bridge import jax_params, nhwc, port_params, to_np
 from unirestore_torch.nn import attention as TA
@@ -137,42 +139,79 @@ def test_kernel_wrapper_rejects_what_it_cannot_run():
         K._stream_dims(torch.empty(1, 4096, 64))
 
 
-def _online_attention(q, k, v, fault):
+def _online_attention(q, k, v, fault, block_k=64):
     """The bf16 kernels' arithmetic in plain torch, with one of the faults planted.
 
-    64-key tiles, fp32 running max and row sum, probabilities rounded to bf16
-    before the PV product, as in ``csrc/attention.cu``.
+    ``block_k``-key tiles (64 in ``csrc/attention.cu``, 128 in
+    ``csrc/attention_sm90.cu``), fp32 running max and row sum, probabilities
+    rounded to bf16 before the PV product.
     """
     m = torch.full(q.shape[:-1] + (1,), -torch.inf)
     l = torch.zeros_like(m)
     acc = torch.zeros(q.shape[:-1] + v.shape[-1:])
-    t = k.shape[1] - (64 if fault == "last_key_tile_dropped" else 0)
-    for k0 in range(0, t, 64):
-        s = q.float() @ k[:, k0:k0 + 64].float().transpose(1, 2)
+    t = k.shape[1] - (block_k if fault == "last_key_tile_dropped" else 0)
+    for k0 in range(0, t, block_k):
+        s = q.float() @ k[:, k0:k0 + block_k].float().transpose(1, 2)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
         l = (l if fault == "row_sum_not_rescaled" else l * corr) + p.sum(-1, keepdim=True)
         acc = acc if fault == "accumulator_not_rescaled" else acc * corr
-        acc = acc + p.to(torch.bfloat16).float() @ v[:, k0:k0 + 64].float()
+        acc = acc + p.to(torch.bfloat16).float() @ v[:, k0:k0 + block_k].float()
         m = m_new
     return (acc / l).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("fault", ["none", "last_key_tile_dropped",
-                                   "accumulator_not_rescaled", "row_sum_not_rescaled"])
-@pytest.mark.parametrize("shape", [(1, 4096, 64), (1, 1024, 512)])
-def test_bf16_tolerance_passes_tiled_arithmetic_and_rejects_faults(shape, fault):
-    """chip_smoke.py holds each bf16 kernel to ``bf16_tolerance_ratio <= 1``: the
-    kernels' own tiled arithmetic passes it, and each planted fault fails it."""
+def _check_bf16_tolerance(shape, fault, block_k):
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(30, shape, shape[-1]))
     ref = K.attention_bh_plain(q, k, v)
-    ratio = K.bf16_tolerance_ratio(_online_attention(q, k, v, fault), ref)
+    ratio = K.bf16_tolerance_ratio(_online_attention(q, k, v, fault, block_k), ref)
     assert (ratio <= 1.0) == (fault == "none"), ratio
     if fault == "none":
         bad = ref.clone()
         bad[0, 0, 0] = torch.nan
         assert K.bf16_tolerance_ratio(bad, ref) == float("inf")
+
+
+_FAULTS = ["none", "last_key_tile_dropped", "accumulator_not_rescaled", "row_sum_not_rescaled"]
+
+
+@pytest.mark.parametrize("fault", _FAULTS)
+@pytest.mark.parametrize("shape", [(1, 4096, 64), (1, 1024, 512)])
+def test_bf16_tolerance_passes_tiled_arithmetic_and_rejects_faults(shape, fault):
+    """chip_smoke.py holds each bf16 kernel to ``bf16_tolerance_ratio <= 1``: the
+    kernels' own tiled arithmetic (64-key tiles) passes it, and each planted
+    fault fails it."""
+    _check_bf16_tolerance(shape, fault, 64)
+
+
+@pytest.mark.parametrize("fault", _FAULTS)
+@pytest.mark.parametrize("shape", [(1, 4096, 64), (1, 1024, 64)])
+def test_bf16_tolerance_passes_128_key_tiles_and_rejects_faults(shape, fault):
+    """The same limit at ``ur_attention_btc_sm90``'s 128-key tiles: its arithmetic
+    passes, and each fault fails, a dropped 128-key tile among them."""
+    _check_bf16_tolerance(shape, fault, K.BTC_SM90_BLOCK)
+
+
+@settings(max_examples=300, deadline=None)
+@given(t=st.one_of(st.integers(0, 1 << 15), st.integers(0, 128).map(lambda n: 256 * n)),
+       inner=st.one_of(st.integers(0, 4096), st.integers(0, 40).map(lambda n: 64 * n)))
+def test_btc_supported_shapes_meet_the_sm90_kernel_preconditions(t, inner):
+    """Every shape the channel-flat route admits takes ``ur_attention_btc_sm90``
+    without masking: T a multiple of its 128-row blocks, whole 64-wide heads."""
+    if K.btc_supported(t, t, inner, 64):
+        assert t % K.BTC_SM90_BLOCK == 0 and t >= K.BTC_SM90_BLOCK and inner % 64 == 0
+        assert K._btc_dims(torch.empty(2, t, inner, device="meta")) == (2, t, inner)
+
+
+def test_btc_routes_bf16_to_the_sm90_kernel():
+    """bf16 channel-flat launches take ``ur_attention_btc_sm90``, fp32 ones the
+    FMA kernel ``ur_attention_btc``; no other wrapper changes entry."""
+    kern = K.fused_attention_btc_prescaled
+    assert kern.symbols == {torch.bfloat16: ("ur_attention_btc_sm90", K.library_sm90)}
+    assert kern.symbol == "ur_attention_btc"
+    assert all(not other.symbols for other in K.KERNELS if other is not kern)
+    assert K.SOURCE_SM90.is_file() and K.SOURCE_SM90.parent == K.SOURCE.parent
 
 
 # ---------------------------------------------------------------------------

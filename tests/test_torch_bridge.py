@@ -6,6 +6,7 @@ convert them to the port's tensors through ``unirestore_torch.bridge``.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -172,3 +173,20 @@ assert walked <= set(sys.modules), walked - set(sys.modules)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_kernels_call_no_library_kernel():
+    """The CUDA sources are hand-written kernels: none includes or calls cuBLAS,
+    cuDNN, CUTLASS's device-level GEMMs or PyTorch's operators, and each
+    includes only CUDA's own headers."""
+    sources = sorted((REPO / "unirestore_torch" / "csrc").glob("*.cu"))
+    assert {p.name for p in sources} >= {"attention.cu", "attention_sm90.cu", "grouped_conv.cu"}
+    allowed = {"cuda.h", "cudaTypedefs.h", "cuda_bf16.h", "cuda_runtime.h", "climits", "cstdint"}
+    banned = ("cublas", "cudnn", "cutlass", "torch", "at::", "scaled_dot_product")
+    for path in sources:
+        text = path.read_text()
+        includes = set(re.findall(r'^#include [<"]([^>"]+)[>"]', text, re.M))
+        assert includes <= allowed, f"{path.name}: includes {includes - allowed}"
+        code = re.sub(r"//[^\n]*", "", text).lower()
+        for word in banned:
+            assert word not in code, f"{path.name}: mentions {word} outside comments"

@@ -14,6 +14,10 @@ grouped conv ``grouped_conv.bf16_tolerance_ratio <= 1`` (two bf16 ulps plus
 through the plain versions: fp32 1e-4 (the recompute backward differentiates
 softmax_e(ln2 s) where the plain version takes exp2 and divides at the end),
 bf16 rms error <= 2^-6 of the reference's rms (chip_smoke.BWD_RMS_TOL).
+The bf16 channel-flat launches go through ``ur_attention_btc_sm90``
+(``csrc/attention_sm90.cu``), the fp32 ones through ``ur_attention_btc``; a
+selection test holds the new kernel's wgmma descriptors and TMA swizzle to
+exact answers (``pytest -k btc`` runs only these while iterating on it).
 The out-projection-fused kernel: bf16 ``bf16_out_tolerance_ratio <= 1``
 (|out - ref| <= 2^-7 |ref| + 2^-5 rms(ref), the reasoning beside it in
 ``attention_kernels.py``); fp32 1e-5 of the output's largest entry, since each
@@ -21,11 +25,13 @@ output sums ``inner`` (up to 1280) products in another order than the plain
 version's matmul.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from unirestore_torch.nn import attention as TA
 from unirestore_torch.nn import attention_kernels as K
+from unirestore_torch.nn import cuda_lib
 from unirestore_torch.nn import grouped_conv as G
 from unirestore_torch.nn import layers as TL
 
@@ -57,6 +63,9 @@ def _qkv(shape, d, dtype, seed=0):
     ("stream", (1, 1024, 512), 512),
     ("stream", (2, 2048, 256), 256),
     ("stream", (1, 1024, 384), 384),
+    ("btc", (1, 1024, 64), 64),
+    ("btc", (8, 1024, 640), 64),
+    ("btc", (1, 4096, 1280), 64),
 ])
 def test_kernel_matches_plain(cuda, dtype, name, shape, d):
     kern = {"btc": K.fused_attention_btc_prescaled, "bh": K.fused_attention_bh_prescaled,
@@ -71,6 +80,73 @@ def test_kernel_matches_plain(cuda, dtype, name, shape, d):
         assert K.bf16_tolerance_ratio(out, ref) <= 1.0
     else:
         torch.testing.assert_close(out, ref, **FP32_TOL)
+
+
+def _btc_prev(q, k, v):
+    """The mma.sync kernel of csrc/attention.cu (``ur_attention_btc``), called
+    directly: what bf16 launches took before ``ur_attention_btc_sm90``."""
+    out = torch.empty_like(q)
+    rc = K.library().ur_attention_btc(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      *q.shape, cuda_lib.DTYPE_CODES[q.dtype],
+                                      torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+def test_btc_sm90_selects_exact_rows(cuda):
+    """Each query's logits put one key (a permutation of all 1024: every key
+    tile, every row of each 128-byte swizzle atom, every ring stage) at least
+    160 above every other, so exp2 of the others is 0 in fp32 and the output
+    must equal the selected V rows bit for bit. A wrong K descriptor picks
+    another key; a wrong V descriptor, swizzle or transpose bit permutes or
+    mixes V's columns."""
+    rng = np.random.default_rng(0)
+    t, d = 1024, 64
+    codes = rng.choice([-1.0, 1.0], size=(t, d))
+    # distinct +-1 codes at Hamming distance >= 10: q_i . k_j = 8 (64 - 2 dist)
+    dist = (d - codes @ codes.T) / 2
+    np.fill_diagonal(dist, d)
+    assert dist.min() >= 10
+    perm = rng.permutation(t)
+    q = torch.tensor(8.0 * codes[perm], dtype=torch.bfloat16, device="cuda")[None]
+    k = torch.tensor(codes, dtype=torch.bfloat16, device="cuda")[None]
+    v = torch.randn((1, t, d), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(torch.bfloat16)
+    symbol, _ = K.fused_attention_btc_prescaled.route(torch.bfloat16)
+    assert symbol == "ur_attention_btc_sm90"
+    out = K.fused_attention_btc_prescaled(q, k, v)
+    torch.cuda.synchronize()
+    want = v[:, torch.from_numpy(perm).cuda()]
+    wrong = (out != want).any(-1)[0].nonzero().flatten().tolist()
+    assert not wrong, f"{len(wrong)} rows differ, first {wrong[:8]}"
+
+
+@pytest.mark.parametrize("dtype,symbol", [(torch.bfloat16, "ur_attention_btc_sm90"),
+                                          (torch.float32, "ur_attention_btc")])
+def test_btc_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbol):
+    kern = K.fused_attention_btc_prescaled
+    chosen, route = [], kern.route
+
+    def spy(dt):
+        chosen.append(route(dt)[0])
+        return route(dt)
+
+    monkeypatch.setattr(kern, "route", spy)
+    q, k, v = _qkv((1, 1024, 128), 64, dtype)
+    before = kern.launches
+    kern(q, k, v)
+    torch.cuda.synchronize()
+    assert chosen == [symbol] and kern.launches == before + 1
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 128), (1, 1280, 320), (8, 1024, 640),
+                                   (1, 4096, 1280)])
+def test_btc_sm90_matches_the_mma_sync_kernel(cuda, shape):
+    q, k, v = _qkv(shape, 64, torch.bfloat16, seed=2)
+    out = K.fused_attention_btc_prescaled(q, k, v)
+    prev = _btc_prev(q, k, v)
+    torch.cuda.synchronize()
+    assert K.bf16_tolerance_ratio(out, prev) <= 1.0
 
 
 def test_kernel_wrapper_raises_on_what_it_cannot_run(cuda):

@@ -17,10 +17,15 @@ the PV product, output divided by the row sum. The fourth then multiplies the
 (B, T, inner) result, rounded to q's dtype per head, by the out-projection
 weight ``wo`` (inner, C) in fp32 and rounds once (the bias stays with the
 caller, as in the JAX package). The kernels are hand-written
-CUDA C++ for ``sm_90a`` in ``unirestore_torch/csrc/attention.cu``: bf16 on the
-tensor cores (``mma.sync``), fp32 on CUDA-core FMAs (the source says what
-bounds them on the H100 and what the design does about it), built and bound
-by ``cuda_lib``.
+CUDA C++ for ``sm_90a`` (each source says what bounds it on the H100 and what
+its design does about it), built and bound by ``cuda_lib``:
+
+- ``csrc/attention_sm90.cu``: the bf16 channel-flat kernel
+  ``ur_attention_btc_sm90`` (``wgmma`` for both products, K and V brought by
+  TMA through a shared-memory ring, 128-query blocks);
+- ``csrc/attention.cu``: every other launch, bf16 on the tensor cores
+  (``mma.sync``) and fp32 on CUDA-core FMAs. ``fused_attention_btc_prescaled``
+  takes its fp32 launches there (``ur_attention_btc``).
 
 A wrapper given CPU tensors computes the plain PyTorch version (the CPU tests
 use it); given CUDA tensors it launches its kernel on the current stream or
@@ -54,6 +59,11 @@ LN2 = math.log(2.0)
 TRAIN_ATTN_CHUNK = 512
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "attention.cu"
+SOURCE_SM90 = SOURCE.with_name("attention_sm90.cu")
+# ur_attention_btc_sm90 takes 128-query blocks and 128-key tiles, unmasked:
+# every shape ``btc_supported`` admits has T % BTC_SM90_BLOCK == 0 (and
+# inner % 64 == 0)
+BTC_SM90_BLOCK = 128
 
 # ---------------------------------------------------------------------------
 # routing predicates (copies of pallas_attention.py's, by shape alone)
@@ -262,6 +272,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def library_sm90() -> ctypes.CDLL:
+    """``csrc/attention_sm90.cu``, built unless a library of the same source hash exists."""
+    lib = ctypes.CDLL(str(cuda_lib.build_all([SOURCE_SM90])[0]))
+    lib.ur_attention_btc_sm90.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                          + [ctypes.c_void_p])
+    lib.ur_attention_btc_sm90.restype = ctypes.c_int
+    return lib
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -289,12 +309,16 @@ class AttentionKernel(cuda_lib.KernelWrapper):
     checks the shapes against the kernel's predicate and returns the int
     arguments of the C entry ``symbol``; ``vjp`` is the backward; the output
     has q's dtype and the shape ``out_shape(q, k, v, *rest)``. ``bf16_tolerance_ratio``
-    is the limit a bf16 launch is held to against ``plain``.
+    is the limit a bf16 launch is held to against ``plain``. ``symbols`` names
+    another C entry, as (symbol, library), for the dtypes it lists; ``route``
+    gives the entry a launch of a dtype takes.
     """
 
     def __init__(self, symbol: str, plain, vjp, dims, replaces: str,
-                 out_shape=lambda q, *rest: q.shape, tolerance=bf16_tolerance_ratio):
+                 out_shape=lambda q, *rest: q.shape, tolerance=bf16_tolerance_ratio,
+                 symbols=None):
         self.symbol = symbol
+        self.symbols = symbols or {}
         self.plain = plain
         self.vjp = vjp
         self.dims = dims
@@ -305,6 +329,11 @@ class AttentionKernel(cuda_lib.KernelWrapper):
 
     def __call__(self, q, k, v, *rest):
         return _AttentionFunction.apply(self, q, k, v, *rest)
+
+    def route(self, dtype: torch.dtype) -> tuple[str, ctypes.CDLL]:
+        """(C entry, its library) of a launch in ``dtype``."""
+        symbol, lib = self.symbols.get(dtype, (self.symbol, library))
+        return symbol, lib()
 
     def forward(self, q, k, v, *rest):
         xs = (q, k, v, *rest)
@@ -328,10 +357,11 @@ class AttentionKernel(cuda_lib.KernelWrapper):
         dims = self.dims(q, *rest)
         out = torch.empty(self.out_shape(*xs), dtype=q.dtype, device=q.device)
         with torch.cuda.device(q.device):
-            rc = getattr(library(), self.symbol)(
+            symbol, lib = self.route(q.dtype)
+            rc = getattr(lib, symbol)(
                 *(x.data_ptr() for x in xs), out.data_ptr(), *dims,
                 cuda_lib.DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
-        self.counted(rc)
+        self.counted(rc, symbol)
         return out
 
 
@@ -366,7 +396,8 @@ def _btc_out_dims(q, wo):
 
 fused_attention_btc_prescaled = AttentionKernel(
     "ur_attention_btc", attention_btc_plain, attention_btc_vjp, _btc_dims,
-    "unirestore_tpu/nn/pallas_attention.py:220")
+    "unirestore_tpu/nn/pallas_attention.py:220",
+    symbols={torch.bfloat16: ("ur_attention_btc_sm90", library_sm90)})
 fused_attention_bh_prescaled = AttentionKernel(
     "ur_attention_bh", attention_bh_plain, attention_vjp, _bh_dims,
     "unirestore_tpu/nn/pallas_attention.py:32")

@@ -87,10 +87,11 @@ class KernelWrapper:
         self.recompute_launches = 0
         self.backwards = 0
 
-    def counted(self, rc: int) -> None:
-        """Check a C entry's return code (cudaGetLastError after the launch) and count it."""
+    def counted(self, rc: int, symbol: str | None = None) -> None:
+        """Check the return code of C entry ``symbol`` (default ``self.symbol``;
+        cudaGetLastError after the launch) and count the launch."""
         if rc != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc}")
+            raise RuntimeError(f"{symbol or self.symbol}: CUDA error {rc}")
         self.launches += 1
         if remat.recomputing():
             self.recompute_launches += 1
