@@ -144,7 +144,7 @@ REFERENCE_ATOL = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 # the milestone of csrc/attention_sm90.cu's redesign that ships (its head comment)
-BTC_SM90_DESIGN = "M1"
+BTC_SM90_DESIGN = "M2"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 

@@ -66,12 +66,12 @@ FAULTS = {
     # its full barrier is arrived on by hand, so its ring stage still holds
     # the tile kStages before it (the same wrong answer on every run)
     "sm90_last_tile_load_skipped": (ATTENTION_SM90, [
-        ("    mbar_expect_tx(full_bar(s), 2 * kTileBytes);\n",
-         "    if (j == n_tiles - 1) {\n"
-         "      mbar_arrive(full_bar(s));\n"
-         "      return;\n"
-         "    }\n"
-         "    mbar_expect_tx(full_bar(s), 2 * kTileBytes);\n"),
+        ("        mbar_expect_tx(full_bar(s), 2 * kTileBytes);\n",
+         "        if (j == n_tiles - 1) {\n"
+         "          mbar_arrive(full_bar(s));\n"
+         "          continue;\n"
+         "        }\n"
+         "        mbar_expect_tx(full_bar(s), 2 * kTileBytes);\n"),
     ]),
     # ur_attention_btc_sm90: V read K-major (the transpose-B bit cleared)
     "sm90_v_transpose_bit_cleared": (ATTENTION_SM90, [
@@ -79,8 +79,8 @@ FAULTS = {
     ]),
     # ur_attention_btc_sm90: O is not rescaled when the running maximum grows
     "sm90_accumulator_not_rescaled": (ATTENTION_SM90, [
-        ("oacc[4 * n + 2 * r] *= corr;", "oacc[4 * n + 2 * r] *= 1.f;"),
-        ("oacc[4 * n + 2 * r + 1] *= corr;", "oacc[4 * n + 2 * r + 1] *= 1.f;"),
+        ("oacc[4 * n + 2 * r] *= corr[r];", "oacc[4 * n + 2 * r] *= 1.f;"),
+        ("oacc[4 * n + 2 * r + 1] *= corr[r];", "oacc[4 * n + 2 * r + 1] *= 1.f;"),
     ]),
     # the last tap (dy = dx = 2) adds nothing
     "gconv_tap_dropped": (GCONV, [

@@ -19,19 +19,22 @@
 // (8, 4096, 320)), as much as the tensor-core bound, so the exp2 work has to
 // run under the products, not after them.
 //
-// Design (milestone M1 of the redesign; the mma.sync kernel of
+// Design (milestones M1 and M2 of the redesign; the mma.sync kernel of
 // csrc/attention.cu is the yardstick chip_smoke.py times beside it):
 // - A block owns (batch b, head h, 128 queries): grid (T/128, B*H), two
-//   consumer warpgroups of 64 query rows each (wgmma has M = 64).
+//   consumer warpgroups of 64 query rows each (wgmma has M = 64) and one
+//   producer warpgroup (M2), 384 threads, one block per SM.
 // - TMA brings every tile: one 3-D tensor map per operand over (inner, T, B)
 //   with a (64, 128, 1) box and 128-byte swizzle. A 64-wide bf16 head row is
 //   exactly one 128-byte swizzle span, so the channel-flat layout needs no
 //   copy or transpose. Q (16 KB) arrives once; K and V (16 KB each per
 //   128-key tile) stream through a ring of kStages stages, each guarded by a
 //   "full" mbarrier (expect_tx bytes) and an "empty" one that every consumer
-//   warp arrives on. Thread 0 issues the loads: the next load into a stage
-//   waits for the tile before it to be released. Copies need no thread
-//   arithmetic and overlap all the compute of the stages ahead.
+//   warp arrives on. One thread of the producer warpgroup issues every load
+//   (M1 had a consumer thread do it, stalling its warpgroup on the other's
+//   release); the producer drops to 24 registers (setmaxnreg) and the
+//   consumers rise to 240. Copies need no thread arithmetic and overlap all
+//   the compute of the stages ahead.
 // - S = Q K^T: wgmma m64n128k16, A and B from shared memory, K-major,
 //   128-byte-swizzle descriptors; four k-steps over d = 64, the start address
 //   advancing 32 bytes inside the swizzle atom, SBO = 1024 bytes (8 rows).
@@ -43,15 +46,17 @@
 //   layout) and B the V tile from shared memory, MN-major (d contiguous, the
 //   transpose-B immediate set): eight k-steps over 128 keys, the descriptor
 //   advancing 16 rows * 128 B = 2048 B per step.
+// - Softmax under the products (M2): a consumer issues S_j = Q K_j^T and
+//   O += P_{j-1} V_{j-1} together, waits for S_j alone, and runs the exp2 of
+//   tile j while the tensor cores finish P_{j-1} V_{j-1}; then it rescales O
+//   and packs P_j. Live registers: S (64), O (32), P (32) per thread.
 // - Epilogue: each warpgroup divides by l, rounds once to bf16 and stores its
 //   64 rows straight to global memory as bf16x2.
-// - Shared memory: 16 KB of Q + kStages * 32 KB of K/V + barriers;
-//   __launch_bounds__(256, 1). The stage count is a build-time constant
-//   (UR_BTC_SM90_STAGES, default 2), chosen on the card by
-//   tools/tune_btc_sm90.py.
-// Not yet done (ROADMAP Queue D): a producer warp with setmaxnreg and the
-// softmax of one tile under the products of another (M2), and ping-pong of
-// the two consumer warpgroups (M3).
+// - Shared memory: 16 KB of Q + kStages * 32 KB of K/V + barriers. The stage
+//   count is a build-time constant (UR_BTC_SM90_STAGES), chosen on the card
+//   by tools/tune_btc_sm90.py.
+// Not yet done (ROADMAP Queue D): ping-pong of the two consumer warpgroups,
+// one's softmax under the other's products (M3).
 //
 // btc_supported admits T >= 1024 with T % 256 == 0 and inner % 64 == 0, so
 // the 128-query and 128-key tiles need no masking; any other shape returns
@@ -69,10 +74,7 @@
 
 // build-time tuning (tools/tune_btc_sm90.py builds variants with -D)
 #ifndef UR_BTC_SM90_STAGES
-#define UR_BTC_SM90_STAGES 2
-#endif
-#ifndef UR_BTC_SM90_MIN_BLOCKS
-#define UR_BTC_SM90_MIN_BLOCKS 1
+#define UR_BTC_SM90_STAGES 3
 #endif
 
 namespace {
@@ -83,8 +85,11 @@ constexpr int kD = 64;            // head width
 constexpr int kBM = 128;          // queries per block
 constexpr int kBN = 128;          // keys per tile
 constexpr int kStages = UR_BTC_SM90_STAGES;
-constexpr int kThreads = 256;     // two consumer warpgroups
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 384;     // a producer warpgroup, two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+// registers per thread after setmaxnreg: 128 * 24 + 256 * 240 = 65,536
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 constexpr uint32_t kTileBytes = kBN * kD * 2;  // one 128 x 64 bf16 tile: 16 KB
 constexpr float kNegBig = -1e30f;
 // O += P V reads V MN-major (d contiguous): wgmma's transpose-B immediate
@@ -177,6 +182,13 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int k = 0; k < N; ++k) asm volatile("" : "+r"(r[i][k])::"memory");
+}
 
 #define UR_F8(c, a, i)                                                                    \
   c(a[i]), c(a[i + 1]), c(a[i + 2]), c(a[i + 3]), c(a[i + 4]), c(a[i + 5]), c(a[i + 6]), \
@@ -237,7 +249,52 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // kernel
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads, UR_BTC_SM90_MIN_BLOCKS)
+// online-softmax statistics of one tile of S (the accumulator layout: rows
+// g and g + 8 of the warp's 16, s[4n + {0, 1}] and s[4n + {2, 3}] at columns
+// 8n + 2 t4 + {0, 1}): s becomes exp2(s - m_new), m and l move on, and corr
+// is the factor O must be rescaled by. The four threads of a row are lanes
+// 4g .. 4g + 3.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegBig;
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n)
+      mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    corr[r] = exp2f(m[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[4 * n + e] = exp2f(s[4 * n + e] - m_new);
+        sum += s[4 * n + e];
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l[r] = l[r] * corr[r] + sum;
+    m[r] = m_new;
+  }
+}
+
+// P in bf16 as the register A operand of O += P V: keys 16 kk .. 16 kk + 15
+// are the accumulator's column blocks 2 kk (a0, a1) and 2 kk + 1 (a2, a3)
+__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&p)[kBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 attention_btc_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int seq,
                    int heads) {
@@ -254,139 +311,126 @@ attention_btc_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wg = warp >> 2;  // consumer warpgroup: query rows 64 wg .. 64 wg + 63
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+  const int wg = warp >> 2;  // 0: producer; 1, 2: consumers of query rows 64 (wg - 1) + [0, 64)
   const int q0 = blockIdx.x * kBM;
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y % heads;
   const int n_tiles = seq / kBN;
 
-  // K and V of key tile j into ring stage j % kStages, both on its full barrier
-  const CUtensorMap* k_map = &tk;
-  const CUtensorMap* v_map = &tv;
-  auto load_kv = [&](int j) {
-    const int s = j % kStages;
-    mbar_expect_tx(full_bar(s), 2 * kTileBytes);
-    tma_load_3d(k_tile(s), k_map, full_bar(s), h * kD, j * kBN, b);
-    tma_load_3d(v_tile(s), v_map, full_bar(s), h * kD, j * kBN, b);
-  };
-
   if (tid == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tq)) : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
     mbar_init(q_bar, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full_bar(s), 1);
-      mbar_init(empty_bar(s), kWarps);
+      mbar_init(empty_bar(s), kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(q_bar, kTileBytes);
-    tma_load_3d(q_tile, &tq, q_bar, h * kD, q0, b);
-    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
-  }
 
-  // per thread: S rows g, g + 8 of the warp's 16 at columns 8n + 2 t4 + {0, 1}
-  // (s[4n + {0, 1}] and s[4n + {2, 3}]), O likewise over 64 columns
-  float s[64], oacc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
-  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
-  const uint32_t q_rows = q_tile + wg * 64 * 128;  // this warpgroup's 64 rows of 128 bytes
-
-  mbar_wait(q_bar, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % kStages;
-    const uint32_t phase = (j / kStages) & 1;
-    mbar_wait(full_bar(st), phase);
-
-    // S = Q K^T over d = 64: four k-steps of 16 (32 bytes inside the swizzle atom)
-    wgmma_fence();
-    wgmma_m64n128k16_ss<false>(s, desc_sw128(q_rows), desc_sw128(k_tile(st)));
-#pragma unroll
-    for (int kk = 1; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss<true>(s, desc_sw128(q_rows + 32 * kk),
-                                desc_sw128(k_tile(st) + 32 * kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    // online softmax on rows g (r = 0) and g + 8 (r = 1); the four threads of
-    // a row are lanes 4g .. 4g + 3
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegBig;
-#pragma unroll
-      for (int n = 0; n < kBN / 8; ++n)
-        mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float corr = exp2f(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < kBN / 8; ++n) {
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          s[4 * n + e] = exp2f(s[4 * n + e] - m_new);
-          sum += s[4 * n + e];
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[r] = l[r] * corr + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        oacc[4 * n + 2 * r] *= corr;
-        oacc[4 * n + 2 * r + 1] *= corr;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full; the warpgroup gives its
+    // registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      const CUtensorMap* k_map = &tk;
+      const CUtensorMap* v_map = &tv;
+      mbar_expect_tx(q_bar, kTileBytes);
+      tma_load_3d(q_tile, &tq, q_bar, h * kD, q0, b);
+      // K and V of key tile j into ring stage j % kStages once the consumers
+      // have released the tile kStages before it, both on its full barrier
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty_bar(s), ((j / kStages) - 1) & 1);
+        mbar_expect_tx(full_bar(s), 2 * kTileBytes);
+        tma_load_3d(k_tile(s), k_map, full_bar(s), h * kD, j * kBN, b);
+        tma_load_3d(v_tile(s), v_map, full_bar(s), h * kD, j * kBN, b);
       }
     }
-    // P in bf16 as the register A operand: keys 16 kk .. 16 kk + 15 are the
-    // accumulator's column blocks 2 kk (a0, a1) and 2 kk + 1 (a2, a3)
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int cw = wg - 1;
+    const uint32_t q_rows = q_tile + cw * 64 * 128;  // this warpgroup's 64 rows of 128 bytes
+    auto qk = [&](float (&s)[64], int st) {  // S = Q K^T: four k-steps of 16 over d = 64
+      wgmma_m64n128k16_ss<false>(s, desc_sw128(q_rows), desc_sw128(k_tile(st)));
+#pragma unroll
+      for (int kk = 1; kk < kD / 16; ++kk)
+        wgmma_m64n128k16_ss<true>(s, desc_sw128(q_rows + 32 * kk),
+                                  desc_sw128(k_tile(st) + 32 * kk));
+      wgmma_commit();
+    };
+    auto pv = [&](float (&oacc)[32], const uint32_t (&p)[kBN / 16][4], int st) {
+      // O += P V: eight k-steps of 16 keys (16 rows of 128 bytes each)
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_m64n64k16_rs(oacc, p[kk], desc_sw128(v_tile(st) + 2048 * kk));
+      wgmma_commit();
+    };
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(st));
+    };
+
+    float s[64], oacc[32], m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, corr[2];
     uint32_t p[kBN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
 
-    // O += P V: eight k-steps of 16 keys (16 rows of 128 bytes each)
+    // tile 0: S alone, its softmax, P
+    mbar_wait(q_bar, 0);
+    mbar_wait(full_bar(0), 0);
     wgmma_fence();
+    qk(s, 0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_tile(s, m, l, corr);
+    pack_p(s, p);
+
+    // tile j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} issued together; the
+    // softmax of S_j runs while the tensor cores finish P_{j-1} V_{j-1}
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      const int prev = (j - 1) % kStages;
+      mbar_wait(full_bar(st), (j / kStages) & 1);
+      wgmma_fence();
+      qk(s, st);
+      pv(oacc, p, prev);
+      wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
+      fence_regs(s);
+      softmax_tile(s, m, l, corr);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      fence_regs(p);
+      release(prev);
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_m64n64k16_rs(oacc, p[kk], desc_sw128(v_tile(st) + 2048 * kk));
-    wgmma_commit();
+      for (int n = 0; n < kD / 8; ++n) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          oacc[4 * n + 2 * r] *= corr[r];
+          oacc[4 * n + 2 * r + 1] *= corr[r];
+        }
+      }
+      pack_p(s, p);
+    }
+    wgmma_fence();
+    pv(oacc, p, (n_tiles - 1) % kStages);
     wgmma_wait<0>();
     fence_regs(oacc);
+    release((n_tiles - 1) % kStages);
 
-    // release the stage; thread 0 refills it with tile j + kStages once every
-    // warp has released it
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar(st));
-    if (tid == 0 && j + kStages < n_tiles) {
-      mbar_wait(empty_bar(st), phase);
-      load_kv(j + kStages);
+    // epilogue: divide by the row sum, round once, store bf16x2 rows
+    const int inner = heads * kD;
+    const int row = q0 + cw * 64 + (warp & 3) * 16 + g;
+    bf16* ob = o + ((long long)b * seq + row) * inner + h * kD + 2 * t4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = 1.f / l[r];
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(8 * r) * inner + 8 * n) =
+            __floats2bfloat162_rn(oacc[4 * n + 2 * r] * inv, oacc[4 * n + 2 * r + 1] * inv);
     }
-    __syncwarp();
-  }
-
-  const int inner = heads * kD;
-  const int row = q0 + wg * 64 + (warp & 3) * 16 + g;
-  bf16* ob = o + ((long long)b * seq + row) * inner + h * kD + 2 * t4;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / l[r];
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(8 * r) * inner + 8 * n) =
-          __floats2bfloat162_rn(oacc[4 * n + 2 * r] * inv, oacc[4 * n + 2 * r + 1] * inv);
   }
 }
 
