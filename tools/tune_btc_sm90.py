@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time build-time variants of ``csrc/attention_sm90.cu`` at the main-path shapes.
 
-Builds the source once per K/V ring stage count (``UR_BTC_SM90_STAGES``), all
+Builds the source once per variant (a set of its build-time constants
+``UR_BTC_SM90_<NAME>``, such as ``STAGES``, the K/V ring's stage count), all
 ``nvcc`` runs at once, into ``--workdir``;
 then, at each ``ur_attention_btc_sm90`` shape of the 512 px batch-8 main path
 (``chip_smoke.kernel_shapes``, the same seeded inputs), checks every variant
@@ -10,7 +11,7 @@ against the plain version (``bf16_tolerance_ratio``) and times it beside the
 card, each variant's ptxas lines and one JSON line per shape. Run on a
 machine with one CUDA device:
 
-    python3 tools/tune_btc_sm90.py [--stages 2,3,4]
+    python3 tools/tune_btc_sm90.py [--variants "STAGES=2;STAGES=3;STAGES=4"]
 """
 
 from __future__ import annotations
@@ -27,24 +28,25 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 
-def build(stage_counts, workdir: Path) -> dict:
+def build(variants, workdir: Path) -> dict:
     from unirestore_torch.nn import attention_kernels as K
     from unirestore_torch.nn import cuda_lib
 
     workdir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for stages in stage_counts:
-        lib = workdir / f"attention_sm90-s{stages}.so"
-        procs[stages] = (lib, subprocess.Popen(
-            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, f"-DUR_BTC_SM90_STAGES={stages}",
-             "-o", str(lib), str(K.SOURCE_SM90)],
+    for i, variant in enumerate(variants):
+        lib = workdir / f"attention_sm90-v{i}.so"
+        defines = [f"-DUR_BTC_SM90_{kv}" for kv in variant.split(",") if kv]
+        procs[variant] = (lib, subprocess.Popen(
+            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, *defines, "-o", str(lib),
+             str(K.SOURCE_SM90)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (lib, proc) in procs.items():
         out, _ = proc.communicate()
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line:
-                print(f"ptxas stages={key}: {line.strip()}", flush=True)
+                print(f"ptxas {key}: {line.strip()}", flush=True)
         if proc.returncode != 0:
             raise RuntimeError(f"variant {key}: nvcc failed:\n{out}")
         fn = ctypes.CDLL(str(lib)).ur_attention_btc_sm90
@@ -56,7 +58,8 @@ def build(stage_counts, workdir: Path) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--stages", default="2,3,4", help="comma-separated stage counts")
+    ap.add_argument("--variants", default="STAGES=2;STAGES=3;STAGES=4",
+                    help="';'-separated variants, each ','-separated NAME=VALUE")
     ap.add_argument("--workdir", type=Path, default=REPO / "unirestore_torch" / "_build" / "tune")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -72,7 +75,7 @@ def main() -> int:
         print("tune_btc_sm90: no CUDA device", file=sys.stderr)
         return 2
     print(CS.card_line(), flush=True)
-    fns = build([int(s) for s in args.stages.split(",")], args.workdir)
+    fns = build(args.variants.split(";"), args.workdir)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -95,7 +98,7 @@ def main() -> int:
                 continue
             (q, k, v), d = CS.kernel_inputs(K, kern, shape, heads, gen)
             ref = K.attention_btc_plain(q, k, v)
-            runs = {f"stages{s}": launcher(fn, q, k, v) for s, fn in fns.items()}
+            runs = {variant: launcher(fn, q, k, v) for variant, fn in fns.items()}
             runs["mma_sync"] = launcher(K.library().ur_attention_btc, q, k, v)
             split = [x.view(shape[0], shape[1], heads, d).transpose(1, 2) for x in (q, k, v)]
             runs["sdpa"] = lambda: F.scaled_dot_product_attention(*split, scale=math.log(2.0))
