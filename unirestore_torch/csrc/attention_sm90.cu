@@ -50,13 +50,21 @@
 //   O += P_{j-1} V_{j-1} together, waits for S_j alone, and runs the exp2 of
 //   tile j while the tensor cores finish P_{j-1} V_{j-1}; then it rescales O
 //   and packs P_j. Live registers: S (64), O (32), P (32) per thread.
+// - exp2 is one ex2.approx.ftz instruction: exp2f's handling of subnormal
+//   results cost the softmax about a sixth of the kernel's time at T = 4096
+//   (tools/tune_btc_sm90.py on an H100). A probability below 2^-126 of its
+//   row's maximum becomes 0, far under the bf16 rounding the product applies.
 // - Epilogue: each warpgroup divides by l, rounds once to bf16 and stores its
 //   64 rows straight to global memory as bf16x2.
-// - Shared memory: 16 KB of Q + kStages * 32 KB of K/V + barriers. The stage
-//   count is a build-time constant (UR_BTC_SM90_STAGES), chosen on the card
-//   by tools/tune_btc_sm90.py.
-// Not yet done (ROADMAP Queue D): ping-pong of the two consumer warpgroups,
-// one's softmax under the other's products (M3).
+// - Shared memory: 16 KB of Q + kStages * 32 KB of K/V + barriers, 113 KB at
+//   three stages; 384 threads at 168 registers fill the register file, so
+//   one block per SM. The stage count is a build-time constant
+//   (UR_BTC_SM90_STAGES), chosen on the card by tools/tune_btc_sm90.py:
+//   three; two leave the producer waiting for a release, four gain nothing.
+// Tried and left out: ping-pong of the two consumer warpgroups on named
+// barriers, one's softmax under the other's products (M3). It gained 6 %
+// with exp2f and lost 2-3 % at T = 4096 with ex2.approx.ftz, where the
+// exp2 no longer bounds the softmax.
 //
 // btc_supported admits T >= 1024 with T % 256 == 0 and inner % 64 == 0, so
 // the 128-query and 128-key tiles need no masking; any other shape returns
@@ -75,12 +83,6 @@
 // build-time tuning (tools/tune_btc_sm90.py builds variants with -D)
 #ifndef UR_BTC_SM90_STAGES
 #define UR_BTC_SM90_STAGES 3
-#endif
-#ifndef UR_BTC_SM90_PINGPONG
-#define UR_BTC_SM90_PINGPONG 1
-#endif
-#ifndef UR_BTC_SM90_EX2_FTZ
-#define UR_BTC_SM90_EX2_FTZ 1
 #endif
 
 namespace {
@@ -110,23 +112,12 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return size_t(kTileBytes) * (1 + 2 * kStages) + 8 * (1 + 2 * kStages) + 1024;
 }
 
-// 2^x; ex2.approx.ftz flushes results below 2^-126 to 0
-__device__ __forceinline__ float exp2_(float x) {
-#if UR_BTC_SM90_EX2_FTZ
+// 2^x in one special-function instruction; results below 2^-126 flush to 0
+// (exp2f adds the instructions that keep them subnormal)
+__device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-#else
-  return exp2f(x);
-#endif
-}
-
-// named barriers 1 and 2 over the two consumer warpgroups (256 threads)
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -290,13 +281,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m[r], mx);
-    corr[r] = exp2_(m[r] - m_new);
+    corr[r] = exp2_ftz(m[r] - m_new);
     float sum = 0.f;
 #pragma unroll
     for (int n = 0; n < kBN / 8; ++n) {
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
-        s[4 * n + e] = exp2_(s[4 * n + e] - m_new);
+        s[4 * n + e] = exp2_ftz(s[4 * n + e] - m_new);
         sum += s[4 * n + e];
       }
     }
@@ -396,18 +387,6 @@ attention_btc_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_bar(st));
     };
-    // ping-pong (M3): the two consumer warpgroups take turns to issue their
-    // products, so one's softmax runs while the other's products do. Each
-    // issue waits on its own named barrier (1 + cw) and then arrives on the
-    // other's; warpgroup 1 opens with an arrival so warpgroup 0 goes first,
-    // and leaves out its last arrival, which no issue would wait for.
-    auto turn = [&]() {
-      if (UR_BTC_SM90_PINGPONG) bar_sync(1 + cw);
-    };
-    auto pass = [&](bool last) {
-      if (UR_BTC_SM90_PINGPONG && !(last && cw == 1)) bar_arrive(2 - cw);
-    };
-    if (UR_BTC_SM90_PINGPONG && cw == 1) bar_arrive(1);
 
     float s[64], oacc[32], m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, corr[2];
     uint32_t p[kBN / 16][4];
@@ -417,10 +396,8 @@ attention_btc_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // tile 0: S alone, its softmax, P
     mbar_wait(q_bar, 0);
     mbar_wait(full_bar(0), 0);
-    turn();
     wgmma_fence();
     qk(s, 0);
-    pass(false);
     wgmma_wait<0>();
     fence_regs(s);
     softmax_tile(s, m, l, corr);
@@ -432,11 +409,9 @@ attention_btc_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
       const int st = j % kStages;
       const int prev = (j - 1) % kStages;
       mbar_wait(full_bar(st), (j / kStages) & 1);
-      turn();
       wgmma_fence();
       qk(s, st);
       pv(oacc, p, prev);
-      pass(false);
       wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
       fence_regs(s);
       softmax_tile(s, m, l, corr);
@@ -454,10 +429,8 @@ attention_btc_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
       }
       pack_p(s, p);
     }
-    turn();
     wgmma_fence();
     pv(oacc, p, (n_tiles - 1) % kStages);
-    pass(true);
     wgmma_wait<0>();
     fence_regs(oacc);
     release((n_tiles - 1) % kStages);
