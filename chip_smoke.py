@@ -17,9 +17,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    out-projection-fused kernel, which no single PyTorch call matches, the
    unfused pairs ``ur_attention_btc`` + cuBLAS and SDPA + ``torch.matmul``
    instead; for the channel-flat kernel, whose bf16 launches take
-   ``ur_attention_btc_sm90`` (``csrc/attention_sm90.cu``), also the time of
-   the ``mma.sync`` kernel of ``csrc/attention.cu`` it replaced (``prev_ms``,
-   called directly as a yardstick, timed in turns with the kernel); and each
+   ``ur_attention_btc_sm90`` (``csrc/attention_sm90.cu``), also its C entry
+   and that of the ``mma.sync`` kernel of ``csrc/attention.cu`` it replaced
+   called directly and timed in turns (``direct_ms``, ``prev_ms``; the
+   latter a yardstick only); and each
    attention kernel's gradient (its autograd function) against autograd
    through its plain version at one main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
@@ -257,16 +258,16 @@ def kernel_source(K, G, kern) -> str:
     return str(src.relative_to(REPO))
 
 
-def btc_prev(K, q, k, v):
-    """``ur_attention_btc`` of csrc/attention.cu (the ``mma.sync`` kernel bf16
-    launches took before ``ur_attention_btc_sm90``), called directly: a
-    yardstick, never routed."""
+def btc_direct(entry, q, k, v):
+    """A channel-flat C entry called directly through ctypes, without the
+    wrapper's checks and autograd: ``ur_attention_btc_sm90``, or the
+    ``mma.sync`` kernel of csrc/attention.cu that bf16 launches took before it
+    (``ur_attention_btc``, a yardstick, never routed)."""
     out = torch.empty_like(q)
-    rc = K.library().ur_attention_btc(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      *q.shape, 1 if q.dtype == torch.bfloat16 else 0,
-                                      torch.cuda.current_stream().cuda_stream)
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.shape,
+               1 if q.dtype == torch.bfloat16 else 0, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ur_attention_btc: CUDA error {rc}")
+        raise RuntimeError(f"{entry.__name__}: CUDA error {rc}")
     return out
 
 
@@ -305,17 +306,18 @@ def check_kernel(K, kern, shape, heads, gen):
 
     extra = {}
     if kern is K.fused_attention_btc_prescaled:
-        # the mma.sync kernel it replaced, against the same plain version, and
-        # both timed in turns (kernel, previous, previous, kernel)
-        prev = btc_prev(K, q, k, v)
-        extra["prev_tolerance_ratio"] = kern.bf16_tolerance_ratio(prev, kern.plain(*xs))
+        # the mma.sync kernel it replaced, against the same plain version; the
+        # two C entries called directly and timed in turns (new, previous,
+        # previous, new), since at T = 1024 the wrapper's host time per call
+        # exceeds the kernel's
+        new, prev = K.library_sm90().ur_attention_btc_sm90, K.library().ur_attention_btc
+        extra["prev_tolerance_ratio"] = kern.bf16_tolerance_ratio(btc_direct(prev, q, k, v),
+                                                                  kern.plain(*xs))
         if extra["prev_tolerance_ratio"] > 1.0:
             raise AssertionError(f"ur_attention_btc {shape}: disagrees with the plain version")
-        turns = [cuda_ms(fn, 10) for fn in (lambda: kern(*xs), lambda: btc_prev(K, q, k, v),
-                                             lambda: btc_prev(K, q, k, v), lambda: kern(*xs))]
-        ms, extra["prev_ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    else:
-        ms = cuda_ms(lambda: kern(*xs), 10)
+        turns = [cuda_ms(lambda e=e: btc_direct(e, q, k, v), 10) for e in (new, prev, prev, new)]
+        extra["direct_ms"], extra["prev_ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    ms = cuda_ms(lambda: kern(*xs), 10)
     plain_ms = cuda_ms(lambda: kern.plain(*xs), 3)
     flops = 4.0 * n * heads * t * t * d
     nbytes = 4.0 * q.numel() * q.element_size()
@@ -339,7 +341,8 @@ def check_kernel(K, kern, shape, heads, gen):
                   f"btc+matmul {extra['unfused_ms']:.3f} ms sdpa+matmul "
                   f"{extra['sdpa_matmul_ms']:.3f} ms")
     if "prev_ms" in extra:
-        yardsticks += (f" prev (mma.sync) {extra['prev_ms']:.3f} ms, tolerance ratio "
+        yardsticks += (f" | direct calls: {extra['direct_ms']:.3f} ms, prev (mma.sync) "
+                       f"{extra['prev_ms']:.3f} ms, its tolerance ratio "
                        f"{extra['prev_tolerance_ratio']:.3f}")
     log(f"kernel {kern.symbol} {tuple(shape)} d={d}: max_abs {err['max_abs_err']:.3e} "
         f"rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} tolerance ratio "
@@ -921,7 +924,7 @@ def main() -> int:
             "library_ms": None if None in library else sum(library),
             "shapes": r,
         }
-        for key in ("unfused_ms", "sdpa_matmul_ms", "prev_ms"):
+        for key in ("unfused_ms", "sdpa_matmul_ms", "direct_ms", "prev_ms"):
             if key in r[0]:
                 entry[key] = sum(x[key] for x in r)
         if kern is K.fused_attention_btc_prescaled:

@@ -29,9 +29,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from unirestore_torch.nn import attention as TA
 from unirestore_torch.nn import attention_kernels as K
-from unirestore_torch.nn import cuda_lib
 from unirestore_torch.nn import grouped_conv as G
 from unirestore_torch.nn import layers as TL
 
@@ -80,17 +80,6 @@ def test_kernel_matches_plain(cuda, dtype, name, shape, d):
         assert K.bf16_tolerance_ratio(out, ref) <= 1.0
     else:
         torch.testing.assert_close(out, ref, **FP32_TOL)
-
-
-def _btc_prev(q, k, v):
-    """The mma.sync kernel of csrc/attention.cu (``ur_attention_btc``), called
-    directly: what bf16 launches took before ``ur_attention_btc_sm90``."""
-    out = torch.empty_like(q)
-    rc = K.library().ur_attention_btc(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      *q.shape, cuda_lib.DTYPE_CODES[q.dtype],
-                                      torch.cuda.current_stream().cuda_stream)
-    assert rc == 0
-    return out
 
 
 def test_btc_sm90_selects_exact_rows(cuda):
@@ -144,7 +133,7 @@ def test_btc_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbo
 def test_btc_sm90_matches_the_mma_sync_kernel(cuda, shape):
     q, k, v = _qkv(shape, 64, torch.bfloat16, seed=2)
     out = K.fused_attention_btc_prescaled(q, k, v)
-    prev = _btc_prev(q, k, v)
+    prev = chip_smoke.btc_direct(K.library().ur_attention_btc, q, k, v)
     torch.cuda.synchronize()
     assert K.bf16_tolerance_ratio(out, prev) <= 1.0
 

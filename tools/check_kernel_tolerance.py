@@ -12,7 +12,8 @@ and the grouped conv (``csrc/grouped_conv.cu``). It prints one JSON line per
 fault, kernel and shape, and exits 0 only if the unchanged copy (``none``)
 agrees at every shape and every planted fault is rejected at every shape of
 the kernels it reaches: those whose bf16 launches run the source it was
-planted in, or the ones a fault names in ``ONLY``. Run on a machine with one
+planted in, or the ones a fault names in ``ONLY``. A fault that stops a
+kernel with a CUDA error counts as rejected, with the error in its line. Run on a machine with one
 CUDA device, with a work directory outside the repository:
 
     python3 tools/check_kernel_tolerance.py --workdir /tmp/kernel-faults
@@ -130,10 +131,15 @@ def child(root: Path) -> int:
     with torch.inference_mode():
         for kern, shape, heads in CS.kernel_shapes(K):
             xs, _ = CS.kernel_inputs(K, kern, shape, heads, gen)
-            err = CS.compare_kernel(kern, *xs)
-            source = Path(CS.kernel_source(K, G, kern)).name
-            print(json.dumps({"kernel": kern.symbol, "source": source, "shape": list(shape),
-                              **err}), flush=True)
+            row = {"kernel": kern.symbol, "source": Path(CS.kernel_source(K, G, kern)).name,
+                   "shape": list(shape)}
+            try:  # a fault that stops the kernel shows here, named, not in a later call
+                kern(*xs)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                print(json.dumps({**row, "error": str(e).strip().splitlines()[0]}), flush=True)
+                return 1
+            print(json.dumps({**row, **CS.compare_kernel(kern, *xs)}), flush=True)
             del xs
         for shape in CS.gconv_shapes():
             err = CS.compare_gconv(G, *CS.gconv_inputs(shape, gen))
@@ -175,14 +181,22 @@ def main() -> int:
     for fault, root in roots.items():
         source = FAULTS[fault][0]
         res = subprocess.run([sys.executable, __file__, "--child", str(root)],
-                             capture_output=True, text=True, check=True)
+                             capture_output=True, text=True)
+        if res.returncode != 0 and '"error"' not in res.stdout:
+            error = res.stderr.strip().splitlines()[-1:] or [f"exit {res.returncode}"]
+            ok &= fault != "none"
+            print(json.dumps({"fault": fault, "rejected": True, "source": source,
+                              "error": error[0]}), flush=True)
+        # a fault that stops a kernel (a launch error, an illegal address) is
+        # rejected too: its row holds the error, and the copy's later rows are
+        # lost with the CUDA context
         for line in res.stdout.splitlines():
             row = json.loads(line)
             if source is not None and row["source"] != source:
                 continue  # the other source is unchanged in this copy
             if fault in ONLY and row["kernel"] not in ONLY[fault]:
                 continue  # the fault lies in another kernel's code
-            rejected = row["tolerance_ratio"] > 1.0
+            rejected = "error" in row or row["tolerance_ratio"] > 1.0
             ok &= rejected == (fault != "none")
             print(json.dumps({"fault": fault, "rejected": rejected, **row}), flush=True)
     print(json.dumps({"tolerance_rejects_every_fault_and_passes_the_kernel": ok}))

@@ -42,7 +42,8 @@ from unirestore_torch.models import unirestore as UR  # noqa: E402
 
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
-    ("attention_fwd", "attention kernels (this repo)"),
+    ("attention_btc_sm90", "channel-flat attention kernel (this repo, attention_sm90.cu)"),
+    ("attention_fwd", "attention kernels (this repo, attention.cu)"),
     ("gconv3_", "grouped-conv kernel (this repo)"),
     ("conv", "convolution (cuDNN)"), ("xmma", "convolution (cuDNN)"),
     ("implicit_gemm", "convolution (cuDNN)"), ("winograd", "convolution (cuDNN)"),
@@ -103,7 +104,9 @@ def profile_restore() -> None:
     _, restore = CS.restore_inputs(UR, cfg, frozen, trainable, gen)
     restore(cfg, 1)
     torch.cuda.synchronize()
-    for mode, stride, warmup in CS.MODES:
+    # the unfused cache modes of chip_smoke.py phase 4, once each
+    modes = {mode: (stride, warmup) for _, mode, stride, warmup, fused in CS.RUNS if not fused}
+    for mode, (stride, warmup) in modes.items():
         c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride,
                                 cache_warmup=warmup)
         profiled({"mode": mode, "stride": stride, "warmup": warmup},

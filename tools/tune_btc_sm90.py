@@ -69,27 +69,13 @@ def main() -> int:
 
     import chip_smoke as CS
     from unirestore_torch.nn import attention_kernels as K
-    from unirestore_torch.nn import cuda_lib
 
     if not torch.cuda.is_available():
         print("tune_btc_sm90: no CUDA device", file=sys.stderr)
         return 2
     print(CS.card_line(), flush=True)
     fns = build(args.variants.split(";"), args.workdir)
-    stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def launcher(fn, q, k, v):
-        out = torch.empty_like(q)
-        b, t, inner = q.shape
-
-        def run():
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, inner,
-                    cuda_lib.DTYPE_CODES[q.dtype], stream)
-            if rc != 0:
-                raise RuntimeError(f"CUDA error {rc}")
-            return out
-        return run
 
     ok = True
     with torch.inference_mode():
@@ -98,8 +84,8 @@ def main() -> int:
                 continue
             (q, k, v), d = CS.kernel_inputs(K, kern, shape, heads, gen)
             ref = K.attention_btc_plain(q, k, v)
-            runs = {variant: launcher(fn, q, k, v) for variant, fn in fns.items()}
-            runs["mma_sync"] = launcher(K.library().ur_attention_btc, q, k, v)
+            entries = {**fns, "mma_sync": K.library().ur_attention_btc}
+            runs = {name: (lambda e=e: CS.btc_direct(e, q, k, v)) for name, e in entries.items()}
             split = [x.view(shape[0], shape[1], heads, d).transpose(1, 2) for x in (q, k, v)]
             runs["sdpa"] = lambda: F.scaled_dot_product_attention(*split, scale=math.log(2.0))
             row = {"shape": list(shape), "heads": heads}
