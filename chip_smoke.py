@@ -20,9 +20,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``ur_attention_btc_sm90`` (``csrc/attention_sm90.cu``), also its C entry
    and that of the ``mma.sync`` kernel of ``csrc/attention.cu`` it replaced
    called directly and timed in turns (``direct_ms``, ``prev_ms``; the
-   latter a yardstick only); and each
-   attention kernel's gradient (its autograd function) against autograd
-   through its plain version at one main-path shape;
+   latter a yardstick only); and each attention kernel's gradient (its
+   autograd function) against autograd through its plain version at one
+   main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
    bf16, 20 DDIM steps) in the exact, encoder (stride 2) and deep (stride
    17, warmup 3) modes, and exact with the out-projection-fused attention
