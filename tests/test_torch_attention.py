@@ -193,7 +193,7 @@ def test_bf16_tolerance_passes_128_key_tiles_and_rejects_faults(shape, fault):
     _check_bf16_tolerance(shape, fault, K.BTC_SM90_BLOCK)
 
 
-@settings(max_examples=300, deadline=None)
+@settings(max_examples=300, deadline=None, database=None)
 @given(t=st.one_of(st.integers(0, 1 << 15), st.integers(0, 128).map(lambda n: 256 * n)),
        inner=st.one_of(st.integers(0, 4096), st.integers(0, 40).map(lambda n: 64 * n)))
 def test_btc_supported_shapes_meet_the_sm90_kernel_preconditions(t, inner):
