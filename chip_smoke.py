@@ -20,7 +20,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``ur_attention_btc_sm90`` (``csrc/attention_sm90.cu``), also its C entry
    and that of the ``mma.sync`` kernel of ``csrc/attention.cu`` it replaced
    called directly and timed in turns (``direct_ms``, ``prev_ms``; the
-   latter a yardstick only); and each attention kernel's gradient (its
+   latter a yardstick only) with the host time of one call of each and of
+   the wrapper (``*_host_us``); and each attention kernel's gradient (its
    autograd function) against autograd through its plain version at one
    main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
@@ -173,6 +174,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, reps: int = 20) -> float:
+    """Host microseconds per call of ``fn``: the loop does not synchronise, so
+    the card's time stays hidden while the queue of launches has room."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return sec / reps * 1e6
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """(least ms, what bounds it) at the card's peak bf16 rate and memory rate."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
@@ -247,14 +261,10 @@ def gconv_inputs(shape, gen, dtype=torch.bfloat16):
     return x, w.contiguous(memory_format=torch.channels_last), b
 
 
-def kernel_source(K, G, kern) -> str:
-    """The source, in the repository, of a kernel's bf16 main-path launches."""
-    if kern is G.grouped_conv3:
-        src = G.SOURCE
-    elif kern is K.fused_attention_btc_prescaled:
-        src = K.SOURCE_SM90
-    else:
-        src = K.SOURCE
+def kernel_source(G, kern) -> str:
+    """The source, in the repository, of a kernel's bf16 main-path launches
+    (an attention kernel's is its wrapper's bf16 entry)."""
+    src = G.SOURCE if kern is G.grouped_conv3 else kern.entry(torch.bfloat16)[2]
     return str(src.relative_to(REPO))
 
 
@@ -317,6 +327,16 @@ def check_kernel(K, kern, shape, heads, gen):
             raise AssertionError(f"ur_attention_btc {shape}: disagrees with the plain version")
         turns = [cuda_ms(lambda e=e: btc_direct(e, q, k, v), 10) for e in (new, prev, prev, new)]
         extra["direct_ms"], extra["prev_ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        # the host time of one call of each C entry (the same ctypes call into
+        # a preallocated output: the difference is the entry's own host work,
+        # the tensor maps of the new one) and of the wrapper, in turns
+        out = torch.empty_like(q)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape, 1,
+                torch.cuda.current_stream().cuda_stream)
+        turns = [host_us(lambda e=e: e(*args)) for e in (new, prev, prev, new)]
+        extra["direct_host_us"] = (turns[0] + turns[3]) / 2
+        extra["prev_host_us"] = (turns[1] + turns[2]) / 2
+        extra["wrapper_host_us"] = host_us(lambda: kern(*xs))
     ms = cuda_ms(lambda: kern(*xs), 10)
     plain_ms = cuda_ms(lambda: kern.plain(*xs), 3)
     flops = 4.0 * n * heads * t * t * d
@@ -343,7 +363,9 @@ def check_kernel(K, kern, shape, heads, gen):
     if "prev_ms" in extra:
         yardsticks += (f" | direct calls: {extra['direct_ms']:.3f} ms, prev (mma.sync) "
                        f"{extra['prev_ms']:.3f} ms, its tolerance ratio "
-                       f"{extra['prev_tolerance_ratio']:.3f}")
+                       f"{extra['prev_tolerance_ratio']:.3f} | host per call: C entry "
+                       f"{extra['direct_host_us']:.1f} us, prev {extra['prev_host_us']:.1f} us, "
+                       f"wrapper {extra['wrapper_host_us']:.1f} us")
     log(f"kernel {kern.symbol} {tuple(shape)} d={d}: max_abs {err['max_abs_err']:.3e} "
         f"rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} tolerance ratio "
         f"{err['tolerance_ratio']:.3f} | {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s) "
@@ -914,7 +936,7 @@ def main() -> int:
         library = [x["library_ms"] for x in r]
         entry = {
             "name": kern.symbol, "route": "cuda", "status": "ported",
-            "source": kernel_source(K, G, kern), "replaces": kern.replaces,
+            "source": kernel_source(G, kern), "replaces": kern.replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in r),
@@ -927,8 +949,10 @@ def main() -> int:
         for key in ("unfused_ms", "sdpa_matmul_ms", "direct_ms", "prev_ms"):
             if key in r[0]:
                 entry[key] = sum(x[key] for x in r)
-        if kern is K.fused_attention_btc_prescaled:
-            entry["symbols"] = {"bfloat16": "ur_attention_btc_sm90", "float32": "ur_attention_btc"}
+        if getattr(kern, "symbols", None):  # an entry per dtype, as the wrapper routes them
+            entry["symbols"] = {str(dt).removeprefix("torch."): kern.entry(dt)[0]
+                                for dt in (torch.bfloat16, torch.float32)}
+        if entry["source"] == str(K.SOURCE_SM90.relative_to(REPO)):
             entry["design"] = BTC_SM90_DESIGN
         if kern.symbol in backward:
             entry["backward"] = backward[kern.symbol]

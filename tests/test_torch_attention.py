@@ -208,8 +208,8 @@ def test_btc_routes_bf16_to_the_sm90_kernel():
     """bf16 channel-flat launches take ``ur_attention_btc_sm90``, fp32 ones the
     FMA kernel ``ur_attention_btc``; no other wrapper changes entry."""
     kern = K.fused_attention_btc_prescaled
-    assert kern.symbols == {torch.bfloat16: ("ur_attention_btc_sm90", K.library_sm90)}
-    assert kern.symbol == "ur_attention_btc"
+    assert kern.entry(torch.bfloat16) == ("ur_attention_btc_sm90", K.library_sm90, K.SOURCE_SM90)
+    assert kern.entry(torch.float32) == ("ur_attention_btc", K.library, K.SOURCE)
     assert all(not other.symbols for other in K.KERNELS if other is not kern)
     assert K.SOURCE_SM90.is_file() and K.SOURCE_SM90.parent == K.SOURCE.parent
 

@@ -1,0 +1,101 @@
+"""The planted-fault check (``tools/check_kernel_tolerance.py``) on the CPU.
+
+The check itself runs on a card; here its fault edits are planted into copies
+of the CUDA sources, the source each kernel's rows are filed under is read
+from the wrappers' routing, and ``judge`` is held to its rule: a fault is
+rejected only by the tolerance or by a CUDA error of a kernel it reaches,
+and any other failure of a copy fails the check.
+"""
+
+import importlib.util
+import json
+import shutil
+from pathlib import Path
+
+import pytest
+import torch
+
+import chip_smoke
+from unirestore_torch.nn import attention_kernels as K
+from unirestore_torch.nn import grouped_conv as G
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _tool():
+    spec = importlib.util.spec_from_file_location(
+        "check_kernel_tolerance", REPO / "tools" / "check_kernel_tolerance.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CK = _tool()
+
+
+@pytest.mark.parametrize("fault", [f for f in CK.FAULTS if f != "none"])
+def test_each_fault_plants_into_its_source(tmp_path, fault):
+    source, edits = CK.FAULTS[fault]
+    csrc = tmp_path / "unirestore_torch" / "csrc"
+    shutil.copytree(REPO / "unirestore_torch" / "csrc", csrc)
+    before = (csrc / source).read_text()
+    CK.plant(tmp_path, source, edits)
+    after = (csrc / source).read_text()
+    assert after != before
+    for _, new in edits:
+        assert new in after
+
+
+def test_rows_are_filed_under_each_kernels_bf16_source():
+    """The attend_mma faults reach the kernels whose bf16 entry is in
+    attention.cu; the channel-flat kernel's is in attention_sm90.cu."""
+    sources = {kern.symbol: Path(chip_smoke.kernel_source(G, kern)).name
+               for kern in K.KERNELS}
+    assert sources == {"ur_attention_btc": CK.ATTENTION_SM90, "ur_attention_bh": CK.ATTENTION,
+                       "ur_attention_stream": CK.ATTENTION,
+                       "ur_attention_btc_out": CK.ATTENTION}
+    assert chip_smoke.kernel_source(G, G.grouped_conv3).endswith(CK.GCONV)
+    for kern in K.KERNELS:
+        assert kern.entry(torch.bfloat16)[2].name == sources[kern.symbol]
+
+
+def _row(kernel, source, ratio=None, error=None):
+    row = {"kernel": kernel, "source": source, "shape": [8, 4096, 320]}
+    if error is not None:
+        return json.dumps({**row, "error": error})
+    return json.dumps({**row, "max_abs_err": 0.0, "rms_err_over_rms_ref": 0.0,
+                       "tolerance_ratio": ratio})
+
+
+_SM90, _ATT = ("ur_attention_btc", "attention_sm90.cu"), ("ur_attention_bh", "attention.cu")
+_CUDA = "ur_attention_btc_sm90: CUDA error 700"
+
+
+@pytest.mark.parametrize("fault,rc,rows,stderr,ok", [
+    # the sound copy agrees everywhere
+    ("none", 0, [_row(*_SM90, 0.55), _row(*_ATT, 0.5)], "", True),
+    # a sound kernel outside the tolerance
+    ("none", 0, [_row(*_SM90, 1.5), _row(*_ATT, 0.5)], "", False),
+    # a sound kernel that stops
+    ("none", 1, [_row(*_SM90, error=_CUDA)], "", False),
+    # rejected by the tolerance where it reaches; the other source ignored
+    ("sm90_accumulator_not_rescaled", 0, [_row(*_SM90, 900.0), _row(*_ATT, 0.5)], "", True),
+    # accepted at one reached shape
+    ("sm90_accumulator_not_rescaled", 0, [_row(*_SM90, 900.0), _row(*_SM90, 0.9)], "", False),
+    # stopped by a CUDA error of a kernel it reaches
+    ("sm90_last_tile_load_skipped", 1, [_row(*_SM90, error=_CUDA)], "", True),
+    # stopped in a kernel the fault does not reach
+    ("sm90_last_tile_load_skipped", 1, [_row(*_ATT, error="CUDA error: 700")], "", False),
+    # a Python error, an import error, an out-of-memory error: no error row
+    ("sm90_last_tile_load_skipped", 1, [_row(*_SM90, 50.0)], "MemoryError", False),
+    ("last_key_tile_dropped", 1, [], "ModuleNotFoundError: no module", False),
+    # no row that the fault reaches
+    ("out_head_left_out", 0, [_row(*_ATT, 0.5)], "", False),
+])
+def test_judge_counts_only_kernel_errors_as_rejections(fault, rc, rows, stderr, ok):
+    got, lines = CK.judge(fault, rc, "\n".join(rows) + "\n", stderr)
+    assert got is ok
+    assert all(line["fault"] == fault for line in lines)
+    if not ok:
+        assert any(line.get("harness_failed") or line.get("rejected") == (fault == "none")
+                   for line in lines)

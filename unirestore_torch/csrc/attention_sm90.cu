@@ -52,15 +52,14 @@
 //   and packs P_j. Live registers: S (64), O (32), P (32) per thread.
 // - exp2 is one ex2.approx.ftz instruction: exp2f's handling of subnormal
 //   results cost the softmax about a sixth of the kernel's time at T = 4096
-//   (tools/tune_btc_sm90.py on an H100). A probability below 2^-126 of its
-//   row's maximum becomes 0, far under the bf16 rounding the product applies.
+//   on an H100 (PERF.md). A probability below 2^-126 of its row's
+//   maximum becomes 0, far under the bf16 rounding the product applies.
 // - Epilogue: each warpgroup divides by l, rounds once to bf16 and stores its
 //   64 rows straight to global memory as bf16x2.
 // - Shared memory: 16 KB of Q + kStages * 32 KB of K/V + barriers, 113 KB at
 //   three stages; 384 threads at 168 registers fill the register file, so
-//   one block per SM. The stage count is a build-time constant
-//   (UR_BTC_SM90_STAGES), chosen on the card by tools/tune_btc_sm90.py:
-//   three; two leave the producer waiting for a release, four gain nothing.
+//   one block per SM. Three stages, chosen on an H100 (PERF.md): two
+//   leave the producer waiting for a release, four gain nothing.
 // Tried and left out: ping-pong of the two consumer warpgroups on named
 // barriers, one's softmax under the other's products (M3). It gained 6 %
 // with exp2f and lost 2-3 % at T = 4096 with ex2.approx.ftz, where the
@@ -80,11 +79,6 @@
 
 #include <cstdint>
 
-// build-time tuning (tools/tune_btc_sm90.py builds variants with -D)
-#ifndef UR_BTC_SM90_STAGES
-#define UR_BTC_SM90_STAGES 3
-#endif
-
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -92,7 +86,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kD = 64;            // head width
 constexpr int kBM = 128;          // queries per block
 constexpr int kBN = 128;          // keys per tile
-constexpr int kStages = UR_BTC_SM90_STAGES;
+constexpr int kStages = 3;        // K/V ring stages
 constexpr int kThreads = 384;     // a producer warpgroup, two consumer warpgroups
 constexpr int kConsumerWarps = 8;
 // registers per thread after setmaxnreg: 128 * 24 + 256 * 240 = 65,536
@@ -100,11 +94,8 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr uint32_t kTileBytes = kBN * kD * 2;  // one 128 x 64 bf16 tile: 16 KB
 constexpr float kNegBig = -1e30f;
-// O += P V reads V MN-major (d contiguous): wgmma's transpose-B immediate
-constexpr int kVTransposed = 1;
 
 static_assert(kBM == kBN && kTileBytes % 1024 == 0, "tiles must keep 1024-byte alignment");
-static_assert(kStages >= 2, "the ring needs two stages");
 
 __host__ __device__ constexpr size_t smem_bytes() {
   // Q, the K/V ring, barriers (Q, full and empty per stage), 1024 bytes of
@@ -236,7 +227,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
 }
 
 // d (64 x 64, fp32) += A (64 x 16, bf16 registers) B (16 x 64), B in shared
-// memory MN-major
+// memory MN-major (d contiguous: the transpose-B immediate is 1)
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                    uint64_t db) {
   asm volatile(
@@ -246,10 +237,10 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
       : UR_F8("+f", d, 0), UR_F8("+f", d, 8), UR_F8("+f", d, 16), UR_F8("+f", d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kVTransposed));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 #undef UR_SS_M64N128K16
@@ -486,6 +477,7 @@ bool encode_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map, cons
 }
 
 constexpr int kBFloat16 = 1;  // dtype code shared with attention_kernels.py
+constexpr int kMaxDevices = 64;
 
 }  // namespace
 
@@ -505,10 +497,18 @@ int ur_attention_btc_sm90(const void* q, const void* k, const void* v, void* o, 
       !encode_map(encode, &tk, k, batch, seq, inner) ||
       !encode_map(encode, &tv, v, batch, seq, inner))
     return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(attention_btc_sm90,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem_bytes()));
+  // the shared-memory limit is set once per device, not on every launch
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return int(err);
+  if (dev >= kMaxDevices) return int(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(attention_btc_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem_bytes()));
+    if (err != cudaSuccess) return int(err);
+    smem_set[dev] = true;
+  }
   const int heads = inner / kD;
   const dim3 grid(seq / kBM, batch * heads);
   attention_btc_sm90<<<grid, kThreads, smem_bytes(), static_cast<cudaStream_t>(stream)>>>(

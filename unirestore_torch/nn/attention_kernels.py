@@ -48,6 +48,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -310,8 +311,9 @@ class AttentionKernel(cuda_lib.KernelWrapper):
     arguments of the C entry ``symbol``; ``vjp`` is the backward; the output
     has q's dtype and the shape ``out_shape(q, k, v, *rest)``. ``bf16_tolerance_ratio``
     is the limit a bf16 launch is held to against ``plain``. ``symbols`` names
-    another C entry, as (symbol, library), for the dtypes it lists; ``route``
-    gives the entry a launch of a dtype takes.
+    another C entry, as (symbol, library loader, source), for the dtypes it
+    lists; ``entry`` gives that triple for a launch of a dtype, ``route`` the
+    symbol and its loaded library.
     """
 
     def __init__(self, symbol: str, plain, vjp, dims, replaces: str,
@@ -330,9 +332,13 @@ class AttentionKernel(cuda_lib.KernelWrapper):
     def __call__(self, q, k, v, *rest):
         return _AttentionFunction.apply(self, q, k, v, *rest)
 
+    def entry(self, dtype: torch.dtype) -> tuple[str, Callable[[], ctypes.CDLL], Path]:
+        """(C entry, its library's loader, its source) of a launch in ``dtype``."""
+        return self.symbols.get(dtype, (self.symbol, library, SOURCE))
+
     def route(self, dtype: torch.dtype) -> tuple[str, ctypes.CDLL]:
         """(C entry, its library) of a launch in ``dtype``."""
-        symbol, lib = self.symbols.get(dtype, (self.symbol, library))
+        symbol, lib, _ = self.entry(dtype)
         return symbol, lib()
 
     def forward(self, q, k, v, *rest):
@@ -397,7 +403,7 @@ def _btc_out_dims(q, wo):
 fused_attention_btc_prescaled = AttentionKernel(
     "ur_attention_btc", attention_btc_plain, attention_btc_vjp, _btc_dims,
     "unirestore_tpu/nn/pallas_attention.py:220",
-    symbols={torch.bfloat16: ("ur_attention_btc_sm90", library_sm90)})
+    symbols={torch.bfloat16: ("ur_attention_btc_sm90", library_sm90, SOURCE_SM90)})
 fused_attention_bh_prescaled = AttentionKernel(
     "ur_attention_bh", attention_bh_plain, attention_vjp, _bh_dims,
     "unirestore_tpu/nn/pallas_attention.py:32")
