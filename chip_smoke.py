@@ -9,21 +9,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. environment: card name, ``nvidia-smi`` name and power limit, TF32 off;
 2. build the CUDA kernels from ``unirestore_torch/csrc/`` (one ``nvcc`` per
-   source, all three at once);
+   source, all four at once);
 3. each kernel against its plain PyTorch version at every shape the 512 px
-   batch-8 main paths give it (bf16), with kernel, plain, library
+   batch-8 main paths give it, and the wide-head kernel also at the
+   server's shapes (bf16), with kernel, plain, library
    (``scaled_dot_product_attention``; ``F.conv2d(groups=16)`` in
    ``channels_last``; timed as yardsticks only) and bound times; for the
    out-projection-fused kernel, which no single PyTorch call matches, the
    unfused pairs ``ur_attention_btc`` + cuBLAS and SDPA + ``torch.matmul``
-   instead; for the channel-flat kernel, whose bf16 launches take
-   ``ur_attention_btc_sm90`` (``csrc/attention_sm90.cu``), also its C entry
-   and that of the ``mma.sync`` kernel of ``csrc/attention.cu`` it replaced
-   called directly and timed in turns (``direct_ms``, ``prev_ms``; the
-   latter a yardstick only) with the host time of one call of each and of
-   the wrapper (``*_host_us``); and each attention kernel's gradient (its
-   autograd function) against autograd through its plain version at one
-   main-path shape;
+   instead; for the other attention kernels also the C entry of their bf16
+   launches called directly (``direct_ms``), and where that entry replaced
+   the ``mma.sync`` kernel of ``csrc/attention.cu`` (channel-flat:
+   ``ur_attention_btc_sm90`` in ``csrc/attention_sm90.cu``; wide-head:
+   ``ur_attention_stream_sm90`` in ``csrc/attention_stream_sm90.cu``), that
+   kernel's entry too, timed in turns (``prev_ms``, a yardstick only), with
+   the host time of one call of each and of the wrapper (``*_host_us``);
+   and each attention kernel's gradient (its autograd function) against
+   autograd through its plain version at one main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
    bf16, 20 DDIM steps) in the exact, encoder (stride 2) and deep (stride
    17, warmup 3) modes, and exact with the out-projection-fused attention
@@ -145,8 +147,8 @@ REFERENCE_ATOL = 1e-4
 # limits on each loss term and on each family's gradient norm.
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
-# the milestone of csrc/attention_sm90.cu's redesign that ships (its head comment)
-BTC_SM90_DESIGN = "M2"
+# the milestone of each Hopper redesign that ships (its source's head comment)
+SM90_DESIGNS = {"attention_sm90.cu": "M2", "attention_stream_sm90.cu": "M2"}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
@@ -214,6 +216,10 @@ def kernel_shapes(K):
         (K.fused_attention_bh_prescaled, (b * 20, 256, 64), 1),  # UNet level 2
         (K.fused_attention_bh_prescaled, (b * 4, 256, 128), 1),  # Controller stage 2
         (K.streaming_attention_bh_prescaled, (b, 4096, 512), 1),  # VAE mid block
+        # the server's: a batch of four 512 px tiles, a 256 x 384 image whole
+        # at 512 x 768
+        (K.streaming_attention_bh_prescaled, (4, 4096, 512), 1),
+        (K.streaming_attention_bh_prescaled, (1, 6144, 512), 1),
         # the fused route's shapes are the channel-flat ones, each with its
         # out-projection C = inner
         (K.fused_attention_btc_out_prescaled, (b, 4096, 320), 5),
@@ -268,17 +274,53 @@ def kernel_source(G, kern) -> str:
     return str(src.relative_to(REPO))
 
 
-def btc_direct(entry, q, k, v):
-    """A channel-flat C entry called directly through ctypes, without the
-    wrapper's checks and autograd: ``ur_attention_btc_sm90``, or the
-    ``mma.sync`` kernel of csrc/attention.cu that bf16 launches took before it
-    (``ur_attention_btc``, a yardstick, never routed)."""
-    out = torch.empty_like(q)
+def direct(entry, q, k, v, out=None):
+    """An attention C entry of the (q, k, v, o, three dims, dtype, stream)
+    signature called directly through ctypes, without the wrapper's checks and
+    autograd: the entry of a wrapper's bf16 launches, or the ``mma.sync``
+    kernel of csrc/attention.cu that a redesigned kernel replaced (a
+    yardstick, never routed)."""
+    out = torch.empty_like(q) if out is None else out
     rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.shape,
                1 if q.dtype == torch.bfloat16 else 0, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry.__name__}: CUDA error {rc}")
     return out
+
+
+def time_entries(K, kern, xs) -> dict:
+    """The C entry of ``kern``'s bf16 launches called directly (``direct_ms``,
+    ``direct_host_us``) and the wrapper's host time per call
+    (``wrapper_host_us``). Where that entry is not the wrapper's base symbol,
+    the base symbol's ``mma.sync`` kernel in csrc/attention.cu is what it
+    replaced: the two are timed in turns (new, previous, previous, new;
+    ``prev_ms``, ``prev_host_us``) and the previous one is held to the plain
+    version too (``prev_tolerance_ratio``). Host times are of the same ctypes
+    call into a preallocated output, so their difference is the entries' own
+    host work; at T = 1024 the wrapper's host time per call exceeds a
+    kernel's."""
+    q, k, v = xs
+    symbol, lib = kern.route(torch.bfloat16)
+    new = getattr(lib, symbol)
+    res, order = {}, (new,)
+    if symbol != kern.symbol:
+        prev = getattr(K.library(), kern.symbol)
+        res["prev_tolerance_ratio"] = kern.bf16_tolerance_ratio(direct(prev, q, k, v),
+                                                                kern.plain(q, k, v))
+        if res["prev_tolerance_ratio"] > 1.0:
+            raise AssertionError(f"{kern.symbol} {tuple(q.shape)}: disagrees with the plain "
+                                 "version")
+        order = (new, prev, prev, new)
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.shape, 1,
+            torch.cuda.current_stream().cuda_stream)
+    ms = [cuda_ms(lambda e=e: direct(e, q, k, v, out), 10) for e in order]
+    host = [host_us(lambda e=e: e(*args)) for e in order]
+    res["direct_ms"], res["direct_host_us"] = (ms[0] + ms[-1]) / 2, (host[0] + host[-1]) / 2
+    if len(order) > 1:
+        res["prev_ms"], res["prev_host_us"] = (ms[1] + ms[2]) / 2, (host[1] + host[2]) / 2
+    res["wrapper_host_us"] = host_us(lambda: kern(q, k, v))
+    return res
 
 
 def compare_kernel(kern, *xs) -> dict:
@@ -314,29 +356,7 @@ def check_kernel(K, kern, shape, heads, gen):
     def sdpa():  # q is prescaled by d^-1/2 log2(e): softmax_e(x ln 2) == softmax_2(x)
         return F.scaled_dot_product_attention(split(q), split(k), split(v), scale=math.log(2.0))
 
-    extra = {}
-    if kern is K.fused_attention_btc_prescaled:
-        # the mma.sync kernel it replaced, against the same plain version; the
-        # two C entries called directly and timed in turns (new, previous,
-        # previous, new), since at T = 1024 the wrapper's host time per call
-        # exceeds the kernel's
-        new, prev = K.library_sm90().ur_attention_btc_sm90, K.library().ur_attention_btc
-        extra["prev_tolerance_ratio"] = kern.bf16_tolerance_ratio(btc_direct(prev, q, k, v),
-                                                                  kern.plain(*xs))
-        if extra["prev_tolerance_ratio"] > 1.0:
-            raise AssertionError(f"ur_attention_btc {shape}: disagrees with the plain version")
-        turns = [cuda_ms(lambda e=e: btc_direct(e, q, k, v), 10) for e in (new, prev, prev, new)]
-        extra["direct_ms"], extra["prev_ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        # the host time of one call of each C entry (the same ctypes call into
-        # a preallocated output: the difference is the entry's own host work,
-        # the tensor maps of the new one) and of the wrapper, in turns
-        out = torch.empty_like(q)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape, 1,
-                torch.cuda.current_stream().cuda_stream)
-        turns = [host_us(lambda e=e: e(*args)) for e in (new, prev, prev, new)]
-        extra["direct_host_us"] = (turns[0] + turns[3]) / 2
-        extra["prev_host_us"] = (turns[1] + turns[2]) / 2
-        extra["wrapper_host_us"] = host_us(lambda: kern(*xs))
+    extra = {} if kern is K.fused_attention_btc_out_prescaled else time_entries(K, kern, xs)
     ms = cuda_ms(lambda: kern(*xs), 10)
     plain_ms = cuda_ms(lambda: kern.plain(*xs), 3)
     flops = 4.0 * n * heads * t * t * d
@@ -360,12 +380,15 @@ def check_kernel(K, kern, shape, heads, gen):
     yardsticks = (f"library {library_ms:.3f} ms" if library_ms is not None else
                   f"btc+matmul {extra['unfused_ms']:.3f} ms sdpa+matmul "
                   f"{extra['sdpa_matmul_ms']:.3f} ms")
-    if "prev_ms" in extra:
-        yardsticks += (f" | direct calls: {extra['direct_ms']:.3f} ms, prev (mma.sync) "
-                       f"{extra['prev_ms']:.3f} ms, its tolerance ratio "
-                       f"{extra['prev_tolerance_ratio']:.3f} | host per call: C entry "
-                       f"{extra['direct_host_us']:.1f} us, prev {extra['prev_host_us']:.1f} us, "
-                       f"wrapper {extra['wrapper_host_us']:.1f} us")
+    if "direct_ms" in extra:
+        prev, prev_host = "", ""
+        if "prev_ms" in extra:
+            prev = (f", prev (mma.sync) {extra['prev_ms']:.3f} ms, its tolerance ratio "
+                    f"{extra['prev_tolerance_ratio']:.3f}")
+            prev_host = f", prev {extra['prev_host_us']:.1f} us"
+        yardsticks += (f" | direct call {extra['direct_ms']:.3f} ms{prev} | host per call: C "
+                       f"entry {extra['direct_host_us']:.1f} us{prev_host}, wrapper "
+                       f"{extra['wrapper_host_us']:.1f} us")
     log(f"kernel {kern.symbol} {tuple(shape)} d={d}: max_abs {err['max_abs_err']:.3e} "
         f"rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} tolerance ratio "
         f"{err['tolerance_ratio']:.3f} | {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s) "
@@ -952,8 +975,8 @@ def main() -> int:
         if getattr(kern, "symbols", None):  # an entry per dtype, as the wrapper routes them
             entry["symbols"] = {str(dt).removeprefix("torch."): kern.entry(dt)[0]
                                 for dt in (torch.bfloat16, torch.float32)}
-        if entry["source"] == str(K.SOURCE_SM90.relative_to(REPO)):
-            entry["design"] = BTC_SM90_DESIGN
+        if Path(entry["source"]).name in SM90_DESIGNS:
+            entry["design"] = SM90_DESIGNS[Path(entry["source"]).name]
         if kern.symbol in backward:
             entry["backward"] = backward[kern.symbol]
         entries.append(entry)

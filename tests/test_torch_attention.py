@@ -30,6 +30,7 @@ from hypothesis import strategies as st
 from test_torch_bridge import jax_params, nhwc, port_params, to_np
 from unirestore_torch.nn import attention as TA
 from unirestore_torch.nn import attention_kernels as K
+from unirestore_torch.nn import kernels as KN
 from unirestore_tpu.nn import attention as JA
 from unirestore_tpu.nn import pallas_attention as PA
 
@@ -206,12 +207,94 @@ def test_btc_supported_shapes_meet_the_sm90_kernel_preconditions(t, inner):
 
 def test_btc_routes_bf16_to_the_sm90_kernel():
     """bf16 channel-flat launches take ``ur_attention_btc_sm90``, fp32 ones the
-    FMA kernel ``ur_attention_btc``; no other wrapper changes entry."""
+    FMA kernel ``ur_attention_btc``; of the other wrappers only the wide-head
+    one changes entry."""
     kern = K.fused_attention_btc_prescaled
     assert kern.entry(torch.bfloat16) == ("ur_attention_btc_sm90", K.library_sm90, K.SOURCE_SM90)
     assert kern.entry(torch.float32) == ("ur_attention_btc", K.library, K.SOURCE)
-    assert all(not other.symbols for other in K.KERNELS if other is not kern)
+    assert all(not other.symbols for other in K.KERNELS
+               if other not in (kern, K.streaming_attention_bh_prescaled))
     assert K.SOURCE_SM90.is_file() and K.SOURCE_SM90.parent == K.SOURCE.parent
+
+
+def test_stream_routes_bf16_to_the_sm90_kernel():
+    """bf16 wide-head launches take ``ur_attention_stream_sm90`` in its own
+    source, fp32 ones the FMA kernel ``ur_attention_stream``."""
+    kern = K.streaming_attention_bh_prescaled
+    assert kern.entry(torch.bfloat16) == ("ur_attention_stream_sm90", K.library_stream_sm90,
+                                          K.SOURCE_STREAM_SM90)
+    assert kern.entry(torch.float32) == ("ur_attention_stream", K.library, K.SOURCE)
+    assert K.SOURCE_STREAM_SM90.is_file() and K.SOURCE_STREAM_SM90.parent == K.SOURCE.parent
+    assert K.SOURCE_STREAM_SM90 in KN.SOURCES
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(t=st.one_of(st.integers(0, 1 << 15), st.integers(0, 32).map(lambda n: 1024 * n)),
+       d=st.one_of(st.integers(0, 1024), st.integers(0, 8).map(lambda n: 64 * n)))
+def test_stream_supported_shapes_meet_the_sm90_kernel_preconditions(t, d):
+    """Every shape the wide-head route admits takes ``ur_attention_stream_sm90``
+    without masking: T a multiple of its 64-row blocks and at least two key
+    tiles, a head width it was built for."""
+    if K.stream_supported(t, t, d):
+        assert t % K.STREAM_SM90_BLOCK == 0 and t >= 2 * K.STREAM_SM90_BLOCK
+        assert d in K.STREAM_SM90_WIDTHS
+        assert K._stream_dims(torch.empty(2, t, d, device="meta")) == (2, t, d)
+
+
+def _stream_sm90_attention(q, k, v, fault):
+    """``ur_attention_stream_sm90``'s arithmetic in plain torch, with one of its
+    faults planted.
+
+    64-key tiles; the output columns in groups of ``64 * NO`` (NO = 2 at
+    d = 512), each owned by one consumer (even groups the first, odd the
+    second), and each consumer's S the sum of the two fp32 partial products
+    over the halves of d; fp32 running max and row sum; probabilities
+    rounded to bf16 before the PV product. Faults: the last tile's last 64
+    columns of K stale (from an earlier tile), O or the row sum not rescaled,
+    the second consumer's S without the first's partial, or its V chunks
+    offset by one (its first chunk the first consumer's last).
+    """
+    qf, kf, vf = q.float(), k.float(), v.float()
+    t, d = k.shape[1], k.shape[2]
+    h, width = d // 2, 64 * (2 if (d // 64) % 4 == 0 else 1)
+    groups = []
+    for col in range(0, d, width):
+        second = (col // width) % 2 == 1
+        offset = 64 if fault == "v_chunks_offset" and second else 0
+        vg = vf[..., col - offset:col + width - offset]
+        m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q.shape[:-1] + (width,))
+        for k0 in range(0, t, 64):
+            kt = kf[:, k0:k0 + 64].clone()
+            if fault == "last_k_chunk_stale" and k0 == t - 64:
+                kt[..., -64:] = kf[:, k0 - 64:k0, -64:]
+            partial = [qf[..., i * h:(i + 1) * h] @ kt[..., i * h:(i + 1) * h].transpose(1, 2)
+                       for i in range(2)]
+            s = partial[1] if fault == "partner_partial_not_added" and second else sum(partial)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = (l if fault == "row_sum_not_rescaled" else l * corr) + p.sum(-1, keepdim=True)
+            acc = acc if fault == "accumulator_not_rescaled" else acc * corr
+            acc = acc + p.to(torch.bfloat16).float() @ vg[:, k0:k0 + 64]
+            m = m_new
+        groups.append(acc / l)
+    return torch.cat(groups, -1).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fault", ["none", "last_k_chunk_stale", "accumulator_not_rescaled",
+                                   "row_sum_not_rescaled", "partner_partial_not_added",
+                                   "v_chunks_offset"])
+@pytest.mark.parametrize("shape", [(1, 1024, 512), (1, 4096, 512)])
+def test_bf16_tolerance_passes_the_stream_sm90_arithmetic_and_rejects_faults(shape, fault):
+    """The same limit at ``ur_attention_stream_sm90``'s arithmetic (split d,
+    columns in 128-wide groups, 64-key tiles) at d = 512: it passes, and
+    each of the kernel's planted faults fails."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(31, shape, shape[-1]))
+    ratio = K.bf16_tolerance_ratio(_stream_sm90_attention(q, k, v, fault),
+                                   K.attention_bh_plain(q, k, v))
+    assert (ratio <= 1.0) == (fault == "none"), ratio
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,12 @@ through the plain versions: fp32 1e-4 (the recompute backward differentiates
 softmax_e(ln2 s) where the plain version takes exp2 and divides at the end),
 bf16 rms error <= 2^-6 of the reference's rms (chip_smoke.BWD_RMS_TOL).
 The bf16 channel-flat launches go through ``ur_attention_btc_sm90``
-(``csrc/attention_sm90.cu``), the fp32 ones through ``ur_attention_btc``; a
-selection test holds the new kernel's wgmma descriptors and TMA swizzle to
-exact answers (``pytest -k btc`` runs only these while iterating on it).
+(``csrc/attention_sm90.cu``), the fp32 ones through ``ur_attention_btc``; the
+bf16 wide-head launches through ``ur_attention_stream_sm90``
+(``csrc/attention_stream_sm90.cu``), the fp32 ones through
+``ur_attention_stream``. A selection test holds each Hopper kernel's wgmma
+descriptors and TMA swizzle to exact answers (``pytest -k btc`` or ``-k
+stream`` runs only one kernel's tests while iterating on it).
 The out-projection-fused kernel: bf16 ``bf16_out_tolerance_ratio <= 1``
 (|out - ref| <= 2^-7 |ref| + 2^-5 rms(ref), the reasoning beside it in
 ``attention_kernels.py``); fp32 1e-5 of the output's largest entry, since each
@@ -110,10 +113,8 @@ def test_btc_sm90_selects_exact_rows(cuda):
     assert not wrong, f"{len(wrong)} rows differ, first {wrong[:8]}"
 
 
-@pytest.mark.parametrize("dtype,symbol", [(torch.bfloat16, "ur_attention_btc_sm90"),
-                                          (torch.float32, "ur_attention_btc")])
-def test_btc_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbol):
-    kern = K.fused_attention_btc_prescaled
+def _launch_takes(monkeypatch, kern, shape, d, dtype):
+    """The C entry one launch of ``kern`` took."""
     chosen, route = [], kern.route
 
     def spy(dt):
@@ -121,11 +122,19 @@ def test_btc_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbo
         return route(dt)
 
     monkeypatch.setattr(kern, "route", spy)
-    q, k, v = _qkv((1, 1024, 128), 64, dtype)
+    q, k, v = _qkv(shape, d, dtype)
     before = kern.launches
     kern(q, k, v)
     torch.cuda.synchronize()
-    assert chosen == [symbol] and kern.launches == before + 1
+    assert kern.launches == before + 1
+    return chosen
+
+
+@pytest.mark.parametrize("dtype,symbol", [(torch.bfloat16, "ur_attention_btc_sm90"),
+                                          (torch.float32, "ur_attention_btc")])
+def test_btc_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbol):
+    kern = K.fused_attention_btc_prescaled
+    assert _launch_takes(monkeypatch, kern, (1, 1024, 128), 64, dtype) == [symbol]
 
 
 @pytest.mark.parametrize("shape", [(2, 1024, 128), (1, 1280, 320), (8, 1024, 640),
@@ -133,7 +142,60 @@ def test_btc_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbo
 def test_btc_sm90_matches_the_mma_sync_kernel(cuda, shape):
     q, k, v = _qkv(shape, 64, torch.bfloat16, seed=2)
     out = K.fused_attention_btc_prescaled(q, k, v)
-    prev = chip_smoke.btc_direct(K.library().ur_attention_btc, q, k, v)
+    prev = chip_smoke.direct(K.library().ur_attention_btc, q, k, v)
+    torch.cuda.synchronize()
+    assert K.bf16_tolerance_ratio(out, prev) <= 1.0
+
+
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_stream_sm90_selects_exact_rows(cuda, d):
+    """In each of two heads, each query's logits put one key (a permutation of
+    all 1024: every key tile, every row of each 128-byte swizzle atom, every
+    ring slot) at least 160 above every other, so exp2 of the others is 0 in
+    fp32 and every one of the d output columns must equal the selected V row
+    bit for bit. A wrong K descriptor picks another key; a wrong V descriptor,
+    swizzle or transpose bit permutes or mixes V's columns; a consumer that
+    writes the other's columns, reads an off-by-one V chunk or drops the
+    other's partial S gives wrong rows; a wrong head offset reads another
+    head's keys."""
+    rng = np.random.default_rng(d)
+    bh, t = 2, 1024
+    codes = rng.choice([-1.0, 1.0], size=(bh, t, d))
+    for c in codes:
+        # distinct +-1 codes: q_i . k_j = d - 2 dist(i, j), the selected key
+        # ahead of every other by 2 dist
+        dist = (d - c @ c.T) / 2
+        np.fill_diagonal(dist, d)
+        assert 2 * dist.min() >= 160
+    perms = [rng.permutation(t) for _ in range(bh)]
+    q = torch.tensor(np.stack([c[p] for c, p in zip(codes, perms)]), dtype=torch.bfloat16,
+                     device="cuda")
+    k = torch.tensor(codes, dtype=torch.bfloat16, device="cuda")
+    v = torch.randn((bh, t, d), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(torch.bfloat16)
+    kern = K.streaming_attention_bh_prescaled
+    assert kern.route(torch.bfloat16)[0] == "ur_attention_stream_sm90"
+    out = kern(q, k, v)
+    torch.cuda.synchronize()
+    want = torch.stack([v[i, torch.from_numpy(p).cuda()] for i, p in enumerate(perms)])
+    wrong = (out != want).any(-1).nonzero().tolist()
+    assert not wrong, f"{len(wrong)} (head, row) pairs differ, first {wrong[:8]}"
+
+
+@pytest.mark.parametrize("dtype,symbol", [(torch.bfloat16, "ur_attention_stream_sm90"),
+                                          (torch.float32, "ur_attention_stream")])
+def test_stream_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbol):
+    kern = K.streaming_attention_bh_prescaled
+    assert _launch_takes(monkeypatch, kern, (1, 1024, 512), 512, dtype) == [symbol]
+
+
+@pytest.mark.parametrize("shape", [(2, 2048, 256), (1, 1024, 384), (1, 1024, 512),
+                                   (8, 4096, 512), (4, 4096, 512), (1, 6144, 512)])
+def test_stream_sm90_matches_the_mma_sync_kernel(cuda, shape):
+    """At every width, and at the restore's and the server's shapes."""
+    q, k, v = _qkv(shape, shape[-1], torch.bfloat16, seed=2)
+    out = K.streaming_attention_bh_prescaled(q, k, v)
+    prev = chip_smoke.direct(K.library().ur_attention_stream, q, k, v)
     torch.cuda.synchronize()
     assert K.bf16_tolerance_ratio(out, prev) <= 1.0
 

@@ -48,11 +48,12 @@ def test_each_fault_plants_into_its_source(tmp_path, fault):
 
 def test_rows_are_filed_under_each_kernels_bf16_source():
     """The attend_mma faults reach the kernels whose bf16 entry is in
-    attention.cu; the channel-flat kernel's is in attention_sm90.cu."""
+    attention.cu; the channel-flat kernel's is in attention_sm90.cu, the
+    wide-head kernel's in attention_stream_sm90.cu."""
     sources = {kern.symbol: Path(chip_smoke.kernel_source(G, kern)).name
                for kern in K.KERNELS}
     assert sources == {"ur_attention_btc": CK.ATTENTION_SM90, "ur_attention_bh": CK.ATTENTION,
-                       "ur_attention_stream": CK.ATTENTION,
+                       "ur_attention_stream": CK.ATTENTION_STREAM_SM90,
                        "ur_attention_btc_out": CK.ATTENTION}
     assert chip_smoke.kernel_source(G, G.grouped_conv3).endswith(CK.GCONV)
     for kern in K.KERNELS:

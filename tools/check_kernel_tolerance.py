@@ -7,8 +7,9 @@ CUDA source (the repository's own files are never changed), builds every
 copy with ``nvcc`` at once, and then runs chip_smoke's kernel-vs-plain
 comparisons at every main-path shape (batch 8, bf16, the same seeded inputs)
 against each copy in turn: the four attention kernels (bf16 channel-flat
-launches in ``csrc/attention_sm90.cu``, the others in ``csrc/attention.cu``)
-and the grouped conv (``csrc/grouped_conv.cu``). It prints one JSON line per
+launches in ``csrc/attention_sm90.cu``, bf16 wide-head launches in
+``csrc/attention_stream_sm90.cu``, the others in ``csrc/attention.cu``) and
+the grouped conv (``csrc/grouped_conv.cu``). It prints one JSON line per
 fault, kernel and shape, and exits 0 only if the unchanged copy (``none``)
 agrees at every shape and every planted fault is rejected at every shape of
 the kernels it reaches: those whose bf16 launches run the source it was
@@ -35,6 +36,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 ATTENTION, ATTENTION_SM90, GCONV = "attention.cu", "attention_sm90.cu", "grouped_conv.cu"
+ATTENTION_STREAM_SM90 = "attention_stream_sm90.cu"
 
 # fault -> (source in csrc/, exact (old, new) edits of its bf16 tensor-core
 # kernel); a fault of one kernel only names it in ``ONLY``
@@ -92,6 +94,36 @@ FAULTS = {
         ("oacc[4 * n + 2 * r] *= corr[r];", "oacc[4 * n + 2 * r] *= 1.f;"),
         ("oacc[4 * n + 2 * r + 1] *= corr[r];", "oacc[4 * n + 2 * r + 1] *= 1.f;"),
     ]),
+    # ur_attention_stream_sm90: the last K chunk (the last 64 columns of the
+    # last key tile) is not loaded and its full barrier is arrived on by
+    # hand, so its ring slot still holds the chunk loaded there a ring
+    # earlier (the same wrong answer on every run)
+    "stream_sm90_last_k_chunk_load_skipped": (ATTENTION_STREAM_SM90, [
+        ("          mbar_expect_tx(full_bar(p), kChunkBytes);\n",
+         "          if (map == &tk && j == n_tiles - 1 && c == n - 1) {\n"
+         "            mbar_arrive(full_bar(p));\n"
+         "            continue;\n"
+         "          }\n"
+         "          mbar_expect_tx(full_bar(p), kChunkBytes);\n"),
+    ]),
+    # ur_attention_stream_sm90: O is not rescaled when the running maximum grows
+    "stream_sm90_accumulator_not_rescaled": (ATTENTION_STREAM_SM90, [
+        ("oacc[i][4 * n + 2 * r] *= corr[r];", "oacc[i][4 * n + 2 * r] *= 1.f;"),
+        ("oacc[i][4 * n + 2 * r + 1] *= corr[r];", "oacc[i][4 * n + 2 * r + 1] *= 1.f;"),
+    ]),
+    # ur_attention_stream_sm90: the second consumer's V chunks offset by one,
+    # so its first column chunk is computed from the first consumer's last V
+    # chunk (every read stays inside the tile's V chunks, which both
+    # consumers hold until both products end)
+    "stream_sm90_v_chunks_offset": (ATTENTION_STREAM_SM90, [
+        ("const int base = v_pos(j) + w * NO;", "const int base = v_pos(j) + w * NO - w;"),
+    ]),
+    # ur_attention_stream_sm90: the second consumer does not add the first
+    # one's partial S, so its softmax and columns see half of d
+    "stream_sm90_partner_partial_not_added": (ATTENTION_STREAM_SM90, [
+        ("for (int i = 0; i < 32; ++i) s[i] += other[128 * i];",
+         "for (int i = 0; i < 32; ++i) s[i] += w == 1 ? 0.f : other[128 * i];"),
+    ]),
     # the last tap (dy = dx = 2) adds nothing
     "gconv_tap_dropped": (GCONV, [
         ("for (int kk = 0; kk < KS; ++kk) {", "for (int kk = 0; kk < (tap == 8 ? 0 : KS); ++kk) {"),
@@ -104,9 +136,10 @@ FAULTS = {
     ]),
 }
 # the faults of attend_mma reach every kernel whose bf16 entry lies in
-# csrc/attention.cu (each row names that source, so the channel-flat kernel,
-# whose bf16 entry is in csrc/attention_sm90.cu, drops out); these two lie
-# in one kernel's own code
+# csrc/attention.cu (each row names that source, so the channel-flat and
+# wide-head kernels, whose bf16 entries are in csrc/attention_sm90.cu and
+# csrc/attention_stream_sm90.cu, drop out); these two lie in one kernel's
+# own code
 ONLY = {"out_head_left_out": ("ur_attention_btc_out",),
         "out_last_k_chunk_dropped": ("ur_attention_btc_out",)}
 
@@ -167,7 +200,8 @@ def child(root: Path) -> int:
     from unirestore_torch.nn import attention_kernels as K
     from unirestore_torch.nn import grouped_conv as G
 
-    assert all(s.is_relative_to(root) for s in (K.SOURCE, K.SOURCE_SM90, G.SOURCE))
+    assert all(s.is_relative_to(root)
+               for s in (K.SOURCE, K.SOURCE_SM90, K.SOURCE_STREAM_SM90, G.SOURCE))
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():

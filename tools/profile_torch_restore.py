@@ -43,6 +43,8 @@ from unirestore_torch.models import unirestore as UR  # noqa: E402
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("attention_btc_sm90", "channel-flat attention kernel (this repo, attention_sm90.cu)"),
+    ("attention_stream_sm90",
+     "wide-head attention kernel (this repo, attention_stream_sm90.cu)"),
     ("attention_fwd", "attention kernels (this repo, attention.cu)"),
     ("gconv3_", "grouped-conv kernel (this repo)"),
     ("conv", "convolution (cuDNN)"), ("xmma", "convolution (cuDNN)"),

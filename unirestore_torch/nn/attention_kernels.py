@@ -23,9 +23,13 @@ its design does about it), built and bound by ``cuda_lib``:
 - ``csrc/attention_sm90.cu``: the bf16 channel-flat kernel
   ``ur_attention_btc_sm90`` (``wgmma`` for both products, K and V brought by
   TMA through a shared-memory ring, 128-query blocks);
+- ``csrc/attention_stream_sm90.cu``: the bf16 wide-head kernel
+  ``ur_attention_stream_sm90`` (the same, with 64-query blocks whose two
+  consumer warpgroups split the output columns and the d-reduction);
 - ``csrc/attention.cu``: every other launch, bf16 on the tensor cores
   (``mma.sync``) and fp32 on CUDA-core FMAs. ``fused_attention_btc_prescaled``
-  takes its fp32 launches there (``ur_attention_btc``).
+  and ``streaming_attention_bh_prescaled`` take their fp32 launches there
+  (``ur_attention_btc``, ``ur_attention_stream``).
 
 A wrapper given CPU tensors computes the plain PyTorch version (the CPU tests
 use it); given CUDA tensors it launches its kernel on the current stream or
@@ -65,6 +69,12 @@ SOURCE_SM90 = SOURCE.with_name("attention_sm90.cu")
 # every shape ``btc_supported`` admits has T % BTC_SM90_BLOCK == 0 (and
 # inner % 64 == 0)
 BTC_SM90_BLOCK = 128
+SOURCE_STREAM_SM90 = SOURCE.with_name("attention_stream_sm90.cu")
+# ur_attention_stream_sm90 takes 64-query blocks and 64-key tiles, unmasked,
+# and head widths STREAM_SM90_WIDTHS: every shape ``stream_supported`` admits
+# has T % STREAM_SM90_BLOCK == 0 and one of those widths
+STREAM_SM90_BLOCK = 64
+STREAM_SM90_WIDTHS = (256, 384, 512)
 
 # ---------------------------------------------------------------------------
 # routing predicates (copies of pallas_attention.py's, by shape alone)
@@ -273,14 +283,26 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def _load(source: Path, symbol: str) -> ctypes.CDLL:
+    """The library of ``source`` with C entry ``symbol`` (q, k, v, o, four ints,
+    stream) bound, built unless a library of the same source hash exists."""
+    lib = ctypes.CDLL(str(cuda_lib.build_all([source])[0]))
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def library_sm90() -> ctypes.CDLL:
     """``csrc/attention_sm90.cu``, built unless a library of the same source hash exists."""
-    lib = ctypes.CDLL(str(cuda_lib.build_all([SOURCE_SM90])[0]))
-    lib.ur_attention_btc_sm90.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                                          + [ctypes.c_void_p])
-    lib.ur_attention_btc_sm90.restype = ctypes.c_int
-    return lib
+    return _load(SOURCE_SM90, "ur_attention_btc_sm90")
+
+
+@functools.cache
+def library_stream_sm90() -> ctypes.CDLL:
+    """``csrc/attention_stream_sm90.cu``, built unless a library of the same source hash exists."""
+    return _load(SOURCE_STREAM_SM90, "ur_attention_stream_sm90")
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +431,9 @@ fused_attention_bh_prescaled = AttentionKernel(
     "unirestore_tpu/nn/pallas_attention.py:32")
 streaming_attention_bh_prescaled = AttentionKernel(
     "ur_attention_stream", attention_bh_plain, attention_vjp, _stream_dims,
-    "unirestore_tpu/nn/pallas_attention.py:83")
+    "unirestore_tpu/nn/pallas_attention.py:83",
+    symbols={torch.bfloat16: ("ur_attention_stream_sm90", library_stream_sm90,
+                              SOURCE_STREAM_SM90)})
 fused_attention_btc_out_prescaled = AttentionKernel(
     "ur_attention_btc_out", attention_btc_out_plain, attention_btc_out_vjp, _btc_out_dims,
     "unirestore_tpu/nn/pallas_attention.py:269",
