@@ -58,7 +58,9 @@ VARIANTS = {
 }
 # variants that compute a wrong answer on purpose, to show what bounds the
 # kernel (not held to the plain version): the ring filled once and never
-# reloaded (no K/V traffic after the first tiles), and no P V products
+# reloaded (no K/V traffic after the first tiles); no P V products; no
+# Q K^T products; no exchange of the partial S; no softmax; none of these
+# four, with and without reloads
 DIAGNOSTICS = {
     "no_reloads": [("          if (p >= R) mbar_wait(empty_bar(p), ((p / R) - 1) & 1);\n",
                     "          if (p >= R) {\n"
@@ -68,7 +70,22 @@ DIAGNOSTICS = {
                     "          }\n")],
     "no_pv": [("          wgmma_m64n64k16_rs(oacc[i], p[kk], desc_sw128(slot(base + i) + 2048 * kk));",
                "          (void)kk;")],
+    "no_qk": [("            wgmma_m64n64k16_ss<false>(s, desc_sw128(qa), desc_sw128(ka));",
+               "            (void)qa;"),
+              ("            wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));",
+               "            (void)ka;")],
+    "no_exchange": [("    release(k_pos(0), NC);\n    if constexpr (kSplitD) exchange(s);",
+                     "    release(k_pos(0), NC);"),
+                    ("      release(k_pos(j), NC);\n      if constexpr (kSplitD) exchange(s);",
+                     "      release(k_pos(j), NC);")],
+    "no_softmax": [("                                             float (&corr)[2]) {\n",
+                    "                                             float (&corr)[2]) {\n"
+                    "  corr[0] = corr[1] = l[0] = l[1] = 1.f;\n  if (corr[0] > 0.f) return;\n")],
 }
+# the loop's skeleton alone: loads, waits, releases and barriers
+DIAGNOSTICS["skeleton"] = [e for k in ("no_pv", "no_qk", "no_exchange", "no_softmax")
+                           for e in DIAGNOSTICS[k]]
+DIAGNOSTICS["skeleton_no_reloads"] = DIAGNOSTICS["skeleton"] + DIAGNOSTICS["no_reloads"]
 
 
 def build(workdir: Path) -> dict[str, ctypes.CDLL]:
