@@ -95,16 +95,14 @@ FAULTS = {
         ("oacc[4 * n + 2 * r + 1] *= corr[r];", "oacc[4 * n + 2 * r + 1] *= 1.f;"),
     ]),
     # ur_attention_stream_sm90: the last K chunk (the last 64 columns of the
-    # last key tile) is not loaded and its full barrier is arrived on by
-    # hand, so its ring slot still holds the chunk loaded there a ring
-    # earlier (the same wrong answer on every run)
+    # last key tile) is not loaded, so the K slot still holds the previous
+    # tile's chunk there (the same wrong answer on every run)
     "stream_sm90_last_k_chunk_load_skipped": (ATTENTION_STREAM_SM90, [
-        ("          mbar_expect_tx(full_bar(p), kChunkBytes);\n",
-         "          if (map == &tk && j == n_tiles - 1 && c == n - 1) {\n"
-         "            mbar_arrive(full_bar(p));\n"
-         "            continue;\n"
-         "          }\n"
-         "          mbar_expect_tx(full_bar(p), kChunkBytes);\n"),
+        ("        mbar_expect_tx(full_k, kChunkBytes * NC);\n"
+         "        for (int c = 0; c < NC; ++c)\n",
+         "        const int nk = j == n_tiles - 1 ? NC - 1 : NC;\n"
+         "        mbar_expect_tx(full_k, kChunkBytes * nk);\n"
+         "        for (int c = 0; c < nk; ++c)\n"),
     ]),
     # ur_attention_stream_sm90: O is not rescaled when the running maximum grows
     "stream_sm90_accumulator_not_rescaled": (ATTENTION_STREAM_SM90, [
@@ -116,7 +114,8 @@ FAULTS = {
     # chunk (every read stays inside the tile's V chunks, which both
     # consumers hold until both products end)
     "stream_sm90_v_chunks_offset": (ATTENTION_STREAM_SM90, [
-        ("const int base = v_pos(j) + w * NO;", "const int base = v_pos(j) + w * NO - w;"),
+        ("const uint32_t base = v_slot(j) + kChunkBytes * (w * NO);",
+         "const uint32_t base = v_slot(j) + kChunkBytes * (w * NO - w);"),
     ]),
     # ur_attention_stream_sm90: the second consumer does not add the first
     # one's partial S, so its softmax and columns see half of d

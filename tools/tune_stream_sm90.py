@@ -35,26 +35,14 @@ import chip_smoke as CS  # noqa: E402
 from unirestore_torch.nn import attention_kernels as K  # noqa: E402
 from unirestore_torch.nn import cuda_lib  # noqa: E402
 
-ONE_BLOCK = [("  return (D / kChunk) % 4 == 0 ? 2 : 1;", "  return D / kChunk / 2;")]
-WG384 = [("constexpr int kThreads = 288;", "constexpr int kThreads = 384;"),
-         ("  if (warp == kConsumerWarps) {\n    // producer: one thread keeps the ring full\n"
-          "    if (lane == 0) {",
-          "  if (warp >= kConsumerWarps) {\n"
-          "    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 24;\\n\");\n"
-          "    if (warp == kConsumerWarps && lane == 0) {"),
-         ("  } else {\n    const int g = lane >> 2;",
-          "  } else {\n    asm volatile(\"setmaxnreg.inc.sync.aligned.u32 240;\\n\");\n"
-          "    const int g = lane >> 2;")]
-# variant -> exact (old, new) edits of the source
+# variant -> exact (old, new) edits of the source. The designs measured
+# before the shipped one (a ring of 8 KB chunk slots; one column block per
+# row, with and without a setmaxnreg producer warpgroup) are variants of the
+# source as of commit ddd511e.
 VARIANTS = {
     "shipped": [],
     # each consumer reduces Q K^T over all of d itself, no exchange
     "M1": [("constexpr bool kSplitD = true;", "constexpr bool kSplitD = false;")],
-    # one column block per row: each consumer owns D/128 chunks of O
-    "one_col_block": ONE_BLOCK,
-    # the same with a producer warpgroup (384 threads) that gives its
-    # registers to the consumers with setmaxnreg
-    "one_col_block_wg384": ONE_BLOCK + WG384,
 }
 # variants that compute a wrong answer on purpose, to show what bounds the
 # kernel (not held to the plain version): the ring filled once and never
@@ -62,22 +50,24 @@ VARIANTS = {
 # Q K^T products; no exchange of the partial S; no softmax; none of these
 # four, with and without reloads
 DIAGNOSTICS = {
-    "no_reloads": [("          if (p >= R) mbar_wait(empty_bar(p), ((p / R) - 1) & 1);\n",
-                    "          if (p >= R) {\n"
-                    "            mbar_wait(empty_bar(p), ((p / R) - 1) & 1);\n"
-                    "            mbar_arrive(full_bar(p));\n"
-                    "            continue;\n"
-                    "          }\n")],
-    "no_pv": [("          wgmma_m64n64k16_rs(oacc[i], p[kk], desc_sw128(slot(base + i) + 2048 * kk));",
+    "no_reloads": [("      for (int j = 0; j < n_tiles; ++j) {\n        if (j >= 1) mbar_wait(empty_k, (j - 1) & 1);\n",
+                    "      for (int j = 0; j < n_tiles; ++j) {\n        if (j >= 1) mbar_wait(empty_k, (j - 1) & 1);\n"
+                    "        if (j >= 2) {\n"
+                    "          mbar_arrive(full_k);\n"
+                    "          mbar_wait(empty_v(j), ((j >> 1) - 1) & 1);\n"
+                    "          mbar_arrive(full_v(j));\n"
+                    "          continue;\n"
+                    "        }\n")],
+    "no_pv": [("          wgmma_m64n64k16_rs(oacc[i], p[kk], desc_sw128(base + kChunkBytes * i + 2048 * kk));",
                "          (void)kk;")],
     "no_qk": [("            wgmma_m64n64k16_ss<false>(s, desc_sw128(qa), desc_sw128(ka));",
                "            (void)qa;"),
               ("            wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));",
                "            (void)ka;")],
-    "no_exchange": [("    release(k_pos(0), NC);\n    if constexpr (kSplitD) exchange(s);",
-                     "    release(k_pos(0), NC);"),
-                    ("      release(k_pos(j), NC);\n      if constexpr (kSplitD) exchange(s);",
-                     "      release(k_pos(j), NC);")],
+    "no_exchange": [("    release(empty_k);\n    if constexpr (kSplitD) exchange(s);",
+                     "    release(empty_k);"),
+                    ("      release(empty_k);\n      if constexpr (kSplitD) exchange(s);",
+                     "      release(empty_k);")],
     "no_softmax": [("                                             float (&corr)[2]) {\n",
                     "                                             float (&corr)[2]) {\n"
                     "  corr[0] = corr[1] = l[0] = l[1] = 1.f;\n  if (corr[0] > 0.f) return;\n")],

@@ -37,15 +37,17 @@
 // - TMA brings every load in 64-column boxes with 128-byte swizzle (one
 //   64-wide bf16 row is one swizzle span): one 3-D tensor map per operand
 //   over (D, T, BH), box (64, 64, 1), 8 KB. Q arrives once, D/64 boxes (64 KB
-//   at D = 512). K (all D/64 chunks) and V (the block's 2 NO chunks) stream
-//   as 64-key x 64-column chunks through a ring of 8 KB slots, each guarded
-//   by a "full" mbarrier (expect_tx bytes) and an "empty" one that all eight
-//   consumer warps arrive on. The producer brings the K chunks of tile j + 1
-//   before the V chunks of tile j (K0, K1, V0, K2, V1, ...), so the next
-//   tile's keys load while this tile's softmax and PV product run. The ring
-//   takes the shared memory Q and the exchange buffers leave: 16 / 18 / 20
-//   slots at D = 512 / 384 / 256; it must hold K of tile j and V of tile
-//   j - 1 together (12 / 8 / 8).
+//   at D = 512). Each 64-key tile's K (all D/64 chunks) lands in one K slot
+//   and its V (the block's 2 NO chunks) in one of two V slots, each slot
+//   guarded by one "full" mbarrier (expect_tx bytes) and one "empty" one
+//   that all eight consumer warps arrive on: four barrier operations per
+//   warp and tile. (A ring of 8 KB chunk slots with a barrier pair each took
+//   about 30 per warp and tile, and that bookkeeping alone cost 0.93 ms of
+//   1.70 at (8, 4096, 512) on an H100.) K of tile j + 1 loads once both
+//   consumers have finished Q K_j^T, under the exchange, softmax and PV
+//   product of tile j; V of tile j + 1 loads once P_{j-1} V_{j-1} is done.
+//   Shared memory: 230,456 B at D = 512 (Q 64 KB, K 64 KB, V 2 x 32 KB,
+//   exchange 32 KB).
 // - S = Q K^T (64 x 64 per key tile): wgmma m64n64k16, both operands from
 //   shared memory, K-major, 128-byte-swizzle descriptors; four k-steps per
 //   64-column chunk, the start address advancing 32 bytes inside the swizzle
@@ -105,14 +107,6 @@ constexpr float kNegBig = -1e30f;
 // all of d itself (1.5x the minimal tensor work, no exchange)
 constexpr bool kSplitD = true;
 
-// K/V ring slots at head width D: what Q, the exchange buffers, the barriers
-// and the alignment slack leave of the opt-in limit
-template <int D>
-__host__ __device__ constexpr int ring_slots() {
-  return int((kSmemLimit - 1024 - 512 - kXchgBytes - size_t(kChunkBytes) * (D / kChunk)) /
-             kChunkBytes);
-}
-
 // 64-column chunks of O a consumer owns at head width D, and column blocks
 // per row
 template <int D>
@@ -126,13 +120,15 @@ __host__ __device__ constexpr int col_blocks() {
 
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes() {
-  // Q, the ring, the exchange buffers, barriers (Q, full and empty per slot),
-  // 1024 bytes of slack to align the swizzled chunks
-  return size_t(kChunkBytes) * (D / kChunk + ring_slots<D>()) + kXchgBytes +
-         8 * (1 + 2 * ring_slots<D>()) + 1024;
+  // Q and one K tile (D/64 chunks each), two V tiles (2 NO chunks each), the
+  // exchange buffers, seven barriers, 1024 bytes of slack to align the
+  // swizzled chunks
+  return size_t(kChunkBytes) * (2 * (D / kChunk) + 4 * out_chunks<D>()) + kXchgBytes + 8 * 7 +
+         1024;
 }
 
-static_assert(smem_bytes<512>() <= kSmemLimit && smem_bytes<256>() <= kSmemLimit,
+static_assert(smem_bytes<512>() <= kSmemLimit && smem_bytes<384>() <= kSmemLimit &&
+                  smem_bytes<256>() <= kSmemLimit,
               "the block must fit the opt-in shared memory");
 
 // 2^x in one special-function instruction; results below 2^-126 flush to 0
@@ -346,22 +342,20 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
   constexpr int NH = NC / 2;            // a consumer's chunks of the d-reduction
   constexpr int NO = out_chunks<D>();   // a consumer's chunks of O
   constexpr int NV = 2 * NO;            // V chunks of a tile this block reads
-  constexpr int R = ring_slots<D>();
-  // K of tile j and V of tile j - 1 are held together
-  static_assert(R >= NC + NV, "the ring must hold K of one tile and V of another");
-  // ring positions: K0, K1, V0, K2, V1, ..., K_{n-1}, V_{n-2}, V_{n-1}; a K
-  // tile takes NC positions, a V tile NV
-  auto k_pos = [](int j) { return j == 0 ? 0 : NC + (j - 1) * (NC + NV); };
   extern __shared__ unsigned char smem_raw[];
   // 128-byte-swizzled chunks start on 1024-byte boundaries
   const uint32_t q_base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t ring = q_base + kChunkBytes * NC;
-  const uint32_t xchg = ring + kChunkBytes * R;
+  const uint32_t k_slot = q_base + kChunkBytes * NC;
+  const uint32_t v_slots = k_slot + kChunkBytes * NC;
+  const uint32_t xchg = v_slots + kChunkBytes * 2 * NV;
   const uint32_t bars = xchg + kXchgBytes;
-  const uint32_t q_bar = bars;
-  auto slot = [&](int p) { return ring + kChunkBytes * (p % R); };
-  auto full_bar = [&](int p) { return bars + 8 * (1 + p % R); };
-  auto empty_bar = [&](int p) { return bars + 8 * (1 + R + p % R); };
+  // one barrier pair per slot: "full" completes when the slot's chunks have
+  // landed (expect_tx bytes), "empty" when all eight consumer warps are done
+  // with them
+  const uint32_t q_bar = bars, full_k = bars + 8, empty_k = bars + 16;
+  auto v_slot = [&](int j) { return v_slots + kChunkBytes * NV * (j & 1); };
+  auto full_v = [&](int j) { return bars + 24 + 8 * (j & 1); };
+  auto empty_v = [&](int j) { return bars + 40 + 8 * (j & 1); };
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -371,41 +365,38 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
   const int bh = blockIdx.y;
   const int z = blockIdx.z;  // column block: V and O chunks [z NV, (z + 1) NV)
   const int n_tiles = seq / kBN;
-  auto v_pos = [&](int j) { return j == n_tiles - 1 ? NC + j * (NC + NV) : 2 * NC + j * (NC + NV); };
 
   if (tid == 0) {
     mbar_init(q_bar, 1);
-    for (int s = 0; s < R; ++s) {
-      mbar_init(full_bar(s), 1);
-      mbar_init(empty_bar(s), kConsumerWarps);
+    mbar_init(full_k, 1);
+    mbar_init(empty_k, kConsumerWarps);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(full_v(b), 1);
+      mbar_init(empty_v(b), kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp == kConsumerWarps) {
-    // producer: one thread keeps the ring full
+    // producer: one thread loads Q, then K of tile j into the K slot once
+    // every consumer has finished Q K_{j-1}^T, and V of tile j into V slot
+    // j % 2 once every consumer has finished P_{j-2} V_{j-2}
     if (lane == 0) {
       mbar_expect_tx(q_bar, kChunkBytes * NC);
       for (int c = 0; c < NC; ++c)
         tma_load_3d(q_base + kChunkBytes * c, &tq, q_bar, c * kChunk, q0, bh);
-      // n chunks of tile j, columns from chunk col0 on, into the next ring
-      // positions, each once the consumers have released the position R
-      // before it
-      int p = 0;
-      auto load = [&](const CUtensorMap* map, int j, int col0, int n) {
-        for (int c = 0; c < n; ++c, ++p) {
-          if (p >= R) mbar_wait(empty_bar(p), ((p / R) - 1) & 1);
-          mbar_expect_tx(full_bar(p), kChunkBytes);
-          tma_load_3d(slot(p), map, full_bar(p), (col0 + c) * kChunk, j * kBN, bh);
-        }
-      };
-      load(&tk, 0, 0, NC);
-      for (int j = 1; j < n_tiles; ++j) {
-        load(&tk, j, 0, NC);
-        load(&tv, j - 1, z * NV, NV);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j >= 1) mbar_wait(empty_k, (j - 1) & 1);
+        mbar_expect_tx(full_k, kChunkBytes * NC);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(k_slot + kChunkBytes * c, &tk, full_k, c * kChunk, j * kBN, bh);
+        if (j >= 2) mbar_wait(empty_v(j), ((j >> 1) - 1) & 1);
+        mbar_expect_tx(full_v(j), kChunkBytes * NV);
+        for (int c = 0; c < NV; ++c)
+          tma_load_3d(v_slot(j) + kChunkBytes * c, &tv, full_v(j), (z * NV + c) * kChunk, j * kBN,
+                      bh);
       }
-      load(&tv, n_tiles - 1, z * NV, NV);
     }
   } else {
     const int g = lane >> 2;
@@ -413,30 +404,19 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
     const int tw = tid & 127;       // thread within the consumer warpgroup
     float* const xbuf = reinterpret_cast<float*>(smem_raw + (xchg - smem_u32(smem_raw)));
 
-    auto full_wait = [&](int p) { mbar_wait(full_bar(p), (p / R) & 1); };
-    // every consumer warp arrives on every position of a tile once it is
-    // done with it, read or not; it waits for the position to fill first, so
-    // it never arrives a whole ring ahead
-    auto release = [&](int first, int n) {
-#pragma unroll
-      for (int c = 0; c < n; ++c) full_wait(first + c);
+    auto release = [&](uint32_t empty_bar) {
       __syncwarp();
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < n; ++c) mbar_arrive(empty_bar(first + c));
-      }
+      if (lane == 0) mbar_arrive(empty_bar);
     };
     auto qk = [&](float (&s)[32], int j) {  // Q K_j^T over this consumer's part of d
       constexpr int NK = kSplitD ? NH : NC;
       const int first = kSplitD ? w * NH : 0;
-      const int base = k_pos(j) + first;
-#pragma unroll
-      for (int i = 0; i < NK; ++i) full_wait(base + i);
+      mbar_wait(full_k, j & 1);
       wgmma_fence();
 #pragma unroll
       for (int i = 0; i < NK; ++i) {
         const uint32_t qa = q_base + kChunkBytes * (first + i);
-        const uint32_t ka = slot(base + i);
+        const uint32_t ka = k_slot + kChunkBytes * (first + i);
 #pragma unroll
         for (int kk = 0; kk < kChunk / 16; ++kk) {
           if (i == 0 && kk == 0)
@@ -449,15 +429,14 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
     };
     auto pv = [&](float (&oacc)[NO][32], const uint32_t (&p)[kBN / 16][4], int j) {
       // O += P V_j over this consumer's column chunks: four k-steps of 16 keys
-      const int base = v_pos(j) + w * NO;
-#pragma unroll
-      for (int i = 0; i < NO; ++i) full_wait(base + i);
+      const uint32_t base = v_slot(j) + kChunkBytes * (w * NO);
+      mbar_wait(full_v(j), (j >> 1) & 1);
       wgmma_fence();
 #pragma unroll
       for (int i = 0; i < NO; ++i) {
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk)
-          wgmma_m64n64k16_rs(oacc[i], p[kk], desc_sw128(slot(base + i) + 2048 * kk));
+          wgmma_m64n64k16_rs(oacc[i], p[kk], desc_sw128(base + kChunkBytes * i + 2048 * kk));
       }
       wgmma_commit();
     };
@@ -486,7 +465,7 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
     qk(s, 0);
     wgmma_wait<0>();
     fence_regs(s);
-    release(k_pos(0), NC);
+    release(empty_k);
     if constexpr (kSplitD) exchange(s);
     softmax_tile(s, m, l, corr);
     pack_p(s, p);
@@ -499,13 +478,13 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
       pv(oacc, p, j - 1);
       wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
       fence_regs(s);
-      release(k_pos(j), NC);
+      release(empty_k);
       if constexpr (kSplitD) exchange(s);
       softmax_tile(s, m, l, corr);
       wgmma_wait<0>();
       fence_regs(oacc);
       fence_regs(p);
-      release(v_pos(j - 1), NV);
+      release(empty_v(j - 1));
 #pragma unroll
       for (int i = 0; i < NO; ++i) {
 #pragma unroll
@@ -522,7 +501,7 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
     pv(oacc, p, n_tiles - 1);
     wgmma_wait<0>();
     fence_regs(oacc);
-    release(v_pos(n_tiles - 1), NV);
+    release(empty_v(n_tiles - 1));
 
     // epilogue: divide by the row sum, round once, store bf16x2 rows
     const int row = q0 + (warp & 3) * 16 + g;
