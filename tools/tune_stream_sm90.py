@@ -36,14 +36,11 @@ from unirestore_torch.nn import attention_kernels as K  # noqa: E402
 from unirestore_torch.nn import cuda_lib  # noqa: E402
 
 # variant -> exact (old, new) edits of the source. The designs measured
-# before the shipped one (a ring of 8 KB chunk slots; one column block per
-# row, with and without a setmaxnreg producer warpgroup) are variants of the
-# source as of commit ddd511e.
-VARIANTS = {
-    "shipped": [],
-    # each consumer reduces Q K^T over all of d itself, no exchange
-    "M1": [("constexpr bool kSplitD = true;", "constexpr bool kSplitD = false;")],
-}
+# before the shipped one are variants of the source as of earlier commits:
+# a ring of 8 KB chunk slots, one column block per row with and without a
+# setmaxnreg producer warpgroup (ddd511e); M1, each consumer reducing Q K^T
+# over all of d with no exchange (a72746f).
+VARIANTS = {"shipped": []}
 # variants that compute a wrong answer on purpose, to show what bounds the
 # kernel (not held to the plain version): the ring filled once and never
 # reloaded (no K/V traffic after the first tiles); no P V products; no
@@ -64,10 +61,8 @@ DIAGNOSTICS = {
                "            (void)qa;"),
               ("            wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));",
                "            (void)ka;")],
-    "no_exchange": [("    release(empty_k);\n    if constexpr (kSplitD) exchange(s);",
-                     "    release(empty_k);"),
-                    ("      release(empty_k);\n      if constexpr (kSplitD) exchange(s);",
-                     "      release(empty_k);")],
+    "no_exchange": [("    release(empty_k);\n    exchange(s);", "    release(empty_k);"),
+                    ("      release(empty_k);\n      exchange(s);", "      release(empty_k);")],
     "no_softmax": [("                                             float (&corr)[2]) {\n",
                     "                                             float (&corr)[2]) {\n"
                     "  corr[0] = corr[1] = l[0] = l[1] = 1.f;\n  if (corr[0] > 0.f) return;\n")],

@@ -27,7 +27,7 @@
 //   BH, CB); two consumer warpgroups and one producer warp, 288 threads, one
 //   block per SM. ptxas holds a thread of a block of 9-12 warps to 168
 //   registers (setmaxnreg did not raise that for the consumers, measured on
-//   an H100), and a consumer needs about 160 with two 64-column chunks of O
+//   an H100), and a consumer needs about 150 with two 64-column chunks of O
 //   (64 fp32 registers) beside S and P; with three or four it spilled and
 //   serialised its wgmma. So each consumer owns NO = 2 chunks of O at D = 256
 //   and 512 and 1 at D = 384, and a row's D/64 chunks are split over CB = 1,
@@ -58,7 +58,8 @@
 //   Thread t of both holds the same elements, and fp32 addition commutes,
 //   so both hold the same S bit for bit and run the same softmax. The
 //   exchange has no branch on the consumer: a branch that wrote S on two
-//   paths made ptxas serialise the wgmma.
+//   paths made ptxas serialise the wgmma. (M1, each consumer reducing over
+//   all of d with no exchange, measured 2.2x slower on an H100.)
 // - The softmax stays in registers on the accumulator layout (rows g and
 //   g + 8 of each warp's 16, columns 8n + 2*t4 + {0, 1}).
 // - O += P V: wgmma m64n64k16 with A from registers (P packed to bf16: for
@@ -102,10 +103,6 @@ constexpr uint32_t kChunkBytes = kBN * kChunk * 2;    // one 64 x 64 bf16 chunk:
 constexpr uint32_t kXchgBytes = 2 * kBM * kBN * 4;    // two 64 x 64 fp32 partial S: 32 KB
 constexpr size_t kSmemLimit = 232448;                 // the H100's opt-in per block
 constexpr float kNegBig = -1e30f;
-// M2: each consumer reduces Q K^T over its own half of d and the two partial
-// S are summed through shared memory; M1 (false): each consumer reduces over
-// all of d itself (1.5x the minimal tensor work, no exchange)
-constexpr bool kSplitD = true;
 
 // 64-column chunks of O a consumer owns at head width D, and column blocks
 // per row
@@ -408,13 +405,12 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_bar);
     };
-    auto qk = [&](float (&s)[32], int j) {  // Q K_j^T over this consumer's part of d
-      constexpr int NK = kSplitD ? NH : NC;
-      const int first = kSplitD ? w * NH : 0;
+    auto qk = [&](float (&s)[32], int j) {  // Q K_j^T over this consumer's half of d
+      const int first = w * NH;
       mbar_wait(full_k, j & 1);
       wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < NK; ++i) {
+      for (int i = 0; i < NH; ++i) {
         const uint32_t qa = q_base + kChunkBytes * (first + i);
         const uint32_t ka = k_slot + kChunkBytes * (first + i);
 #pragma unroll
@@ -466,7 +462,7 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
     wgmma_wait<0>();
     fence_regs(s);
     release(empty_k);
-    if constexpr (kSplitD) exchange(s);
+    exchange(s);
     softmax_tile(s, m, l, corr);
     pack_p(s, p);
 
@@ -479,7 +475,7 @@ attention_stream_sm90(const __grid_constant__ CUtensorMap tq, const __grid_const
       wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
       fence_regs(s);
       release(empty_k);
-      if constexpr (kSplitD) exchange(s);
+      exchange(s);
       softmax_tile(s, m, l, corr);
       wgmma_wait<0>();
       fence_regs(oacc);
