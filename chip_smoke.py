@@ -9,10 +9,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. environment: card name, ``nvidia-smi`` name and power limit, TF32 off;
 2. build the CUDA kernels from ``unirestore_torch/csrc/`` (one ``nvcc`` per
-   source, all four at once);
+   source, all five at once);
 3. each kernel against its plain PyTorch version at every shape the 512 px
-   batch-8 main paths give it, and the wide-head kernel also at the
-   server's shapes (bf16), with kernel, plain, library
+   batch-8 main paths give it, and the wide-head and head-major kernels also
+   at the server's shapes (bf16), with kernel, plain, library
    (``scaled_dot_product_attention``; ``F.conv2d(groups=16)`` in
    ``channels_last``; timed as yardsticks only) and bound times; for the
    out-projection-fused kernel, which no single PyTorch call matches, the
@@ -21,9 +21,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launches called directly (``direct_ms``), and where that entry replaced
    the ``mma.sync`` kernel of ``csrc/attention.cu`` (channel-flat:
    ``ur_attention_btc_sm90`` in ``csrc/attention_sm90.cu``; wide-head:
-   ``ur_attention_stream_sm90`` in ``csrc/attention_stream_sm90.cu``), that
-   kernel's entry too, timed in turns (``prev_ms``, a yardstick only), with
-   the host time of one call of each and of the wrapper (``*_host_us``);
+   ``ur_attention_stream_sm90`` in ``csrc/attention_stream_sm90.cu``;
+   head-major: ``ur_attention_bh_sm90`` in ``csrc/attention_bh_sm90.cu``),
+   that kernel's entry too, timed in turns (``prev_ms``, a yardstick only),
+   with the host time of one call of each and of the wrapper
+   (``*_host_us``). A kernel whose direct call takes under ``GRAPH_MS`` is
+   timed again with the host out of the way: ``GRAPH_CALLS`` calls of the
+   wrapper, of each C entry and of the library call captured in one CUDA
+   graph each and replayed (``timer: "graph"``; the event readings stay
+   beside them as ``*_event_ms``);
    and each attention kernel's gradient (its autograd function) against
    autograd through its plain version at one main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
@@ -148,7 +154,13 @@ REFERENCE_ATOL = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 # the milestone of each Hopper redesign that ships (its source's head comment)
-SM90_DESIGNS = {"attention_sm90.cu": "M2", "attention_stream_sm90.cu": "M2"}
+SM90_DESIGNS = {"attention_sm90.cu": "M2", "attention_stream_sm90.cu": "M2",
+                "attention_bh_sm90.cu": "M1"}
+# a call shorter than GRAPH_MS is timed by replaying GRAPH_CALLS captured
+# calls: one ctypes call costs 4-9 us of host time and a wrapper call 40-115
+# us, so back-to-back calls of a short kernel measure the host's launch rate
+GRAPH_MS = 0.05
+GRAPH_CALLS = 100
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
@@ -174,6 +186,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
+    """Device ms per call of ``fn`` with the host out of the way: ``calls``
+    calls captured in one CUDA graph, replayed ``replays`` times between two
+    events. ``fn`` takes its stream from ``torch.cuda.current_stream()`` when
+    called, so that the capture records it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def host_us(fn, reps: int = 20) -> float:
@@ -215,6 +252,12 @@ def kernel_shapes(K):
         (K.fused_attention_btc_prescaled, (b, 1024, 256), 4),   # Controller stage 1
         (K.fused_attention_bh_prescaled, (b * 20, 256, 64), 1),  # UNet level 2
         (K.fused_attention_bh_prescaled, (b * 4, 256, 128), 1),  # Controller stage 2
+        # the server's: a batch of four 512 px tiles, and a 256 x 384 image
+        # whole at 512 x 768 (T = 384)
+        (K.fused_attention_bh_prescaled, (80, 256, 64), 1),
+        (K.fused_attention_bh_prescaled, (16, 256, 128), 1),
+        (K.fused_attention_bh_prescaled, (20, 384, 64), 1),
+        (K.fused_attention_bh_prescaled, (4, 384, 128), 1),
         (K.streaming_attention_bh_prescaled, (b, 4096, 512), 1),  # VAE mid block
         # the server's: a batch of four 512 px tiles, a 256 x 384 image whole
         # at 512 x 768
@@ -298,7 +341,9 @@ def time_entries(K, kern, xs) -> dict:
     version too (``prev_tolerance_ratio``). Host times are of the same ctypes
     call into a preallocated output, so their difference is the entries' own
     host work; at T = 1024 the wrapper's host time per call exceeds a
-    kernel's."""
+    kernel's. Where the direct call takes under ``GRAPH_MS``, ``direct_ms``
+    and ``prev_ms`` are graph replays (``timer``), the event readings kept as
+    ``direct_event_ms`` and ``prev_event_ms``."""
     q, k, v = xs
     symbol, lib = kern.route(torch.bfloat16)
     new = getattr(lib, symbol)
@@ -319,6 +364,13 @@ def time_entries(K, kern, xs) -> dict:
     res["direct_ms"], res["direct_host_us"] = (ms[0] + ms[-1]) / 2, (host[0] + host[-1]) / 2
     if len(order) > 1:
         res["prev_ms"], res["prev_host_us"] = (ms[1] + ms[2]) / 2, (host[1] + host[2]) / 2
+    res["timer"] = "events"
+    if res["direct_ms"] < GRAPH_MS:
+        res["timer"] = "graph"
+        graph = [graph_ms(lambda e=e: direct(e, q, k, v, out)) for e in order]
+        res["direct_event_ms"], res["direct_ms"] = res["direct_ms"], (graph[0] + graph[-1]) / 2
+        if len(order) > 1:
+            res["prev_event_ms"], res["prev_ms"] = res["prev_ms"], (graph[1] + graph[2]) / 2
     res["wrapper_host_us"] = host_us(lambda: kern(q, k, v))
     return res
 
@@ -373,6 +425,9 @@ def check_kernel(K, kern, shape, heads, gen):
                      lambda: sdpa().transpose(1, 2).reshape(n, t, shape[2]) @ wo, 10)}
     else:
         library_ms = cuda_ms(sdpa, 10)
+    if extra.get("timer") == "graph":  # the wrapper and SDPA as the C entries
+        extra["event_ms"], ms = ms, graph_ms(lambda: kern(*xs))
+        extra["library_event_ms"], library_ms = library_ms, graph_ms(sdpa)
     bound_ms, bound_by = bound(flops, nbytes)
     row = {"shape": list(shape), "heads": heads, "d": d, **err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, **extra, "bound_ms": bound_ms,
@@ -383,15 +438,21 @@ def check_kernel(K, kern, shape, heads, gen):
     if "direct_ms" in extra:
         prev, prev_host = "", ""
         if "prev_ms" in extra:
-            prev = (f", prev (mma.sync) {extra['prev_ms']:.3f} ms, its tolerance ratio "
+            prev = (f", prev (mma.sync) {extra['prev_ms']:.4f} ms, its tolerance ratio "
                     f"{extra['prev_tolerance_ratio']:.3f}")
             prev_host = f", prev {extra['prev_host_us']:.1f} us"
-        yardsticks += (f" | direct call {extra['direct_ms']:.3f} ms{prev} | host per call: C "
+        yardsticks += (f" | direct call {extra['direct_ms']:.4f} ms{prev} | host per call: C "
                        f"entry {extra['direct_host_us']:.1f} us{prev_host}, wrapper "
-                       f"{extra['wrapper_host_us']:.1f} us")
+                       f"{extra['wrapper_host_us']:.1f} us | timer {extra['timer']}")
+        if extra["timer"] == "graph":
+            yardsticks += (f" (events: wrapper {extra['event_ms']:.4f} ms, direct "
+                           f"{extra['direct_event_ms']:.4f} ms"
+                           + (f", prev {extra['prev_event_ms']:.4f} ms" if "prev_ms" in extra
+                              else "")
+                           + f", library {extra['library_event_ms']:.4f} ms)")
     log(f"kernel {kern.symbol} {tuple(shape)} d={d}: max_abs {err['max_abs_err']:.3e} "
         f"rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} tolerance ratio "
-        f"{err['tolerance_ratio']:.3f} | {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s) "
+        f"{err['tolerance_ratio']:.3f} | {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s) "
         f"plain {plain_ms:.3f} ms {yardsticks} bound {bound_ms:.4f} ms ({bound_by})")
     return row
 

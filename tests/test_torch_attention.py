@@ -208,12 +208,13 @@ def test_btc_supported_shapes_meet_the_sm90_kernel_preconditions(t, inner):
 def test_btc_routes_bf16_to_the_sm90_kernel():
     """bf16 channel-flat launches take ``ur_attention_btc_sm90``, fp32 ones the
     FMA kernel ``ur_attention_btc``; of the other wrappers only the wide-head
-    one changes entry."""
+    and head-major ones change entry."""
     kern = K.fused_attention_btc_prescaled
     assert kern.entry(torch.bfloat16) == ("ur_attention_btc_sm90", K.library_sm90, K.SOURCE_SM90)
     assert kern.entry(torch.float32) == ("ur_attention_btc", K.library, K.SOURCE)
     assert all(not other.symbols for other in K.KERNELS
-               if other not in (kern, K.streaming_attention_bh_prescaled))
+               if other not in (kern, K.streaming_attention_bh_prescaled,
+                                K.fused_attention_bh_prescaled))
     assert K.SOURCE_SM90.is_file() and K.SOURCE_SM90.parent == K.SOURCE.parent
 
 
@@ -295,6 +296,84 @@ def test_bf16_tolerance_passes_the_stream_sm90_arithmetic_and_rejects_faults(sha
     ratio = K.bf16_tolerance_ratio(_stream_sm90_attention(q, k, v, fault),
                                    K.attention_bh_plain(q, k, v))
     assert (ratio <= 1.0) == (fault == "none"), ratio
+
+
+def test_bh_routes_bf16_to_the_sm90_kernel():
+    """bf16 head-major launches take ``ur_attention_bh_sm90`` in its own
+    source, fp32 ones the FMA kernel ``ur_attention_bh``; ``build_all`` builds
+    the new source with the others."""
+    kern = K.fused_attention_bh_prescaled
+    assert kern.entry(torch.bfloat16) == ("ur_attention_bh_sm90", K.library_bh_sm90,
+                                          K.SOURCE_BH_SM90)
+    assert kern.entry(torch.float32) == ("ur_attention_bh", K.library, K.SOURCE)
+    assert K.SOURCE_BH_SM90.is_file() and K.SOURCE_BH_SM90.parent == K.SOURCE.parent
+    assert K.SOURCE_BH_SM90 in KN.SOURCES and len(set(KN.SOURCES)) == len(KN.SOURCES) == 5
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192])
+@pytest.mark.parametrize("t", _T)
+def test_supported_shapes_meet_the_bh_sm90_kernel_preconditions(t, d):
+    """Every shape the head-major route admits meets what ``ur_attention_bh_sm90``
+    checks (T >= BH_SM90_MIN_T, a head width it was built for); T need not be
+    a multiple of its 64-row blocks, whose last one it masks."""
+    if K.supported(t, t, d):
+        assert t >= K.BH_SM90_MIN_T and d in K.BH_SM90_WIDTHS
+        assert K._bh_dims(torch.empty(3, t, d, device="meta")) == (3, t, d)
+    else:
+        with pytest.raises(ValueError, match="unsupported"):
+            K._bh_dims(torch.empty(3, t, d, device="meta"))
+
+
+def _bh_sm90_attention(q, k, v, fault):
+    """``ur_attention_bh_sm90``'s arithmetic in plain torch, with one of its
+    faults planted.
+
+    64-key tiles, the last one zero-filled past T (as TMA fills it) and its
+    keys at or past T masked before the row max; fp32 running max and row
+    sum; probabilities rounded to bf16 before the PV product. Faults: the
+    tail keys not masked (zero rows counted at logit 0), the last tile stale
+    (its K and V those of the tile before it, as when its load is skipped),
+    O not rescaled.
+    """
+    n, t, d = k.shape
+    tiles = -(-t // K.BH_SM90_BLOCK)
+    pad = tiles * K.BH_SM90_BLOCK - t
+    kf = torch.cat([k.float(), k.new_zeros(n, pad, d).float()], 1)
+    vf = torch.cat([v.float(), v.new_zeros(n, pad, d).float()], 1)
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape[:-1] + (d,))
+    for j in range(tiles):
+        k0 = (j - 1 if fault == "last_tile_stale" and j == tiles - 1 else j) * K.BH_SM90_BLOCK
+        s = q.float() @ kf[:, k0:k0 + K.BH_SM90_BLOCK].transpose(1, 2)
+        keys = torch.arange(j * K.BH_SM90_BLOCK, (j + 1) * K.BH_SM90_BLOCK)
+        if fault != "tail_keys_not_masked":
+            s = s.masked_fill(keys >= t, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc if fault == "accumulator_not_rescaled" else acc * corr
+        acc = acc + p.to(torch.bfloat16).float() @ vf[:, k0:k0 + K.BH_SM90_BLOCK]
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fault", ["none", "tail_keys_not_masked", "last_tile_stale",
+                                   "accumulator_not_rescaled"])
+@pytest.mark.parametrize("shape", [(3, 264, 64), (2, 328, 128), (4, 256, 64)])
+def test_bf16_tolerance_passes_the_bh_sm90_arithmetic_and_rejects_faults(shape, fault):
+    """The same limit at ``ur_attention_bh_sm90``'s arithmetic (64-key tiles,
+    a zero-filled and masked last tile where T % 64 != 0): it passes, and each
+    of the kernel's planted faults fails. At T = 256 no key lies past T, so
+    the unmasked tail computes exactly what the sound kernel does there."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(32, shape, shape[-1]))
+    out = _bh_sm90_attention(q, k, v, fault)
+    ratio = K.bf16_tolerance_ratio(out, K.attention_bh_plain(q, k, v))
+    if fault == "tail_keys_not_masked" and shape[1] % K.BH_SM90_BLOCK == 0:
+        assert torch.equal(out, _bh_sm90_attention(q, k, v, "none"))
+    else:
+        assert (ratio <= 1.0) == (fault == "none"), ratio
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,12 @@ The bf16 channel-flat launches go through ``ur_attention_btc_sm90``
 (``csrc/attention_sm90.cu``), the fp32 ones through ``ur_attention_btc``; the
 bf16 wide-head launches through ``ur_attention_stream_sm90``
 (``csrc/attention_stream_sm90.cu``), the fp32 ones through
-``ur_attention_stream``. A selection test holds each Hopper kernel's wgmma
-descriptors and TMA swizzle to exact answers (``pytest -k btc`` or ``-k
-stream`` runs only one kernel's tests while iterating on it).
+``ur_attention_stream``; the bf16 head-major launches through
+``ur_attention_bh_sm90`` (``csrc/attention_bh_sm90.cu``), the fp32 ones
+through ``ur_attention_bh``. A selection test holds each Hopper kernel's
+wgmma descriptors and TMA swizzle (and the head-major kernel's masked tail)
+to exact answers (``pytest -k btc``, ``-k stream`` or ``-k bh`` runs only one
+kernel's tests while iterating on it).
 The out-projection-fused kernel: bf16 ``bf16_out_tolerance_ratio <= 1``
 (|out - ref| <= 2^-7 |ref| + 2^-5 rms(ref), the reasoning beside it in
 ``attention_kernels.py``); fp32 1e-5 of the output's largest entry, since each
@@ -196,6 +199,69 @@ def test_stream_sm90_matches_the_mma_sync_kernel(cuda, shape):
     q, k, v = _qkv(shape, shape[-1], torch.bfloat16, seed=2)
     out = K.streaming_attention_bh_prescaled(q, k, v)
     prev = chip_smoke.direct(K.library().ur_attention_stream, q, k, v)
+    torch.cuda.synchronize()
+    assert K.bf16_tolerance_ratio(out, prev) <= 1.0
+
+
+@pytest.mark.parametrize("d,t", [(64, 256), (64, 264), (128, 256), (128, 328)])
+def test_bh_sm90_selects_exact_rows(cuda, d, t):
+    """In each of two heads, each query's logits put one key (a permutation of
+    all T: every key tile, every row of each 128-byte swizzle atom, every ring
+    stage) at logit 0 and every other at -160 or below, so exp2 of the others
+    is 0 in fp32 and every output column must equal the selected V row bit for
+    bit. The zero rows TMA fills in past T would also score 0: unless the
+    kernel masks them, a row of a T that is not a multiple of 64 mixes the
+    selected V row with zeros. A wrong K descriptor picks another key; a wrong
+    V descriptor, swizzle or transpose bit permutes or mixes V's columns; a
+    wrong head offset reads another head's keys; a query row at or past T
+    stored writes past the output's end (a guard region must stay as it
+    was)."""
+    rng = np.random.default_rng(d + t)
+    bh, scale = 2, 512 // d
+    # +-1 codes in d - 1 columns and a last column of 1 in k, -(d - 1) in q:
+    # q_i . k_j = scale * ((d - 1 - 2 dist(i, j)) - (d - 1)) = -2 scale dist
+    codes = rng.choice([-1.0, 1.0], size=(bh, t, d - 1))
+    for c in codes:
+        dist = (d - 1 - c @ c.T) / 2
+        np.fill_diagonal(dist, d)
+        assert 2 * scale * dist.min() >= 160
+    perms = [rng.permutation(t) for _ in range(bh)]
+    q = scale * np.concatenate([np.stack([c[p] for c, p in zip(codes, perms)]),
+                                np.full((bh, t, 1), -(d - 1.0))], -1)
+    k = np.concatenate([codes, np.ones((bh, t, 1))], -1)
+    q, k = (torch.tensor(x, dtype=torch.bfloat16, device="cuda") for x in (q, k))
+    v = torch.randn((bh, t, d), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(torch.bfloat16)
+    kern = K.fused_attention_bh_prescaled
+    assert kern.route(torch.bfloat16)[0] == "ur_attention_bh_sm90"
+    out = kern(q, k, v)
+    guarded = torch.full(((bh * t + 64) * d,), 7.0, dtype=torch.bfloat16, device="cuda")
+    chip_smoke.direct(K.library_bh_sm90().ur_attention_bh_sm90, q, k, v,
+                      guarded[:bh * t * d].view(bh, t, d))
+    torch.cuda.synchronize()
+    want = torch.stack([v[i, torch.from_numpy(p).cuda()] for i, p in enumerate(perms)])
+    wrong = (out != want).any(-1).nonzero().tolist()
+    assert not wrong, f"{len(wrong)} (head, row) pairs differ, first {wrong[:8]}"
+    assert torch.equal(guarded[:bh * t * d].view(bh, t, d), want)
+    assert bool((guarded[bh * t * d:] == 7.0).all()), "rows past T were stored"
+
+
+@pytest.mark.parametrize("dtype,symbol", [(torch.bfloat16, "ur_attention_bh_sm90"),
+                                          (torch.float32, "ur_attention_bh")])
+def test_bh_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbol):
+    kern = K.fused_attention_bh_prescaled
+    assert _launch_takes(monkeypatch, kern, (3, 264, 64), 64, dtype) == [symbol]
+
+
+@pytest.mark.parametrize("shape", [(160, 256, 64), (32, 256, 128), (80, 256, 64),
+                                   (16, 256, 128), (20, 384, 64), (4, 384, 128),
+                                   (2, 2056, 64), (2, 4096, 128)])
+def test_bh_sm90_matches_the_mma_sync_kernel(cuda, shape):
+    """At the restore's and the server's shapes, and at two long rows (the
+    ring reloads its stages; T = 2056 masks the last tile)."""
+    q, k, v = _qkv(shape, shape[-1], torch.bfloat16, seed=2)
+    out = K.fused_attention_bh_prescaled(q, k, v)
+    prev = chip_smoke.direct(K.library().ur_attention_bh, q, k, v)
     torch.cuda.synchronize()
     assert K.bf16_tolerance_ratio(out, prev) <= 1.0
 

@@ -49,10 +49,12 @@ def test_each_fault_plants_into_its_source(tmp_path, fault):
 def test_rows_are_filed_under_each_kernels_bf16_source():
     """The attend_mma faults reach the kernels whose bf16 entry is in
     attention.cu; the channel-flat kernel's is in attention_sm90.cu, the
-    wide-head kernel's in attention_stream_sm90.cu."""
+    wide-head kernel's in attention_stream_sm90.cu, the head-major kernel's
+    in attention_bh_sm90.cu."""
     sources = {kern.symbol: Path(chip_smoke.kernel_source(G, kern)).name
                for kern in K.KERNELS}
-    assert sources == {"ur_attention_btc": CK.ATTENTION_SM90, "ur_attention_bh": CK.ATTENTION,
+    assert sources == {"ur_attention_btc": CK.ATTENTION_SM90,
+                       "ur_attention_bh": CK.ATTENTION_BH_SM90,
                        "ur_attention_stream": CK.ATTENTION_STREAM_SM90,
                        "ur_attention_btc_out": CK.ATTENTION}
     assert chip_smoke.kernel_source(G, G.grouped_conv3).endswith(CK.GCONV)
@@ -60,15 +62,17 @@ def test_rows_are_filed_under_each_kernels_bf16_source():
         assert kern.entry(torch.bfloat16)[2].name == sources[kern.symbol]
 
 
-def _row(kernel, source, ratio=None, error=None):
-    row = {"kernel": kernel, "source": source, "shape": [8, 4096, 320]}
+def _row(kernel, source, ratio=None, error=None, shape=(8, 4096, 320)):
+    row = {"kernel": kernel, "source": source, "shape": list(shape)}
     if error is not None:
         return json.dumps({**row, "error": error})
     return json.dumps({**row, "max_abs_err": 0.0, "rms_err_over_rms_ref": 0.0,
                        "tolerance_ratio": ratio})
 
 
-_SM90, _ATT = ("ur_attention_btc", "attention_sm90.cu"), ("ur_attention_bh", "attention.cu")
+_SM90, _ATT = ("ur_attention_btc", "attention_sm90.cu"), ("ur_attention_btc_out", "attention.cu")
+_BH = ("ur_attention_bh", "attention_bh_sm90.cu")
+_MASKED, _WHOLE = (3, 264, 64), (160, 256, 64)
 _CUDA = "ur_attention_btc_sm90: CUDA error 700"
 
 
@@ -91,7 +95,16 @@ _CUDA = "ur_attention_btc_sm90: CUDA error 700"
     ("sm90_last_tile_load_skipped", 1, [_row(*_SM90, 50.0)], "MemoryError", False),
     ("last_key_tile_dropped", 1, [], "ModuleNotFoundError: no module", False),
     # no row that the fault reaches
-    ("out_head_left_out", 0, [_row(*_ATT, 0.5)], "", False),
+    ("out_head_left_out", 0, [_row(*_BH, 0.5)], "", False),
+    # a masked-tail fault reaches only the shapes whose last key tile is partial
+    ("bh_sm90_tail_keys_not_masked", 0,
+     [_row(*_BH, 0.5, shape=_WHOLE), _row(*_BH, 8.0, shape=_MASKED)], "", True),
+    ("bh_sm90_tail_keys_not_masked", 0,
+     [_row(*_BH, 8.0, shape=_MASKED), _row(*_BH, 0.5, shape=(2, 328, 128))], "", False),
+    ("bh_sm90_tail_keys_not_masked", 0, [_row(*_BH, 0.5, shape=_WHOLE)], "", False),
+    # every other fault of the head-major kernel reaches every shape it runs
+    ("bh_sm90_last_tile_stale", 0,
+     [_row(*_BH, 90.0, shape=_WHOLE), _row(*_BH, 0.7, shape=_MASKED)], "", False),
 ])
 def test_judge_counts_only_kernel_errors_as_rejections(fault, rc, rows, stderr, ok):
     got, lines = CK.judge(fault, rc, "\n".join(rows) + "\n", stderr)

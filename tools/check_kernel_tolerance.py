@@ -5,16 +5,19 @@ For each fault in ``FAULTS`` this copies ``unirestore_torch/`` and
 ``chip_smoke.py`` into ``WORKDIR/<fault>/``, plants the fault in the copy's
 CUDA source (the repository's own files are never changed), builds every
 copy with ``nvcc`` at once, and then runs chip_smoke's kernel-vs-plain
-comparisons at every main-path shape (batch 8, bf16, the same seeded inputs)
-against each copy in turn: the four attention kernels (bf16 channel-flat
-launches in ``csrc/attention_sm90.cu``, bf16 wide-head launches in
-``csrc/attention_stream_sm90.cu``, the others in ``csrc/attention.cu``) and
-the grouped conv (``csrc/grouped_conv.cu``). It prints one JSON line per
-fault, kernel and shape, and exits 0 only if the unchanged copy (``none``)
-agrees at every shape and every planted fault is rejected at every shape of
-the kernels it reaches: those whose bf16 launches run the source it was
-planted in (the source each wrapper's bf16 entry names), or the ones a
-fault names in ``ONLY``. A fault that stops a kernel it reaches with a CUDA
+comparisons at every main-path shape (batch 8, bf16, the same seeded inputs),
+and the head-major kernel also at ``MASKED_SHAPES``, against each copy in
+turn: the four attention kernels (bf16 channel-flat launches in
+``csrc/attention_sm90.cu``, bf16 wide-head launches in
+``csrc/attention_stream_sm90.cu``, bf16 head-major launches in
+``csrc/attention_bh_sm90.cu``, the others in ``csrc/attention.cu``) and the
+grouped conv (``csrc/grouped_conv.cu``). It prints one JSON line per fault,
+kernel and shape, and exits 0 only if the unchanged copy (``none``) agrees
+at every shape and every planted fault is rejected at every shape of the
+kernels it reaches: those whose bf16 launches run the source it was planted
+in (the source each wrapper's bf16 entry names), or the ones a fault names
+in ``ONLY``; a fault of the masked tail (``MASKED_ONLY``) reaches only the
+shapes whose T is not a multiple of 64, since no other has keys to mask. A fault that stops a kernel it reaches with a CUDA
 error, raised by that kernel's own launch or the synchronisation right
 after it, counts as rejected, with the kernel and the error in its line
 (the copy's later lines are lost with the CUDA context). Any other failure
@@ -37,6 +40,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 ATTENTION, ATTENTION_SM90, GCONV = "attention.cu", "attention_sm90.cu", "grouped_conv.cu"
 ATTENTION_STREAM_SM90 = "attention_stream_sm90.cu"
+ATTENTION_BH_SM90 = "attention_bh_sm90.cu"
 
 # fault -> (source in csrc/, exact (old, new) edits of its bf16 tensor-core
 # kernel); a fault of one kernel only names it in ``ONLY``
@@ -123,6 +127,27 @@ FAULTS = {
         ("for (int i = 0; i < 32; ++i) s[i] += other[128 * i];",
          "for (int i = 0; i < 32; ++i) s[i] += w == 1 ? 0.f : other[128 * i];"),
     ]),
+    # ur_attention_bh_sm90: the keys past T in the zero-filled last tile are
+    # not masked, so each counts at logit 0 (q . 0) in the row sum
+    "bh_sm90_tail_keys_not_masked": (ATTENTION_BH_SM90, [
+        ("      if (j * kBN + kBN > seq) mask_tail(s, j * kBN, seq, t4);\n", ""),
+    ]),
+    # ur_attention_bh_sm90: the last K/V tile's load is skipped and its stage
+    # holds the tile before it (loaded in its place, so that every run gives
+    # the same wrong answer)
+    "bh_sm90_last_tile_stale": (ATTENTION_BH_SM90, [
+        ("tma_load_3d(k_stage(st) + kChunkBytes * c, &tk, full_k(st), c * kChunk, j * kBN, bh);",
+         "tma_load_3d(k_stage(st) + kChunkBytes * c, &tk, full_k(st), c * kChunk,\n"
+         "                      (j == n_tiles - 1 ? j - 1 : j) * kBN, bh);"),
+        ("tma_load_3d(v_stage(st) + kChunkBytes * c, &tv, full_v(st), c * kChunk, j * kBN, bh);",
+         "tma_load_3d(v_stage(st) + kChunkBytes * c, &tv, full_v(st), c * kChunk,\n"
+         "                      (j == n_tiles - 1 ? j - 1 : j) * kBN, bh);"),
+    ]),
+    # ur_attention_bh_sm90: O is not rescaled when the running maximum grows
+    "bh_sm90_accumulator_not_rescaled": (ATTENTION_BH_SM90, [
+        ("oacc[c][4 * n + 2 * r] *= corr[r];", "oacc[c][4 * n + 2 * r] *= 1.f;"),
+        ("oacc[c][4 * n + 2 * r + 1] *= corr[r];", "oacc[c][4 * n + 2 * r + 1] *= 1.f;"),
+    ]),
     # the last tap (dy = dx = 2) adds nothing
     "gconv_tap_dropped": (GCONV, [
         ("for (int kk = 0; kk < KS; ++kk) {", "for (int kk = 0; kk < (tap == 8 ? 0 : KS); ++kk) {"),
@@ -141,6 +166,11 @@ FAULTS = {
 # own code
 ONLY = {"out_head_left_out": ("ur_attention_btc_out",),
         "out_last_k_chunk_dropped": ("ur_attention_btc_out",)}
+# faults that only a T with a partial last 64-key tile can show
+MASKED_ONLY = {"bh_sm90_tail_keys_not_masked"}
+# head-major shapes whose last key tile is partial (T % 64 != 0), besides the
+# main paths' (T = 256, 384): (q shape, heads)
+MASKED_SHAPES = [((3, 264, 64), 1), ((2, 328, 128), 1)]
 
 
 def plant(root: Path, source: str | None, edits) -> None:
@@ -175,7 +205,8 @@ def judge(fault: str, returncode: int, stdout: str, stderr: str) -> tuple[bool, 
                       "error": error[0]})
     for row in rows:
         reached = ((source is None or row["source"] == source)
-                   and (fault not in ONLY or row["kernel"] in ONLY[fault]))
+                   and (fault not in ONLY or row["kernel"] in ONLY[fault])
+                   and (fault not in MASKED_ONLY or row["shape"][1] % 64 != 0))
         if "error" in row and (fault == "none" or not reached):
             ok = False
             lines.append({"fault": fault, "harness_failed": True, **row})
@@ -199,12 +230,13 @@ def child(root: Path) -> int:
     from unirestore_torch.nn import attention_kernels as K
     from unirestore_torch.nn import grouped_conv as G
 
-    assert all(s.is_relative_to(root)
-               for s in (K.SOURCE, K.SOURCE_SM90, K.SOURCE_STREAM_SM90, G.SOURCE))
+    assert all(s.is_relative_to(root) for s in (K.SOURCE, K.SOURCE_SM90, K.SOURCE_STREAM_SM90,
+                                                 K.SOURCE_BH_SM90, G.SOURCE))
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
-        for kern, shape, heads in CS.kernel_shapes(K):
+        masked = [(K.fused_attention_bh_prescaled, shape, heads) for shape, heads in MASKED_SHAPES]
+        for kern, shape, heads in CS.kernel_shapes(K) + masked:
             xs, _ = CS.kernel_inputs(K, kern, shape, heads, gen)
             row = {"kernel": kern.symbol, "source": Path(CS.kernel_source(G, kern)).name,
                    "shape": list(shape)}

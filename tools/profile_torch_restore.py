@@ -45,6 +45,7 @@ FAMILIES = (
     ("attention_btc_sm90", "channel-flat attention kernel (this repo, attention_sm90.cu)"),
     ("attention_stream_sm90",
      "wide-head attention kernel (this repo, attention_stream_sm90.cu)"),
+    ("attention_bh_sm90", "head-major attention kernel (this repo, attention_bh_sm90.cu)"),
     ("attention_fwd", "attention kernels (this repo, attention.cu)"),
     ("gconv3_", "grouped-conv kernel (this repo)"),
     ("conv", "convolution (cuDNN)"), ("xmma", "convolution (cuDNN)"),

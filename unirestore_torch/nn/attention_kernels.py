@@ -26,10 +26,13 @@ its design does about it), built and bound by ``cuda_lib``:
 - ``csrc/attention_stream_sm90.cu``: the bf16 wide-head kernel
   ``ur_attention_stream_sm90`` (the same, with 64-query blocks whose two
   consumer warpgroups split the output columns and the d-reduction);
+- ``csrc/attention_bh_sm90.cu``: the bf16 head-major kernel
+  ``ur_attention_bh_sm90`` (64-query blocks of one consumer warpgroup, the
+  K/V tiles of a T = 256 row all loaded at block start, masked tails);
 - ``csrc/attention.cu``: every other launch, bf16 on the tensor cores
-  (``mma.sync``) and fp32 on CUDA-core FMAs. ``fused_attention_btc_prescaled``
-  and ``streaming_attention_bh_prescaled`` take their fp32 launches there
-  (``ur_attention_btc``, ``ur_attention_stream``).
+  (``mma.sync``) and fp32 on CUDA-core FMAs. The first three wrappers take
+  their fp32 launches there (``ur_attention_btc``, ``ur_attention_bh``,
+  ``ur_attention_stream``).
 
 A wrapper given CPU tensors computes the plain PyTorch version (the CPU tests
 use it); given CUDA tensors it launches its kernel on the current stream or
@@ -75,6 +78,13 @@ SOURCE_STREAM_SM90 = SOURCE.with_name("attention_stream_sm90.cu")
 # has T % STREAM_SM90_BLOCK == 0 and one of those widths
 STREAM_SM90_BLOCK = 64
 STREAM_SM90_WIDTHS = (256, 384, 512)
+SOURCE_BH_SM90 = SOURCE.with_name("attention_bh_sm90.cu")
+# ur_attention_bh_sm90 takes 64-query blocks and 64-key tiles, masking the
+# last of each where T is not a multiple of 64, any T >= BH_SM90_MIN_T and
+# head widths BH_SM90_WIDTHS: every shape ``supported`` admits qualifies
+BH_SM90_BLOCK = 64
+BH_SM90_MIN_T = 64
+BH_SM90_WIDTHS = (64, 128)
 
 # ---------------------------------------------------------------------------
 # routing predicates (copies of pallas_attention.py's, by shape alone)
@@ -305,6 +315,12 @@ def library_stream_sm90() -> ctypes.CDLL:
     return _load(SOURCE_STREAM_SM90, "ur_attention_stream_sm90")
 
 
+@functools.cache
+def library_bh_sm90() -> ctypes.CDLL:
+    """``csrc/attention_bh_sm90.cu``, built unless a library of the same source hash exists."""
+    return _load(SOURCE_BH_SM90, "ur_attention_bh_sm90")
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -428,7 +444,8 @@ fused_attention_btc_prescaled = AttentionKernel(
     symbols={torch.bfloat16: ("ur_attention_btc_sm90", library_sm90, SOURCE_SM90)})
 fused_attention_bh_prescaled = AttentionKernel(
     "ur_attention_bh", attention_bh_plain, attention_vjp, _bh_dims,
-    "unirestore_tpu/nn/pallas_attention.py:32")
+    "unirestore_tpu/nn/pallas_attention.py:32",
+    symbols={torch.bfloat16: ("ur_attention_bh_sm90", library_bh_sm90, SOURCE_BH_SM90)})
 streaming_attention_bh_prescaled = AttentionKernel(
     "ur_attention_stream", attention_bh_plain, attention_vjp, _stream_dims,
     "unirestore_tpu/nn/pallas_attention.py:83",

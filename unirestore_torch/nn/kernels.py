@@ -9,7 +9,7 @@ from . import cuda_lib
 from . import grouped_conv as GC
 
 KERNELS = (*AK.KERNELS, GC.grouped_conv3)
-SOURCES = (AK.SOURCE, AK.SOURCE_SM90, AK.SOURCE_STREAM_SM90, GC.SOURCE)
+SOURCES = (AK.SOURCE, AK.SOURCE_SM90, AK.SOURCE_STREAM_SM90, AK.SOURCE_BH_SM90, GC.SOURCE)
 
 
 def reset_counts() -> None:
@@ -23,5 +23,6 @@ def build_all() -> list[Path]:
     AK.library()
     AK.library_sm90()
     AK.library_stream_sm90()
+    AK.library_bh_sm90()
     GC.library()
     return libs
