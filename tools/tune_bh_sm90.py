@@ -47,21 +47,18 @@ from unirestore_torch.nn import cuda_lib  # noqa: E402
 # family -> (source, C entry)
 SOURCES = {"mma": (K.SOURCE, "ur_attention_bh"), "sm90": (K.SOURCE_BH_SM90, "ur_attention_bh_sm90")}
 
-_WARPGROUPS = "  return 1;\n}\ntemplate <int D>\n__host__ __device__ constexpr int threads()"
-_WG2, _WG4 = ((_WARPGROUPS, _WARPGROUPS.replace("return 1;", f"return D == 64 ? {n} : 1;"))
-              for n in (2, 4))
+_WARPGROUPS = "  return D == 64 ? 2 : 1;"
 _ONE_BLOCK = ("  return int(kSmemPerSm / (smem_bytes<D>() + kSmemReserved));", "  return 1;")
 
 # name -> (family, exact (old, new) edits of its source)
 VARIANTS = {
     "mma": ("mma", []),
     "sm90": ("sm90", []),
-    # two consumer warpgroups (128 queries) per block at d = 64, sharing K/V
-    # (two blocks an SM by shared memory: registers capped at 96, spills)
-    "sm90_2wg_d64": ("sm90", [_WG2]),
-    # two or four consumer warpgroups per block at d = 64, one block an SM
-    "sm90_2wg_d64_1blk": ("sm90", [_WG2, _ONE_BLOCK]),
-    "sm90_4wg_d64_1blk": ("sm90", [_WG4, _ONE_BLOCK]),
+    # one warpgroup (64 queries) per block at d = 64, three blocks an SM (the
+    # block of M1, without its producer warp)
+    "sm90_1wg_d64": ("sm90", [(_WARPGROUPS, "  return 1;")]),
+    # four warpgroups (a whole T = 256 row) per block at d = 64, one block an SM
+    "sm90_4wg_d64": ("sm90", [(_WARPGROUPS, "  return D == 64 ? 4 : 1;"), _ONE_BLOCK]),
 }
 # variants that compute a wrong answer on purpose, to show what bounds a kernel
 DIAGNOSTICS = {
@@ -100,25 +97,24 @@ DIAGNOSTICS = {
     # K/V loads after the first tile (their barriers arrived on by hand); the
     # loop's skeleton alone (loads, waits, releases)
     "sm90_no_pv": ("sm90", [(
-        "          wgmma_m64n64k16_rs(oacc[c], p[kk],\n"
-        "                             desc_sw128(v_stage(st) + kChunkBytes * c + 2048 * kk));",
-        "          (void)kk;")]),
+        "        wgmma_m64n64k16_rs(oacc[c], p[kk], desc_sw128(v_stage(st) + kChunkBytes * c + 2048 * kk));",
+        "        (void)kk;")]),
     "sm90_no_qk": ("sm90", [
-        ("            wgmma_m64n64k16_ss<false>(s, desc_sw128(qa), desc_sw128(ka));",
-         "            (void)qa;"),
-        ("            wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));",
-         "            (void)ka;")]),
+        ("          wgmma_m64n64k16_ss<false>(s, desc_sw128(qa), desc_sw128(ka));",
+         "          (void)qa;"),
+        ("          wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));",
+         "          (void)ka;")]),
     "sm90_no_softmax": ("sm90", [("                                             float (&corr)[2]) {\n",
                                   "                                             float (&corr)[2]) {\n"
                                   "  corr[0] = corr[1] = l[0] = l[1] = 1.f;\n"
                                   "  if (corr[0] > 0.f) return;\n")]),
-    "sm90_no_reloads": ("sm90", [("        mbar_expect_tx(full_k(st), kTileBytes);\n",
-                                  "        if (j >= 1) {\n"
-                                  "          mbar_arrive(full_k(st));\n"
-                                  "          mbar_arrive(full_v(st));\n"
-                                  "          continue;\n"
-                                  "        }\n"
-                                  "        mbar_expect_tx(full_k(st), kTileBytes);\n")]),
+    "sm90_no_reloads": ("sm90", [("    mbar_expect_tx(full_k(st), kTileBytes);\n",
+                                  "    if (j >= 1) {\n"
+                                  "      mbar_arrive(full_k(st));\n"
+                                  "      mbar_arrive(full_v(st));\n"
+                                  "      return;\n"
+                                  "    }\n"
+                                  "    mbar_expect_tx(full_k(st), kTileBytes);\n")]),
 }
 DIAGNOSTICS["sm90_skeleton"] = ("sm90", [e for k in ("sm90_no_pv", "sm90_no_qk", "sm90_no_softmax")
                                          for e in DIAGNOSTICS[k][1]])
