@@ -130,7 +130,7 @@ FAULTS = {
     # ur_attention_bh_sm90: the keys past T in the zero-filled last tile are
     # not masked, so each counts at logit 0 (q . 0) in the row sum
     "bh_sm90_tail_keys_not_masked": (ATTENTION_BH_SM90, [
-        ("    if (j * kBN + kBN > seq) mask_tail(s, j * kBN, seq, t4);\n", ""),
+        ("      if (j * kBN + kBN > seq) mask_tail(s, j * kBN, seq, t4);\n", ""),
     ]),
     # ur_attention_bh_sm90: the last K/V tile's load is skipped and its stage
     # holds the tile before it (loaded in its place, so that every run gives

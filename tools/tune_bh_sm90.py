@@ -4,13 +4,12 @@
 Two sources carry a bf16 head-major entry: ``csrc/attention.cu``
 (``ur_attention_bh``, the ``mma.sync`` kernel) and ``csrc/attention_bh_sm90.cu``
 (``ur_attention_bh_sm90``, the Hopper kernel that replaced it). Each variant
-is a copy of one of them with exact text edits (``VARIANTS``: the shipped
-kernels and the designs measured beside them; ``DIAGNOSTICS``: variants
-that drop one piece of work on purpose, to show what bounds a kernel, not
-held to the plain version), built with ``nvcc`` at once into ``--workdir``
-and loaded with ctypes. At each head-major shape of
-``chip_smoke.kernel_shapes`` (bf16, the same seeded inputs), and at two long
-rows, every variant is held to the plain version (``bf16_tolerance_ratio``)
+is a copy of one of them with exact text edits (``VARIANTS``: the two
+kernels as they are; ``DIAGNOSTICS``: variants that drop one piece of work
+on purpose, to show what bounds a kernel, not held to the plain version),
+built with ``nvcc`` at once into ``--workdir`` and loaded with ctypes. At
+each head-major shape of ``chip_smoke.kernel_shapes`` (bf16, the same seeded
+inputs), and at two long rows, every variant is held to the plain version (``bf16_tolerance_ratio``)
 and its C entry is timed directly, in turns with the others and SDPA
 (forward order, then reversed; the mean of the two), by two timers: CUDA
 graph replays of ``chip_smoke.GRAPH_CALLS`` captured calls (``graph_ms``:
@@ -21,7 +20,8 @@ with one CUDA device, from the repository root:
 
     python3 tools/tune_bh_sm90.py [--only mma] [--workdir unirestore_torch/_build/tune_bh]
 
-``--only mma`` builds and times the ``mma.sync`` variants alone.
+``--only mma`` builds and times the ``mma.sync`` variants alone, ``--entries
+a,b`` the named ones.
 """
 
 from __future__ import annotations
@@ -47,18 +47,13 @@ from unirestore_torch.nn import cuda_lib  # noqa: E402
 # family -> (source, C entry)
 SOURCES = {"mma": (K.SOURCE, "ur_attention_bh"), "sm90": (K.SOURCE_BH_SM90, "ur_attention_bh_sm90")}
 
-_WARPGROUPS = "  return D == 64 ? 2 : 1;"
-_ONE_BLOCK = ("  return int(kSmemPerSm / (smem_bytes<D>() + kSmemReserved));", "  return 1;")
-
-# name -> (family, exact (old, new) edits of its source)
+# name -> (family, exact (old, new) edits of its source). The designs
+# measured beside the shipped one are variants of the source as of earlier
+# commits: two or four warpgroups per block at d = 64, with the producer warp
+# (4e6dff0) and without it, thread 0 issuing the loads (M2, a1c8c79).
 VARIANTS = {
     "mma": ("mma", []),
     "sm90": ("sm90", []),
-    # one warpgroup (64 queries) per block at d = 64, three blocks an SM (the
-    # block of M1, without its producer warp)
-    "sm90_1wg_d64": ("sm90", [(_WARPGROUPS, "  return 1;")]),
-    # four warpgroups (a whole T = 256 row) per block at d = 64, one block an SM
-    "sm90_4wg_d64": ("sm90", [(_WARPGROUPS, "  return D == 64 ? 4 : 1;"), _ONE_BLOCK]),
 }
 # variants that compute a wrong answer on purpose, to show what bounds a kernel
 DIAGNOSTICS = {
@@ -97,24 +92,25 @@ DIAGNOSTICS = {
     # K/V loads after the first tile (their barriers arrived on by hand); the
     # loop's skeleton alone (loads, waits, releases)
     "sm90_no_pv": ("sm90", [(
-        "        wgmma_m64n64k16_rs(oacc[c], p[kk], desc_sw128(v_stage(st) + kChunkBytes * c + 2048 * kk));",
-        "        (void)kk;")]),
+        "          wgmma_m64n64k16_rs(oacc[c], p[kk],\n"
+        "                             desc_sw128(v_stage(st) + kChunkBytes * c + 2048 * kk));",
+        "          (void)kk;")]),
     "sm90_no_qk": ("sm90", [
-        ("          wgmma_m64n64k16_ss<false>(s, desc_sw128(qa), desc_sw128(ka));",
-         "          (void)qa;"),
-        ("          wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));",
-         "          (void)ka;")]),
+        ("            wgmma_m64n64k16_ss<false>(s, desc_sw128(qa), desc_sw128(ka));",
+         "            (void)qa;"),
+        ("            wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));",
+         "            (void)ka;")]),
     "sm90_no_softmax": ("sm90", [("                                             float (&corr)[2]) {\n",
                                   "                                             float (&corr)[2]) {\n"
                                   "  corr[0] = corr[1] = l[0] = l[1] = 1.f;\n"
                                   "  if (corr[0] > 0.f) return;\n")]),
-    "sm90_no_reloads": ("sm90", [("    mbar_expect_tx(full_k(st), kTileBytes);\n",
-                                  "    if (j >= 1) {\n"
-                                  "      mbar_arrive(full_k(st));\n"
-                                  "      mbar_arrive(full_v(st));\n"
-                                  "      return;\n"
-                                  "    }\n"
-                                  "    mbar_expect_tx(full_k(st), kTileBytes);\n")]),
+    "sm90_no_reloads": ("sm90", [("        mbar_expect_tx(full_k(st), kTileBytes);\n",
+                                  "        if (j >= 1) {\n"
+                                  "          mbar_arrive(full_k(st));\n"
+                                  "          mbar_arrive(full_v(st));\n"
+                                  "          continue;\n"
+                                  "        }\n"
+                                  "        mbar_expect_tx(full_k(st), kTileBytes);\n")]),
 }
 DIAGNOSTICS["sm90_skeleton"] = ("sm90", [e for k in ("sm90_no_pv", "sm90_no_qk", "sm90_no_softmax")
                                          for e in DIAGNOSTICS[k][1]])

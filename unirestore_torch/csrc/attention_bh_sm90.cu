@@ -20,29 +20,26 @@
 //   (160, 256, 64):  21.0 MB, 6.26 us at 3.35 TB/s; 2.68 GFLOP, 2.71 us;
 //   (32, 256, 128):   8.4 MB, 2.50 us;             1.07 GFLOP, 1.09 us.
 // A block walks only T/64 = 4 key tiles, so its prologue (Q and the first K
-// tile) and epilogue are a large part of its life, and at d = 64 the bytes
-// each SM takes in from L2 bound it more than the device memory does: four
-// 64-query blocks of a head each read the head's whole K and V (46 MB at
-// (160, 256, 64)). The design issues every load at block start, shares each
-// K/V tile among 128 queries at d = 64, and keeps four warpgroups on an SM.
+// tile) and epilogue are a large part of its life: the design keeps the
+// loads in flight from the block's first cycle, and several blocks on an SM
+// hide each other's latency. Measured on an H100 (PERF.md): the loop's
+// skeleton alone (loads, waits, stores; no products, no softmax) takes 80 %
+// of the kernel's time at (160, 256, 64), whatever the bytes from L2.
 //
-// Design (M2; M1 and the variants measured beside it are in PERF.md):
-// - A block owns (bh, 64 queries per warpgroup): two warpgroups (128
-//   queries, 26 MB from L2 at (160, 256, 64)) at D = 64, one at D = 128
-//   (wgmma has M = 64); grid (ceil(T / (64 WG)), BH). No producer warp:
-//   thread 0 issues every load, so that at D = 64 two blocks of 256 threads
-//   share an SM at up to 128 registers a thread (83,048 B of shared memory
-//   each); at D = 128 one block of 128 threads (148,584 B).
+// Design (M1):
+// - A block owns (bh, 64 queries): grid (ceil(T/64), BH); one consumer
+//   warpgroup (warps 0-3, wgmma has M = 64) and one producer warp, 160
+//   threads. At D = 64 three blocks share an SM (74,856 B of shared memory
+//   each; 108 registers a thread), at D = 128 one (148,584 B; 151).
 // - TMA brings every load in 64-column boxes with 128-byte swizzle (one
 //   64-wide bf16 row is one swizzle span): one 3-D tensor map per operand
 //   over (D, T, BH), box (64, 64, 1), 8 KB; D = 128 is two boxes. Q arrives
 //   once. K and V of key tile j land in stage j % kStages of a four-stage
 //   ring, K and V each behind its own "full" mbarrier (expect_tx bytes), so
 //   Q K_j^T starts before V_j has landed. At T <= 256 every tile has its own
-//   stage: thread 0 issues every load at block start, before any thread
-//   waits. In a longer row, once every warp of the block has arrived on the
-//   "empty" barrier of tile j's stage (after P_j V_j), thread 0 loads tile
-//   j + 4 into it.
+//   stage: the producer issues every load at block start and never waits.
+//   Longer rows reuse a stage once the four consumer warps have arrived on
+//   its "empty" barrier (after P_j V_j).
 // - S = Q K^T (64 x 64 per key tile): wgmma m64n64k16, both operands from
 //   shared memory, K-major, 128-byte-swizzle descriptors; four k-steps per
 //   64-column chunk, the start address advancing 32 bytes inside the swizzle
@@ -60,12 +57,17 @@
 //   row's maximum becomes 0, far under the bf16 rounding of P.
 // - Masked tails: TMA zero-fills rows past T. Keys at or past T get the
 //   logit kNegBig on the last tile before the row max; query rows at or past
-//   T are computed (from zeros, or from whatever shared memory holds where a
-//   warpgroup's rows all lie past T and no Q box is loaded) and not stored.
+//   T are computed (from zeros) and not stored.
 // - Epilogue: divide by l, round once to bf16, store straight to global
 //   memory as bf16x2.
 // - The shared-memory size and carveout are set once per device and width,
 //   not on every launch.
+// Tried and left out (PERF.md): two warpgroups (128 queries sharing each K/V
+// tile) per block at D = 64, with the producer warp (ptxas held a thread to
+// 96 registers at two blocks an SM and spilled) or without it, thread 0
+// issuing the loads (M2: 19 % slower at (160, 256, 64), and twice as slow on
+// long rows, where thread 0 waits for both warpgroups before each refill);
+// one block an SM with two or four warpgroups.
 //
 // The entry encodes the tensor maps from the pointers and dims it is given,
 // with cuTensorMapEncodeTiled from cudaGetDriverEntryPoint (no -lcuda), and
@@ -82,40 +84,33 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWgRows = 64;       // queries per consumer warpgroup (wgmma's M)
+constexpr int kBM = 64;           // queries per block
 constexpr int kBN = 64;           // keys per tile
 constexpr int kChunk = 64;        // columns per TMA box: one 128-byte swizzle span
 constexpr int kStages = 4;        // K/V ring stages: every tile of T = 256 has its own
+constexpr int kThreads = 160;     // one consumer warpgroup (warps 0-3), a producer warp (4)
+constexpr int kConsumerWarps = 4;
 constexpr uint32_t kChunkBytes = kBN * kChunk * 2;    // one 64 x 64 bf16 chunk: 8 KB
 constexpr size_t kSmemPerSm = 233472;                 // the H100's shared memory per SM
 constexpr size_t kSmemReserved = 1024;                // the runtime's share per block
 constexpr float kNegBig = -1e30f;
 
-// warpgroups per block at head width D, each owning 64 queries: two at
-// D = 64 (two blocks an SM, 128 registers a thread), one at D = 128
-template <int D>
-__host__ __device__ constexpr int warpgroups() {
-  return D == 64 ? 2 : 1;
-}
-template <int D>
-__host__ __device__ constexpr int threads() {
-  return 128 * warpgroups<D>();
-}
-
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes() {
-  // Q (64 rows per warpgroup) and kStages K and V tiles (D/64 chunks each),
-  // barriers (Q, then full K, full V and empty per stage), 1024 bytes of
-  // slack to align the swizzled chunks
-  return size_t(kChunkBytes) * (D / kChunk) * (warpgroups<D>() + 2 * kStages) +
-         8 * (1 + 3 * kStages) + 1024;
+  // Q and kStages K and V tiles (D/64 chunks each), barriers (Q, then full K,
+  // full V and empty per stage), 1024 bytes of slack to align the swizzled
+  // chunks
+  return size_t(kChunkBytes) * (D / kChunk) * (1 + 2 * kStages) + 8 * (1 + 3 * kStages) + 1024;
 }
 
-// blocks that share an SM: its shared memory bounds them (2 at D = 64)
+// blocks that share an SM: its shared memory bounds them
 template <int D>
 __host__ __device__ constexpr int blocks_per_sm() {
   return int(kSmemPerSm / (smem_bytes<D>() + kSmemReserved));
 }
+
+static_assert(blocks_per_sm<64>() == 3 && blocks_per_sm<128>() == 1,
+              "three blocks an SM at D = 64, one at D = 128");
 
 // 2^x in one special-function instruction; results below 2^-126 flush to 0
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -326,19 +321,17 @@ __device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&p)[kBN /
 }
 
 template <int D>
-__global__ void __launch_bounds__(threads<D>(), blocks_per_sm<D>())
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<D>())
 attention_bh_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int seq) {
   constexpr int NC = D / kChunk;  // 64-column chunks of a row: 1 or 2
-  constexpr int WG = warpgroups<D>();
   constexpr uint32_t kTileBytes = kChunkBytes * NC;  // 64 rows of Q, K or V
   extern __shared__ unsigned char smem_raw[];
-  // 128-byte-swizzled chunks start on 1024-byte boundaries; warpgroup w's
-  // queries are Q tile w
+  // 128-byte-swizzled chunks start on 1024-byte boundaries
   const uint32_t q_base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t bars = q_base + kTileBytes * (WG + 2 * kStages);
-  auto k_stage = [&](int st) { return q_base + kTileBytes * (WG + 2 * st); };
-  auto v_stage = [&](int st) { return q_base + kTileBytes * (WG + 1 + 2 * st); };
+  const uint32_t bars = q_base + kTileBytes * (1 + 2 * kStages);
+  auto k_stage = [&](int st) { return q_base + kTileBytes * (1 + 2 * st); };
+  auto v_stage = [&](int st) { return q_base + kTileBytes * (2 + 2 * st); };
   const uint32_t q_bar = bars;
   auto full_k = [&](int st) { return bars + 8 * (1 + st); };
   auto full_v = [&](int st) { return bars + 8 * (1 + kStages + st); };
@@ -347,149 +340,140 @@ attention_bh_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kWgRows * WG;
+  const int q0 = blockIdx.x * kBM;
   const int bh = blockIdx.y;
   const int n_tiles = (seq + kBN - 1) / kBN;
 
-  // K and V of key tile j into stage j % kStages, by one thread
-  auto load_kv = [&](int j) {
-    const int st = j % kStages;
-    mbar_expect_tx(full_k(st), kTileBytes);
-    for (int c = 0; c < NC; ++c)
-      tma_load_3d(k_stage(st) + kChunkBytes * c, &tk, full_k(st), c * kChunk, j * kBN, bh);
-    mbar_expect_tx(full_v(st), kTileBytes);
-    for (int c = 0; c < NC; ++c)
-      tma_load_3d(v_stage(st) + kChunkBytes * c, &tv, full_v(st), c * kChunk, j * kBN, bh);
-  };
-
-  // thread 0 sets up the barriers and issues Q and the first kStages tiles
-  // (all of a T <= 256 row) before any other thread waits
   if (tid == 0) {
     mbar_init(q_bar, 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(full_k(st), 1);
       mbar_init(full_v(st), 1);
-      mbar_init(empty(st), 4 * WG);
+      mbar_init(empty(st), kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    // a warpgroup whose rows all lie past seq gets no Q (and stores nothing)
-    const int q_tiles = min(WG, (seq - q0 + kWgRows - 1) / kWgRows);
-    mbar_expect_tx(q_bar, kTileBytes * q_tiles);
-    for (int w = 0; w < q_tiles; ++w)
-      for (int c = 0; c < NC; ++c)
-        tma_load_3d(q_base + kTileBytes * w + kChunkBytes * c, &tq, q_bar, c * kChunk,
-                    q0 + kWgRows * w, bh);
-    for (int j = 0; j < n_tiles && j < kStages; ++j) load_kv(j);
   }
   __syncthreads();
 
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const uint32_t q_tile = q_base + kTileBytes * (warp >> 2);  // this warpgroup's 64 queries
-
-  auto qk = [&](float (&s)[32], int j) {  // S = Q K_j^T: four k-steps per chunk of d
-    const int st = j % kStages;
-    mbar_wait(full_k(st), (j / kStages) & 1);
-    wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const uint32_t qa = q_tile + kChunkBytes * c;
-      const uint32_t ka = k_stage(st) + kChunkBytes * c;
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        if (c == 0 && kk == 0)
-          wgmma_m64n64k16_ss<false>(s, desc_sw128(qa), desc_sw128(ka));
-        else
-          wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));
+  if (warp == kConsumerWarps) {
+    // producer: one thread loads Q, then K and V of tile j into stage
+    // j % kStages, waiting only where the stage held tile j - kStages
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, kTileBytes);
+      for (int c = 0; c < NC; ++c)
+        tma_load_3d(q_base + kChunkBytes * c, &tq, q_bar, c * kChunk, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) mbar_wait(empty(st), ((j / kStages) - 1) & 1);
+        mbar_expect_tx(full_k(st), kTileBytes);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(k_stage(st) + kChunkBytes * c, &tk, full_k(st), c * kChunk, j * kBN, bh);
+        mbar_expect_tx(full_v(st), kTileBytes);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(v_stage(st) + kChunkBytes * c, &tv, full_v(st), c * kChunk, j * kBN, bh);
       }
     }
-    wgmma_commit();
-  };
-  auto pv = [&](float (&oacc)[NC][32], const uint32_t (&p)[kBN / 16][4], int j) {
-    // O += P V_j per 64-column chunk of O: four k-steps of 16 keys
-    const int st = j % kStages;
-    mbar_wait(full_v(st), (j / kStages) & 1);
-    wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_m64n64k16_rs(oacc[c], p[kk], desc_sw128(v_stage(st) + kChunkBytes * c + 2048 * kk));
-    }
-    wgmma_commit();
-  };
-  // a longer row: once every warp is done with tile j, its stage takes
-  // tile j + kStages, loaded by thread 0 (the rest of its warp waits at
-  // the next wgmma)
-  auto refill = [&](int j) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(j % kStages));
-    if (tid == 0) {
-      mbar_wait(empty(j % kStages), (j / kStages) & 1);
-      load_kv(j + kStages);
-    }
-    __syncwarp();
-  };
+  } else {
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
 
-  float s[32], oacc[NC][32], m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, corr[2];
-  uint32_t p[kBN / 16][4];
+    auto qk = [&](float (&s)[32], int j) {  // S = Q K_j^T: four k-steps per chunk of d
+      const int st = j % kStages;
+      mbar_wait(full_k(st), (j / kStages) & 1);
+      wgmma_fence();
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NC; ++c) {
+        const uint32_t qa = q_base + kChunkBytes * c;
+        const uint32_t ka = k_stage(st) + kChunkBytes * c;
 #pragma unroll
-    for (int e = 0; e < 32; ++e) oacc[c][e] = 0.f;
-
-  // tile 0 (whole: seq >= 64): S alone, its softmax, P
-  mbar_wait(q_bar, 0);
-  qk(s, 0);
-  wgmma_wait<0>();
-  fence_regs(s);
-  softmax_tile(s, m, l, corr);
-  pack_p(s, p);
-
-  // tile j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} issued together; the
-  // softmax of S_j runs while the tensor cores finish P_{j-1} V_{j-1}
-  for (int j = 1; j < n_tiles; ++j) {
-    qk(s, j);
-    pv(oacc, p, j - 1);
-    wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
-    fence_regs(s);
-    if (j * kBN + kBN > seq) mask_tail(s, j * kBN, seq, t4);
-    softmax_tile(s, m, l, corr);
-    wgmma_wait<0>();
-    fence_regs(oacc);
-    fence_regs(p);
-    if (j - 1 + kStages < n_tiles) refill(j - 1);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          oacc[c][4 * n + 2 * r] *= corr[r];
-          oacc[c][4 * n + 2 * r + 1] *= corr[r];
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          if (c == 0 && kk == 0)
+            wgmma_m64n64k16_ss<false>(s, desc_sw128(qa), desc_sw128(ka));
+          else
+            wgmma_m64n64k16_ss<true>(s, desc_sw128(qa + 32 * kk), desc_sw128(ka + 32 * kk));
         }
       }
-    }
-    pack_p(s, p);
-  }
-  pv(oacc, p, n_tiles - 1);
-  wgmma_wait<0>();
-  fence_regs(oacc);
+      wgmma_commit();
+    };
+    auto pv = [&](float (&oacc)[NC][32], const uint32_t (&p)[kBN / 16][4], int j) {
+      // O += P V_j per 64-column chunk of O: four k-steps of 16 keys
+      const int st = j % kStages;
+      mbar_wait(full_v(st), (j / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wgmma_m64n64k16_rs(oacc[c], p[kk],
+                             desc_sw128(v_stage(st) + kChunkBytes * c + 2048 * kk));
+      }
+      wgmma_commit();
+    };
+    auto release = [&](int j) {  // this warp is done with tile j's stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(j % kStages));
+    };
 
-  // epilogue: divide by the row sum, round once, store the rows below seq
+    float s[32], oacc[NC][32], m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, corr[2];
+    uint32_t p[kBN / 16][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row < seq) {
-      const float inv = 1.f / l[r];
-      bf16* ob = o + ((long long)bh * seq + row) * D + 2 * t4;
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+      for (int e = 0; e < 32; ++e) oacc[c][e] = 0.f;
+
+    // tile 0 (whole: seq >= 64): S alone, its softmax, P
+    mbar_wait(q_bar, 0);
+    qk(s, 0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_tile(s, m, l, corr);
+    pack_p(s, p);
+
+    // tile j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} issued together; the
+    // softmax of S_j runs while the tensor cores finish P_{j-1} V_{j-1}
+    for (int j = 1; j < n_tiles; ++j) {
+      qk(s, j);
+      pv(oacc, p, j - 1);
+      wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
+      fence_regs(s);
+      if (j * kBN + kBN > seq) mask_tail(s, j * kBN, seq, t4);
+      softmax_tile(s, m, l, corr);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      fence_regs(p);
+      release(j - 1);
 #pragma unroll
-        for (int n = 0; n < kChunk / 8; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(ob + c * kChunk + 8 * n) =
-              __floats2bfloat162_rn(oacc[c][4 * n + 2 * r] * inv,
-                                    oacc[c][4 * n + 2 * r + 1] * inv);
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int n = 0; n < kChunk / 8; ++n) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            oacc[c][4 * n + 2 * r] *= corr[r];
+            oacc[c][4 * n + 2 * r + 1] *= corr[r];
+          }
+        }
+      }
+      pack_p(s, p);
+    }
+    pv(oacc, p, n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(oacc);
+
+    // epilogue: divide by the row sum, round once, store the rows below seq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row < seq) {
+        const float inv = 1.f / l[r];
+        bf16* ob = o + ((long long)bh * seq + row) * D + 2 * t4;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int n = 0; n < kChunk / 8; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(ob + c * kChunk + 8 * n) =
+                __floats2bfloat162_rn(oacc[c][4 * n + 2 * r] * inv,
+                                      oacc[c][4 * n + 2 * r + 1] * inv);
+      }
     }
   }
 }
@@ -553,10 +537,9 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
     if (err != cudaSuccess) return int(err);
     smem_set[dev] = true;
   }
-  const int rows = kWgRows * warpgroups<D>();  // queries per block
-  const dim3 grid((seq + rows - 1) / rows, bh);
-  attention_bh_sm90<D><<<grid, threads<D>(), smem_bytes<D>(), stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), seq);
+  const dim3 grid((seq + kBM - 1) / kBM, bh);
+  attention_bh_sm90<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(tq, tk, tv,
+                                                                     static_cast<bf16*>(o), seq);
   return int(cudaGetLastError());
 }
 
