@@ -20,8 +20,7 @@ with one CUDA device, from the repository root:
 
     python3 tools/tune_bh_sm90.py [--only mma] [--workdir unirestore_torch/_build/tune_bh]
 
-``--only mma`` builds and times the ``mma.sync`` variants alone, ``--entries
-a,b`` the named ones.
+``--only mma`` builds and times the ``mma.sync`` variants alone.
 """
 
 from __future__ import annotations
@@ -157,7 +156,6 @@ def main() -> int:
     ap.add_argument("--workdir", type=Path,
                     default=REPO / "unirestore_torch" / "_build" / "tune_bh")
     ap.add_argument("--only", choices=sorted(SOURCES), help="one family of variants")
-    ap.add_argument("--entries", help="comma-separated variant names (default: all)")
     ap.add_argument("--reps", type=int, default=10, help="back-to-back calls per event timing")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -165,8 +163,7 @@ def main() -> int:
         return 2
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {CS.card_line()}", flush=True)
     names = [n for n, (fam, _) in {**VARIANTS, **DIAGNOSTICS}.items()
-             if args.only in (None, fam)
-             and (args.entries is None or n in args.entries.split(","))]
+             if args.only in (None, fam)]
     entries = build(args.workdir.resolve(), names)
     gen = torch.Generator(device="cuda").manual_seed(0)
     kern = K.fused_attention_bh_prescaled

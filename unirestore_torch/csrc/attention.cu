@@ -22,13 +22,15 @@
 // softmax, which computes the same function and never writes a logit to
 // device memory.
 //
-// - bf16 (the restore path): attend_mma. Four warps own 16 queries each;
+// - bf16: attend_mma. Four warps own 16 queries each;
 //   S = q k^T and O += P V are mma.sync m16n8k16 (bf16 in, fp32 accumulate)
 //   on fragments read with ldmatrix from shared memory rows padded by 16
 //   bytes (no bank conflicts). The S accumulator is rounded to bf16 in place
 //   as the A operand of the PV product. K and V tiles arrive by cp.async,
-//   each load overlapping the other half's compute. wgmma/TMA and warp
-//   specialisation come later.
+//   each load overlapping the other half's compute. Only ur_attention_btc_out
+//   routes bf16 here; the bf16 bodies of the other three entries are the
+//   yardsticks of the Hopper kernels that replaced them (attention_sm90.cu,
+//   attention_bh_sm90.cu, attention_stream_sm90.cu).
 // - fp32: attend_fma, fp32 FMAs on the CUDA cores (BQ x 64 register tiles,
 //   BQ/16 x 4 per thread); the same arithmetic as the plain version.
 //

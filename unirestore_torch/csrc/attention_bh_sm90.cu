@@ -22,15 +22,16 @@
 // A block walks only T/64 = 4 key tiles, so its prologue (Q and the first K
 // tile) and epilogue are a large part of its life: the design keeps the
 // loads in flight from the block's first cycle, and several blocks on an SM
-// hide each other's latency. Measured on an H100 (PERF.md): the loop's
-// skeleton alone (loads, waits, stores; no products, no softmax) takes 80 %
-// of the kernel's time at (160, 256, 64), whatever the bytes from L2.
+// hide each other's latency. Measured on an H100 (PERF.md): 13.1 us at
+// (160, 256, 64) and 7.2 at (32, 256, 128), of which the loop's skeleton
+// alone (loads, waits, stores; no products, no softmax) takes 10.4 and 4.9,
+// whatever the bytes from L2.
 //
 // Design (M1):
 // - A block owns (bh, 64 queries): grid (ceil(T/64), BH); one consumer
 //   warpgroup (warps 0-3, wgmma has M = 64) and one producer warp, 160
 //   threads. At D = 64 three blocks share an SM (74,856 B of shared memory
-//   each; 108 registers a thread), at D = 128 one (148,584 B; 151).
+//   each; 106 registers a thread), at D = 128 one (148,584 B; 138).
 // - TMA brings every load in 64-column boxes with 128-byte swizzle (one
 //   64-wide bf16 row is one swizzle span): one 3-D tensor map per operand
 //   over (D, T, BH), box (64, 64, 1), 8 KB; D = 128 is two boxes. Q arrives
