@@ -155,7 +155,7 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 # the milestone of each Hopper redesign that ships (its source's head comment)
 SM90_DESIGNS = {"attention_sm90.cu": "M2", "attention_stream_sm90.cu": "M2",
-                "attention_bh_sm90.cu": "M1"}
+                "attention_bh_sm90.cu": "M1", "grouped_conv_sm90.cu": "M1"}
 # a call shorter than GRAPH_MS is timed by replaying GRAPH_CALLS captured
 # calls: one ctypes call costs 4-9 us of host time and a wrapper call 40-115
 # us, so back-to-back calls of a short kernel measure the host's launch rate
@@ -281,8 +281,12 @@ def backward_shapes(K):
 
 
 def gconv_shapes():
-    """x shapes of the CFRM grouped conv at 512 px, batch 8 (dw = 4 x 128/256/512)."""
-    return [(BATCH, 256, 256, 512), (BATCH, 128, 128, 1024), (BATCH, 64, 64, 2048)]
+    """x shapes of the CFRM grouped conv (dw = 4 x 128/256/512) on every main
+    path: the 512 px batch-8 restore and training step; the server's batch
+    of four 512 px tiles; a 256 x 384 image restored whole at 512 x 768."""
+    return [(BATCH, 256, 256, 512), (BATCH, 128, 128, 1024), (BATCH, 64, 64, 2048),
+            (4, 256, 256, 512), (4, 128, 128, 1024), (4, 64, 64, 2048),
+            (1, 256, 384, 512), (1, 128, 192, 1024), (1, 64, 96, 2048)]
 
 
 def kernel_inputs(K, kern, shape, heads, gen):
@@ -310,11 +314,10 @@ def gconv_inputs(shape, gen, dtype=torch.bfloat16):
     return x, w.contiguous(memory_format=torch.channels_last), b
 
 
-def kernel_source(G, kern) -> str:
-    """The source, in the repository, of a kernel's bf16 main-path launches
-    (an attention kernel's is its wrapper's bf16 entry)."""
-    src = G.SOURCE if kern is G.grouped_conv3 else kern.entry(torch.bfloat16)[2]
-    return str(src.relative_to(REPO))
+def kernel_source(kern) -> str:
+    """The source, in the repository, of a kernel's bf16 main-path launches:
+    its wrapper's bf16 entry."""
+    return str(kern.entry(torch.bfloat16)[2].relative_to(REPO))
 
 
 def direct(entry, q, k, v, out=None):
@@ -382,6 +385,55 @@ def compare_kernel(kern, *xs) -> dict:
     diff = out.float() - ref.float()
     return {"max_abs_err": diff.abs().max().item(), "rms_err_over_rms_ref": rms_rel(out, ref),
             "tolerance_ratio": kern.bf16_tolerance_ratio(out, ref)}
+
+
+def direct_gconv(entry, x, wp, b, out=None):
+    """A grouped-conv C entry of the (x, w, bias, y, B, H, W, C, cg, dtype,
+    stream) signature called directly through ctypes with weights ``wp``
+    already packed: the entry of the wrapper's bf16 launches, or the
+    ``mma.sync`` kernel of csrc/grouped_conv.cu that it replaced (a
+    yardstick, never routed)."""
+    out = torch.empty_like(x) if out is None else out
+    rc = entry(x.data_ptr(), wp.data_ptr(), b.data_ptr(), out.data_ptr(), *x.shape,
+               wp.shape[-1], 1 if x.dtype == torch.bfloat16 else 0,
+               torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__}: CUDA error {rc}")
+    return out
+
+
+def time_gconv_entries(G, x, w, b, ref) -> dict:
+    """``time_entries`` for the grouped conv: its bf16 C entry called directly
+    with the weights packed once (``direct_ms``, ``direct_host_us``), the
+    ``mma.sync`` entry it replaced (``ur_grouped_conv3``'s bf16 body) in turns
+    (new, previous, previous, new; ``prev_ms``, ``prev_host_us``) and held to
+    the plain version ``ref`` (``prev_tolerance_ratio``), the wrapper's host
+    time per call; graph replays where the direct call takes under
+    ``GRAPH_MS``."""
+    kern = G.grouped_conv3
+    symbol, lib = kern.route(torch.bfloat16)
+    new, prev = getattr(lib, symbol), getattr(G.library(), kern.symbol)
+    wp = G.pack_weights(w, 16)
+    res = {"prev_tolerance_ratio": G.bf16_tolerance_ratio(direct_gconv(prev, x, wp, b), ref)}
+    if res["prev_tolerance_ratio"] > 1.0:
+        raise AssertionError(f"{kern.symbol} {tuple(x.shape)}: the mma.sync entry disagrees "
+                             "with the plain version")
+    order = (new, prev, prev, new)
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), wp.data_ptr(), b.data_ptr(), out.data_ptr(), *x.shape,
+            wp.shape[-1], 1, torch.cuda.current_stream().cuda_stream)
+    ms = [cuda_ms(lambda e=e: direct_gconv(e, x, wp, b, out), 10) for e in order]
+    host = [host_us(lambda e=e: e(*args)) for e in order]
+    res["direct_ms"], res["direct_host_us"] = (ms[0] + ms[-1]) / 2, (host[0] + host[-1]) / 2
+    res["prev_ms"], res["prev_host_us"] = (ms[1] + ms[2]) / 2, (host[1] + host[2]) / 2
+    res["timer"] = "events"
+    if res["direct_ms"] < GRAPH_MS:
+        res["timer"] = "graph"
+        graph = [graph_ms(lambda e=e: direct_gconv(e, x, wp, b, out)) for e in order]
+        res["direct_event_ms"], res["direct_ms"] = res["direct_ms"], (graph[0] + graph[-1]) / 2
+        res["prev_event_ms"], res["prev_ms"] = res["prev_ms"], (graph[1] + graph[2]) / 2
+    res["wrapper_host_us"] = host_us(lambda: kern(x, w, b, 16))
+    return res
 
 
 def compare_gconv(G, x, w, b) -> dict:
@@ -463,22 +515,34 @@ def check_gconv(G, shape, gen):
     if err["tolerance_ratio"] > 1.0:
         raise AssertionError(f"{G.grouped_conv3.symbol} {shape}: kernel and plain version "
                              f"disagree: {err}")
+    extra = time_gconv_entries(G, x, w, b, G.grouped_conv3_plain(x, w, b, 16))
     ms = cuda_ms(lambda: G.grouped_conv3(x, w, b, 16), 10)
     plain_ms = cuda_ms(lambda: G.grouped_conv3_plain(x, w, b, 16), 3)
     xc = x.permute(0, 3, 1, 2)  # NCHW view of channels_last memory
-    library_ms = cuda_ms(lambda: F.conv2d(xc, w, b, padding=1, groups=16), 10)
+
+    def cudnn():
+        return F.conv2d(xc, w, b, padding=1, groups=16)
+
+    library_ms = cuda_ms(cudnn, 10)
+    if extra["timer"] == "graph":  # the wrapper and cuDNN as the C entries
+        extra["event_ms"], ms = ms, graph_ms(lambda: G.grouped_conv3(x, w, b, 16))
+        extra["library_event_ms"], library_ms = library_ms, graph_ms(cudnn)
     bsz, h, wd, c = shape
     flops = 2.0 * bsz * h * wd * c * 9 * (c // 16)
     nbytes = (2 * x.numel() + w.numel() + b.numel()) * x.element_size()
     bound_ms, bound_by = bound(flops, nbytes)
     row = {"shape": list(shape), "groups": 16, **err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, **extra, "bound_ms": bound_ms, "bound_by": bound_by,
            "tflops": flops / (ms * 1e-3) / 1e12}
     log(f"kernel {G.grouped_conv3.symbol} {tuple(shape)} cg={c // 16}: max_abs "
         f"{err['max_abs_err']:.3e} rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} "
-        f"tolerance ratio {err['tolerance_ratio']:.3f} | {ms:.3f} ms "
-        f"({row['tflops']:.1f} TFLOP/s) plain {plain_ms:.3f} ms library {library_ms:.3f} ms "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+        f"tolerance ratio {err['tolerance_ratio']:.3f} | {ms:.4f} ms "
+        f"({row['tflops']:.1f} TFLOP/s) plain {plain_ms:.3f} ms library {library_ms:.4f} ms "
+        f"| direct call {extra['direct_ms']:.4f} ms, prev (mma.sync) {extra['prev_ms']:.4f} ms, "
+        f"its tolerance ratio {extra['prev_tolerance_ratio']:.3f} | host per call: C entry "
+        f"{extra['direct_host_us']:.1f} us, prev {extra['prev_host_us']:.1f} us, wrapper "
+        f"{extra['wrapper_host_us']:.1f} us | timer {extra['timer']} bound {bound_ms:.4f} ms "
+        f"({bound_by})")
     return row
 
 
@@ -1020,7 +1084,7 @@ def main() -> int:
         library = [x["library_ms"] for x in r]
         entry = {
             "name": kern.symbol, "route": "cuda", "status": "ported",
-            "source": kernel_source(G, kern), "replaces": kern.replaces,
+            "source": kernel_source(kern), "replaces": kern.replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in r),
@@ -1033,7 +1097,7 @@ def main() -> int:
         for key in ("unfused_ms", "sdpa_matmul_ms", "direct_ms", "prev_ms"):
             if key in r[0]:
                 entry[key] = sum(x[key] for x in r)
-        if getattr(kern, "symbols", None):  # an entry per dtype, as the wrapper routes them
+        if kern.symbols:  # an entry per dtype, as the wrapper routes them
             entry["symbols"] = {str(dt).removeprefix("torch."): kern.entry(dt)[0]
                                 for dt in (torch.bfloat16, torch.float32)}
         if Path(entry["source"]).name in SM90_DESIGNS:

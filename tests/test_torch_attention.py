@@ -307,7 +307,7 @@ def test_bh_routes_bf16_to_the_sm90_kernel():
                                           K.SOURCE_BH_SM90)
     assert kern.entry(torch.float32) == ("ur_attention_bh", K.library, K.SOURCE)
     assert K.SOURCE_BH_SM90.is_file() and K.SOURCE_BH_SM90.parent == K.SOURCE.parent
-    assert K.SOURCE_BH_SM90 in KN.SOURCES and len(set(KN.SOURCES)) == len(KN.SOURCES) == 5
+    assert K.SOURCE_BH_SM90 in KN.SOURCES and len(set(KN.SOURCES)) == len(KN.SOURCES) == 6
 
 
 @pytest.mark.parametrize("d", [32, 64, 96, 128, 192])

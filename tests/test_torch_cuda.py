@@ -20,10 +20,13 @@ bf16 wide-head launches through ``ur_attention_stream_sm90``
 (``csrc/attention_stream_sm90.cu``), the fp32 ones through
 ``ur_attention_stream``; the bf16 head-major launches through
 ``ur_attention_bh_sm90`` (``csrc/attention_bh_sm90.cu``), the fp32 ones
-through ``ur_attention_bh``. A selection test holds each Hopper kernel's
-wgmma descriptors and TMA swizzle (and the head-major kernel's masked tail)
-to exact answers (``pytest -k btc``, ``-k stream`` or ``-k bh`` runs only one
-kernel's tests while iterating on it).
+through ``ur_attention_bh``; the bf16 grouped-conv launches through
+``ur_grouped_conv3_sm90`` (``csrc/grouped_conv_sm90.cu``), the fp32 ones
+through ``ur_grouped_conv3``. A selection test holds each Hopper kernel's
+wgmma descriptors and TMA swizzle (and the head-major kernel's masked tail,
+the grouped conv's halo and edges) to exact answers (``pytest -k btc``,
+``-k stream``, ``-k bh`` or ``-k gconv`` runs only one kernel's tests while
+iterating on it).
 The out-projection-fused kernel: bf16 ``bf16_out_tolerance_ratio <= 1``
 (|out - ref| <= 2^-7 |ref| + 2^-5 rms(ref), the reasoning beside it in
 ``attention_kernels.py``); fp32 1e-5 of the output's largest entry, since each
@@ -377,6 +380,72 @@ def test_grouped_conv_matches_plain(cuda, no_tf32, dtype, shape):
         assert G.bf16_tolerance_ratio(out, ref) <= 1.0
     else:
         torch.testing.assert_close(out, ref, **FP32_TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 45, 256), (2, 21, 35, 512), (1, 19, 33, 1024),
+                                   (1, 13, 17, 2048)])
+def test_gconv_sm90_selects_exact_inputs(cuda, shape):
+    """Each output channel o of group g takes one input channel of its group
+    (c(g, o)) at one tap (t(g, o), every tap and every 16-byte chunk of the
+    swizzled rows in turn) with weight 1 and bias 0, so the output must equal
+    the shifted input bit for bit, with zeros where the tap reaches outside
+    the map. A wrong tensor map, swizzle, B descriptor, per-group weight
+    offset, halo origin or edge mask moves or mixes values. cg = 16 / 32 /
+    64 / 128, H and W ragged against the 8 x 16 tiles; the direct call writes
+    into a buffer with a guard region past its end, which must stay as it
+    was."""
+    bsz, h, wd, c = shape
+    cg = c // 16
+    x = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(cg),
+                    device="cuda").to(torch.bfloat16)
+    w = torch.zeros((c, cg, 3, 3), device="cuda", dtype=torch.bfloat16)
+    want = torch.empty_like(x)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    for g in range(16):
+        for o in range(cg):
+            tap, ci = (o + 2 * g) % 9, (5 * o + 3 * g) % cg
+            dy, dx = divmod(tap, 3)
+            w[g * cg + o, ci, dy, dx] = 1.0
+            want[..., g * cg + o] = xp[:, dy:dy + h, dx:dx + wd, g * cg + ci]
+    b = torch.zeros((c,), device="cuda", dtype=torch.bfloat16)
+    assert G.grouped_conv3.route(torch.bfloat16)[0] == "ur_grouped_conv3_sm90"
+    out = G.grouped_conv3(x, w, b, 16)
+    guarded = torch.full((x.numel() + 4096,), 7.0, dtype=torch.bfloat16, device="cuda")
+    chip_smoke.direct_gconv(G.library_sm90().ur_grouped_conv3_sm90, x, G.pack_weights(w, 16),
+                            b, guarded[:x.numel()].view(shape))
+    torch.cuda.synchronize()
+    wrong = (out != want).nonzero()
+    assert not len(wrong), f"{len(wrong)} values differ, first {wrong[:8].tolist()}"
+    assert torch.equal(guarded[:x.numel()].view(shape), want)
+    assert bool((guarded[x.numel():] == 7.0).all()), "stored past the output's end"
+
+
+@pytest.mark.parametrize("dtype,symbol", [(torch.bfloat16, "ur_grouped_conv3_sm90"),
+                                          (torch.float32, "ur_grouped_conv3")])
+def test_gconv_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbol):
+    kern, chosen, route = G.grouped_conv3, [], G.grouped_conv3.route
+
+    def spy(dt):
+        chosen.append(route(dt)[0])
+        return route(dt)
+
+    monkeypatch.setattr(kern, "route", spy)
+    x, w, b = _gconv_inputs((2, 37, 45, 512), dtype)
+    before = kern.launches
+    kern(x, w, b, 16)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and chosen == [symbol]
+
+
+@pytest.mark.parametrize("shape", chip_smoke.gconv_shapes())
+def test_gconv_sm90_matches_the_mma_sync_kernel(cuda, shape):
+    """At every phase-3 shape: the restore's, the server's batch of four
+    tiles, and a 256 x 384 image restored whole."""
+    x, w, b = _gconv_inputs(shape, torch.bfloat16, seed=2)
+    out = G.grouped_conv3(x, w, b, 16)
+    prev = chip_smoke.direct_gconv(G.library().ur_grouped_conv3, x, G.pack_weights(w, 16), b)
+    torch.cuda.synchronize()
+    assert G.bf16_tolerance_ratio(out, prev) <= 1.0
 
 
 def test_grouped_conv_gradient_matches_plain_autograd(cuda, no_tf32):

@@ -12,10 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from test_torch_bridge import jax_params, port_params, to_np
 from unirestore_torch.models import cfrm as TC
 from unirestore_torch.nn import grouped_conv as G
+from unirestore_torch.nn import kernels as KN
 from unirestore_tpu.models import cfrm as JC
 from unirestore_tpu.nn.pallas_grouped_conv import _xla_reference, grouped_conv3_pallas
 
@@ -134,3 +136,97 @@ def test_ada_naf_v2_matches_jax_with_gradients(c):
     np.testing.assert_allclose(to_np(gxt), np.asarray(gxj), atol=1e-5, rtol=1e-4)
     np.testing.assert_allclose(to_np(gwt), np.asarray(gpj["group_conv"]["w"]).transpose(3, 2, 0, 1),
                                atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper kernel ur_grouped_conv3_sm90 (bf16): routing, preconditions, and
+# its arithmetic in plain torch against the tolerance the card holds it to
+# ---------------------------------------------------------------------------
+
+
+def test_gconv_routes_bf16_to_the_sm90_kernel():
+    """bf16 launches take ``ur_grouped_conv3_sm90`` in its own source, fp32
+    ones the FMA kernel ``ur_grouped_conv3``; ``build_all`` builds both."""
+    kern = G.grouped_conv3
+    assert kern.entry(torch.bfloat16) == ("ur_grouped_conv3_sm90", G.library_sm90,
+                                          G.SOURCE_SM90)
+    assert kern.entry(torch.float32) == ("ur_grouped_conv3", G.library, G.SOURCE)
+    assert G.SOURCE_SM90.is_file() and G.SOURCE_SM90.parent == G.SOURCE.parent
+    assert {G.SOURCE, G.SOURCE_SM90} <= set(KN.SOURCES)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,groups", [
+    ((8, 256, 256, 512), (512, 32, 3, 3), 16),
+    ((8, 128, 128, 1024), (1024, 64, 3, 3), 16),
+    ((8, 64, 64, 2048), (2048, 128, 3, 3), 16),
+    ((1, 32, 32, 2048), (2048, 128, 3, 3), 16),
+    ((8, 250, 256, 512), (512, 32, 3, 3), 16),
+    ((2, 37, 45, 256), (256, 16, 3, 3), 16),
+    ((1, 5, 7, 32), (32, 16, 3, 3), 2),  # C not a multiple of the 64-channel box
+])
+def test_supported_shapes_meet_the_gconv_sm90_kernel_preconditions(x_shape, w_shape, groups):
+    """Every shape ``supported`` admits meets what ``ur_grouped_conv3_sm90``
+    checks and what its tensor maps need: a group width it was built for,
+    byte strides that are multiples of 16 (below 2^40), boxes of at most 256
+    per dimension whose channel row fits one 128-byte swizzle span."""
+    assert G.supported(x_shape, w_shape, groups)
+    cg = w_shape[1]
+    assert cg in G.GROUP_WIDTHS and x_shape[-1] % cg == 0
+    for dims, strides, box in G.sm90_tensor_maps(x_shape):
+        assert all(1 <= d < 2 ** 32 for d in dims)
+        assert all(s % 16 == 0 and s < 2 ** 40 for s in strides)
+        assert all(1 <= n <= 256 for n in box) and box[0] * 2 <= 128
+
+
+def _gconv_sm90_model(x, w, b, fault):
+    """``ur_grouped_conv3_sm90``'s arithmetic in plain torch, with one of its
+    faults planted.
+
+    Output tiles of ``G.SM90_TILE`` pixels, each over a halo box zero-filled
+    outside the map (as TMA fills it); per 64-channel box, per tap, per
+    16-channel k-step an fp32 product sum added to fp32 accumulators; the
+    bias added in fp32; one rounding to bf16; the tiles' overhang past the map
+    not stored. Faults: the last tap dropped, the halo box started one row
+    low, each group taking the next group's weights, the bias skipped.
+    """
+    bsz, h, wd, c = x.shape
+    cg = w.shape[1]
+    groups = c // cg
+    th, tw = G.SM90_TILE
+    hp, wp = -(-h // th) * th, -(-wd // tw) * tw
+    low = 1 if fault == "halo_row_off_by_one" else 0
+    xf = F.pad(x.float(), (0, 0, 1, wp - wd + 1, 1, hp - h + 2))
+    wg = w.float().reshape(groups, cg, cg, 3, 3)
+    if fault == "wrong_group_weights":
+        wg = wg.roll(-1, 0)
+    acc = torch.zeros((bsz, hp, wp, groups, cg))
+    for k0 in range(0, cg, G.SM90_BOX_C):
+        for tap in range(8 if fault == "tap_dropped" else 9):
+            dy, dx = divmod(tap, 3)
+            xs = xf[:, dy + low:dy + low + hp, dx:dx + wp].reshape(bsz, hp, wp, groups, cg)
+            for k in range(k0, min(cg, k0 + G.SM90_BOX_C), 16):
+                acc += torch.einsum("bhwgi,goi->bhwgo", xs[..., k:k + 16],
+                                    wg[:, :, k:k + 16, dy, dx])
+    if fault != "bias_skipped":
+        acc += b.float().reshape(groups, cg)
+    return acc.reshape(bsz, hp, wp, c)[:, :h, :wd].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fault", ["none", "tap_dropped", "halo_row_off_by_one",
+                                   "wrong_group_weights", "bias_skipped"])
+@pytest.mark.parametrize("shape", [(1, 16, 40, 512), (1, 12, 20, 1024), (1, 8, 8, 2048),
+                                   (2, 37, 45, 256)])
+def test_bf16_tolerance_passes_the_gconv_sm90_arithmetic_and_rejects_faults(shape, fault):
+    """``bf16_tolerance_ratio`` at the kernel's arithmetic (real channel
+    widths, cg = 32 / 64 / 128 / 16, small maps, the last one ragged against
+    the tiles): it passes, and each of the kernel's planted faults fails."""
+    rng = np.random.default_rng(sum(shape))
+    c = shape[-1]
+    cg = c // 16
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(c, cg, 3, 3)) * (9 * cg) ** -0.5)
+                         .astype(np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy((rng.normal(size=(c,)) * 0.1).astype(np.float32)).to(torch.bfloat16)
+    ratio = G.bf16_tolerance_ratio(_gconv_sm90_model(x, w, b, fault),
+                                   G.grouped_conv3_plain(x, w, b, 16))
+    assert (ratio <= 1.0) == (fault == "none"), ratio

@@ -50,16 +50,19 @@ def test_rows_are_filed_under_each_kernels_bf16_source():
     """The attend_mma faults reach the kernels whose bf16 entry is in
     attention.cu; the channel-flat kernel's is in attention_sm90.cu, the
     wide-head kernel's in attention_stream_sm90.cu, the head-major kernel's
-    in attention_bh_sm90.cu."""
-    sources = {kern.symbol: Path(chip_smoke.kernel_source(G, kern)).name
-               for kern in K.KERNELS}
+    in attention_bh_sm90.cu, the grouped conv's in grouped_conv_sm90.cu
+    (grouped_conv.cu's faults reach its mma.sync entry, called directly)."""
+    sources = {kern.symbol: Path(chip_smoke.kernel_source(kern)).name
+               for kern in (*K.KERNELS, G.grouped_conv3)}
     assert sources == {"ur_attention_btc": CK.ATTENTION_SM90,
                        "ur_attention_bh": CK.ATTENTION_BH_SM90,
                        "ur_attention_stream": CK.ATTENTION_STREAM_SM90,
-                       "ur_attention_btc_out": CK.ATTENTION}
-    assert chip_smoke.kernel_source(G, G.grouped_conv3).endswith(CK.GCONV)
-    for kern in K.KERNELS:
+                       "ur_attention_btc_out": CK.ATTENTION,
+                       "ur_grouped_conv3": CK.GCONV_SM90}
+    for kern in (*K.KERNELS, G.grouped_conv3):
         assert kern.entry(torch.bfloat16)[2].name == sources[kern.symbol]
+    assert G.grouped_conv3.entry(torch.float32)[2].name == CK.GCONV
+    assert {src for src, _ in CK.FAULTS.values()} >= {CK.GCONV, CK.GCONV_SM90}
 
 
 def _row(kernel, source, ratio=None, error=None, shape=(8, 4096, 320)):
@@ -73,6 +76,9 @@ def _row(kernel, source, ratio=None, error=None, shape=(8, 4096, 320)):
 _SM90, _ATT = ("ur_attention_btc", "attention_sm90.cu"), ("ur_attention_btc_out", "attention.cu")
 _BH = ("ur_attention_bh", "attention_bh_sm90.cu")
 _MASKED, _WHOLE = (3, 264, 64), (160, 256, 64)
+_GC = ("ur_grouped_conv3", "grouped_conv_sm90.cu")
+_GC_PREV = ("ur_grouped_conv3", "grouped_conv.cu")
+_GCS = (8, 256, 256, 512)
 _CUDA = "ur_attention_btc_sm90: CUDA error 700"
 
 
@@ -105,6 +111,14 @@ _CUDA = "ur_attention_btc_sm90: CUDA error 700"
     # every other fault of the head-major kernel reaches every shape it runs
     ("bh_sm90_last_tile_stale", 0,
      [_row(*_BH, 90.0, shape=_WHOLE), _row(*_BH, 0.7, shape=_MASKED)], "", False),
+    # a grouped_conv.cu fault reaches the mma.sync entry's rows, not the
+    # Hopper kernel's, and the other way round
+    ("gconv_tap_dropped", 0, [_row(*_GC, 0.5, shape=_GCS), _row(*_GC_PREV, 80.0, shape=_GCS)],
+     "", True),
+    ("gconv_tap_dropped", 0, [_row(*_GC, 80.0, shape=_GCS), _row(*_GC_PREV, 0.5, shape=_GCS)],
+     "", False),
+    ("gconv_sm90_bias_skipped", 0,
+     [_row(*_GC, 30.0, shape=_GCS), _row(*_GC_PREV, 0.5, shape=_GCS)], "", True),
 ])
 def test_judge_counts_only_kernel_errors_as_rejections(fault, rc, rows, stderr, ok):
     got, lines = CK.judge(fault, rc, "\n".join(rows) + "\n", stderr)

@@ -10,9 +10,13 @@ and the head-major kernel also at ``MASKED_SHAPES``, against each copy in
 turn: the four attention kernels (bf16 channel-flat launches in
 ``csrc/attention_sm90.cu``, bf16 wide-head launches in
 ``csrc/attention_stream_sm90.cu``, bf16 head-major launches in
-``csrc/attention_bh_sm90.cu``, the others in ``csrc/attention.cu``) and the
-grouped conv (``csrc/grouped_conv.cu``). It prints one JSON line per fault,
-kernel and shape, and exits 0 only if the unchanged copy (``none``) agrees
+``csrc/attention_bh_sm90.cu``, the others in ``csrc/attention.cu``) and, at
+the three restore shapes, the grouped conv (its bf16 launches in
+``csrc/grouped_conv_sm90.cu``) and the bf16 ``mma.sync`` entry of
+``csrc/grouped_conv.cu`` that the Hopper kernel replaced, called directly
+(``"entry": "prev"``), so that that source's faults stay checked. It prints
+one JSON line per fault, kernel and shape, and exits 0 only if the unchanged
+copy (``none``) agrees
 at every shape and every planted fault is rejected at every shape of the
 kernels it reaches: those whose bf16 launches run the source it was planted
 in (the source each wrapper's bf16 entry names), or the ones a fault names
@@ -41,6 +45,7 @@ REPO = Path(__file__).resolve().parent.parent
 ATTENTION, ATTENTION_SM90, GCONV = "attention.cu", "attention_sm90.cu", "grouped_conv.cu"
 ATTENTION_STREAM_SM90 = "attention_stream_sm90.cu"
 ATTENTION_BH_SM90 = "attention_bh_sm90.cu"
+GCONV_SM90 = "grouped_conv_sm90.cu"
 
 # fault -> (source in csrc/, exact (old, new) edits of its bf16 tensor-core
 # kernel); a fault of one kernel only names it in ``ONLY``
@@ -158,6 +163,27 @@ FAULTS = {
          "const bool ok = yy >= 0 && yy < y0 + kTH && yy < H && xx >= 0 && xx < W;\n"
          "    cp_async16("),
     ]),
+    # ur_grouped_conv3_sm90: the last tap (dy = dx = 2) adds nothing
+    "gconv_sm90_tap_dropped": (GCONV_SM90, [
+        ("wgmma_rs<N>(acc[s], a[tap & 1], j, desc_b<CG>(bm));",
+         "if (tap != 8) wgmma_rs<N>(acc[s], a[tap & 1], j, desc_b<CG>(bm));"),
+    ]),
+    # ur_grouped_conv3_sm90: the halo box starts one row low (at y0, not
+    # y0 - 1), so every tap reads the row below its own
+    "gconv_sm90_halo_row_off_by_one": (GCONV_SM90, [
+        ("c_in0 + kc * kBoxC, x0 - 1,\n                      y0 - 1, b);",
+         "c_in0 + kc * kBoxC, x0 - 1,\n                      y0, b);"),
+    ]),
+    # ur_grouped_conv3_sm90: each group of a slot takes the next group's
+    # weights
+    "gconv_sm90_wrong_group_weights": (GCONV_SM90, [
+        ("const int g = g0 + a;", "const int g = (g0 + a + 1) % groups;"),
+    ]),
+    # ur_grouped_conv3_sm90: the bias is not added
+    "gconv_sm90_bias_skipped": (GCONV_SM90, [
+        ("if (bias != nullptr && c_out0 + c < C) {",
+         "if (bias == nullptr && c_out0 + c < C) {"),
+    ]),
 }
 # the faults of attend_mma reach every kernel whose bf16 entry lies in
 # csrc/attention.cu (each row names that source, so the channel-flat and
@@ -231,14 +257,14 @@ def child(root: Path) -> int:
     from unirestore_torch.nn import grouped_conv as G
 
     assert all(s.is_relative_to(root) for s in (K.SOURCE, K.SOURCE_SM90, K.SOURCE_STREAM_SM90,
-                                                 K.SOURCE_BH_SM90, G.SOURCE))
+                                                 K.SOURCE_BH_SM90, G.SOURCE, G.SOURCE_SM90))
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         masked = [(K.fused_attention_bh_prescaled, shape, heads) for shape, heads in MASKED_SHAPES]
         for kern, shape, heads in CS.kernel_shapes(K) + masked:
             xs, _ = CS.kernel_inputs(K, kern, shape, heads, gen)
-            row = {"kernel": kern.symbol, "source": Path(CS.kernel_source(G, kern)).name,
+            row = {"kernel": kern.symbol, "source": Path(CS.kernel_source(kern)).name,
                    "shape": list(shape)}
             try:  # a fault that stops the kernel shows here, named, not in a later call
                 kern(*xs)
@@ -250,10 +276,31 @@ def child(root: Path) -> int:
                 return 1
             print(json.dumps({**row, **CS.compare_kernel(kern, *xs)}), flush=True)
             del xs
-        for shape in CS.gconv_shapes():
-            err = CS.compare_gconv(G, *CS.gconv_inputs(shape, gen))
-            print(json.dumps({"kernel": G.grouped_conv3.symbol, "source": GCONV,
-                              "shape": list(shape), **err}), flush=True)
+        kern = G.grouped_conv3
+        prev = getattr(G.library(), kern.symbol)
+        for shape in [s for s in CS.gconv_shapes() if s[0] == CS.BATCH]:
+            x, w, b = CS.gconv_inputs(shape, gen)
+            ref = G.grouped_conv3_plain(x, w, b, 16)
+            for entry, source, call in (
+                    ("wrapper", Path(CS.kernel_source(kern)).name, lambda: kern(x, w, b, 16)),
+                    ("prev", GCONV,
+                     lambda: CS.direct_gconv(prev, x, G.pack_weights(w, 16), b))):
+                row = {"kernel": kern.symbol, "entry": entry, "source": source,
+                       "shape": list(shape)}
+                try:
+                    out = call()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    if "CUDA error" not in str(e):
+                        raise
+                    print(json.dumps({**row, "error": str(e).strip().splitlines()[0]}),
+                          flush=True)
+                    return 1
+                print(json.dumps({**row, "max_abs_err": (out.float() - ref.float()).abs().max()
+                                  .item(), "rms_err_over_rms_ref": CS.rms_rel(out, ref),
+                                  "tolerance_ratio": G.bf16_tolerance_ratio(out, ref)}),
+                      flush=True)
+            del x, w, b, ref, out
     return 0
 
 

@@ -47,7 +47,8 @@ FAMILIES = (
      "wide-head attention kernel (this repo, attention_stream_sm90.cu)"),
     ("attention_bh_sm90", "head-major attention kernel (this repo, attention_bh_sm90.cu)"),
     ("attention_fwd", "attention kernels (this repo, attention.cu)"),
-    ("gconv3_", "grouped-conv kernel (this repo)"),
+    ("gconv3_sm90", "grouped-conv kernel (this repo, grouped_conv_sm90.cu)"),
+    ("gconv3_", "grouped-conv kernel (this repo, grouped_conv.cu)"),
     ("conv", "convolution (cuDNN)"), ("xmma", "convolution (cuDNN)"),
     ("implicit_gemm", "convolution (cuDNN)"), ("winograd", "convolution (cuDNN)"),
     ("gemm", "matmul (cuBLAS)"), ("cutlass", "matmul (cuBLAS)"), ("nvjet", "matmul (cuBLAS)"),

@@ -2,11 +2,17 @@
 
 Replaces the Pallas TPU kernel of ``unirestore_tpu/nn/pallas_grouped_conv.py``
 (``_kernel`` v2 and ``_kernel_v3``, entry ``grouped_conv3_pallas``): a
-SAME-padded, stride-1, 3x3 grouped conv of an NHWC map, cin == cout. The
-kernel (``csrc/grouped_conv.cu``, hand-written CUDA C++ for ``sm_90a``) is an
-implicit GEMM per group: bf16 on the tensor cores (``mma.sync``), fp32 on
-CUDA-core FMAs; the source says what bounds it on the H100. It adds the bias
-before its one rounding to the input type.
+SAME-padded, stride-1, 3x3 grouped conv of an NHWC map, cin == cout. Two
+hand-written CUDA C++ sources for ``sm_90a``, each an implicit GEMM per group
+that adds the bias before its one rounding to the input type; each source
+says what bounds it on the H100:
+
+- ``csrc/grouped_conv_sm90.cu``: ``ur_grouped_conv3_sm90``, every bf16 launch
+  (``wgmma``, halo tiles by TMA with zero-fill padding, 64 output channels
+  per persistent block with their weights resident in shared memory);
+- ``csrc/grouped_conv.cu``: ``ur_grouped_conv3``, every fp32 launch (CUDA-core
+  FMAs). Its bf16 body (``mma.sync``), which the Hopper kernel replaced, stays
+  as a yardstick and is never routed.
 
 Weights are the port's OIHW ``(C, C // groups, 3, 3)``; the wrapper packs them
 per group and tap as ``(groups, 9, cg_out, cg_in)`` for the kernel.
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -30,6 +37,12 @@ import torch.nn.functional as F
 from . import cuda_lib
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "grouped_conv.cu"
+SOURCE_SM90 = SOURCE.with_name("grouped_conv_sm90.cu")
+# ur_grouped_conv3_sm90's tensor maps: x and y viewed as (C, W, H, B), boxes
+# of SM90_BOX_C channels (one 128-byte swizzle row) over a halo of
+# (SM90_TILE + 2) pixels for x and half an output tile for y
+SM90_TILE = (8, 16)  # output rows, columns per tile
+SM90_BOX_C = 64
 GROUP_WIDTHS = (16, 32, 64, 128)  # per-group channels the kernel is built for
 
 
@@ -80,14 +93,37 @@ def bf16_tolerance_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
     return cuda_lib.tolerance_ratio(out, ref, RTOL, ATOL_RMS)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """``csrc/grouped_conv.cu``, built unless a library of the same source hash exists."""
-    lib = ctypes.CDLL(str(cuda_lib.build_all([SOURCE])[0]))
-    fn = lib.ur_grouped_conv3
+def sm90_tensor_maps(x_shape):
+    """(dims, byte strides of dims 1-3, box) of the input and output tensor
+    maps ``ur_grouped_conv3_sm90`` encodes for an NHWC bf16 ``x_shape``."""
+    b, h, w, c = x_shape
+    dims = (c, w, h, b)
+    strides = (2 * c, 2 * c * w, 2 * c * w * h)
+    th, tw = SM90_TILE
+    return [(dims, strides, (SM90_BOX_C, tw + 2, th + 2, 1)),
+            (dims, strides, (SM90_BOX_C, tw, th // 2, 1))]
+
+
+def _load(source: Path, symbol: str) -> ctypes.CDLL:
+    """The library of ``source`` with C entry ``symbol`` (x, w, bias, y, six
+    ints, stream), built unless a library of the same source hash exists."""
+    lib = ctypes.CDLL(str(cuda_lib.build_all([source])[0]))
+    fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """``csrc/grouped_conv.cu`` (``ur_grouped_conv3``)."""
+    return _load(SOURCE, "ur_grouped_conv3")
+
+
+@functools.cache
+def library_sm90() -> ctypes.CDLL:
+    """``csrc/grouped_conv_sm90.cu`` (``ur_grouped_conv3_sm90``)."""
+    return _load(SOURCE_SM90, "ur_grouped_conv3_sm90")
 
 
 def pack_weights(w, groups: int):
@@ -123,10 +159,25 @@ class GroupedConv3Function(torch.autograd.Function):
 
 
 class GroupedConvKernel(cuda_lib.KernelWrapper):
-    """``grouped_conv3(x, w, b=None, groups=16)``: the kernel entry with its gradient."""
+    """``grouped_conv3(x, w, b=None, groups=16)``: the kernel entries with their gradient.
+
+    ``symbols`` names the C entry of each dtype other than the base symbol's,
+    as (symbol, library loader, source); ``entry`` gives that triple for a
+    launch of a dtype, ``route`` the symbol and its loaded library.
+    """
 
     symbol = "ur_grouped_conv3"
     replaces = "unirestore_tpu/nn/pallas_grouped_conv.py:80"
+    symbols = {torch.bfloat16: ("ur_grouped_conv3_sm90", library_sm90, SOURCE_SM90)}
+
+    def entry(self, dtype: torch.dtype) -> tuple[str, Callable[[], ctypes.CDLL], Path]:
+        """(C entry, its library's loader, its source) of a launch in ``dtype``."""
+        return self.symbols.get(dtype, (self.symbol, library, SOURCE))
+
+    def route(self, dtype: torch.dtype) -> tuple[str, ctypes.CDLL]:
+        """(C entry, its library) of a launch in ``dtype``."""
+        symbol, lib, _ = self.entry(dtype)
+        return symbol, lib()
 
     def __call__(self, x, w, b=None, groups: int = 16):
         return GroupedConv3Function.apply(self, x, w, b, groups)
@@ -148,18 +199,19 @@ class GroupedConvKernel(cuda_lib.KernelWrapper):
         if b is not None and tuple(b.shape) != (x.shape[-1],):
             raise ValueError(f"{self.symbol}: bias shape {tuple(b.shape)}")
         x = x.contiguous()
-        if x.data_ptr() % 16:
-            raise ValueError(f"{self.symbol}: x must start on a 16-byte boundary")
         wp = pack_weights(w, groups)
+        if x.data_ptr() % 16 or wp.data_ptr() % 16:
+            raise ValueError(f"{self.symbol}: x and w must start on 16-byte boundaries")
         bc = None if b is None else b.contiguous()
         out = torch.empty_like(x)
         bsz, h, wd, c = x.shape
         with torch.cuda.device(x.device):
-            rc = library().ur_grouped_conv3(
+            symbol, lib = self.route(x.dtype)
+            rc = getattr(lib, symbol)(
                 x.data_ptr(), wp.data_ptr(), None if bc is None else bc.data_ptr(),
                 out.data_ptr(), bsz, h, wd, c, c // groups,
                 cuda_lib.DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
-        self.counted(rc)
+        self.counted(rc, symbol)
         return out
 
 
