@@ -155,7 +155,7 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 # the milestone of each Hopper redesign that ships (its source's head comment)
 SM90_DESIGNS = {"attention_sm90.cu": "M2", "attention_stream_sm90.cu": "M2",
-                "attention_bh_sm90.cu": "M1", "grouped_conv_sm90.cu": "M1"}
+                "attention_bh_sm90.cu": "M1", "grouped_conv_sm90.cu": "M2"}
 # a call shorter than GRAPH_MS is timed by replaying GRAPH_CALLS captured
 # calls: one ctypes call costs 4-9 us of host time and a wrapper call 40-115
 # us, so back-to-back calls of a short kernel measure the host's launch rate

@@ -163,16 +163,20 @@ FAULTS = {
          "const bool ok = yy >= 0 && yy < y0 + kTH && yy < H && xx >= 0 && xx < W;\n"
          "    cp_async16("),
     ]),
-    # ur_grouped_conv3_sm90: the last tap (dy = dx = 2) adds nothing
+    # ur_grouped_conv3_sm90: the last tap (dy = dx = 2) adds nothing (in
+    # both of its kernels: M1 at cg <= 32, M2 above)
     "gconv_sm90_tap_dropped": (GCONV_SM90, [
         ("wgmma_rs<N>(acc[s], a[tap & 1], j, desc_b<CG>(bm));",
          "if (tap != 8) wgmma_rs<N>(acc[s], a[tap & 1], j, desc_b<CG>(bm));"),
+        ("wgmma_ss_n144(acc, desc_b<CG>(a_tap + 32 * kk), desc_sw128_any(b_tap + 32 * kk));",
+         "if (tap != 8)\n            wgmma_ss_n144(acc, desc_b<CG>(a_tap + 32 * kk),"
+         " desc_sw128_any(b_tap + 32 * kk));"),
     ]),
     # ur_grouped_conv3_sm90: the halo box starts one row low (at y0, not
     # y0 - 1), so every tap reads the row below its own
     "gconv_sm90_halo_row_off_by_one": (GCONV_SM90, [
-        ("c_in0 + kc * kBoxC, x0 - 1,\n                      y0 - 1, b);",
-         "c_in0 + kc * kBoxC, x0 - 1,\n                      y0, b);"),
+        ("c_in0 + kc * kBoxC, x0 - 1,\n                  y0 - 1, b);",
+         "c_in0 + kc * kBoxC, x0 - 1,\n                  y0, b);"),
     ]),
     # ur_grouped_conv3_sm90: each group of a slot takes the next group's
     # weights
@@ -183,6 +187,8 @@ FAULTS = {
     "gconv_sm90_bias_skipped": (GCONV_SM90, [
         ("if (bias != nullptr && c_out0 + c < C) {",
          "if (bias == nullptr && c_out0 + c < C) {"),
+        ("if (bias != nullptr && c_out0 + ch < C) {",
+         "if (bias == nullptr && c_out0 + ch < C) {"),
     ]),
 }
 # the faults of attend_mma reach every kernel whose bf16 entry lies in

@@ -67,10 +67,18 @@ _MMA_NO_STORES = (
 _SM90_NO_PRODUCTS = ("wgmma_rs<N>(acc[s], a[tap & 1], j, desc_b<CG>(bm));", "(void)bm;")
 _SM90_NO_STORES = ("      tma_store_4d(&ty, out_tile, c_out0, x0, y0 + 4 * wg, b);\n", "")
 
+_M1_EVERYWHERE = ("  return cg >= 64;\n", "  return false;\n")
+_T_NO_PRODUCTS = (
+    "          wgmma_ss_n144(acc, desc_b<CG>(a_tap + 32 * kk), desc_sw128_any(b_tap + 32 * kk));",
+    "          (void)a_tap, (void)b_tap;")
+_T_NO_STORES = ("      tma_store_4d(&ty, out_tile, c_out0, x0, y0, b);\n", "")
+
 # name -> (family, exact (old, new) edits of its source)
 VARIANTS = {
     "mma": ("mma", []),
     "sm90": ("sm90", []),
+    # M1 at every width (at cg >= 64 the shipped kernel runs M2)
+    "sm90_m1": ("sm90", [_M1_EVERYWHERE]),
 }
 # variants that compute a wrong answer on purpose, to show what bounds a kernel
 DIAGNOSTICS = {
@@ -88,11 +96,15 @@ DIAGNOSTICS = {
     "mma_no_stores": ("mma", [_MMA_NO_STORES]),
     "mma_skeleton": ("mma", [_MMA_NO_PRODUCTS, _MMA_NO_STORES]),
     "mma_attribute_once": ("mma", [_ATTRIBUTE_ONCE]),
-    # the Hopper kernel: no products; no output stores; neither (the halo
-    # loads, the weights' copy, the waits and the ldmatrix reads alone)
-    "sm90_no_products": ("sm90", [_SM90_NO_PRODUCTS]),
-    "sm90_no_stores": ("sm90", [_SM90_NO_STORES]),
-    "sm90_skeleton": ("sm90", [_SM90_NO_PRODUCTS, _SM90_NO_STORES]),
+    # the Hopper kernel's M1, at every width: no products; no output
+    # stores; neither (the halo loads, the weights' copy, the waits and the
+    # ldmatrix reads alone)
+    "sm90_m1_no_products": ("sm90", [_M1_EVERYWHERE, _SM90_NO_PRODUCTS]),
+    "sm90_m1_no_stores": ("sm90", [_M1_EVERYWHERE, _SM90_NO_STORES]),
+    "sm90_m1_skeleton": ("sm90", [_M1_EVERYWHERE, _SM90_NO_PRODUCTS, _SM90_NO_STORES]),
+    # its M2 (cg >= 64; at cg <= 32 these run M1 whole): no products; no stores
+    "sm90_t_no_products": ("sm90", [_T_NO_PRODUCTS]),
+    "sm90_t_no_stores": ("sm90", [_T_NO_STORES]),
 }
 
 
