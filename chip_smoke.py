@@ -436,10 +436,8 @@ def time_gconv_entries(G, x, w, b, ref) -> dict:
     return res
 
 
-def compare_gconv(G, x, w, b) -> dict:
-    """The grouped-conv kernel against its plain version on the same inputs."""
-    out = G.grouped_conv3(x, w, b, 16)
-    ref = G.grouped_conv3_plain(x, w, b, 16)
+def compare_gconv(G, out, ref) -> dict:
+    """A bf16 grouped-conv output against the plain version's ``ref``."""
     return {"max_abs_err": (out.float() - ref.float()).abs().max().item(),
             "rms_err_over_rms_ref": rms_rel(out, ref),
             "tolerance_ratio": G.bf16_tolerance_ratio(out, ref)}
@@ -511,11 +509,12 @@ def check_kernel(K, kern, shape, heads, gen):
 
 def check_gconv(G, shape, gen):
     x, w, b = gconv_inputs(shape, gen)
-    err = compare_gconv(G, x, w, b)
+    ref = G.grouped_conv3_plain(x, w, b, 16)
+    err = compare_gconv(G, G.grouped_conv3(x, w, b, 16), ref)
     if err["tolerance_ratio"] > 1.0:
         raise AssertionError(f"{G.grouped_conv3.symbol} {shape}: kernel and plain version "
                              f"disagree: {err}")
-    extra = time_gconv_entries(G, x, w, b, G.grouped_conv3_plain(x, w, b, 16))
+    extra = time_gconv_entries(G, x, w, b, ref)
     ms = cuda_ms(lambda: G.grouped_conv3(x, w, b, 16), 10)
     plain_ms = cuda_ms(lambda: G.grouped_conv3_plain(x, w, b, 16), 3)
     xc = x.permute(0, 3, 1, 2)  # NCHW view of channels_last memory

@@ -302,10 +302,7 @@ def child(root: Path) -> int:
                     print(json.dumps({**row, "error": str(e).strip().splitlines()[0]}),
                           flush=True)
                     return 1
-                print(json.dumps({**row, "max_abs_err": (out.float() - ref.float()).abs().max()
-                                  .item(), "rms_err_over_rms_ref": CS.rms_rel(out, ref),
-                                  "tolerance_ratio": G.bf16_tolerance_ratio(out, ref)}),
-                      flush=True)
+                print(json.dumps({**row, **CS.compare_gconv(G, out, ref)}), flush=True)
             del x, w, b, ref, out
     return 0
 
