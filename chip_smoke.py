@@ -334,23 +334,40 @@ def direct(entry, q, k, v, out=None):
     return out
 
 
+def time_in_turns(call, host_call, new, prev=None) -> dict:
+    """C entry ``new`` (``direct_ms``, ``direct_host_us``) and, where given,
+    the entry ``prev`` it replaced, in turns (new, previous, previous, new;
+    ``prev_ms``, ``prev_host_us``). ``call(e)`` runs entry ``e`` into a
+    preallocated output; ``host_call(e)`` is the bare ctypes call, so the
+    host times are the entries' own host work. Where the direct call takes
+    under ``GRAPH_MS`` both are graph replays (``timer``), the event readings
+    kept as ``direct_event_ms`` and ``prev_event_ms``."""
+    order = (new,) if prev is None else (new, prev, prev, new)
+    ms = [cuda_ms(lambda e=e: call(e), 10) for e in order]
+    host = [host_us(lambda e=e: host_call(e)) for e in order]
+    res = {"direct_ms": (ms[0] + ms[-1]) / 2, "direct_host_us": (host[0] + host[-1]) / 2}
+    if prev is not None:
+        res["prev_ms"], res["prev_host_us"] = (ms[1] + ms[2]) / 2, (host[1] + host[2]) / 2
+    res["timer"] = "events"
+    if res["direct_ms"] < GRAPH_MS:
+        res["timer"] = "graph"
+        graph = [graph_ms(lambda e=e: call(e)) for e in order]
+        res["direct_event_ms"], res["direct_ms"] = res["direct_ms"], (graph[0] + graph[-1]) / 2
+        if prev is not None:
+            res["prev_event_ms"], res["prev_ms"] = res["prev_ms"], (graph[1] + graph[2]) / 2
+    return res
+
+
 def time_entries(K, kern, xs) -> dict:
-    """The C entry of ``kern``'s bf16 launches called directly (``direct_ms``,
-    ``direct_host_us``) and the wrapper's host time per call
-    (``wrapper_host_us``). Where that entry is not the wrapper's base symbol,
-    the base symbol's ``mma.sync`` kernel in csrc/attention.cu is what it
-    replaced: the two are timed in turns (new, previous, previous, new;
-    ``prev_ms``, ``prev_host_us``) and the previous one is held to the plain
-    version too (``prev_tolerance_ratio``). Host times are of the same ctypes
-    call into a preallocated output, so their difference is the entries' own
-    host work; at T = 1024 the wrapper's host time per call exceeds a
-    kernel's. Where the direct call takes under ``GRAPH_MS``, ``direct_ms``
-    and ``prev_ms`` are graph replays (``timer``), the event readings kept as
-    ``direct_event_ms`` and ``prev_event_ms``."""
+    """``time_in_turns`` for the C entry of ``kern``'s bf16 launches, and the
+    wrapper's host time per call (``wrapper_host_us``). Where that entry is
+    not the wrapper's base symbol, the base symbol's ``mma.sync`` kernel in
+    csrc/attention.cu is what it replaced: it is timed in turns and held to
+    the plain version too (``prev_tolerance_ratio``). At T = 1024 the
+    wrapper's host time per call exceeds a kernel's."""
     q, k, v = xs
     symbol, lib = kern.route(torch.bfloat16)
-    new = getattr(lib, symbol)
-    res, order = {}, (new,)
+    new, prev, res = getattr(lib, symbol), None, {}
     if symbol != kern.symbol:
         prev = getattr(K.library(), kern.symbol)
         res["prev_tolerance_ratio"] = kern.bf16_tolerance_ratio(direct(prev, q, k, v),
@@ -358,22 +375,10 @@ def time_entries(K, kern, xs) -> dict:
         if res["prev_tolerance_ratio"] > 1.0:
             raise AssertionError(f"{kern.symbol} {tuple(q.shape)}: disagrees with the plain "
                                  "version")
-        order = (new, prev, prev, new)
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.shape, 1,
             torch.cuda.current_stream().cuda_stream)
-    ms = [cuda_ms(lambda e=e: direct(e, q, k, v, out), 10) for e in order]
-    host = [host_us(lambda e=e: e(*args)) for e in order]
-    res["direct_ms"], res["direct_host_us"] = (ms[0] + ms[-1]) / 2, (host[0] + host[-1]) / 2
-    if len(order) > 1:
-        res["prev_ms"], res["prev_host_us"] = (ms[1] + ms[2]) / 2, (host[1] + host[2]) / 2
-    res["timer"] = "events"
-    if res["direct_ms"] < GRAPH_MS:
-        res["timer"] = "graph"
-        graph = [graph_ms(lambda e=e: direct(e, q, k, v, out)) for e in order]
-        res["direct_event_ms"], res["direct_ms"] = res["direct_ms"], (graph[0] + graph[-1]) / 2
-        if len(order) > 1:
-            res["prev_event_ms"], res["prev_ms"] = res["prev_ms"], (graph[1] + graph[2]) / 2
+    res.update(time_in_turns(lambda e: direct(e, q, k, v, out), lambda e: e(*args), new, prev))
     res["wrapper_host_us"] = host_us(lambda: kern(q, k, v))
     return res
 
@@ -403,13 +408,10 @@ def direct_gconv(entry, x, wp, b, out=None):
 
 
 def time_gconv_entries(G, x, w, b, ref) -> dict:
-    """``time_entries`` for the grouped conv: its bf16 C entry called directly
-    with the weights packed once (``direct_ms``, ``direct_host_us``), the
-    ``mma.sync`` entry it replaced (``ur_grouped_conv3``'s bf16 body) in turns
-    (new, previous, previous, new; ``prev_ms``, ``prev_host_us``) and held to
-    the plain version ``ref`` (``prev_tolerance_ratio``), the wrapper's host
-    time per call; graph replays where the direct call takes under
-    ``GRAPH_MS``."""
+    """``time_in_turns`` for the grouped conv's bf16 C entry with the weights
+    packed once and the ``mma.sync`` entry it replaced (``ur_grouped_conv3``'s
+    bf16 body), held to the plain version ``ref`` too
+    (``prev_tolerance_ratio``), and the wrapper's host time per call."""
     kern = G.grouped_conv3
     symbol, lib = kern.route(torch.bfloat16)
     new, prev = getattr(lib, symbol), getattr(G.library(), kern.symbol)
@@ -418,20 +420,11 @@ def time_gconv_entries(G, x, w, b, ref) -> dict:
     if res["prev_tolerance_ratio"] > 1.0:
         raise AssertionError(f"{kern.symbol} {tuple(x.shape)}: the mma.sync entry disagrees "
                              "with the plain version")
-    order = (new, prev, prev, new)
     out = torch.empty_like(x)
     args = (x.data_ptr(), wp.data_ptr(), b.data_ptr(), out.data_ptr(), *x.shape,
             wp.shape[-1], 1, torch.cuda.current_stream().cuda_stream)
-    ms = [cuda_ms(lambda e=e: direct_gconv(e, x, wp, b, out), 10) for e in order]
-    host = [host_us(lambda e=e: e(*args)) for e in order]
-    res["direct_ms"], res["direct_host_us"] = (ms[0] + ms[-1]) / 2, (host[0] + host[-1]) / 2
-    res["prev_ms"], res["prev_host_us"] = (ms[1] + ms[2]) / 2, (host[1] + host[2]) / 2
-    res["timer"] = "events"
-    if res["direct_ms"] < GRAPH_MS:
-        res["timer"] = "graph"
-        graph = [graph_ms(lambda e=e: direct_gconv(e, x, wp, b, out)) for e in order]
-        res["direct_event_ms"], res["direct_ms"] = res["direct_ms"], (graph[0] + graph[-1]) / 2
-        res["prev_event_ms"], res["prev_ms"] = res["prev_ms"], (graph[1] + graph[2]) / 2
+    res.update(time_in_turns(lambda e: direct_gconv(e, x, wp, b, out), lambda e: e(*args), new,
+                             prev))
     res["wrapper_host_us"] = host_us(lambda: kern(x, w, b, 16))
     return res
 

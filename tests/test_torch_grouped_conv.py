@@ -170,11 +170,14 @@ def test_supported_shapes_meet_the_gconv_sm90_kernel_preconditions(x_shape, w_sh
     byte strides that are multiples of 16 (below 2^40), boxes of at most 256
     per dimension whose channel row fits one 128-byte swizzle span."""
     assert G.supported(x_shape, w_shape, groups)
+    b, h, w, c = x_shape
     cg = w_shape[1]
-    assert cg in G.GROUP_WIDTHS and x_shape[-1] % cg == 0
-    for dims, strides, box in G.sm90_tensor_maps(x_shape):
-        assert all(1 <= d < 2 ** 32 for d in dims)
-        assert all(s % 16 == 0 and s < 2 ** 40 for s in strides)
+    assert cg in G.GROUP_WIDTHS and c % cg == 0
+    th, tw = G.SM90_TILE
+    dims, strides = (c, w, h, b), (2 * c, 2 * c * w, 2 * c * w * h)
+    assert all(1 <= d < 2 ** 32 for d in dims)
+    assert all(s % 16 == 0 and s < 2 ** 40 for s in strides)
+    for box in [(G.SM90_BOX_C, tw + 2, th + 2, 1), (G.SM90_BOX_C, tw, th, 1)]:
         assert all(1 <= n <= 256 for n in box) and box[0] * 2 <= 128
 
 

@@ -175,8 +175,7 @@ FAULTS = {
     # ur_grouped_conv3_sm90: the halo box starts one row low (at y0, not
     # y0 - 1), so every tap reads the row below its own
     "gconv_sm90_halo_row_off_by_one": (GCONV_SM90, [
-        ("c_in0 + kc * kBoxC, x0 - 1,\n                  y0 - 1, b);",
-         "c_in0 + kc * kBoxC, x0 - 1,\n                  y0, b);"),
+        ("tx, bars + 8 * st, c, x0 - 1, y0 - 1, b);", "tx, bars + 8 * st, c, x0 - 1, y0, b);"),
     ]),
     # ur_grouped_conv3_sm90: each group of a slot takes the next group's
     # weights

@@ -379,6 +379,16 @@ __device__ __forceinline__ void copy_weights(unsigned char* base, uint32_t off0,
   __syncthreads();
 }
 
+// the halo box of tile t at channel c (rows y0 - 1 .. y0 + kTH, columns
+// x0 - 1 .. x0 + kTW) into stage st, completing its full barrier
+__device__ __forceinline__ void load_halo(const CUtensorMap* tx, uint32_t halo0, uint32_t bars,
+                                          int st, int c, int t, int tiles_w, int tiles_h) {
+  int b, y0, x0;
+  tile_origin(t, tiles_w, tiles_h, b, y0, x0);
+  mbar_expect_tx(bars + 8 * st, kBoxBytes);
+  tma_load_4d(halo0 + kStageBytes * st, tx, bars + 8 * st, c, x0 - 1, y0 - 1, b);
+}
+
 // the producer (one thread): the halo boxes of the block's tiles, KB per
 // tile, in order into a ring of S stages at halo0 (full barriers at bars,
 // empty ones after them), each stage refilled once its consumers arrived
@@ -387,14 +397,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* tx, uint32_t halo0, u
                                         int c_in0, int tiles_w, int tiles_h, int n_tiles) {
   int it = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    int b, y0, x0;
-    tile_origin(t, tiles_w, tiles_h, b, y0, x0);
     for (int kc = 0; kc < KB; ++kc, ++it) {
       const int st = it % S;
       if (it >= S) mbar_wait(bars + 8 * (S + st), ((it / S) - 1) & 1);
-      mbar_expect_tx(bars + 8 * st, kBoxBytes);
-      tma_load_4d(halo0 + kStageBytes * st, tx, bars + 8 * st, c_in0 + kc * kBoxC, x0 - 1,
-                  y0 - 1, b);
+      load_halo(tx, halo0, bars, st, c_in0 + kc * kBoxC, t, tiles_w, tiles_h);
     }
   }
 }
@@ -598,14 +604,10 @@ __device__ __forceinline__ void produce_t(const CUtensorMap* tx, uint32_t halo0,
       for (int w = 0; w < 2; ++w) {
         const int t = blockIdx.x + gridDim.x * (k0 + w);
         if (t >= n_tiles) continue;
-        int b, y0, x0;
-        tile_origin(t, tiles_w, tiles_h, b, y0, x0);
         const int j = issued[w]++;
         const int st = w * SW + j % SW;
         if (j >= SW) mbar_wait(bars + 8 * (2 * SW + st), ((j / SW) - 1) & 1);
-        mbar_expect_tx(bars + 8 * st, kBoxBytes);
-        tma_load_4d(halo0 + kStageBytes * st, tx, bars + 8 * st, c_in0 + kc * kBoxC, x0 - 1,
-                    y0 - 1, b);
+        load_halo(tx, halo0, bars, st, c_in0 + kc * kBoxC, t, tiles_w, tiles_h);
       }
     }
   }

@@ -55,7 +55,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -350,9 +349,10 @@ class AttentionKernel(cuda_lib.KernelWrapper):
     has q's dtype and the shape ``out_shape(q, k, v, *rest)``. ``bf16_tolerance_ratio``
     is the limit a bf16 launch is held to against ``plain``. ``symbols`` names
     another C entry, as (symbol, library loader, source), for the dtypes it
-    lists; ``entry`` gives that triple for a launch of a dtype, ``route`` the
-    symbol and its loaded library.
+    lists; every other launch takes ``symbol`` in ``csrc/attention.cu``.
     """
+
+    base = (library, SOURCE)
 
     def __init__(self, symbol: str, plain, vjp, dims, replaces: str,
                  out_shape=lambda q, *rest: q.shape, tolerance=bf16_tolerance_ratio,
@@ -369,15 +369,6 @@ class AttentionKernel(cuda_lib.KernelWrapper):
 
     def __call__(self, q, k, v, *rest):
         return _AttentionFunction.apply(self, q, k, v, *rest)
-
-    def entry(self, dtype: torch.dtype) -> tuple[str, Callable[[], ctypes.CDLL], Path]:
-        """(C entry, its library's loader, its source) of a launch in ``dtype``."""
-        return self.symbols.get(dtype, (self.symbol, library, SOURCE))
-
-    def route(self, dtype: torch.dtype) -> tuple[str, ctypes.CDLL]:
-        """(C entry, its library) of a launch in ``dtype``."""
-        symbol, lib, _ = self.entry(dtype)
-        return symbol, lib()
 
     def forward(self, q, k, v, *rest):
         xs = (q, k, v, *rest)

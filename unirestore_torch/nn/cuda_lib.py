@@ -14,10 +14,12 @@ recomputes its forward in the backward pass (``recompute_launches``, see
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import math
 import os
 import subprocess
+from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -73,14 +75,32 @@ def build_all(sources) -> list[Path]:
 
 
 class KernelWrapper:
-    """Launch and backward counts of one kernel entry; ``replaces`` is the
-    TPU kernel's file:line."""
+    """Launch and backward counts of one kernel; ``replaces`` is the TPU
+    kernel's file:line.
+
+    Launches go to C entry ``symbol`` of the library that ``base`` names as
+    (library loader, source), except in the dtypes ``symbols`` lists, each
+    with its own (C entry, library loader, source); ``entry`` gives that
+    triple for a launch of a dtype, ``route`` the C entry and its loaded
+    library.
+    """
 
     symbol = ""
     replaces = ""
+    base: tuple[Callable[[], ctypes.CDLL], Path] | None = None
+    symbols: dict = {}
 
     def __init__(self):
         self.reset()
+
+    def entry(self, dtype: torch.dtype) -> tuple[str, Callable[[], ctypes.CDLL], Path]:
+        """(C entry, its library's loader, its source) of a launch in ``dtype``."""
+        return self.symbols.get(dtype, (self.symbol, *self.base))
+
+    def route(self, dtype: torch.dtype) -> tuple[str, ctypes.CDLL]:
+        """(C entry, its library) of a launch in ``dtype``."""
+        symbol, lib, _ = self.entry(dtype)
+        return symbol, lib()
 
     def reset(self) -> None:
         self.launches = 0

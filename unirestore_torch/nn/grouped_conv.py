@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -38,9 +37,10 @@ from . import cuda_lib
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "grouped_conv.cu"
 SOURCE_SM90 = SOURCE.with_name("grouped_conv_sm90.cu")
-# ur_grouped_conv3_sm90's tensor maps: x and y viewed as (C, W, H, B), boxes
-# of SM90_BOX_C channels (one 128-byte swizzle row) over a halo of
-# (SM90_TILE + 2) pixels for x and half an output tile for y
+# ur_grouped_conv3_sm90's output tiles and the channels of its TMA boxes
+# (one 128-byte swizzle row); its tensor maps view x and y as (C, W, H, B)
+# with boxes of SM90_BOX_C channels over a halo of (SM90_TILE + 2) pixels
+# for x and at most a whole output tile for y
 SM90_TILE = (8, 16)  # output rows, columns per tile
 SM90_BOX_C = 64
 GROUP_WIDTHS = (16, 32, 64, 128)  # per-group channels the kernel is built for
@@ -91,17 +91,6 @@ ATOL_RMS = 2.0 ** -10
 def bf16_tolerance_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
     """max |out - ref| / (RTOL |ref| + ATOL_RMS rms(ref)); at most 1 to agree."""
     return cuda_lib.tolerance_ratio(out, ref, RTOL, ATOL_RMS)
-
-
-def sm90_tensor_maps(x_shape):
-    """(dims, byte strides of dims 1-3, box) of the input and output tensor
-    maps ``ur_grouped_conv3_sm90`` encodes for an NHWC bf16 ``x_shape``."""
-    b, h, w, c = x_shape
-    dims = (c, w, h, b)
-    strides = (2 * c, 2 * c * w, 2 * c * w * h)
-    th, tw = SM90_TILE
-    return [(dims, strides, (SM90_BOX_C, tw + 2, th + 2, 1)),
-            (dims, strides, (SM90_BOX_C, tw, th // 2, 1))]
 
 
 def _load(source: Path, symbol: str) -> ctypes.CDLL:
@@ -159,25 +148,14 @@ class GroupedConv3Function(torch.autograd.Function):
 
 
 class GroupedConvKernel(cuda_lib.KernelWrapper):
-    """``grouped_conv3(x, w, b=None, groups=16)``: the kernel entries with their gradient.
-
-    ``symbols`` names the C entry of each dtype other than the base symbol's,
-    as (symbol, library loader, source); ``entry`` gives that triple for a
-    launch of a dtype, ``route`` the symbol and its loaded library.
-    """
+    """``grouped_conv3(x, w, b=None, groups=16)``: the kernel entries with
+    their gradient; bf16 launches take ``ur_grouped_conv3_sm90``, fp32 ones
+    ``ur_grouped_conv3``."""
 
     symbol = "ur_grouped_conv3"
     replaces = "unirestore_tpu/nn/pallas_grouped_conv.py:80"
+    base = (library, SOURCE)
     symbols = {torch.bfloat16: ("ur_grouped_conv3_sm90", library_sm90, SOURCE_SM90)}
-
-    def entry(self, dtype: torch.dtype) -> tuple[str, Callable[[], ctypes.CDLL], Path]:
-        """(C entry, its library's loader, its source) of a launch in ``dtype``."""
-        return self.symbols.get(dtype, (self.symbol, library, SOURCE))
-
-    def route(self, dtype: torch.dtype) -> tuple[str, ctypes.CDLL]:
-        """(C entry, its library) of a launch in ``dtype``."""
-        symbol, lib, _ = self.entry(dtype)
-        return symbol, lib()
 
     def __call__(self, x, w, b=None, groups: int = 16):
         return GroupedConv3Function.apply(self, x, w, b, groups)
