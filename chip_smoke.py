@@ -9,27 +9,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. environment: card name, ``nvidia-smi`` name and power limit, TF32 off;
 2. build the CUDA kernels from ``unirestore_torch/csrc/`` (one ``nvcc`` per
-   source, all five at once);
+   source, all seven at once);
 3. each kernel against its plain PyTorch version at every shape the 512 px
-   batch-8 main paths give it, and the wide-head and head-major kernels also
-   at the server's shapes (bf16), with kernel, plain, library
-   (``scaled_dot_product_attention``; ``F.conv2d(groups=16)`` in
-   ``channels_last``; timed as yardsticks only) and bound times; for the
-   out-projection-fused kernel, which no single PyTorch call matches, the
-   unfused pairs ``ur_attention_btc`` + cuBLAS and SDPA + ``torch.matmul``
-   instead; for the other attention kernels also the C entry of their bf16
-   launches called directly (``direct_ms``), and where that entry replaced
-   the ``mma.sync`` kernel of ``csrc/attention.cu`` (channel-flat:
-   ``ur_attention_btc_sm90`` in ``csrc/attention_sm90.cu``; wide-head:
-   ``ur_attention_stream_sm90`` in ``csrc/attention_stream_sm90.cu``;
-   head-major: ``ur_attention_bh_sm90`` in ``csrc/attention_bh_sm90.cu``),
-   that kernel's entry too, timed in turns (``prev_ms``, a yardstick only),
-   with the host time of one call of each and of the wrapper
-   (``*_host_us``). A kernel whose direct call takes under ``GRAPH_MS`` is
-   timed again with the host out of the way: ``GRAPH_CALLS`` calls of the
-   wrapper, of each C entry and of the library call captured in one CUDA
-   graph each and replayed (``timer: "graph"``; the event readings stay
-   beside them as ``*_event_ms``);
+   batch-8 main paths give it, and the wide-head, head-major and
+   out-projection-fused kernels also at the server's shapes (bf16), with
+   kernel, plain, library (``scaled_dot_product_attention``;
+   ``F.conv2d(groups=16)`` in ``channels_last``; timed as yardsticks only)
+   and bound times; for the out-projection-fused kernel, which no single
+   PyTorch call matches, the unfused pairs ``ur_attention_btc_sm90`` +
+   cuBLAS and SDPA + ``torch.matmul`` instead, always by graph replay (the
+   event readings beside them); for every kernel also the C
+   entry of its bf16 launches called directly (``direct_ms``) and the
+   ``mma.sync`` kernel it replaced, called directly in turns with it
+   (``prev_ms``, a yardstick only, held to the plain version too):
+   channel-flat ``ur_attention_btc_sm90`` (``csrc/attention_sm90.cu``),
+   wide-head ``ur_attention_stream_sm90`` (``attention_stream_sm90.cu``),
+   head-major ``ur_attention_bh_sm90`` (``attention_bh_sm90.cu``),
+   out-projection-fused ``ur_attention_btc_out_sm90``
+   (``attention_out_sm90.cu``) against the entries of the same names
+   without ``_sm90`` in ``csrc/attention.cu``; the grouped conv's
+   ``ur_grouped_conv3_sm90`` against ``ur_grouped_conv3``; with the host
+   time of one call of each and of the wrapper (``*_host_us``). A kernel
+   whose direct call takes under ``GRAPH_MS`` is timed again with the host
+   out of the way: ``GRAPH_CALLS`` calls of the wrapper, of each C entry and
+   of the library call captured in one CUDA graph each and replayed
+   (``timer: "graph"``; the event readings stay beside them as
+   ``*_event_ms``);
    and each attention kernel's gradient (its autograd function) against
    autograd through its plain version at one main-path shape;
 4. the full-width restore (sd-turbo widths, seeded init, 512 px, batch 8,
@@ -155,7 +160,8 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 # the milestone of each Hopper redesign that ships (its source's head comment)
 SM90_DESIGNS = {"attention_sm90.cu": "M2", "attention_stream_sm90.cu": "M2",
-                "attention_bh_sm90.cu": "M1", "grouped_conv_sm90.cu": "M2"}
+                "attention_bh_sm90.cu": "M1", "attention_out_sm90.cu": "M2",
+                "grouped_conv_sm90.cu": "M2"}
 # a call shorter than GRAPH_MS is timed by replaying GRAPH_CALLS captured
 # calls: one ctypes call costs 4-9 us of host time and a wrapper call 40-115
 # us, so back-to-back calls of a short kernel measure the host's launch rate
@@ -269,6 +275,16 @@ def kernel_shapes(K):
         (K.fused_attention_btc_out_prescaled, (b, 1024, 640), 10),
         (K.fused_attention_btc_out_prescaled, (b, 4096, 256), 4),
         (K.fused_attention_btc_out_prescaled, (b, 1024, 256), 4),
+        # the server's (phase 8 runs it on the fused route): a batch of four
+        # 512 px tiles, a 256 x 384 image whole at 512 x 768
+        (K.fused_attention_btc_out_prescaled, (4, 4096, 320), 5),
+        (K.fused_attention_btc_out_prescaled, (4, 1024, 640), 10),
+        (K.fused_attention_btc_out_prescaled, (4, 4096, 256), 4),
+        (K.fused_attention_btc_out_prescaled, (4, 1024, 256), 4),
+        (K.fused_attention_btc_out_prescaled, (1, 6144, 320), 5),
+        (K.fused_attention_btc_out_prescaled, (1, 1536, 640), 10),
+        (K.fused_attention_btc_out_prescaled, (1, 6144, 256), 4),
+        (K.fused_attention_btc_out_prescaled, (1, 1536, 256), 4),
     ]
 
 
@@ -320,14 +336,19 @@ def kernel_source(kern) -> str:
     return str(kern.entry(torch.bfloat16)[2].relative_to(REPO))
 
 
-def direct(entry, q, k, v, out=None):
-    """An attention C entry of the (q, k, v, o, three dims, dtype, stream)
-    signature called directly through ctypes, without the wrapper's checks and
-    autograd: the entry of a wrapper's bf16 launches, or the ``mma.sync``
-    kernel of csrc/attention.cu that a redesigned kernel replaced (a
-    yardstick, never routed)."""
-    out = torch.empty_like(q) if out is None else out
-    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.shape,
+def direct(entry, q, k, v, out=None, wo=None):
+    """An attention C entry called directly through ctypes, without the
+    wrapper's checks and autograd: the entry of a wrapper's bf16 launches, or
+    the ``mma.sync`` kernel of csrc/attention.cu that a redesigned kernel
+    replaced (a yardstick, never routed). Its signature is (q, k, v, o, three
+    dims, dtype, stream), or with the out-projection ``wo`` (q, k, v, wo,
+    out, four dims, dtype, stream)."""
+    xs, dims = (q, k, v), tuple(q.shape)
+    if wo is not None:
+        xs, dims = (*xs, wo), (*dims, wo.shape[1])
+    if out is None:
+        out = torch.empty_like(q) if wo is None else q.new_empty((*q.shape[:2], wo.shape[1]))
+    rc = entry(*(x.data_ptr() for x in xs), out.data_ptr(), *dims,
                1 if q.dtype == torch.bfloat16 else 0, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry.__name__}: CUDA error {rc}")
@@ -364,32 +385,38 @@ def time_entries(K, kern, xs) -> dict:
     not the wrapper's base symbol, the base symbol's ``mma.sync`` kernel in
     csrc/attention.cu is what it replaced: it is timed in turns and held to
     the plain version too (``prev_tolerance_ratio``). At T = 1024 the
-    wrapper's host time per call exceeds a kernel's."""
-    q, k, v = xs
+    wrapper's host time per call exceeds a kernel's. ``xs`` is q, k, v and,
+    for the out-projection-fused kernel, wo."""
     symbol, lib = kern.route(torch.bfloat16)
     new, prev, res = getattr(lib, symbol), None, {}
+    wo = dict(zip(("wo",), xs[3:]))  # the out-projection-fused kernel's fourth input
     if symbol != kern.symbol:
         prev = getattr(K.library(), kern.symbol)
-        res["prev_tolerance_ratio"] = kern.bf16_tolerance_ratio(direct(prev, q, k, v),
-                                                                kern.plain(q, k, v))
+        res["prev_tolerance_ratio"] = kern.bf16_tolerance_ratio(direct(prev, *xs[:3], **wo),
+                                                                kern.plain(*xs))
         if res["prev_tolerance_ratio"] > 1.0:
-            raise AssertionError(f"{kern.symbol} {tuple(q.shape)}: disagrees with the plain "
+            raise AssertionError(f"{kern.symbol} {tuple(xs[0].shape)}: disagrees with the plain "
                                  "version")
-    out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.shape, 1,
+    out = torch.empty(kern.out_shape(*xs), dtype=xs[0].dtype, device=xs[0].device)
+    ints = (*xs[0].shape, *(x.shape[1] for x in xs[3:]))
+    args = (*(x.data_ptr() for x in xs), out.data_ptr(), *ints, 1,
             torch.cuda.current_stream().cuda_stream)
-    res.update(time_in_turns(lambda e: direct(e, q, k, v, out), lambda e: e(*args), new, prev))
-    res["wrapper_host_us"] = host_us(lambda: kern(q, k, v))
+    res.update(time_in_turns(lambda e: direct(e, *xs[:3], out, **wo), lambda e: e(*args), new,
+                             prev))
+    res["wrapper_host_us"] = host_us(lambda: kern(*xs))
     return res
+
+
+def compare_output(kern, out, ref) -> dict:
+    """A bf16 output of an attention kernel against its plain version's ``ref``."""
+    diff = out.float() - ref.float()
+    return {"max_abs_err": diff.abs().max().item(), "rms_err_over_rms_ref": rms_rel(out, ref),
+            "tolerance_ratio": kern.bf16_tolerance_ratio(out, ref)}
 
 
 def compare_kernel(kern, *xs) -> dict:
     """The kernel against its plain version on the same inputs."""
-    out = kern(*xs)
-    ref = kern.plain(*xs)
-    diff = out.float() - ref.float()
-    return {"max_abs_err": diff.abs().max().item(), "rms_err_over_rms_ref": rms_rel(out, ref),
-            "tolerance_ratio": kern.bf16_tolerance_ratio(out, ref)}
+    return compare_output(kern, kern(*xs), kern.plain(*xs))
 
 
 def direct_gconv(entry, x, wp, b, out=None):
@@ -451,7 +478,7 @@ def check_kernel(K, kern, shape, heads, gen):
     def sdpa():  # q is prescaled by d^-1/2 log2(e): softmax_e(x ln 2) == softmax_2(x)
         return F.scaled_dot_product_attention(split(q), split(k), split(v), scale=math.log(2.0))
 
-    extra = {} if kern is K.fused_attention_btc_out_prescaled else time_entries(K, kern, xs)
+    extra = time_entries(K, kern, xs)
     ms = cuda_ms(lambda: kern(*xs), 10)
     plain_ms = cuda_ms(lambda: kern.plain(*xs), 3)
     flops = 4.0 * n * heads * t * t * d
@@ -463,21 +490,33 @@ def check_kernel(K, kern, shape, heads, gen):
         # no one PyTorch call computes attention and its out-projection: the
         # unfused pairs are the yardsticks
         library_ms = None
-        extra = {"unfused_ms": cuda_ms(lambda: K.fused_attention_btc_prescaled(q, k, v) @ wo, 10),
-                 "sdpa_matmul_ms": cuda_ms(
-                     lambda: sdpa().transpose(1, 2).reshape(n, t, shape[2]) @ wo, 10)}
+
+        def unfused():
+            return K.fused_attention_btc_prescaled(q, k, v) @ wo
+
+        def sdpa_matmul():
+            return sdpa().transpose(1, 2).reshape(n, t, shape[2]) @ wo
+
+        # by graph replay at every shape: each pair is two launches, and the
+        # channel-flat wrapper's 45-90 us of host time would set the pace of
+        # back-to-back calls at T <= 1536; the event readings stay beside them
+        for key, pair in (("unfused", unfused), ("sdpa_matmul", sdpa_matmul)):
+            extra[f"{key}_event_ms"] = cuda_ms(pair, 10)
+            extra[f"{key}_ms"] = graph_ms(pair)
     else:
         library_ms = cuda_ms(sdpa, 10)
-    if extra.get("timer") == "graph":  # the wrapper and SDPA as the C entries
+    if extra["timer"] == "graph":  # the wrapper and SDPA as the C entries
         extra["event_ms"], ms = ms, graph_ms(lambda: kern(*xs))
-        extra["library_event_ms"], library_ms = library_ms, graph_ms(sdpa)
+        if library_ms is not None:
+            extra["library_event_ms"], library_ms = library_ms, graph_ms(sdpa)
     bound_ms, bound_by = bound(flops, nbytes)
     row = {"shape": list(shape), "heads": heads, "d": d, **err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, **extra, "bound_ms": bound_ms,
            "bound_by": bound_by, "tflops": flops / (ms * 1e-3) / 1e12}
     yardsticks = (f"library {library_ms:.3f} ms" if library_ms is not None else
-                  f"btc+matmul {extra['unfused_ms']:.3f} ms sdpa+matmul "
-                  f"{extra['sdpa_matmul_ms']:.3f} ms")
+                  f"btc+matmul {extra['unfused_ms']:.4f} ms sdpa+matmul "
+                  f"{extra['sdpa_matmul_ms']:.4f} ms (graph; events "
+                  f"{extra['unfused_event_ms']:.4f} / {extra['sdpa_matmul_event_ms']:.4f} ms)")
     if "direct_ms" in extra:
         prev, prev_host = "", ""
         if "prev_ms" in extra:
@@ -492,7 +531,8 @@ def check_kernel(K, kern, shape, heads, gen):
                            f"{extra['direct_event_ms']:.4f} ms"
                            + (f", prev {extra['prev_event_ms']:.4f} ms" if "prev_ms" in extra
                               else "")
-                           + f", library {extra['library_event_ms']:.4f} ms)")
+                           + (f", library {extra['library_event_ms']:.4f} ms" if library_ms
+                              is not None else "") + ")")
     log(f"kernel {kern.symbol} {tuple(shape)} d={d}: max_abs {err['max_abs_err']:.3e} "
         f"rms_err/rms_ref {err['rms_err_over_rms_ref']:.2e} tolerance ratio "
         f"{err['tolerance_ratio']:.3f} | {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s) "

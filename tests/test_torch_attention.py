@@ -207,14 +207,15 @@ def test_btc_supported_shapes_meet_the_sm90_kernel_preconditions(t, inner):
 
 def test_btc_routes_bf16_to_the_sm90_kernel():
     """bf16 channel-flat launches take ``ur_attention_btc_sm90``, fp32 ones the
-    FMA kernel ``ur_attention_btc``; of the other wrappers only the wide-head
-    and head-major ones change entry."""
+    FMA kernel ``ur_attention_btc``; of the other wrappers only the wide-head,
+    head-major and out-projection-fused ones change entry."""
     kern = K.fused_attention_btc_prescaled
     assert kern.entry(torch.bfloat16) == ("ur_attention_btc_sm90", K.library_sm90, K.SOURCE_SM90)
     assert kern.entry(torch.float32) == ("ur_attention_btc", K.library, K.SOURCE)
     assert all(not other.symbols for other in K.KERNELS
                if other not in (kern, K.streaming_attention_bh_prescaled,
-                                K.fused_attention_bh_prescaled))
+                                K.fused_attention_bh_prescaled,
+                                K.fused_attention_btc_out_prescaled))
     assert K.SOURCE_SM90.is_file() and K.SOURCE_SM90.parent == K.SOURCE.parent
 
 
@@ -307,7 +308,7 @@ def test_bh_routes_bf16_to_the_sm90_kernel():
                                           K.SOURCE_BH_SM90)
     assert kern.entry(torch.float32) == ("ur_attention_bh", K.library, K.SOURCE)
     assert K.SOURCE_BH_SM90.is_file() and K.SOURCE_BH_SM90.parent == K.SOURCE.parent
-    assert K.SOURCE_BH_SM90 in KN.SOURCES and len(set(KN.SOURCES)) == len(KN.SOURCES) == 6
+    assert K.SOURCE_BH_SM90 in KN.SOURCES and len(set(KN.SOURCES)) == len(KN.SOURCES) == 7
 
 
 @pytest.mark.parametrize("d", [32, 64, 96, 128, 192])
@@ -572,6 +573,8 @@ def test_btc_out_dims_take_every_routed_shape():
         q, wo = torch.empty(8, t, inner, device="meta"), torch.empty(inner, c_out, device="meta")
         assert K._btc_out_dims(q, wo) == (8, t, inner, c_out)
     for q_shape, wo_shape in [((2, 1024, 128), (128, 96)),     # C not routed
+                              ((2, 1024, 128), (128, 0)),      # no output column
+                              ((2, 1024, 0), (0, 128)),        # no head
                               ((2, 1000, 128), (128, 128)),    # T not routed
                               ((2, 1024, 128), (256, 128)),    # wo rows != inner
                               ((2, 1024, 2048), (2048, 256))]:  # O tile past shared memory
@@ -603,3 +606,138 @@ def test_btc_out_tolerance_passes_kernel_arithmetic_and_rejects_faults(shape, c_
     ref = K.attention_btc_out_plain(q, k, v, wo)
     ratio = K.bf16_out_tolerance_ratio(_online_attention_out(q, k, v, wo, fault), ref)
     assert ratio <= 1.0 if fault == "none" else ratio > 5.0, ratio
+
+
+# ---------------------------------------------------------------------------
+# the Hopper out-projection-fused kernel (ur_attention_btc_out_sm90)
+# ---------------------------------------------------------------------------
+
+
+def test_btc_out_routes_bf16_to_the_sm90_kernel():
+    """bf16 out-projection-fused launches take ``ur_attention_btc_out_sm90`` in
+    its own source, fp32 ones the FMA kernel ``ur_attention_btc_out``;
+    ``build_all`` builds the new source with the others."""
+    kern = K.fused_attention_btc_out_prescaled
+    assert kern.entry(torch.bfloat16) == ("ur_attention_btc_out_sm90", K.library_out_sm90,
+                                          K.SOURCE_OUT_SM90)
+    assert kern.entry(torch.float32) == ("ur_attention_btc_out", K.library, K.SOURCE)
+    assert K.SOURCE_OUT_SM90.is_file() and K.SOURCE_OUT_SM90.parent == K.SOURCE.parent
+    assert K.SOURCE_OUT_SM90 in KN.SOURCES
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(t=st.one_of(st.integers(0, 1 << 15), st.integers(0, 64).map(lambda n: 256 * n)),
+       inner=st.integers(0, 26).map(lambda n: 64 * n),
+       c_out=st.one_of(st.integers(0, 4096), st.integers(0, 32).map(lambda n: 128 * n),
+                       st.sampled_from([320, 640])),
+       batch=st.sampled_from([1, 2, 4, 8, 64]), sms=st.sampled_from([132, 114, 78]))
+def test_btc_out_shapes_meet_the_sm90_kernel_preconditions(t, inner, c_out, batch, sms):
+    """Every shape the fused route admits (``_btc_out_dims``) meets what
+    ``ur_attention_btc_out_sm90`` checks (T a multiple of its 128-row blocks,
+    whole 64-wide heads, whole 64-column output chunks), its tensor maps'
+    limits (16-byte strides under 2^40, dims under 2^32), and its cluster rule
+    on any card: 1 <= G <= min(8, H), the head slots within the card's shared
+    memory, epilogue passes of 1-4 chunks that cover each CTA's share."""
+    q = torch.empty(batch, t, inner, device="meta")
+    wo = torch.empty(inner, c_out, device="meta")
+    try:
+        dims = K._btc_out_dims(q, wo)
+    except ValueError:
+        return
+    assert dims == (batch, t, inner, c_out)
+    assert t % K.BTC_OUT_SM90_BLOCK == 0 and t >= K.BTC_OUT_SM90_BLOCK
+    assert inner % 64 == 0 and 0 < inner <= K.BTC_OUT_MAX_INNER and c_out % 64 == 0
+    for width in (inner, c_out):
+        assert (2 * width) % 16 == 0 and 2 * width * t * batch < 2 ** 40
+    assert max(inner, c_out, t, batch) < 2 ** 32
+    heads = inner // 64
+    g = K.btc_out_sm90_cluster(heads, batch * t // K.BTC_OUT_SM90_BLOCK, sms)
+    assert 1 <= g <= min(K.BTC_OUT_SM90_MAX_CLUSTER, heads)
+    assert K.btc_out_sm90_smem_bytes(heads, g) <= K.BTC_OUT_SM90_MAX_SMEM
+    nq = K.btc_out_sm90_chunk_group(c_out, g)
+    most = -(-(c_out // 64) // g)
+    assert 1 <= nq <= K.BTC_OUT_SM90_MAX_CHUNKS and nq <= most
+    assert -(-most // nq) == -(-most // K.BTC_OUT_SM90_MAX_CHUNKS)  # the fewest passes
+
+
+def test_btc_out_sm90_cluster_rule_at_the_main_paths_shapes():
+    """At the restore's and the server's shapes on an H100 (132 SMs) the rule
+    takes G = 1 where B * T / 128 blocks fill the card, and more CTAs where
+    they do not."""
+    want = {(8, 4096, 320): 1, (8, 1024, 640): 2, (8, 4096, 256): 1, (8, 1024, 256): 2,
+            (4, 4096, 320): 1, (4, 1024, 640): 3, (4, 4096, 256): 1, (4, 1024, 256): 3,
+            (1, 6144, 320): 2, (1, 1536, 640): 6, (1, 6144, 256): 2, (1, 1536, 256): 4}
+    got = {(b, t, i): K.btc_out_sm90_cluster(i // 64, b * t // 128, 132) for b, t, i in want}
+    assert got == want
+
+
+@functools.cache
+def _btc_out_case(shape):
+    """Seeded bf16 q, k, v, wo (C = inner) and the per-head bf16 outputs of the
+    Hopper kernel's attention body (128-key tiles), (B, T, inner)."""
+    q, k, v, wo = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkvw(110, shape, shape[-1]))
+    b, t, inner = shape
+    split = [x.reshape(b, t, inner // 64, 64).transpose(1, 2).reshape(-1, t, 64) for x in (q, k, v)]
+    o = _online_attention(*split, "none", block_k=K.BTC_SM90_BLOCK)
+    o = o.reshape(b, inner // 64, t, 64).transpose(1, 2).reshape(b, t, inner)
+    return q, k, v, wo, o
+
+
+def _btc_out_sm90_model(q, k, v, wo, groups, fault):
+    """``ur_attention_btc_out_sm90``'s arithmetic in plain torch, with one of its
+    faults planted.
+
+    Each head by ``_online_attention`` over 128-key tiles, rounded to bf16 (CTA
+    r of the cluster of ``groups`` attends to heads r, r + G, ... into slots
+    0, 1, ...); CTA r's share of the C / 64 output chunks, columns
+    [64 C r / (64 G), ...), summed over every head in the kernel's k order
+    (head by head, 16 rows of wo at a time) in fp32 and rounded once. Faults:
+    a peer's head slot read from the CTA's own rank (the slot of the same
+    index there, zeros past its last head), CTA 0's column share taken from
+    the wo columns one chunk to the right, the last head's 64 rows of wo
+    dropped, a head (the first) left out.
+    """
+    b, t, inner = q.shape
+    c_out, heads = wo.shape[1], inner // 64
+    o = _btc_out_case(tuple(q.shape))[4].float()
+    wf = wo.float()
+    n_chunks = c_out // 64
+    out = torch.empty(b, t, c_out)
+    for rank in range(groups):
+        lo, hi = n_chunks * rank // groups, n_chunks * (rank + 1) // groups
+        for c in range(lo, hi):
+            src = min(c + 1, n_chunks - 1) if fault == "column_share_offset" and rank == 0 else c
+            acc = torch.zeros(b, t, 64)
+            for h in range(heads):
+                if (fault == "head_left_out" and h == 0
+                        or fault == "last_wo_chunk_dropped" and h == heads - 1):
+                    continue
+                slot = h
+                if fault == "peer_slice_from_own_rank" and h % groups != rank:
+                    slot = rank + (h // groups) * groups  # the same slot index, own rank
+                for kk in range(4):
+                    rows = slice(64 * h + 16 * kk, 64 * h + 16 * kk + 16)
+                    a = (o[..., 64 * slot + 16 * kk:64 * slot + 16 * kk + 16] if slot < heads
+                         else torch.zeros(b, t, 16))
+                    acc += a @ wf[rows, 64 * src:64 * src + 64]
+            out[..., 64 * c:64 * c + 64] = acc
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fault", ["none", "peer_slice_from_own_rank", "column_share_offset",
+                                   "last_wo_chunk_dropped", "head_left_out"])
+@pytest.mark.parametrize("groups", [1, 2, 5])
+@pytest.mark.parametrize("shape", [(1, 1024, 320), (1, 1024, 640), (1, 1024, 1280)])
+def test_btc_out_tolerance_passes_the_sm90_arithmetic_and_rejects_faults(shape, groups, fault):
+    """chip_smoke.py holds the Hopper fused kernel to ``bf16_out_tolerance_ratio
+    <= 1`` at every cluster size: its arithmetic passes at G = 1, 2, 5, and each
+    of its planted faults reads above 5. A single CTA reads no peer, so at
+    G = 1 the peer fault computes exactly the sound arithmetic."""
+    q, k, v, wo, _ = _btc_out_case(shape)
+    ref = K.attention_btc_out_plain(q, k, v, wo)
+    out = _btc_out_sm90_model(q, k, v, wo, groups, fault)
+    ratio = K.bf16_out_tolerance_ratio(out, ref)
+    if fault == "peer_slice_from_own_rank" and groups == 1:
+        assert torch.equal(out, _btc_out_sm90_model(q, k, v, wo, 1, "none"))
+    else:
+        assert ratio <= 1.0 if fault == "none" else ratio > 5.0, ratio

@@ -27,6 +27,10 @@ wgmma descriptors and TMA swizzle (and the head-major kernel's masked tail,
 the grouped conv's halo and edges) to exact answers (``pytest -k btc``,
 ``-k stream``, ``-k bh`` or ``-k gconv`` runs only one kernel's tests while
 iterating on it).
+The bf16 out-projection-fused launches go through ``ur_attention_btc_out_sm90``
+(``csrc/attention_out_sm90.cu``, ``-k btc_out``), the fp32 ones through
+``ur_attention_btc_out``; its selection test holds the cluster exchange, the
+column shares and the wo tiles to exact answers.
 The out-projection-fused kernel: bf16 ``bf16_out_tolerance_ratio <= 1``
 (|out - ref| <= 2^-7 |ref| + 2^-5 rms(ref), the reasoning beside it in
 ``attention_kernels.py``); fp32 1e-5 of the output's largest entry, since each
@@ -498,6 +502,8 @@ def _qkvw(shape, c_out, dtype, seed=0):
     ((1, 1536, 640), 640),     # UNet level 1 of a 512 x 768 restore
     ((1, 1024, 1280), 1280),   # UNet level 2 of an untiled 1024 px restore: the largest O tile
     ((2, 1024, 256), 256),     # Controller stage 1
+    ((4, 1024, 640), 640),     # the server's batch of four tiles, UNet level 1
+    ((1, 6144, 320), 320),     # a 256 x 384 image whole at 512 x 768, UNet level 0
 ])
 def test_btc_out_matches_plain(cuda, no_tf32, dtype, shape, c_out):
     kern = K.fused_attention_btc_out_prescaled
@@ -512,6 +518,76 @@ def test_btc_out_matches_plain(cuda, no_tf32, dtype, shape, c_out):
         assert K.bf16_out_tolerance_ratio(out, ref) <= 1.0
     else:
         torch.testing.assert_close(out, ref, atol=1e-5 * ref.abs().max().item(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("heads", [4, 5, 10, 20])
+def test_btc_out_sm90_selects_exact_outputs(cuda, heads):
+    """In each head, each query's logits put one key (a per-head permutation
+    of all 1024) at least 160 above every other, so each head's output is the
+    selected V row exactly; ``wo`` is a 0/1 matrix whose output column c
+    copies inner channel ``src[c]`` (a permutation), so every output must
+    equal one V entry bit for bit. At H = 4 / 5 / 10 / 20 the cluster has 4 /
+    5 / 5 / 7 CTAs (H = 20 splits heads and column chunks unevenly; H = 10
+    takes two chunks a pass): a wrong peer slice, column share, head slot,
+    descriptor or wo tile picks another entry."""
+    rng = np.random.default_rng(heads)
+    batch, t, d = 2, 1024, 64
+    inner = heads * d
+    q = np.empty((t, inner), np.float32)
+    k = np.empty((t, inner), np.float32)
+    perms = []
+    for h in range(heads):
+        codes = rng.choice([-1.0, 1.0], size=(t, d))
+        dist = (d - codes @ codes.T) / 2  # q_i . k_j = 8 (64 - 2 dist)
+        np.fill_diagonal(dist, d)
+        assert dist.min() >= 10
+        perms.append(rng.permutation(t))
+        q[:, h * d:(h + 1) * d] = 8.0 * codes[perms[-1]]
+        k[:, h * d:(h + 1) * d] = codes
+    src = rng.permutation(inner)
+    wo = np.zeros((inner, inner), np.float32)
+    wo[src, np.arange(inner)] = 1.0
+    dev = dict(dtype=torch.bfloat16, device="cuda")
+    qt, kt = (torch.tensor(x, **dev)[None].expand(batch, t, inner).contiguous() for x in (q, k))
+    v = torch.randn((batch, t, inner), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda").to(torch.bfloat16)
+    kern = K.fused_attention_btc_out_prescaled
+    assert kern.route(torch.bfloat16)[0] == "ur_attention_btc_out_sm90"
+    out = kern(qt, kt, v, torch.tensor(wo, **dev))
+    torch.cuda.synchronize()
+    rows = torch.tensor(np.stack(perms, 1), device="cuda")  # (t, H): the key each query picks
+    o = torch.cat([v[:, rows[:, h], h * d:(h + 1) * d] for h in range(heads)], -1)
+    want = o[..., torch.from_numpy(src).cuda()]
+    wrong = (out != want).any(-1).nonzero().tolist()
+    assert not wrong, f"{len(wrong)} (batch, row) pairs differ, first {wrong[:8]}"
+
+
+@pytest.mark.parametrize("dtype,symbol", [(torch.bfloat16, "ur_attention_btc_out_sm90"),
+                                          (torch.float32, "ur_attention_btc_out")])
+def test_btc_out_launch_takes_the_entry_of_its_dtype(cuda, monkeypatch, dtype, symbol):
+    kern = K.fused_attention_btc_out_prescaled
+    chosen, route = [], kern.route
+
+    def spy(dt):
+        chosen.append(route(dt)[0])
+        return route(dt)
+
+    monkeypatch.setattr(kern, "route", spy)
+    xs = _qkvw((1, 1024, 320), 320, dtype)
+    before = kern.launches
+    kern(*xs)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and chosen == [symbol]
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 640), (1, 1536, 640), (2, 1024, 1280),
+                                   (1, 4096, 256), (2, 1024, 128)])
+def test_btc_out_sm90_matches_the_mma_sync_kernel(cuda, shape):
+    xs = _qkvw(shape, shape[-1], torch.bfloat16, seed=4)
+    out = K.fused_attention_btc_out_prescaled(*xs)
+    prev = chip_smoke.direct(K.library().ur_attention_btc_out, *xs[:3], wo=xs[3])
+    torch.cuda.synchronize()
+    assert K.bf16_out_tolerance_ratio(out, prev) <= 1.0
 
 
 def test_btc_out_wrapper_raises_on_what_it_cannot_run(cuda):

@@ -47,26 +47,29 @@ def test_each_fault_plants_into_its_source(tmp_path, fault):
 
 
 def test_rows_are_filed_under_each_kernels_bf16_source():
-    """The attend_mma faults reach the kernels whose bf16 entry is in
-    attention.cu; the channel-flat kernel's is in attention_sm90.cu, the
+    """The channel-flat kernel's bf16 entry is in attention_sm90.cu, the
     wide-head kernel's in attention_stream_sm90.cu, the head-major kernel's
-    in attention_bh_sm90.cu, the grouped conv's in grouped_conv_sm90.cu
-    (grouped_conv.cu's faults reach its mma.sync entry, called directly)."""
+    in attention_bh_sm90.cu, the out-projection-fused kernel's in
+    attention_out_sm90.cu, the grouped conv's in grouped_conv_sm90.cu; the
+    faults of attention.cu and grouped_conv.cu reach their mma.sync entries,
+    called directly."""
     sources = {kern.symbol: Path(chip_smoke.kernel_source(kern)).name
                for kern in (*K.KERNELS, G.grouped_conv3)}
     assert sources == {"ur_attention_btc": CK.ATTENTION_SM90,
                        "ur_attention_bh": CK.ATTENTION_BH_SM90,
                        "ur_attention_stream": CK.ATTENTION_STREAM_SM90,
-                       "ur_attention_btc_out": CK.ATTENTION,
+                       "ur_attention_btc_out": CK.ATTENTION_OUT_SM90,
                        "ur_grouped_conv3": CK.GCONV_SM90}
     for kern in (*K.KERNELS, G.grouped_conv3):
         assert kern.entry(torch.bfloat16)[2].name == sources[kern.symbol]
     assert G.grouped_conv3.entry(torch.float32)[2].name == CK.GCONV
-    assert {src for src, _ in CK.FAULTS.values()} >= {CK.GCONV, CK.GCONV_SM90}
+    assert K.fused_attention_btc_out_prescaled.entry(torch.float32)[2].name == CK.ATTENTION
+    assert {src for src, _ in CK.FAULTS.values()} >= {CK.ATTENTION, CK.ATTENTION_OUT_SM90,
+                                                       CK.GCONV, CK.GCONV_SM90}
 
 
-def _row(kernel, source, ratio=None, error=None, shape=(8, 4096, 320)):
-    row = {"kernel": kernel, "source": source, "shape": list(shape)}
+def _row(kernel, source, ratio=None, error=None, shape=(8, 4096, 320), **extra):
+    row = {"kernel": kernel, "source": source, "shape": list(shape), **extra}
     if error is not None:
         return json.dumps({**row, "error": error})
     return json.dumps({**row, "max_abs_err": 0.0, "rms_err_over_rms_ref": 0.0,
@@ -79,6 +82,7 @@ _MASKED, _WHOLE = (3, 264, 64), (160, 256, 64)
 _GC = ("ur_grouped_conv3", "grouped_conv_sm90.cu")
 _GC_PREV = ("ur_grouped_conv3", "grouped_conv.cu")
 _GCS = (8, 256, 256, 512)
+_OUT = ("ur_attention_btc_out", "attention_out_sm90.cu")
 _CUDA = "ur_attention_btc_sm90: CUDA error 700"
 
 
@@ -119,6 +123,22 @@ _CUDA = "ur_attention_btc_sm90: CUDA error 700"
      "", False),
     ("gconv_sm90_bias_skipped", 0,
      [_row(*_GC, 30.0, shape=_GCS), _row(*_GC_PREV, 0.5, shape=_GCS)], "", True),
+    # an attention.cu fault of the fused kernel reaches its mma.sync entry's
+    # rows, not the Hopper kernel's
+    ("out_head_left_out", 0, [_row(*_OUT, 0.5, cluster=2), _row(*_ATT, 30.0, entry="prev")],
+     "", True),
+    ("out_head_left_out", 0, [_row(*_OUT, 30.0, cluster=2), _row(*_ATT, 0.5, entry="prev")],
+     "", False),
+    # a fault of the cluster exchange reaches only the shapes that run a
+    # cluster of two CTAs or more
+    ("out_sm90_peer_slice_from_own_rank", 0,
+     [_row(*_OUT, 0.5, cluster=1), _row(*_OUT, 40.0, cluster=2)], "", True),
+    ("out_sm90_peer_slice_from_own_rank", 0,
+     [_row(*_OUT, 0.5, cluster=1), _row(*_OUT, 0.5, cluster=6)], "", False),
+    ("out_sm90_peer_slice_from_own_rank", 0, [_row(*_OUT, 0.5, cluster=1)], "", False),
+    # every other fault of the fused kernel reaches every shape it runs
+    ("out_sm90_column_share_offset", 0,
+     [_row(*_OUT, 40.0, cluster=2), _row(*_OUT, 0.9, cluster=1)], "", False),
 ])
 def test_judge_counts_only_kernel_errors_as_rejections(fault, rc, rows, stderr, ok):
     got, lines = CK.judge(fault, rc, "\n".join(rows) + "\n", stderr)

@@ -5,23 +5,27 @@ For each fault in ``FAULTS`` this copies ``unirestore_torch/`` and
 ``chip_smoke.py`` into ``WORKDIR/<fault>/``, plants the fault in the copy's
 CUDA source (the repository's own files are never changed), builds every
 copy with ``nvcc`` at once, and then runs chip_smoke's kernel-vs-plain
-comparisons at every main-path shape (batch 8, bf16, the same seeded inputs),
-and the head-major kernel also at ``MASKED_SHAPES``, against each copy in
-turn: the four attention kernels (bf16 channel-flat launches in
+comparisons at every main-path shape (bf16, the same seeded inputs), and the
+head-major kernel also at ``MASKED_SHAPES``, against each copy in turn: the
+four attention kernels (bf16 channel-flat launches in
 ``csrc/attention_sm90.cu``, bf16 wide-head launches in
 ``csrc/attention_stream_sm90.cu``, bf16 head-major launches in
-``csrc/attention_bh_sm90.cu``, the others in ``csrc/attention.cu``) and, at
-the three restore shapes, the grouped conv (its bf16 launches in
-``csrc/grouped_conv_sm90.cu``) and the bf16 ``mma.sync`` entry of
-``csrc/grouped_conv.cu`` that the Hopper kernel replaced, called directly
-(``"entry": "prev"``), so that that source's faults stay checked. It prints
-one JSON line per fault, kernel and shape, and exits 0 only if the unchanged
-copy (``none``) agrees
-at every shape and every planted fault is rejected at every shape of the
-kernels it reaches: those whose bf16 launches run the source it was planted
-in (the source each wrapper's bf16 entry names), or the ones a fault names
-in ``ONLY``; a fault of the masked tail (``MASKED_ONLY``) reaches only the
-shapes whose T is not a multiple of 64, since no other has keys to mask. A fault that stops a kernel it reaches with a CUDA
+``csrc/attention_bh_sm90.cu``, bf16 out-projection-fused launches in
+``csrc/attention_out_sm90.cu``, with the cluster size each shape runs at)
+and, at the three restore shapes, the grouped conv (its bf16 launches in
+``csrc/grouped_conv_sm90.cu``); at the restore's shapes also the bf16
+``mma.sync`` entries that two Hopper kernels replaced, called directly
+(``"entry": "prev"``): ``ur_attention_btc_out`` of ``csrc/attention.cu``
+and ``ur_grouped_conv3`` of ``csrc/grouped_conv.cu``, so that those sources'
+faults stay checked. It prints one JSON line per fault, kernel and shape,
+and exits 0 only if the unchanged copy (``none``) agrees at every shape and
+every planted fault is rejected at every shape of the kernels it reaches:
+those whose launches run the source it was planted in (the source each
+row names), or the ones a fault names in ``ONLY``; a fault of the masked
+tail (``MASKED_ONLY``) reaches only the shapes whose T is not a multiple of
+64, since no other has keys to mask; a fault of the cluster exchange
+(``CLUSTER_ONLY``) only the shapes that run a cluster of two CTAs or more,
+since a single CTA reads no peer. A fault that stops a kernel it reaches with a CUDA
 error, raised by that kernel's own launch or the synchronisation right
 after it, counts as rejected, with the kernel and the error in its line
 (the copy's later lines are lost with the CUDA context). Any other failure
@@ -45,6 +49,7 @@ REPO = Path(__file__).resolve().parent.parent
 ATTENTION, ATTENTION_SM90, GCONV = "attention.cu", "attention_sm90.cu", "grouped_conv.cu"
 ATTENTION_STREAM_SM90 = "attention_stream_sm90.cu"
 ATTENTION_BH_SM90 = "attention_bh_sm90.cu"
+ATTENTION_OUT_SM90 = "attention_out_sm90.cu"
 GCONV_SM90 = "grouped_conv_sm90.cu"
 
 # fault -> (source in csrc/, exact (old, new) edits of its bf16 tensor-core
@@ -64,17 +69,18 @@ FAULTS = {
     ]),
     # the row sum is not rescaled when the running maximum grows
     "row_sum_not_rescaled": (ATTENTION, [("l[r] = l[r] * corr + sum;", "l[r] = l[r] + sum;")]),
-    # the out-projection-fused kernel: the first head's output left out of the
-    # shared O tile (its slot holds zeros); the fault below drops the last
-    # 64 rows of wo, so the two leave out different terms of the product
+    # the out-projection-fused mma.sync kernel (reached through its entry
+    # called directly): the first head's output left out of the shared O
+    # tile (its slot holds zeros); the fault below drops the last 64 rows of
+    # wo, so the two leave out different terms of the product
     "out_head_left_out": (ATTENTION, [
         ("attend_mma<64, 64>(q + base, k + base, v + base, q0, seq, inner, qs, ks, vs, acc, l);",
          "attend_mma<64, 64>(q + base, k + base, v + base, q0, seq, inner, qs, ks, vs, acc, l);\n"
          "    if (h == 0)\n"
          "      for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;"),
     ]),
-    # the out-projection-fused kernel: the last 64-row K-chunk of wo adds
-    # nothing to the epilogue product
+    # the out-projection-fused mma.sync kernel: the last 64-row K-chunk of
+    # wo adds nothing to the epilogue product
     "out_last_k_chunk_dropped": (ATTENTION, [
         ("for (int kk = 0; kk < kKC / 16; ++kk) {",
          "for (int kk = 0; kk < (kc == k_chunks - 1 ? 0 : kKC / 16); ++kk) {"),
@@ -102,6 +108,30 @@ FAULTS = {
     "sm90_accumulator_not_rescaled": (ATTENTION_SM90, [
         ("oacc[4 * n + 2 * r] *= corr[r];", "oacc[4 * n + 2 * r] *= 1.f;"),
         ("oacc[4 * n + 2 * r + 1] *= corr[r];", "oacc[4 * n + 2 * r + 1] *= 1.f;"),
+    ]),
+    # ur_attention_btc_out_sm90: O is not rescaled when the running maximum
+    # grows
+    "out_sm90_accumulator_not_rescaled": (ATTENTION_OUT_SM90, [
+        ("oacc[4 * x + 2 * r] *= corr[r];", "oacc[4 * x + 2 * r] *= 1.f;"),
+        ("oacc[4 * x + 2 * r + 1] *= corr[r];", "oacc[4 * x + 2 * r + 1] *= 1.f;"),
+    ]),
+    # ur_attention_btc_out_sm90: a peer's head slot is read from the CTA's
+    # own shared memory (the slot of the same index, one of its own heads)
+    "out_sm90_peer_slice_from_own_rank": (ATTENTION_OUT_SM90, [
+        ("pull_slice(stage_slot(ps), o_slot(h / groups), h % groups, tid);",
+         "pull_slice(stage_slot(ps), o_slot(h / groups), rank, tid);"),
+    ]),
+    # ur_attention_btc_out_sm90: the last head's 64 rows of wo add nothing
+    "out_sm90_last_wo_chunk_dropped": (ATTENTION_OUT_SM90, [
+        ("        epilogue_products<NQ>(acc, a_rows, wo_stage(ws));\n",
+         "        if (h != heads - 1) epilogue_products<NQ>(acc, a_rows, wo_stage(ws));\n"),
+    ]),
+    # ur_attention_btc_out_sm90: the first CTA of each cluster computes its
+    # output chunks from the wo columns one chunk to the right (the last
+    # clamped to C's last chunk)
+    "out_sm90_column_share_offset": (ATTENTION_OUT_SM90, [
+        ("min(c0 + c, c_hi - 1) * 64, h * kD);",
+         "min(c0 + c + (rank == 0 ? 1 : 0), n_chunks - 1) * 64, h * kD);"),
     ]),
     # ur_attention_stream_sm90: the last K chunk (the last 64 columns of the
     # last key tile) is not loaded, so the K slot still holds the previous
@@ -190,15 +220,17 @@ FAULTS = {
          "if (bias == nullptr && c_out0 + ch < C) {"),
     ]),
 }
-# the faults of attend_mma reach every kernel whose bf16 entry lies in
-# csrc/attention.cu (each row names that source, so the channel-flat and
-# wide-head kernels, whose bf16 entries are in csrc/attention_sm90.cu and
-# csrc/attention_stream_sm90.cu, drop out); these two lie in one kernel's
-# own code
+# the faults of attend_mma reach every row whose source is csrc/attention.cu:
+# since every bf16 wrapper launch runs a Hopper kernel, those are the rows of
+# ur_attention_btc_out's mma.sync entry called directly; these two lie in
+# that kernel's own code
 ONLY = {"out_head_left_out": ("ur_attention_btc_out",),
         "out_last_k_chunk_dropped": ("ur_attention_btc_out",)}
 # faults that only a T with a partial last 64-key tile can show
 MASKED_ONLY = {"bh_sm90_tail_keys_not_masked"}
+# faults of the cluster exchange, which only a cluster of two CTAs or more
+# runs
+CLUSTER_ONLY = {"out_sm90_peer_slice_from_own_rank"}
 # head-major shapes whose last key tile is partial (T % 64 != 0), besides the
 # main paths' (T = 256, 384): (q shape, heads)
 MASKED_SHAPES = [((3, 264, 64), 1), ((2, 328, 128), 1)]
@@ -237,7 +269,8 @@ def judge(fault: str, returncode: int, stdout: str, stderr: str) -> tuple[bool, 
     for row in rows:
         reached = ((source is None or row["source"] == source)
                    and (fault not in ONLY or row["kernel"] in ONLY[fault])
-                   and (fault not in MASKED_ONLY or row["shape"][1] % 64 != 0))
+                   and (fault not in MASKED_ONLY or row["shape"][1] % 64 != 0)
+                   and (fault not in CLUSTER_ONLY or row.get("cluster", 1) > 1))
         if "error" in row and (fault == "none" or not reached):
             ok = False
             lines.append({"fault": fault, "harness_failed": True, **row})
@@ -262,25 +295,39 @@ def child(root: Path) -> int:
     from unirestore_torch.nn import grouped_conv as G
 
     assert all(s.is_relative_to(root) for s in (K.SOURCE, K.SOURCE_SM90, K.SOURCE_STREAM_SM90,
-                                                 K.SOURCE_BH_SM90, G.SOURCE, G.SOURCE_SM90))
+                                                 K.SOURCE_BH_SM90, K.SOURCE_OUT_SM90, G.SOURCE,
+                                                 G.SOURCE_SM90))
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fused = K.fused_attention_btc_out_prescaled
+    prev_out = getattr(K.library(), fused.symbol)
     with torch.inference_mode():
         masked = [(K.fused_attention_bh_prescaled, shape, heads) for shape, heads in MASKED_SHAPES]
         for kern, shape, heads in CS.kernel_shapes(K) + masked:
             xs, _ = CS.kernel_inputs(K, kern, shape, heads, gen)
             row = {"kernel": kern.symbol, "source": Path(CS.kernel_source(kern)).name,
                    "shape": list(shape)}
-            try:  # a fault that stops the kernel shows here, named, not in a later call
-                kern(*xs)
-                torch.cuda.synchronize()
-            except RuntimeError as e:
-                if "CUDA error" not in str(e):
-                    raise
-                print(json.dumps({**row, "error": str(e).strip().splitlines()[0]}), flush=True)
-                return 1
-            print(json.dumps({**row, **CS.compare_kernel(kern, *xs)}), flush=True)
-            del xs
+            calls = [(row, lambda: kern(*xs))]
+            if kern is fused:
+                row["cluster"] = K.btc_out_sm90_cluster(heads, shape[0] * shape[1] // 128, sms)
+                if shape[0] == CS.BATCH:
+                    calls.append(({"kernel": kern.symbol, "entry": "prev", "source": ATTENTION,
+                                   "shape": list(shape)},
+                                  lambda: CS.direct(prev_out, *xs[:3], wo=xs[3])))
+            ref = kern.plain(*xs)
+            for line, call in calls:
+                try:  # a fault that stops the kernel shows here, named, not in a later call
+                    out = call()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    if "CUDA error" not in str(e):
+                        raise
+                    print(json.dumps({**line, "error": str(e).strip().splitlines()[0]}),
+                          flush=True)
+                    return 1
+                print(json.dumps({**line, **CS.compare_output(kern, out, ref)}), flush=True)
+            del xs, ref, out
         kern = G.grouped_conv3
         prev = getattr(G.library(), kern.symbol)
         for shape in [s for s in CS.gconv_shapes() if s[0] == CS.BATCH]:

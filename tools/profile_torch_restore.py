@@ -2,8 +2,8 @@
 """Where the PyTorch/CUDA port's restore or training step spends its time on the card.
 
 Default: runs the full-width restore of ``chip_smoke.py`` (sd-turbo widths,
-seeded init, 512 px, batch 8, bf16, 20 DDIM steps) once per cache mode under
-``torch.profiler``. With ``--train``: runs the stage-1 training step of
+seeded init, 512 px, batch 8, bf16, 20 DDIM steps) once per cache mode, and
+exact on the out-projection-fused route, under ``torch.profiler``. With ``--train``: runs the stage-1 training step of
 ``chip_smoke.py`` phase 6 (sd-turbo widths without TFA, 512 px, batch 8,
 bf16 frozen / fp32 trainable, AdamW, remat on), two warm-up steps, then one
 step without and one under the profiler. Prints one JSON line per run: wall
@@ -46,6 +46,8 @@ FAMILIES = (
     ("attention_stream_sm90",
      "wide-head attention kernel (this repo, attention_stream_sm90.cu)"),
     ("attention_bh_sm90", "head-major attention kernel (this repo, attention_bh_sm90.cu)"),
+    ("attention_out_sm90",
+     "out-projection-fused attention kernel (this repo, attention_out_sm90.cu)"),
     ("attention_fwd", "attention kernels (this repo, attention.cu)"),
     ("gconv3_sm90", "grouped-conv kernel (this repo, grouped_conv_sm90.cu)"),
     ("gconv3_", "grouped-conv kernel (this repo, grouped_conv.cu)"),
@@ -108,12 +110,14 @@ def profile_restore() -> None:
     _, restore = CS.restore_inputs(UR, cfg, frozen, trainable, gen)
     restore(cfg, 1)
     torch.cuda.synchronize()
-    # the unfused cache modes of chip_smoke.py phase 4, once each
-    modes = {mode: (stride, warmup) for _, mode, stride, warmup, fused in CS.RUNS if not fused}
-    for mode, (stride, warmup) in modes.items():
+    # the restores of chip_smoke.py phase 4, once each: the cache modes, and
+    # exact on the fused route
+    runs = {(mode, fused): (stride, warmup) for _, mode, stride, warmup, fused in CS.RUNS}
+    for (mode, fused), (stride, warmup) in runs.items():
         c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride,
-                                cache_warmup=warmup)
-        profiled({"mode": mode, "stride": stride, "warmup": warmup},
+                                cache_warmup=warmup, fused_out_attention=fused)
+        profiled({"mode": mode, "stride": stride, "warmup": warmup,
+                  "fused_out_attention": fused},
                  lambda: restore(c, CS.STEPS))
 
 

@@ -29,10 +29,15 @@ its design does about it), built and bound by ``cuda_lib``:
 - ``csrc/attention_bh_sm90.cu``: the bf16 head-major kernel
   ``ur_attention_bh_sm90`` (64-query blocks of one consumer warpgroup, the
   K/V tiles of a T = 256 row all loaded at block start, masked tails);
-- ``csrc/attention.cu``: every other launch, bf16 on the tensor cores
-  (``mma.sync``) and fp32 on CUDA-core FMAs. The first three wrappers take
-  their fp32 launches there (``ur_attention_btc``, ``ur_attention_bh``,
-  ``ur_attention_stream``).
+- ``csrc/attention_out_sm90.cu``: the bf16 out-projection-fused kernel
+  ``ur_attention_btc_out_sm90`` (``ur_attention_btc_sm90``'s body per head,
+  the heads of 128 queries split over a thread-block cluster whose CTAs
+  read each other's bf16 head outputs from shared memory, the out-projection
+  on ``wgmma``);
+- ``csrc/attention.cu``: every fp32 launch, on CUDA-core FMAs
+  (``ur_attention_btc``, ``ur_attention_bh``, ``ur_attention_stream``,
+  ``ur_attention_btc_out``); its bf16 ``mma.sync`` bodies are the yardsticks
+  of the kernels that replaced them, never routed.
 
 A wrapper given CPU tensors computes the plain PyTorch version (the CPU tests
 use it); given CUDA tensors it launches its kernel on the current stream or
@@ -84,6 +89,7 @@ SOURCE_BH_SM90 = SOURCE.with_name("attention_bh_sm90.cu")
 BH_SM90_BLOCK = 64
 BH_SM90_MIN_T = 64
 BH_SM90_WIDTHS = (64, 128)
+SOURCE_OUT_SM90 = SOURCE.with_name("attention_out_sm90.cu")
 
 # ---------------------------------------------------------------------------
 # routing predicates (copies of pallas_attention.py's, by shape alone)
@@ -116,6 +122,48 @@ def btc_out_supported(c_out: int) -> bool:
 # The fused kernel's (64, inner) bf16 tile of per-head outputs must fit the
 # card's 227 KB of shared memory beside the q/k/v tiles (csrc/attention.cu).
 BTC_OUT_MAX_INNER = 1536
+
+# ur_attention_btc_out_sm90 (csrc/attention_out_sm90.cu) runs a thread-block
+# cluster of G CTAs per (batch, 128 queries): CTA r attends to heads r, r + G,
+# ... and computes one share of the 64-column chunks of the output from every
+# head. These copy its host rules (``cluster_size``, ``chunk_group``,
+# ``smem_bytes``), so that the tests can hold every routed shape to them; an
+# edit of one needs the same edit of the other.
+BTC_OUT_SM90_BLOCK = 128
+BTC_OUT_SM90_MAX_CLUSTER = 8  # the portable cluster size
+BTC_OUT_SM90_MAX_CHUNKS = 3  # output chunks of 64 columns an epilogue pass takes
+BTC_OUT_SM90_MAX_SMEM = 232448  # the H100's opt-in limit per block, bytes
+
+
+def btc_out_sm90_cluster(heads: int, blocks: int, sms: int) -> int:
+    """G for ``heads`` heads over ``blocks`` = B * T / 128 query blocks on a
+    card of ``sms`` SMs: the smallest G <= 8 whose head slots fit shared
+    memory and whose G * blocks CTAs (one an SM) fill at least half the SMs,
+    else the largest G whose slots fit."""
+    best = 0
+    for g in range(1, min(BTC_OUT_SM90_MAX_CLUSTER, heads) + 1):
+        if btc_out_sm90_smem_bytes(heads, g) > BTC_OUT_SM90_MAX_SMEM:
+            continue
+        best = g
+        if 2 * g * blocks >= sms:
+            break
+    return best
+
+
+def btc_out_sm90_chunk_group(c_out: int, groups: int) -> int:
+    """Output chunks of 64 columns an epilogue pass takes: the most chunks a
+    CTA has (its share of C / 64) in the fewest passes of at most
+    ``BTC_OUT_SM90_MAX_CHUNKS``, evened out."""
+    most = -(-(c_out // 64) // groups)
+    passes = -(-most // BTC_OUT_SM90_MAX_CHUNKS)
+    return -(-most // passes)
+
+
+def btc_out_sm90_smem_bytes(heads: int, groups: int) -> int:
+    """Dynamic shared memory of one CTA: 1 KB of alignment slack, ceil(H / G)
+    16 KB head slots, two 16 KB Q slots and a three-stage 32 KB K/V ring
+    (the epilogue's staging slots and wo ring in their place), 22 barriers."""
+    return 1024 + 16384 * (-(-heads // groups) + 2 + 2 * 3) + 8 * 22
 
 
 def train_attn_chunk(t: int, chunk: int = TRAIN_ATTN_CHUNK) -> int:
@@ -292,12 +340,13 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _load(source: Path, symbol: str) -> ctypes.CDLL:
-    """The library of ``source`` with C entry ``symbol`` (q, k, v, o, four ints,
-    stream) bound, built unless a library of the same source hash exists."""
+def _load(source: Path, symbol: str, pointers: int = 4, ints: int = 4) -> ctypes.CDLL:
+    """The library of ``source`` with C entry ``symbol`` (``pointers`` tensors:
+    q, k, v, o or q, k, v, wo, out; ``ints`` ints; the stream) bound, built
+    unless a library of the same source hash exists."""
     lib = ctypes.CDLL(str(cuda_lib.build_all([source])[0]))
     fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -318,6 +367,12 @@ def library_stream_sm90() -> ctypes.CDLL:
 def library_bh_sm90() -> ctypes.CDLL:
     """``csrc/attention_bh_sm90.cu``, built unless a library of the same source hash exists."""
     return _load(SOURCE_BH_SM90, "ur_attention_bh_sm90")
+
+
+@functools.cache
+def library_out_sm90() -> ctypes.CDLL:
+    """``csrc/attention_out_sm90.cu``, built unless a library of the same source hash exists."""
+    return _load(SOURCE_OUT_SM90, "ur_attention_btc_out_sm90", pointers=5, ints=5)
 
 
 # ---------------------------------------------------------------------------
@@ -419,9 +474,9 @@ def _stream_dims(q):
 
 
 def _btc_out_dims(q, wo):
-    """Every shape the fused route admits (``btc_supported`` and
+    """Every non-empty shape the fused route admits (``btc_supported`` and
     ``btc_out_supported``) up to ``BTC_OUT_MAX_INNER``."""
-    if (q.dim() != 3 or wo.dim() != 2 or wo.shape[0] != q.shape[2]
+    if (q.dim() != 3 or wo.dim() != 2 or wo.shape[0] != q.shape[2] or 0 in wo.shape
             or not btc_supported(q.shape[1], q.shape[1], q.shape[2], 64)
             or not btc_out_supported(wo.shape[1]) or q.shape[2] > BTC_OUT_MAX_INNER):
         raise ValueError(f"out-projection-fused attention: unsupported shapes q "
@@ -445,7 +500,8 @@ streaming_attention_bh_prescaled = AttentionKernel(
 fused_attention_btc_out_prescaled = AttentionKernel(
     "ur_attention_btc_out", attention_btc_out_plain, attention_btc_out_vjp, _btc_out_dims,
     "unirestore_tpu/nn/pallas_attention.py:269",
-    out_shape=lambda q, k, v, wo: (*q.shape[:2], wo.shape[1]), tolerance=bf16_out_tolerance_ratio)
+    out_shape=lambda q, k, v, wo: (*q.shape[:2], wo.shape[1]), tolerance=bf16_out_tolerance_ratio,
+    symbols={torch.bfloat16: ("ur_attention_btc_out_sm90", library_out_sm90, SOURCE_OUT_SM90)})
 
 KERNELS = (fused_attention_btc_prescaled, fused_attention_bh_prescaled,
            streaming_attention_bh_prescaled, fused_attention_btc_out_prescaled)

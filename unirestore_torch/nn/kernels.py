@@ -9,8 +9,8 @@ from . import cuda_lib
 from . import grouped_conv as GC
 
 KERNELS = (*AK.KERNELS, GC.grouped_conv3)
-SOURCES = (AK.SOURCE, AK.SOURCE_SM90, AK.SOURCE_STREAM_SM90, AK.SOURCE_BH_SM90, GC.SOURCE,
-           GC.SOURCE_SM90)
+SOURCES = (AK.SOURCE, AK.SOURCE_SM90, AK.SOURCE_STREAM_SM90, AK.SOURCE_BH_SM90,
+           AK.SOURCE_OUT_SM90, GC.SOURCE, GC.SOURCE_SM90)
 
 
 def reset_counts() -> None:
@@ -25,6 +25,7 @@ def build_all() -> list[Path]:
     AK.library_sm90()
     AK.library_stream_sm90()
     AK.library_bh_sm90()
+    AK.library_out_sm90()
     GC.library()
     GC.library_sm90()
     return libs
