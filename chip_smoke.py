@@ -43,10 +43,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``fused_out_attention=True``) on the same inputs and noise, exact and
    fused twice each in turns: finite outputs, launch counts equal to the
    counts the routing implies, img/s, PSNR of each cached mode and of the
-   fused route against exact;
-5. the same widths on a 256 px input in fp32, on the card (unfused and
-   fused) and on the CPU (where the kernels' plain versions run): the
-   restores must agree;
+   fused route against exact; then the graph route
+   (``unirestore_torch/graphs.py``): for exact, encoder, deep and fused, one
+   ``GraphedRestore`` captures the whole restore (launch counts at capture
+   equal to the eager counts), and eager restores and graph replays of one
+   seeded batch run in turns (eager, graph, graph, eager), each eager one
+   under ``torch.cuda.set_sync_debug_mode("error")`` (nothing in it may wait
+   for the card or copy from the host) and each replay with no wrapper
+   launch: img/s both ways, capture seconds, peak and held memory, and the
+   graph's output against the eager one, raw and in uint8 levels (at most
+   1);
+5. the same widths on a 256 px input in fp32, on the card (unfused, fused,
+   and unfused replayed from a CUDA graph) and on the CPU (where the kernels'
+   plain versions run): the restores must agree;
 6. the stage-1 training step at full width (sd-turbo widths without TFA,
    512 px, batch 8, bf16 frozen weights and fp32 trainable masters, AdamW
    from the stage-1 YAML's kwargs, remat on) on a seeded synthetic pair: one
@@ -63,15 +72,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and warm), a 256 x 384 PNG (restored whole at 512 x 768) and an unknown
    task (400), each with the right status, size and per-request launch
    counts; the tiled answer equals the in-process call within one uint8
-   level;
+   level. Then the same server with ``--cuda-graphs`` answers the same
+   requests: one capture per key (the tile batch's (task, steps) and the
+   256 x 384 shape), each answer within one uint8 level of the eager
+   in-process call;
 9. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
    ``launches_by_path`` lists (``restore``: phase 4's exact, encoder and deep
    restores; ``restore_fused``: its fused ones; ``train``: phase 6's six
-   steps; ``serve``: phase 8's requests); each kernel must have run on every
-   path that routes to it. ``ms``, ``plain_ms``, ``bound_ms`` and
-   ``library_ms`` are sums of one call at each of its main-path shapes, which
+   steps; ``serve``: phase 8's requests; ``restore_graph``,
+   ``restore_fused_graph`` and ``serve_graph`` the same on the graph route,
+   each graph's launches at capture times its replays); each kernel must
+   have run on every path that routes to it. ``ms``, ``plain_ms``,
+   ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
 
 It needs one CUDA device and imports nothing of JAX.
@@ -108,6 +122,10 @@ RUNS = (("none", "none", 2, 0, False), ("fused", "none", 2, 0, True),
 # channel-flat self-attention's out-projection is 320, 640 or 256 wide.
 EXPECTED = {"none": (280, 140, 2, 0, 3), "encoder": (200, 100, 2, 0, 3),
             "deep": (136, 28, 2, 0, 3), "fused": (0, 140, 2, 280, 3)}
+# phase 4's graph route: one captured restore of each distinct run, then
+# eager and replayed restores in turns
+GRAPH_RUNS = tuple({run[0]: run for run in RUNS}.values())
+GRAPH_TURNS = ("eager", "graph", "graph", "eager")
 # launches per stage-1 training step, (forward, remat recompute, backward):
 # the Controller (btc 4, bh 2, not rematerialised) and the UNet (btc 10, bh 5)
 # run once; only the UNet's up path carries gradients (SC-Tuner edits the
@@ -130,6 +148,15 @@ SERVE_REQUESTS = (("tiled_cold", "ir", (800, 1200), 200, (0, 280, 4, 560, 6)),
                   ("tiled", "ir", (800, 1200), 200, (0, 280, 4, 560, 6)),
                   ("whole", "cls", (256, 384), 200, (0, 140, 2, 280, 3)),
                   ("unknown_task", "nope", (64, 64), 400, (0, 0, 0, 0, 0)))
+# the server with --cuda-graphs: both keys (the batch of four tiles, task ir;
+# the 256 x 384 image, task cls) capture one restore of the counts above; the
+# first request of a key counts an eager warm-up restore and the capture, a
+# replay counts nothing. Replays per key: two batches in each of two tiled
+# requests, one whole restore.
+SERVE_BATCH = (0, 140, 2, 280, 3)
+GRAPH_SERVE_COUNTS = {"tiled_cold": (0, 280, 4, 560, 6), "tiled": (0, 0, 0, 0, 0),
+                      "whole": (0, 280, 4, 560, 6), "unknown_task": (0, 0, 0, 0, 0)}
+GRAPH_SERVE_REPLAYS = {(4, RES, RES, 3): 4, (1, 256, 384, 3): 1}
 TRAIN_STEPS = 5
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
@@ -636,19 +663,18 @@ def psnr_u8(a, b) -> float:
 
 
 def restore_inputs(UR, cfg, frozen, trainable, gen):
-    """A seeded 512 px bf16 batch, and ``restore(cfg, steps)`` of it with seeded noise."""
+    """A seeded 512 px bf16 batch, its seeded noise (``posterior_noise`` and
+    ``diffusion_noise``), and ``restore(cfg, steps)`` of it with that noise."""
     sched = UR.schedule(cfg, device="cuda")
     images = torch.rand((BATCH, RES, RES, 3), generator=gen, device="cuda").to(torch.bfloat16)
-    lat = (BATCH, RES // 8, RES // 8, cfg.vae.latent_channels)
-    post = torch.randn(lat, generator=gen, device="cuda", dtype=torch.bfloat16)
-    diff = torch.randn(lat, generator=gen, device="cuda", dtype=torch.bfloat16)
+    post, diff = UR.restore_noise(cfg, images.shape, images.dtype, gen, "cuda")
+    noise = {"posterior_noise": post, "diffusion_noise": diff}
 
     def restore(c, steps):  # 512 px needs no resize or pad: restore_padded runs as is
         return UR.restore(frozen, trainable, c, sched, images, "ir",
-                          num_inference_steps=steps, posterior_noise=post,
-                          diffusion_noise=diff, device="cuda")
+                          num_inference_steps=steps, device="cuda", **noise)
 
-    return images, restore
+    return images, noise, restore
 
 
 def counts_of(KN) -> tuple:
@@ -660,7 +686,7 @@ def run_modes(UR, KN, cfg, frozen, trainable, gen):
 
     Returns (results by name, launches by path): ``restore`` sums the
     unfused runs' launches, ``restore_fused`` the fused ones'."""
-    images, restore = restore_inputs(UR, cfg, frozen, trainable, gen)
+    images, _, restore = restore_inputs(UR, cfg, frozen, trainable, gen)
     t0 = time.perf_counter()
     restore(cfg, 1)  # warm-up: lazy library init, every shape once
     restore(dataclasses.replace(cfg, fused_out_attention=True), 1)
@@ -711,14 +737,122 @@ def run_modes(UR, KN, cfg, frozen, trainable, gen):
     return results, launches
 
 
+def uint8_levels(a, b) -> int:
+    """The largest difference of two outputs in uint8 levels, each rounded as
+    the eval protocol rounds (``psnr_u8``)."""
+    qa, qb = ((x.float() * 255).round().clamp(0, 255) for x in (a, b))
+    return int((qa - qb).abs().max().item())
+
+
+def run_graph_modes(UR, KN, GR, cfg, frozen, trainable, gen):
+    """Phase 4 on the graph route: for each of ``GRAPH_RUNS`` one
+    ``GraphedRestore`` captures the restore of one seeded batch, then eager
+    restores and graph replays of it run in ``GRAPH_TURNS``. Each eager
+    restore runs under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises at any wait for the card or copy from the host.
+
+    Returns (results by name, launches by path): ``restore_graph`` sums the
+    unfused graphs' launches at capture times their replays,
+    ``restore_fused_graph`` the fused one's."""
+    images, noise, restore = restore_inputs(UR, cfg, frozen, trainable, gen)
+    sched = UR.schedule(cfg, device="cuda")
+    results = {}
+    launches = {path: {kern.symbol: 0 for kern in KN.KERNELS}
+                for path in ("restore_graph", "restore_fused_graph")}
+    for name, mode, stride, warmup, fused in GRAPH_RUNS:
+        c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride, cache_warmup=warmup,
+                                fused_out_attention=fused)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        graphed = GR.GraphedRestore(frozen, trainable, c, sched, device="cuda")
+        t0 = time.perf_counter()
+        first = graphed(images, "ir", num_inference_steps=STEPS, **noise)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        (stats,) = graphed.stats.values()
+        captured = tuple(stats.launches[kern.symbol] for kern in KN.KERNELS)
+        if captured != EXPECTED[name]:
+            raise AssertionError(f"graph {name}: launches at capture {captured} != expected "
+                                 f"{EXPECTED[name]}")
+        row = {"mode": mode, "stride": stride, "warmup": warmup, "fused_out_attention": fused,
+               "first_call_seconds": first_s, "warmup_seconds": stats.warmup_seconds,
+               "capture_seconds": stats.capture_seconds, "launches_at_capture": captured,
+               "peak_mem_gib_first_call": torch.cuda.max_memory_allocated() / 2**30,
+               "eager": {"seconds": [], "peak_mem_gib": []},
+               "graph": {"seconds": [], "peak_mem_gib": []}}
+        torch.cuda.empty_cache()
+        row["graph_held_gib"] = (torch.cuda.memory_reserved() - reserved) / 2**30
+        outs = {"eager": [], "graph": [first]}
+        for route in GRAPH_TURNS:
+            torch.cuda.reset_peak_memory_stats()
+            KN.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route == "eager":
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = restore(c, STEPS)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                out = graphed(images, "ir", num_inference_steps=STEPS, **noise)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = counts_of(KN)
+            want = EXPECTED[name] if route == "eager" else (0,) * len(KN.KERNELS)
+            if counts != want:
+                raise AssertionError(f"{route} {name}: launches {counts} != {want}")
+            if out.shape != images.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"{route} {name}: output shape {tuple(out.shape)} or "
+                                     "non-finite values")
+            row[route]["seconds"].append(sec)
+            row[route]["peak_mem_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+            outs[route].append(out)
+        for route in ("eager", "graph"):
+            row[route]["img_per_s"] = [BATCH / sec for sec in row[route]["seconds"]]
+        row["replays"] = stats.replays
+        row["graph_vs_eager_max_abs"] = (outs["graph"][1].float()
+                                         - outs["eager"][0].float()).abs().max().item()
+        row["graph_vs_eager_uint8_levels"] = uint8_levels(outs["graph"][1], outs["eager"][0])
+        row["graph_repeats_equal"] = all(torch.equal(o, first) for o in outs["graph"])
+        row["eager_repeats_equal"] = torch.equal(*outs["eager"])
+        results[name] = row
+        eager_s, graph_s = (sum(row[r]["seconds"]) / 2 for r in ("eager", "graph"))
+        log(f"graph {name} (mode {mode}, stride {stride}, warmup {warmup}, fused out-projection "
+            f"{fused}): first call {first_s:.3f} s (eager warm-up {stats.warmup_seconds:.3f} s, "
+            f"capture + instantiate {stats.capture_seconds:.3f} s), launches at capture "
+            f"{captured}; in turns eager {BATCH / eager_s:.3f} img/s, graph "
+            f"{BATCH / graph_s:.3f} img/s ({(eager_s / graph_s - 1) * 100:+.1f} %; seconds "
+            f"eager {row['eager']['seconds']}, graph {row['graph']['seconds']}); peak GiB eager "
+            f"{max(row['eager']['peak_mem_gib']):.2f}, replay "
+            f"{max(row['graph']['peak_mem_gib']):.2f}, first call "
+            f"{row['peak_mem_gib_first_call']:.2f}, held by the graph "
+            f"{row['graph_held_gib']:.2f}; graph vs eager max abs "
+            f"{row['graph_vs_eager_max_abs']:.3e}, {row['graph_vs_eager_uint8_levels']} uint8 "
+            f"levels (limit 1); replays equal {row['graph_repeats_equal']}, eager repeats equal "
+            f"{row['eager_repeats_equal']}")
+        if row["graph_vs_eager_uint8_levels"] > 1:
+            raise AssertionError(f"graph {name}: {row['graph_vs_eager_uint8_levels']} uint8 "
+                                 "levels from the eager restore")
+        path = launches["restore_fused_graph" if fused else "restore_graph"]
+        for kern in KN.KERNELS:
+            path[kern.symbol] += stats.launches[kern.symbol] * stats.replays
+        del graphed, outs, first, out
+    torch.cuda.empty_cache()
+    return results, launches
+
+
 def to_cpu(bridge, tree):
     return bridge.unflatten_like({k: v.detach().cpu() for k, v in bridge.flatten(tree).items()},
                                  tree)
 
 
-def reference_check(UR, KN, bridge, cfg):
-    """Full widths, 256 px, fp32, 2 steps: card (kernels; unfused and fused
-    out-projection) vs CPU (plain versions)."""
+def reference_check(UR, KN, GR, bridge, cfg):
+    """Full widths, 256 px, fp32, 2 steps: card (kernels; unfused, fused
+    out-projection, and unfused replayed from a CUDA graph) vs CPU (plain
+    versions)."""
     frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=5)
     gen = torch.Generator(device="cuda").manual_seed(6)
     images = torch.rand((1, 256, 256, 3), generator=gen, device="cuda")
@@ -738,12 +872,22 @@ def reference_check(UR, KN, bridge, cfg):
         gpu[fused] = run("cuda", dataclasses.replace(cfg, fused_out_attention=fused),
                          frozen, trainable).cpu()
         counts[fused] = dict(zip((kern.symbol for kern in KN.KERNELS), counts_of(KN)))
+    # the graph route runs ``restore``: at min_size 256 a 256 px input is
+    # neither resized nor padded, so it restores as ``restore_padded`` does
+    c256 = dataclasses.replace(cfg, min_size=256)
+    graphed = GR.GraphedRestore(frozen, trainable, c256, UR.schedule(c256), device="cuda")
+    gpu["graph"] = graphed(images, "seg", num_inference_steps=2, posterior_noise=post,
+                           diffusion_noise=diff).cpu()
+    (graph_stats,) = graphed.stats.values()
+    del graphed
     t0 = time.perf_counter()
     cpu = run("cpu", cfg, to_cpu(bridge, frozen), to_cpu(bridge, trainable))
-    errs = {fused: (gpu[fused] - cpu).abs().max().item() for fused in gpu}
+    errs = {fused: (out - cpu).abs().max().item() for fused, out in gpu.items()}
     log(f"reference 256 px fp32, 2 steps: card vs CPU max abs {errs[False]:.3e} unfused, "
-        f"{errs[True]:.3e} fused out-projection (tolerance {REFERENCE_ATOL}); card launches "
-        f"unfused {counts[False]}, fused {counts[True]}; CPU {time.perf_counter() - t0:.1f} s")
+        f"{errs[True]:.3e} fused out-projection, {errs['graph']:.3e} unfused from a CUDA graph "
+        f"(tolerance {REFERENCE_ATOL}); card launches unfused {counts[False]}, fused "
+        f"{counts[True]}, graph at capture {graph_stats.launches} (capture + instantiate "
+        f"{graph_stats.capture_seconds:.3f} s); CPU {time.perf_counter() - t0:.1f} s")
     for fused, out in gpu.items():
         if not (torch.isfinite(out).all() and errs[fused] <= REFERENCE_ATOL):
             raise AssertionError(f"card and CPU restores differ (fused {fused}): "
@@ -755,8 +899,13 @@ def reference_check(UR, KN, bridge, cfg):
         raise AssertionError(f"unfused reference restore launches {counts[False]}")
     if counts[True]["ur_attention_btc"] or not counts[True]["ur_attention_btc_out"]:
         raise AssertionError(f"fused reference restore launches {counts[True]}")
+    if graph_stats.launches != counts[False]:
+        raise AssertionError(f"graph reference restore launches at capture "
+                             f"{graph_stats.launches} != eager {counts[False]}")
     return {"max_abs_err": errs[False], "max_abs_err_fused": errs[True],
-            "launches": counts[False], "launches_fused": counts[True]}
+            "max_abs_err_graph": errs["graph"], "launches": counts[False],
+            "launches_fused": counts[True], "graph_launches_at_capture": graph_stats.launches,
+            "graph_capture_seconds": graph_stats.capture_seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -921,6 +1070,11 @@ def smooth_image(gen, h: int, w: int):
     return (img[0].permute(1, 2, 0) * 255).round().to(torch.uint8).cpu().numpy()
 
 
+def levels(a, b) -> int:
+    """The largest difference of two uint8 images in levels."""
+    return int(abs(a.astype("int16") - b.astype("int16")).max())
+
+
 def post(url: str, body: bytes, timeout: float = 600.0) -> tuple[int, bytes]:
     req = urllib.request.Request(url, data=body, method="POST",
                                  headers={"Content-Type": "image/png"})
@@ -931,13 +1085,21 @@ def post(url: str, body: bytes, timeout: float = 600.0) -> tuple[int, bytes]:
         return e.code, e.read()
 
 
-def run_serving(KN, serve, png):
-    """Phase 8: the server in this process, answering real HTTP requests."""
+def run_serving(KN, serve, png, reference=None):
+    """Phase 8: the server in this process, answering real HTTP requests.
+
+    Without ``reference``: the eager server; returns (result, launches by
+    kernel, its in-process answers to the tiled and whole images). With
+    ``reference`` (those answers): the server with ``--cuda-graphs``, each
+    answer held to them; launches are each graph's at capture times its
+    replays."""
     import numpy as np
 
     from unirestore_torch.ops import tiling as TIL
 
-    args = serve.parse_args(SERVE_FLAGS + ["--weights-dir", str(REPO / "weights")])
+    graphs = reference is not None
+    flags = SERVE_FLAGS + (["--cuda-graphs"] if graphs else [])
+    args = serve.parse_args(flags + ["--weights-dir", str(REPO / "weights")])
     t0 = time.perf_counter()
     restore, cfg = serve.build_restore(args)
     server = serve.make_server(args, restore, cfg)
@@ -945,7 +1107,7 @@ def run_serving(KN, serve, png):
     url = f"http://{host}:{port}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    log(f"server up on {url} in {time.perf_counter() - t0:.1f} s: {' '.join(SERVE_FLAGS)}")
+    log(f"server up on {url} in {time.perf_counter() - t0:.1f} s: {' '.join(flags)}")
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows, launches = {}, {kern.symbol: 0 for kern in KN.KERNELS}
     try:
@@ -957,6 +1119,8 @@ def run_serving(KN, serve, png):
         log(f"GET /healthz: {r.status} {health}")
         images, sent = {}, {}
         for name, task, (h, w), status, want_counts in SERVE_REQUESTS:
+            if graphs:
+                want_counts = GRAPH_SERVE_COUNTS[name]
             img = sent[name] = images.setdefault((h, w), smooth_image(gen, h, w))
             body = png.encode(img)
             KN.reset_counts()
@@ -997,16 +1161,20 @@ def run_serving(KN, serve, png):
         server.server_close()
         thread.join()
 
-    # the tiled answer against the same function called in this process, and
-    # the host's share of a request: PNG decode and encode of the same image
-    t0 = time.perf_counter()
-    direct = restore(np.asarray(sent["tiled"], np.float32)[None] / 255.0, "ir")[0]
-    direct_s = time.perf_counter() - t0
-    direct = np.clip(direct * 255.0, 0, 255).astype(np.uint8)
+    result = {"flags": flags, "healthz": health, "requests": rows}
+    if graphs:
+        return serve_graph_checks(KN, restore.graphs, rows, reference, result)
 
-    def levels(a, b):
-        return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
-
+    # the answers of the same function called in this process, and the host's
+    # share of a request: PNG decode and encode of the same image
+    in_process = {}
+    for name in ("tiled", "whole"):
+        t0 = time.perf_counter()
+        out = restore(np.asarray(sent[name], np.float32)[None] / 255.0,
+                      rows[name]["task"])[0]
+        result[f"in_process_{name}_seconds"] = time.perf_counter() - t0
+        in_process[name] = np.clip(out * 255.0, 0, 255).astype(np.uint8)
+    direct, direct_s = in_process["tiled"], result["in_process_tiled_seconds"]
     body = png.encode(sent["tiled"])
     t0 = time.perf_counter()
     png.decode(body)
@@ -1024,10 +1192,44 @@ def run_serving(KN, serve, png):
         raise AssertionError(f"tiled answer differs from the in-process call by {apart} levels")
     for row in rows.values():
         row.pop("answer", None)
-    return {"flags": SERVE_FLAGS, "healthz": health, "requests": rows,
-            "uint8_levels_vs_in_process": apart, "uint8_levels_cold_vs_warm": cold,
-            "in_process_seconds": direct_s, "png_decode_seconds": decode_s,
-            "png_encode_seconds": encode_s}, launches
+    result.update({"uint8_levels_vs_in_process": apart, "uint8_levels_cold_vs_warm": cold,
+                   "in_process_seconds": direct_s, "png_decode_seconds": decode_s,
+                   "png_encode_seconds": encode_s})
+    return result, launches, in_process
+
+
+def serve_graph_checks(KN, graphs, rows, reference, result):
+    """Phase 8's checks of the server with ``--cuda-graphs``: one capture of
+    ``SERVE_BATCH`` launches per key, ``GRAPH_SERVE_REPLAYS`` replays, each
+    answer within one uint8 level of the eager in-process ``reference``."""
+    stats = {key[0]: st for key, st in graphs.stats.items()}
+    launches = {kern.symbol: 0 for kern in KN.KERNELS}
+    result["graphs"] = {}
+    for shape, st in stats.items():
+        captured = tuple(st.launches[kern.symbol] for kern in KN.KERNELS)
+        result["graphs"][str(list(shape))] = {
+            "captures": st.captures, "replays": st.replays, "launches_at_capture": captured,
+            "warmup_seconds": st.warmup_seconds, "capture_seconds": st.capture_seconds}
+        log(f"server graph {list(shape)}: {st.captures} capture(s), {st.replays} replays, "
+            f"launches at capture {captured}, eager warm-up {st.warmup_seconds:.3f} s, capture "
+            f"+ instantiate {st.capture_seconds:.3f} s")
+        if st.captures != 1 or captured != SERVE_BATCH:
+            raise AssertionError(f"server graph {shape}: {st.captures} captures, launches "
+                                 f"{captured}, want 1 and {SERVE_BATCH}")
+        for kern in KN.KERNELS:
+            launches[kern.symbol] += st.launches[kern.symbol] * st.replays
+    replays = {shape: st.replays for shape, st in stats.items()}
+    if replays != GRAPH_SERVE_REPLAYS:
+        raise AssertionError(f"server graphs: replays {replays}, want {GRAPH_SERVE_REPLAYS}")
+    apart = {name: levels(rows[name]["answer"], reference[ref])
+             for name, ref in (("tiled_cold", "tiled"), ("tiled", "tiled"), ("whole", "whole"))}
+    log(f"graph server answers vs the eager in-process calls: {apart} uint8 levels (limit 1)")
+    if max(apart.values()) > 1:
+        raise AssertionError(f"graph server answers differ from the eager calls: {apart}")
+    for row in rows.values():
+        row.pop("answer", None)
+    result["uint8_levels_vs_eager_in_process"] = apart
+    return result, launches, None
 
 
 def main() -> int:
@@ -1035,6 +1237,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from unirestore_torch import bridge, serve
+    from unirestore_torch import graphs as GR
     from unirestore_torch.models import unirestore as UR
     from unirestore_torch.nn import attention_kernels as K
     from unirestore_torch.nn import grouped_conv as G
@@ -1082,11 +1285,13 @@ def main() -> int:
                    for v in bridge.flatten(tree).values())
     log(f"init {n_params / 1e6:.1f} M params (bf16) in {time.perf_counter() - t0:.1f} s")
     runs, paths = run_modes(UR, KN, cfg, frozen, trainable, gen)
+    graph_runs, graph_paths = run_graph_modes(UR, KN, GR, cfg, frozen, trainable, gen)
+    paths.update(graph_paths)
     del frozen, trainable
     torch.cuda.empty_cache()
 
     # phase 5: agreement with the CPU on a small input
-    reference = reference_check(UR, KN, bridge, cfg)
+    reference = reference_check(UR, KN, GR, bridge, cfg)
     torch.cuda.empty_cache()
 
     # phase 6: the full-width stage-1 training step
@@ -1097,8 +1302,10 @@ def main() -> int:
     training["reference"] = train_reference_check(UR, KN, bridge, TS)
     torch.cuda.empty_cache()
 
-    # phase 8: the restore server
-    serving, paths["serve"] = run_serving(KN, serve, png)
+    # phase 8: the restore server, eager and with --cuda-graphs
+    serving, paths["serve"], in_process = run_serving(KN, serve, png)
+    torch.cuda.empty_cache()
+    serving["cuda_graphs"], paths["serve_graph"], _ = run_serving(KN, serve, png, in_process)
 
     # phase 9: report; a path routes to a kernel when its expected count is not 0
     routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
@@ -1106,6 +1313,8 @@ def main() -> int:
               "restore_fused": list(EXPECTED["fused"]),
               "train": [EXPECTED_TRAIN[kern.symbol][0] for kern in KN.KERNELS],
               "serve": [sum(r[4][i] for r in SERVE_REQUESTS) for i in range(len(KN.KERNELS))]}
+    routes.update(restore_graph=routes["restore"], restore_fused_graph=routes["restore_fused"],
+                  serve_graph=list(SERVE_BATCH))
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -1138,7 +1347,8 @@ def main() -> int:
             entry["backward"] = backward[kern.symbol]
         entries.append(entry)
     log(json.dumps({"restore": {"batch": BATCH, "res": RES, "steps": STEPS, "dtype": "bf16",
-                                "runs": runs, "reference": reference}}))
+                                "runs": runs, "graph_runs": graph_runs,
+                                "reference": reference}}))
     log(json.dumps({"training": training}))
     log(json.dumps({"serving": serving}))
     log(card)

@@ -129,6 +129,28 @@ def test_head_major_inputs_are_contiguous(b, heads):
     torch.testing.assert_close(hm.reshape(b, heads, 8, 4).transpose(1, 2).reshape(y.shape), y)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim_head", [64, 128, 512])
+@pytest.mark.parametrize("leaf", ["w", "b"])
+def test_prescaled_linear_gain_is_bit_identical_to_a_dtype_tensor(dtype, dim_head, leaf):
+    """The gain multiplies as a host scalar rounded to the dtype, bit for bit
+    as the 0-dim tensor the route used to copy to the device on every call,
+    for the model's three head widths."""
+    gain = dim_head ** -0.5 * K.LOG2E
+    rng = np.random.default_rng(dim_head)
+    shape = (320, 640) if leaf == "w" else (640,)
+    # magnitudes from 1e-4 to 1e2, both signs: every rounding case of the product
+    t = torch.from_numpy(rng.standard_normal(shape) * 10.0 ** rng.uniform(-4, 2, shape))
+    t = t.to(dtype)
+    assert torch.equal(t * TA._host_gain(gain, dtype), t * torch.tensor(gain, dtype=dtype))
+    x = torch.from_numpy(rng.standard_normal((2, 16, 320))).to(dtype)
+    pp = {"w": torch.from_numpy(rng.standard_normal((320, 640))).to(dtype),
+          "b": torch.from_numpy(rng.standard_normal(640)).to(dtype)}
+    g = torch.tensor(gain, dtype=dtype)
+    old = x @ (pp["w"] * g) + pp["b"] * g
+    assert torch.equal(TA._prescaled_linear(pp, x, gain), old)
+
+
 def test_kernel_wrapper_rejects_what_it_cannot_run():
     """Shape checks run before any build or launch; meta tensors stand in for the card."""
     q = torch.empty(2, 300, 64, device="meta")

@@ -644,3 +644,37 @@ def test_mha_fused_out_on_card_matches_cpu(cuda, no_tf32):
         out = TA.mha(p_cuda, x.cuda(), heads=2)
     assert K.fused_attention_btc_out_prescaled.launches == before + 1
     torch.testing.assert_close(out.cpu(), cpu, **FP32_TOL)
+
+
+@pytest.mark.parametrize("mode", ["none", "deep"])
+def test_graphed_restore_matches_the_eager_restore(cuda, no_tf32, mode):
+    """The tiny restore (fp32, 128 px, batch 2, 3 steps) replayed from a CUDA
+    graph against the eager restore on the same inputs and noise, within
+    fp32's 1e-5 (the same kernels; cuDNN may pick other algorithms under
+    capture). Two replays agree bit for bit. With one graph allowed, a
+    second task evicts the first, which is captured again when it returns."""
+    import dataclasses
+
+    from unirestore_torch import graphs as GR
+    from unirestore_torch.models import unirestore as UR
+
+    cfg = dataclasses.replace(UR.tiny_config(), cache_mode=mode, cache_stride=2)
+    frozen, trainable = UR.init(cfg, device="cuda", seed=3)
+    sched = UR.schedule(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    images = torch.rand((2, 128, 128, 3), generator=gen, device="cuda")
+    post, diff = UR.restore_noise(cfg, images.shape, images.dtype, gen, cuda)
+    noise = dict(posterior_noise=post, diffusion_noise=diff)
+    graphed = GR.GraphedRestore(frozen, trainable, cfg, sched, device=cuda, max_graphs=1)
+    first = graphed(images, "ir", None, 3, **noise)
+    second = graphed(images, "ir", None, 3, **noise)
+    eager = UR.restore(frozen, trainable, cfg, sched, images, "ir", None, 3, device=cuda, **noise)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.isfinite(first).all()
+    torch.testing.assert_close(first, eager, **FP32_TOL)
+    (key,) = graphed.stats
+    assert (graphed.stats[key].captures, graphed.stats[key].replays) == (1, 2)
+    graphed(images, "cls", None, 3, **noise)  # evicts the "ir" graph
+    again = graphed(images, "ir", None, 3, **noise)
+    torch.cuda.synchronize()
+    assert graphed.stats[key].captures == 2 and torch.equal(again, first)

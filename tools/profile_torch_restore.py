@@ -3,17 +3,20 @@
 
 Default: runs the full-width restore of ``chip_smoke.py`` (sd-turbo widths,
 seeded init, 512 px, batch 8, bf16, 20 DDIM steps) once per cache mode, and
-exact on the out-projection-fused route, under ``torch.profiler``. With ``--train``: runs the stage-1 training step of
-``chip_smoke.py`` phase 6 (sd-turbo widths without TFA, 512 px, batch 8,
-bf16 frozen / fp32 trainable, AdamW, remat on), two warm-up steps, then one
-step without and one under the profiler. Prints one JSON line per run: wall
+exact on the out-projection-fused route, under ``torch.profiler``. With
+``--graphs``: the same restores replayed from CUDA graphs
+(``unirestore_torch/graphs.py``), each captured first. With ``--train``:
+runs the stage-1 training step of ``chip_smoke.py`` phase 6 (sd-turbo
+widths without TFA, 512 px, batch 8, bf16 frozen / fp32 trainable, AdamW,
+remat on), two warm-up steps, then one step without and one under the
+profiler. Prints one JSON line per run: wall
 seconds with and without the profiler, the device's busy time (sum of kernel
 durations on the one stream), its idle share within the profiled run (1 -
 busy over the span from the first kernel's start to the last kernel's end),
 and the device time by kernel family, largest first. Run from the repository
 root on a machine with one CUDA device:
 
-    python3 tools/profile_torch_restore.py [--train]
+    python3 tools/profile_torch_restore.py [--graphs | --train]
 
 The profiler adds host overhead, so wall times here read higher than
 ``chip_smoke.py``'s and the idle share is an upper estimate; the device
@@ -38,6 +41,7 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as CS  # noqa: E402
 from unirestore_torch import bridge  # noqa: E402
+from unirestore_torch import graphs as GR  # noqa: E402
 from unirestore_torch.models import unirestore as UR  # noqa: E402
 
 # kernel-name substrings -> family, first match wins
@@ -96,18 +100,18 @@ def profiled(label: dict, fn) -> None:
     print(json.dumps({
         **label, "wall_s_unprofiled": wall_plain, "wall_s": wall,
         "device_busy_s": busy, "device_span_s": span,
-        "device_idle_share": 1.0 - busy / span,
+        "device_idle_share": 1.0 - busy / span if span > 0 else None,
         "kernels_launched": n_kernels,
         "device_s_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
         "top_kernels_s": sorted(by_name.items(), key=lambda kv: -kv[1])[:10],
     }), flush=True)
 
 
-def profile_restore() -> None:
+def profile_restore(graphs: bool) -> None:
     cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
     frozen, trainable = CS.make_params(UR, bridge, cfg, torch.bfloat16, seed=1)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    _, restore = CS.restore_inputs(UR, cfg, frozen, trainable, gen)
+    images, noise, restore = CS.restore_inputs(UR, cfg, frozen, trainable, gen)
     restore(cfg, 1)
     torch.cuda.synchronize()
     # the restores of chip_smoke.py phase 4, once each: the cache modes, and
@@ -116,9 +120,21 @@ def profile_restore() -> None:
     for (mode, fused), (stride, warmup) in runs.items():
         c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride,
                                 cache_warmup=warmup, fused_out_attention=fused)
-        profiled({"mode": mode, "stride": stride, "warmup": warmup,
-                  "fused_out_attention": fused},
-                 lambda: restore(c, CS.STEPS))
+        label = {"mode": mode, "stride": stride, "warmup": warmup,
+                 "fused_out_attention": fused, "route": "graph" if graphs else "eager"}
+        if not graphs:
+            profiled(label, lambda: restore(c, CS.STEPS))
+            continue
+        graphed = GR.GraphedRestore(frozen, trainable, c, UR.schedule(c, device="cuda"),
+                                    device="cuda")
+        for _ in range(2):  # the capture, then a first replay, which uploads the graph
+            graphed(images, "ir", num_inference_steps=CS.STEPS, **noise)
+        (stats,) = graphed.stats.values()
+        label.update(capture_seconds=stats.capture_seconds,
+                     launches_at_capture=stats.launches)
+        profiled(label, lambda: graphed(images, "ir", num_inference_steps=CS.STEPS, **noise))
+        del graphed
+        torch.cuda.empty_cache()
 
 
 def profile_train() -> None:
@@ -136,6 +152,8 @@ def profile_train() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true", help="profile the stage-1 training step")
+    ap.add_argument("--graphs", action="store_true",
+                    help="profile the restores replayed from CUDA graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_restore: no CUDA device", file=sys.stderr)
@@ -146,7 +164,7 @@ def main() -> int:
     if args.train:
         profile_train()
     else:
-        profile_restore()
+        profile_restore(args.graphs)
     return 0
 
 

@@ -8,12 +8,16 @@ function's exact step order: warmup steps first, then groups of ``stride``
 (one full key step and its cached followers), then the remainder as full
 steps.
 
-Randomness is injectable: ``restore_padded`` / ``encode`` / ``diffuse`` take
-the posterior and diffusion noise as tensors, and draw from a passed
-``torch.Generator`` only where a tensor is omitted. ``restore`` and
-``restore_padded`` run under ``torch.inference_mode()`` on the card unless
-``device`` says otherwise; ``encode``, ``diffuse`` and ``predict_z0`` (the
-training path, ``train/steps.py``) run with autograd as the caller has it.
+Randomness is injectable: ``restore`` / ``restore_padded`` / ``encode`` /
+``diffuse`` take the posterior and diffusion noise as tensors, and draw from a
+passed ``torch.Generator`` only where a tensor is omitted; ``restore`` and
+``restore_padded`` draw both up front (``restore_noise``) and hand them to
+their device-only cores (``restore_core``, ``restore_padded_core``), which
+copy nothing from or to the host and so can be captured in a CUDA graph
+(``graphs.py``). ``restore`` and ``restore_padded`` run under
+``torch.inference_mode()`` on the card unless ``device`` says otherwise;
+``encode``, ``diffuse`` and ``predict_z0`` (the training path,
+``train/steps.py``) run with autograd as the caller has it.
 """
 
 from __future__ import annotations
@@ -242,33 +246,75 @@ def ddim_denoise(frozen, trainable, cfg, sched, zt, z0_lq, num_inference_steps=N
     return z
 
 
+def latent_shape(cfg, images_shape) -> tuple:
+    """The posterior mean's (and the latents') shape for padded NHWC images of
+    ``images_shape``: the VAE encoder halves H and W once per down block."""
+    b, h, w = images_shape[:3]
+    f = 2 ** (len(cfg.vae.block_out_channels) - 1)
+    return (b, h // f, w // f, cfg.vae.latent_channels)
+
+
+def restore_noise(cfg, images_shape, dtype, generator=None, device=None, posterior_noise=None,
+                  diffusion_noise=None):
+    """A restore's (posterior, diffusion) noise on ``device`` for padded images
+    of ``images_shape`` and ``dtype``.
+
+    Each is the tensor given, else a standard normal draw from ``generator``,
+    posterior first, with the shape and dtype that ``VAE.encode`` and
+    ``diffuse`` draw: so eager and graph restores take the same numbers from
+    the same seeded generator. The diffusion noise is None without the
+    Controller (no DDIM loop).
+    """
+    lat = latent_shape(cfg, images_shape)
+    if not dtype.is_floating_point:  # the encoder's ``x * 2.0 - 1.0`` promotes
+        dtype = torch.get_default_dtype()
+    out = []
+    for noise, wanted in ((posterior_noise, True), (diffusion_noise, cfg.use_cnet)):
+        if not wanted:
+            out.append(None)
+        elif noise is not None:
+            out.append(torch.as_tensor(noise, device=device))
+        elif generator is None:
+            raise ValueError("restore: pass the posterior and diffusion noise, or a generator")
+        else:
+            out.append(torch.randn(lat, generator=generator, device=device, dtype=dtype))
+    return tuple(out)
+
+
+def restore_padded_core(frozen, trainable, cfg, sched, images, task, posterior_noise,
+                        diffusion_noise, num_inference_steps=None):
+    """The device-only work of ``restore_padded``: images, noise and schedule
+    already on the device; no host copy, host read or generator.
+
+    encode (CFRM on) -> noise to t=999 -> DDIM loop -> decode (TFA task),
+    with the out-projection-fused attention route if ``cfg.fused_out_attention``.
+    """
+    with torch.inference_mode(), ATT.fused_out_projection(cfg.fused_out_attention):
+        z0, skips = encode(frozen, trainable, cfg, images, noise=posterior_noise, enable_fr=True)
+        zt = z0
+        if cfg.use_cnet:
+            t999 = torch.full((images.shape[0],), 999, dtype=torch.int32, device=images.device)
+            zt, _, _ = diffuse(sched, z0, noise=diffusion_noise, timesteps=t999)
+            zt = ddim_denoise(frozen, trainable, cfg, sched, zt, z0, num_inference_steps)
+        return decode(frozen, trainable, cfg, zt, skips, task)
+
+
 def restore_padded(frozen, trainable, cfg, sched, images, task, generator=None,
                    num_inference_steps=None, *, posterior_noise=None,
                    diffusion_noise=None, device=None):
     """Restore images whose H/W are already multiples of pad_multiple.
 
-    encode (CFRM on) -> noise to t=999 -> DDIM loop -> decode (TFA task),
-    with the out-projection-fused attention route if ``cfg.fused_out_attention``.
     ``posterior_noise`` (shape of the /8 latent mean) and ``diffusion_noise``
-    (shape of the latents) are used when given, else drawn from ``generator``.
+    (shape of the latents) are used when given, else drawn from ``generator``
+    (``restore_noise``); then ``restore_padded_core``.
     """
     dev = resolve_device(device)
-    with torch.inference_mode(), ATT.fused_out_projection(cfg.fused_out_attention):
+    with torch.inference_mode():
         images = torch.as_tensor(images, device=dev)
-        sched = sched.to(dev)
-        if posterior_noise is not None:
-            posterior_noise = torch.as_tensor(posterior_noise, device=dev)
-        if diffusion_noise is not None:
-            diffusion_noise = torch.as_tensor(diffusion_noise, device=dev)
-        z0, skips = encode(frozen, trainable, cfg, images, noise=posterior_noise,
-                           generator=generator, enable_fr=True)
-        zt = z0
-        if cfg.use_cnet:
-            t999 = torch.full((images.shape[0],), 999, dtype=torch.int32, device=dev)
-            zt, _, _ = diffuse(sched, z0, noise=diffusion_noise, generator=generator,
-                               timesteps=t999)
-            zt = ddim_denoise(frozen, trainable, cfg, sched, zt, z0, num_inference_steps)
-        return decode(frozen, trainable, cfg, zt, skips, task)
+        post, diff = restore_noise(cfg, images.shape, images.dtype, generator, dev,
+                                   posterior_noise, diffusion_noise)
+        return restore_padded_core(frozen, trainable, cfg, sched.to(dev), images, task, post,
+                                   diff, num_inference_steps)
 
 
 def preprocess_shape(h: int, w: int, cfg: UniRestoreConfig):
@@ -281,22 +327,43 @@ def preprocess_shape(h: int, w: int, cfg: UniRestoreConfig):
     return h, w, (m - h % m) % m, (m - w % m) % m
 
 
-def restore(frozen, trainable, cfg, sched, images, task, generator=None,
-            num_inference_steps=None, *, posterior_noise=None, diffusion_noise=None,
-            device=None):
-    """Full restore: resize and reflect-pad, ``restore_padded``, crop and resize back."""
-    dev = resolve_device(device)
+def padded_shape(images_shape, cfg: UniRestoreConfig) -> tuple:
+    """The NHWC shape ``restore`` hands to ``restore_padded_core``."""
+    b, h, w, c = images_shape
+    h, w, pad_h, pad_w = preprocess_shape(h, w, cfg)
+    return (b, h + pad_h, w + pad_w, c)
+
+
+def restore_core(frozen, trainable, cfg, sched, images, task, posterior_noise, diffusion_noise,
+                 num_inference_steps=None):
+    """The device-only work of ``restore`` (resize and reflect-pad,
+    ``restore_padded_core``, crop and resize back): every input already a
+    tensor on the device, the noise given. This is what ``graphs.GraphedRestore``
+    captures."""
     with torch.inference_mode():
-        x = torch.as_tensor(images, device=dev)
-        org_h, org_w = x.shape[1:3]
+        org_h, org_w = images.shape[1:3]
         h, w, pad_h, pad_w = preprocess_shape(org_h, org_w, cfg)
+        x = images
         if (h, w) != (org_h, org_w):
             x = RS.resize_bicubic(x, (h, w))
         x = RS.reflect_pad_hw(x, pad_h, pad_w)
-        preds = restore_padded(frozen, trainable, cfg, sched, x, task, generator,
-                               num_inference_steps, posterior_noise=posterior_noise,
-                               diffusion_noise=diffusion_noise, device=dev)
+        preds = restore_padded_core(frozen, trainable, cfg, sched, x, task, posterior_noise,
+                                    diffusion_noise, num_inference_steps)
         preds = preds[:, :h, :w]
         if (h, w) != (org_h, org_w):
             preds = RS.resize_bicubic(preds, (org_h, org_w))
         return preds
+
+
+def restore(frozen, trainable, cfg, sched, images, task, generator=None,
+            num_inference_steps=None, *, posterior_noise=None, diffusion_noise=None,
+            device=None):
+    """Full restore: the inputs to the device, the noise (``restore_noise``),
+    then ``restore_core``."""
+    dev = resolve_device(device)
+    with torch.inference_mode():
+        x = torch.as_tensor(images, device=dev)
+        post, diff = restore_noise(cfg, padded_shape(x.shape, cfg), x.dtype, generator, dev,
+                                   posterior_noise, diffusion_noise)
+        return restore_core(frozen, trainable, cfg, sched.to(dev), x, task, post, diff,
+                            num_inference_steps)

@@ -31,6 +31,7 @@ route (77-token cross-attention, short sequences) stays on plain autograd.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -76,9 +77,18 @@ def _use_btc_fused_out(c_out: int) -> bool:
     return _FUSED_OUT and K.btc_out_supported(c_out)
 
 
+@functools.cache
+def _host_gain(gain: float, dtype: torch.dtype) -> float:
+    """``gain`` rounded to ``dtype``, as a Python float. A tensor times it
+    rounds as the tensor times a ``dtype`` tensor holding ``gain`` does (both
+    multiply in fp32 and round once), and no tensor goes to the device: a copy
+    from host memory synchronises the stream and cannot be graph-captured."""
+    return torch.tensor(gain, dtype=dtype).item()
+
+
 def _prescaled_linear(pp, x, gain: float):
     """``x @ (w * gain) + b * gain`` with ``gain`` rounded to x's dtype."""
-    g = torch.tensor(gain, dtype=x.dtype, device=x.device)
+    g = _host_gain(gain, x.dtype)
     y = x @ (pp["w"].to(x.dtype) * g)
     if "b" in pp:
         y = y + pp["b"].to(x.dtype) * g

@@ -6,7 +6,7 @@
 
 Run from the repository root:
 
-    python -m unirestore_torch.serve --port 8400 [--fused-out-attn]
+    python -m unirestore_torch.serve --port 8400 [--fused-out-attn] [--cuda-graphs]
     python -m unirestore_torch.serve --device cpu --tiny ...   # on the CPU
     curl -X POST --data-binary @degraded.png "localhost:8400/restore?task=ir" -o restored.png
 
@@ -18,14 +18,21 @@ lock. Each tile batch draws its posterior and diffusion noise from a fresh
 ``torch.Generator`` seeded 0, as the JAX server restores every call with
 ``PRNGKey(0)``. Weights: seeded init, then the converted sd-turbo files and
 null embedding found in ``--weights-dir`` (``zoo.py``), then the adapters of
-``--checkpoint``; bf16 unless ``--tiny``.
+``--checkpoint``; bf16 unless ``--tiny``. With ``--cuda-graphs`` (off by
+default; the card only) every restore replays a CUDA graph of the whole
+restore (``graphs.GraphedRestore``), keyed as the JAX server keys its
+compiled programs, by (batch shape, task, steps): one graph per (task, steps)
+for the fixed-shape tile batches, and one per image shape besides for images
+restored whole; at most 16, the least recently used evicted.
 
 Differences from the JAX server: ``--device`` (default: the current CUDA
 device, which must exist) replaces ``--platform``; ``--fused-out-attn`` sets
 ``UniRestoreConfig.fused_out_attention``; ``--weights-dir`` replaces the
 ``UNIRESTORE_WEIGHTS`` variable; PNG is read and written by ``ops/png.py``
 without PIL, and other formats go to PIL when it imports, else get HTTP 415;
-eager PyTorch compiles nothing, so there is no cache of compiled programs.
+the JAX server always runs its compiled programs (an LRU of 16 ``jax.jit``
+restores), this one runs eagerly unless ``--cuda-graphs`` turns on its
+counterpart, an LRU of 16 CUDA graphs.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from . import bridge, zoo
+from . import graphs as GR
 from .device import resolve_device
 from .models import unirestore as UR
 from .ops import png
@@ -66,6 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="fuse the attention out-projection into the channel-flat kernel")
     ap.add_argument("--weights-dir", default=zoo.DEFAULT_WEIGHTS,
                     help="converted sd-turbo weights and sd_null_emb.npy")
+    ap.add_argument("--cuda-graphs", action="store_true",
+                    help="replay each restore from a CUDA graph (the card only)")
     return ap.parse_args(argv)
 
 
@@ -75,6 +85,8 @@ def build_restore(args, noise_fn=None):
 
     ``noise_fn(latent_shape) -> (posterior_noise, diffusion_noise)``, if given,
     supplies each tile batch's noise in place of the seeded generator's draws.
+    ``restore.graphs`` is the ``graphs.GraphedRestore`` that ``--cuda-graphs``
+    routes every tile batch through (its ``stats`` per key), else None.
     """
     dev = resolve_device(args.device)
     tasks = tuple(args.tasks.split(","))
@@ -91,6 +103,8 @@ def build_restore(args, noise_fn=None):
     sched = UR.schedule(cfg, device=dev)
     dt = torch.float32 if args.tiny else torch.bfloat16
     frozen, trainable = _cast(frozen, dt), _cast(trainable, dt)
+    graphs = (GR.GraphedRestore(frozen, trainable, cfg, sched, device=dev) if args.cuda_graphs
+              else None)
 
     def base(images, task, steps):
         # numpy keeps a caller's axis order through slicing and np.stack, and
@@ -106,8 +120,11 @@ def build_restore(args, noise_fn=None):
             noise = {"posterior_noise": torch.as_tensor(post, device=dev).to(dt),
                      "diffusion_noise": torch.as_tensor(diff, device=dev).to(dt)}
         gen = torch.Generator(device=dev).manual_seed(0)
-        out = UR.restore(frozen, trainable, cfg, sched, x, task, gen, steps, device=dev,
-                         **noise)
+        if graphs is None:
+            out = UR.restore(frozen, trainable, cfg, sched, x, task, gen, steps, device=dev,
+                             **noise)
+        else:
+            out = graphs(x, task, gen, steps, **noise)
         return out.float().cpu().numpy()
 
     def restore(images, task, steps=None):
@@ -116,6 +133,7 @@ def build_restore(args, noise_fn=None):
                                  tile=cfg.min_size, overlap=args.overlap,
                                  batch_tiles=args.batch_tiles)
 
+    restore.graphs = graphs
     return restore, cfg
 
 
@@ -200,7 +218,7 @@ def main(argv=None) -> None:
     host, port = server.server_address[:2]
     print(f"[serve] listening on {host}:{port} device={resolve_device(args.device)} "
           f"tasks={args.tasks} steps={args.steps} cache={args.cache_mode} "
-          f"fused_out_attn={args.fused_out_attn}", flush=True)
+          f"fused_out_attn={args.fused_out_attn} cuda_graphs={args.cuda_graphs}", flush=True)
     try:
         server.serve_forever()
     finally:
