@@ -76,14 +76,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
    requests: one capture per key (the tile batch's (task, steps) and the
    256 x 384 shape), each answer within one uint8 level of the eager
    in-process call;
-9. a ``kernels`` JSON line, then the last line
+9. fit through the CLI: ``unirestore_torch.main.main`` called in this
+   process (so the launch counters can be read) with
+   ``fit --config configs/train_stage1.yaml`` and dotted overrides only (the
+   DIVF2KOST lists of the 576 px smoke tree that ``tools/make_smoke_data.py``
+   makes, 6 micro-steps, validation every 3 over 2 batches, the log
+   directory): full width, bf16 frozen and fp32 trainable, remat on, batch 3,
+   accumulation 2, sanity validation, AdamW and OneCycle, 8 loader workers.
+   Checks: finite logged losses; each micro-step's launches equal phase 6's;
+   the validation restores' launches equal the routing's at one DDIM step;
+   every CFRM / Controller / SC-Tuner leaf changed or, where its updates fell
+   below its fp32 resolution, carrying a nonzero Adam first moment in
+   ``last.npz``; every frozen byte as a fresh seeded build; ``step=3-...``, ``step=6-...`` and ``last.npz``
+   written; the first micro-step's losses bit-equal to ``make_train_step``
+   called directly on its batch and noise; one micro-step under
+   ``torch.cuda.set_sync_debug_mode("error")``. Then ``--trainer.resume auto
+   --trainer.max_steps 8`` (``last.npz`` at step 8), ``predict`` (one PNG per
+   image, each its input's size) and a run profiled over steps 2-6
+   (``--trainer.profiler``: device busy and idle share). Reported: p50
+   s/step and train img/s beside phase 6's, the loader wait per step, peak
+   memory. Every (kernel, shape) the fit, resume and predict launched that
+   phase 3 did not hold is then held to its plain version as phase 3 holds
+   its own (rows with ``"path": "fit"``);
+10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
    ``launches_by_path`` lists (``restore``: phase 4's exact, encoder and deep
    restores; ``restore_fused``: its fused ones; ``train``: phase 6's six
    steps; ``serve``: phase 8's requests; ``restore_graph``,
    ``restore_fused_graph`` and ``serve_graph`` the same on the graph route,
-   each graph's launches at capture times its replays); each kernel must
+   each graph's launches at capture times its replays; ``fit``: phase 9's
+   first fit, training and validation); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -158,6 +181,23 @@ GRAPH_SERVE_COUNTS = {"tiled_cold": (0, 280, 4, 560, 6), "tiled": (0, 0, 0, 0, 0
                       "whole": (0, 280, 4, 560, 6), "unknown_task": (0, 0, 0, 0, 0)}
 GRAPH_SERVE_REPLAYS = {(4, RES, RES, 3): 4, (1, 256, 384, 3): 1}
 TRAIN_STEPS = 5
+# phase 9: ``python -m unirestore_torch.main fit`` from the stage-1 YAML on
+# the smoke tree of tools/make_smoke_data.py at 576 px (576 x 592 images),
+# with dotted overrides only: the DIVF2KOST lists, 6 micro-steps (three AdamW
+# updates at accumulation 2), validation every 3 over 2 batches; then a
+# resume to step 8 and ``predict``; then a profiled run of steps 2-6
+FIT_YAML = REPO / "configs" / "train_stage1.yaml"
+FIT_RES = 576
+FIT_STEPS, FIT_VAL_EVERY, FIT_VAL_BATCHES, FIT_RESUME_STEPS = 6, 3, 2, 8
+# every micro-step of the fit launches phase 6's per-step counts; every
+# validation restore (batch 1, 512 x 512 after the evaluator's center crop,
+# one DDIM step) one step's Controller and UNet attention (btc 14, bh 7), the
+# VAE mid block in the encode and the decode (stream 2) and the three CFRM
+# grouped convs. The sanity check and each validation restore hq and lq of
+# 2 batches each.
+FIT_RESTORE = (14, 7, 2, 0, 3)
+FIT_VAL_RESTORES = 2 * (2 + 2 * FIT_VAL_BATCHES)
+FIT_SYNC_CHECK_STEP = 3  # the micro-step run under set_sync_debug_mode("error")
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
 # gradient accumulation 2
@@ -1232,17 +1272,308 @@ def serve_graph_checks(KN, graphs, rows, reference, result):
     return result, launches, None
 
 
+# ---------------------------------------------------------------------------
+# phase 9: fit through the CLI
+# ---------------------------------------------------------------------------
+
+
+class StepProbe:
+    """Wraps ``Trainer._step`` for one fit: per micro-step launch counts
+    (forward, recompute, backward), the first micro-step's trainable tree,
+    batch and noise (for the direct step), and one micro-step run
+    under ``torch.cuda.set_sync_debug_mode("error")``: nothing in the noise
+    draw, the step or the optimizer update may wait for the card or copy from
+    the host. The prefetch's own copies run outside it."""
+
+    def __init__(self, TE, KN, bridge):
+        self.TE, self.KN, self.bridge = TE, KN, bridge
+        self.counts, self.first = [], None
+
+    def __enter__(self):
+        probe, orig = self, self.TE.Trainer._step
+        self.orig = orig
+
+        def step(trainer, step_fn, trainable, opt_state, batch, i, draw):
+            before = train_counts(probe.KN)
+            drawn = []
+
+            def draw_kept(b):
+                drawn.append(draw(b))
+                return drawn[-1]
+
+            if i == 0:
+                probe.first = {"trainable": clone_tree(probe.bridge, trainable),
+                               "batch": {k: v.clone() for k, v in batch.items()}}
+            if i == FIT_SYNC_CHECK_STEP:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = orig(trainer, step_fn, trainable, opt_state, batch, i, draw_kept)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            after = train_counts(probe.KN)
+            probe.counts.append({s: tuple(a - b for a, b in zip(after[s], before[s]))
+                                 for s in after})
+            if i == 0:
+                probe.first["noise"] = drawn[0]
+            return out
+
+        self.TE.Trainer._step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.TE.Trainer._step = self.orig
+        return False
+
+
+def clone_tree(bridge, tree):
+    return bridge.unflatten_like({k: v.detach().clone() for k, v in bridge.flatten(tree).items()},
+                                 tree)
+
+
+def kernel_shapes_met(KN) -> dict:
+    """{kernel symbol: {(shape, dtype)}} of the launches since the last reset."""
+    return {kern.symbol: set(kern.shapes) for kern in KN.KERNELS}
+
+
+def fit_argv(command, data_dir: Path, root: Path, *extra) -> list:
+    """``unirestore_torch.main`` arguments: the stage-1 YAML with dotted overrides only."""
+    ir_list = str(data_dir / "lists" / "ir.list")
+    return [command, "--config", str(FIT_YAML),
+            "--data.init_args.dataset_dict.DIVF2KOST.train", ir_list,
+            "--data.init_args.dataset_dict.DIVF2KOST.val", ir_list,
+            "--trainer.max_steps", str(FIT_STEPS),
+            "--trainer.val_check_interval", str(FIT_VAL_EVERY),
+            "--trainer.limit_val_batches", str(FIT_VAL_BATCHES),
+            "--trainer.logger.init_args.save_dir", str(root), *extra]
+
+
+def direct_step_check(bridge, TS, OPT, engine, trainer, first) -> dict:
+    """The fit's first micro-step against ``make_train_step`` called directly
+    on the same trainable values, batch and noise: the losses bit-equal."""
+    tx, _ = OPT.build(engine.optimizer_kwargs, engine.lr_scheduler_kwargs, trainer.max_steps,
+                      first["batch"]["hq"].shape[0], trainer.accum, 1)
+    tr = first["trainable"]
+    step = TS.make_train_step(engine.frozen, engine.cfg, engine.sched, engine.stage, tx, "ir")
+    logs = step(tr, tx.init(TS.trained_leaves(engine.stage, tr)), first["batch"],
+                first["noise"])[2]
+    logs = {k: v.item() for k, v in logs.items()}
+    fit = trainer.logs[0]
+    losses = [k for k in logs if k.startswith("train/loss")]
+    unequal = {k: (fit[k], logs[k]) for k in losses if fit[k] != logs[k]}
+    log(f"fit step 1 vs a direct make_train_step call on its batch and noise: "
+        f"{len(losses) - len(unequal)} of {len(losses)} losses bit-equal; grad norm "
+        f"{fit['train/grad_norm']!r} vs {logs['train/grad_norm']!r}")
+    if unequal:
+        raise AssertionError(f"fit step 1 losses differ from the direct step: {unequal}")
+    return {"losses_bit_equal": len(losses),
+            "grad_norm_fit": fit["train/grad_norm"], "grad_norm_direct": logs["train/grad_norm"]}
+
+
+def run_fit(KN, bridge, TE, TS, OPT, main_fn, png):
+    """Phase 9: ``unirestore_torch.main.main`` fit, resume and predict at full
+    width on the 576 px smoke tree, then a profiled fit. Returns (result,
+    launches by kernel of the first fit, the (shape, dtype) each kernel met)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
+        return fit_in(KN, bridge, TE, TS, OPT, main_fn, png, Path(work))
+
+
+def fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
+    """``run_fit`` in the scratch directory ``work``."""
+    from unirestore_torch.data.corruption import native
+
+    data_dir, root = work / "data", work / "logs"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_smoke_data.py"), str(data_dir),
+                    str(FIT_RES)], check=True, capture_output=True, text=True, timeout=300)
+    log(f"fit data: smoke tree at {FIT_RES} px in {time.perf_counter() - t0:.1f} s; native "
+        f"corruption kernels loaded: {native.available()}")
+
+    # first fit: sanity validation, 6 micro-steps, validation at 3 and 6
+    KN.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepProbe(TE, KN, bridge) as probe:
+        engine, trainer = main_fn(fit_argv("fit", data_dir, root))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
+    shapes = kernel_shapes_met(KN)
+    for i, c in enumerate(probe.counts):
+        if c != EXPECTED_TRAIN:
+            raise AssertionError(f"fit micro-step {i + 1}: launches {c} != {EXPECTED_TRAIN}")
+    if len(probe.counts) != FIT_STEPS:
+        raise AssertionError(f"fit ran {len(probe.counts)} micro-steps, want {FIT_STEPS}")
+    val = tuple(launches[kern.symbol] - FIT_STEPS * sum(EXPECTED_TRAIN[kern.symbol][:2])
+                for kern in KN.KERNELS)
+    want_val = tuple(FIT_VAL_RESTORES * n for n in FIT_RESTORE)
+    log(f"fit: launches per micro-step {probe.counts[0]} (all {FIT_STEPS} equal phase 6's); "
+        f"validation launches {val} = {FIT_VAL_RESTORES} restores x {FIT_RESTORE}: "
+        f"{val == want_val}")
+    if val != want_val:
+        raise AssertionError(f"fit validation launches {val} != {want_val}")
+    logged = list(trainer.logs)
+    if not logged or not all(math.isfinite(v) for e in logged for v in e.values()):
+        raise AssertionError(f"fit: non-finite or missing logged losses {logged}")
+    moved = trained_leaves_moved(bridge, TS, OPT, engine, trainer, probe.first["trainable"],
+                                 root / "checkpoints" / "last.npz")
+    ckpts = sorted(p.name for p in (root / "checkpoints").iterdir())
+    if (len(ckpts) != 3 or ckpts[0] != "last.npz"
+            or not ckpts[1].startswith(f"step={FIT_VAL_EVERY}-val=")
+            or not ckpts[2].startswith(f"step={FIT_STEPS}-val=")):
+        raise AssertionError(f"fit checkpoints {ckpts}")
+    direct = direct_step_check(bridge, TS, OPT, engine, trainer, probe.first)
+    timing = {k: v for k, v in trainer.timing.items() if k != "loader_waits_s"}
+    log(f"fit: {fit_s:.1f} s in all; p50 {timing['p50_s']:.4f} s/step (mean "
+        f"{timing['mean_s']:.4f}, {timing['steps']} steps after the first), "
+        f"{timing['batch_size'] / timing['p50_s']:.3f} train img/s; loader wait "
+        f"{timing['loader_wait_mean_s'] * 1e3:.2f} ms/step (each "
+        f"{[round(w * 1e3, 2) for w in trainer.timing['loader_waits_s']]}); peak "
+        f"{peak:.1f} GiB; checkpoints {ckpts}")
+    n_frozen_check = frozen_unchanged(bridge, engine)
+    del probe, engine, trainer
+    torch.cuda.empty_cache()
+
+    # resume to step 8
+    KN.reset_counts()
+    t0 = time.perf_counter()
+    engine, trainer = main_fn(fit_argv("fit", data_dir, root, "--trainer.resume", "auto",
+                                       "--trainer.max_steps", str(FIT_RESUME_STEPS)))
+    resume_s = time.perf_counter() - t0
+    shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+    from unirestore_torch.train import checkpoints as CKPT
+    meta = CKPT.load_checkpoint(str(root / "checkpoints" / "last.npz"))[1]
+    ran = len(trainer.timing["loader_waits_s"])
+    if meta["step"] != FIT_RESUME_STEPS or ran != FIT_RESUME_STEPS - FIT_STEPS:
+        raise AssertionError(f"resume: {ran} steps run, last.npz at step {meta['step']}; want "
+                             f"{FIT_RESUME_STEPS - FIT_STEPS} steps from step {FIT_STEPS}")
+    log(f"resume: {ran} steps from step {FIT_STEPS} in {resume_s:.1f} s; last.npz step "
+        f"{meta['step']}")
+    del engine, trainer
+    torch.cuda.empty_cache()
+
+    # predict: one PNG per val image, each the size of its input
+    KN.reset_counts()
+    t0 = time.perf_counter()
+    main_fn(fit_argv("predict", data_dir, root))
+    predict_s = time.perf_counter() - t0
+    shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+    pngs = sorted((root / "predict").iterdir())
+    sizes = {tuple(png.decode(p.read_bytes()).shape) for p in pngs}
+    log(f"predict: {len(pngs)} PNGs in {predict_s:.1f} s, sizes {sizes}")
+    if len(pngs) != 6 or sizes != {(FIT_RES, FIT_RES + 16, 3)}:
+        raise AssertionError(f"predict wrote {len(pngs)} PNGs of sizes {sizes}")
+    torch.cuda.empty_cache()
+
+    # profiled: steps 2-6 under torch.profiler (trainer.profiler), no validation
+    KN.reset_counts()
+    _, profiled = main_fn(fit_argv("fit", data_dir, work / "profiled", "--trainer.profiler",
+                                   str(work / "trace"), "--trainer.val_check_interval", "0",
+                                   "--trainer.num_sanity_val_steps", "0"))
+    shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+    prof = profiled.profile
+    log(f"profiled fit, steps {prof.get('steps')}: device busy "
+        f"{prof.get('device_busy_s', float('nan')):.4f} s of {prof.get('device_span_s', float('nan')):.4f} s, "
+        f"idle share {prof.get('device_idle_share')}, {prof.get('kernels')} kernels; p50 "
+        f"{profiled.timing['p50_s']:.4f} s/step under the profiler")
+    if not prof.get("kernels"):
+        raise AssertionError(f"the profiled fit recorded no device activity: {prof}")
+    torch.cuda.empty_cache()
+    result = {"res": FIT_RES, "steps": FIT_STEPS, "fit_seconds": fit_s, "peak_mem_gib": peak,
+              "timing": timing, "logs": logged, "checkpoints": ckpts, "direct_step": direct,
+              "launches_per_micro_step": EXPECTED_TRAIN, "validation_launches": val,
+              "trained_leaves": moved,
+              "frozen_leaves_checked": n_frozen_check, "resume_seconds": resume_s,
+              "predict_seconds": predict_s, "predict_pngs": len(pngs),
+              "profile": {**prof, "p50_s_profiled": profiled.timing["p50_s"]}}
+    return result, launches, shapes
+
+
+def trained_leaves_moved(bridge, TS, OPT, engine, trainer, before, last) -> dict:
+    """Every CFRM / Controller / SC-Tuner leaf after the fit against its value
+    before the first step. A leaf may keep its value only where its updates
+    fell below its fp32 resolution: a zero-initialised NAF ``beta`` / ``gamma``
+    or zero conv gates the branch behind it, so at the YAML's first OneCycle
+    rates (peak / 10) that branch's 1-D leaves get gradients near 1e-9 and
+    Adam moves them by far less than one ulp of 1.0. Such a leaf must still
+    have had a gradient: its Adam first moment in ``last.npz`` is not zero."""
+    from unirestore_torch.train import checkpoints as CKPT
+    trained = TS.trained_leaves(engine.stage, engine.trainable)
+    before = bridge.flatten(before)
+    unchanged = [k for k, v in trained.items() if torch.equal(v, before[k])]
+    tx, _ = OPT.build(engine.optimizer_kwargs, engine.lr_scheduler_kwargs, trainer.max_steps,
+                      trainer.timing["batch_size"], trainer.accum, 1)
+    mu = CKPT.restore_opt_state(str(last), tx.init(trained))["mu"]
+    silent = [k for k in unchanged if not mu[k].any()]
+    mu_max = max((mu[k].abs().max().item() for k in unchanged), default=0.0)
+    log(f"fit: {len(trained) - len(unchanged)} of {len(trained)} trained leaves changed; "
+        f"{len(unchanged)} kept their values with nonzero first moments (largest |mu| "
+        f"{mu_max:.3e}): {unchanged[:6]}{' ...' if len(unchanged) > 6 else ''}")
+    if silent:
+        raise AssertionError(f"fit: {len(silent)} trained leaves got no gradient: {silent[:5]}")
+    return {"count": len(trained), "changed": len(trained) - len(unchanged),
+            "below_resolution": unchanged, "largest_first_moment_of_those": mu_max}
+
+
+def frozen_unchanged(bridge, engine) -> int:
+    """The frozen tree after the fit against a fresh seeded build of it: every byte equal."""
+    from unirestore_torch import zoo
+    from unirestore_torch.models import unirestore as UR
+    fresh, _ = UR.init(engine.cfg, device=engine.device, seed=engine.seed)
+    fresh = zoo.load_frozen_backbone(fresh, engine.cfg)
+    fresh = bridge.flatten(fresh)
+    touched = [k for k, v in bridge.flatten(engine.frozen).items()
+               if not torch.equal(v, fresh[k].to(v.dtype))]
+    if touched:
+        raise AssertionError(f"fit: frozen leaves changed: {touched[:5]}")
+    return len(fresh)
+
+
+def merge_shapes(a: dict, b: dict) -> dict:
+    return {k: a[k] | b[k] for k in a}
+
+
+def check_fit_shapes(K, G, KN, shapes, rows, gen) -> int:
+    """Phase 3's comparison at every (shape, dtype) the fit gave a kernel that
+    phase 3's lists do not hold. Returns how many shapes it added."""
+    held = {(kern.symbol, tuple(shape)) for kern, shape, _ in kernel_shapes(K)}
+    held |= {(G.grouped_conv3.symbol, tuple(s)) for s in gconv_shapes()}
+    added = 0
+    with torch.inference_mode():
+        for kern in KN.KERNELS:
+            for shape, dtype in sorted(shapes[kern.symbol], key=str):
+                if (kern.symbol, shape) in held:
+                    continue
+                if dtype != torch.bfloat16:
+                    raise AssertionError(f"{kern.symbol}: the fit launched it in {dtype} at "
+                                         f"{shape}; phase 3 holds bf16 launches only")
+                if kern is G.grouped_conv3:
+                    row = check_gconv(G, shape, gen)
+                else:
+                    heads = shape[2] // 64 if kern is K.fused_attention_btc_prescaled else 1
+                    row = check_kernel(K, kern, shape, heads, gen)
+                row["path"] = "fit"
+                rows[kern.symbol].append(row)
+                held.add((kern.symbol, shape))
+                added += 1
+    return added
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from unirestore_torch import bridge, serve
     from unirestore_torch import graphs as GR
+    from unirestore_torch import main as TMAIN
     from unirestore_torch.models import unirestore as UR
     from unirestore_torch.nn import attention_kernels as K
     from unirestore_torch.nn import grouped_conv as G
     from unirestore_torch.nn import kernels as KN
     from unirestore_torch.ops import png
+    from unirestore_torch.train import engine as TE
     from unirestore_torch.train import optim as OPT
     from unirestore_torch.train import steps as TS
 
@@ -1306,15 +1637,29 @@ def main() -> int:
     serving, paths["serve"], in_process = run_serving(KN, serve, png)
     torch.cuda.empty_cache()
     serving["cuda_graphs"], paths["serve_graph"], _ = run_serving(KN, serve, png, in_process)
+    torch.cuda.empty_cache()
 
-    # phase 9: report; a path routes to a kernel when its expected count is not 0
+    # phase 9: fit, resume and predict through the CLI; then phase 3's
+    # comparison at every shape the fit met that phase 3 had not held
+    fit, paths["fit"], fit_shapes = run_fit(KN, bridge, TE, TS, OPT, TMAIN.main, png)
+    fit["training_step_ms_phase6"] = training["ms_per_step"]
+    fit["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit_shapes, rows, gen)
+    log(f"fit: {fit['shapes_added_to_phase3']} (kernel, shape) pairs held to their plain "
+        f"versions after the fit; CLI p50 {fit['timing']['p50_s'] * 1e3:.1f} ms/step at batch "
+        f"{fit['timing']['batch_size']} vs phase 6's {training['ms_per_step']:.1f} ms/step at "
+        f"batch {BATCH}")
+    torch.cuda.empty_cache()
+
+    # phase 10: report; a path routes to a kernel when its expected count is not 0
     routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
                           for i in range(len(KN.KERNELS))],
               "restore_fused": list(EXPECTED["fused"]),
               "train": [EXPECTED_TRAIN[kern.symbol][0] for kern in KN.KERNELS],
               "serve": [sum(r[4][i] for r in SERVE_REQUESTS) for i in range(len(KN.KERNELS))]}
     routes.update(restore_graph=routes["restore"], restore_fused_graph=routes["restore_fused"],
-                  serve_graph=list(SERVE_BATCH))
+                  serve_graph=list(SERVE_BATCH),
+                  fit=[EXPECTED_TRAIN[kern.symbol][0] + FIT_RESTORE[i]
+                       for i, kern in enumerate(KN.KERNELS)])
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -1351,6 +1696,7 @@ def main() -> int:
                                 "reference": reference}}))
     log(json.dumps({"training": training}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"fit": fit}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

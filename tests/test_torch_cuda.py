@@ -678,3 +678,23 @@ def test_graphed_restore_matches_the_eager_restore(cuda, no_tf32, mode):
     again = graphed(images, "ir", None, 3, **noise)
     torch.cuda.synchronize()
     assert graphed.stats[key].captures == 2 and torch.equal(again, first)
+
+
+def test_device_prefetch_copies_without_a_host_wait(cuda):
+    """``data.loader.device_prefetch``: batches copied on a side stream land
+    before the consumer reads them, and nothing in the loop waits for the card."""
+    from unirestore_torch.data import loader as TDL
+
+    rng = np.random.default_rng(0)
+    batches = [{"hq": rng.uniform(size=(2, 256, 256, 3)).astype(np.float32), "task": "ir"}
+               for _ in range(6)]
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in TDL.device_prefetch(batches, cuda, depth=2):
+            got.append(b["hq"] * 2.0)  # the consumer's work on the current stream
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, b in zip(got, batches):
+        assert g.device.type == "cuda" and b["task"] == "ir"
+        assert torch.equal(g.cpu(), torch.from_numpy(b["hq"]) * 2.0)

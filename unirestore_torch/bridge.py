@@ -103,6 +103,11 @@ def load_tree(src, template, *, device=None, dtype=torch.float32, prefix: str | 
     return unflatten_like(out, template)
 
 
+def cast_tree(tree, dtype):
+    """The same tree with every leaf in ``dtype`` (a leaf already in it is kept, not copied)."""
+    return unflatten_like({k: v.to(dtype) for k, v in flatten(tree).items()}, tree)
+
+
 def to_numpy_tree(tree):
     """The port's tree -> the same tree of float32 numpy arrays in the JAX layout
     (conv kernels OIHW -> HWIO)."""

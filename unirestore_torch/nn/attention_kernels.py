@@ -451,7 +451,7 @@ class AttentionKernel(cuda_lib.KernelWrapper):
             rc = getattr(lib, symbol)(
                 *(x.data_ptr() for x in xs), out.data_ptr(), *dims,
                 cuda_lib.DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
-        self.counted(rc, symbol)
+        self.counted(rc, symbol, q)
         return out
 
 

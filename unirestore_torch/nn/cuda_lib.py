@@ -10,6 +10,9 @@ launches (``launches``), the part of them made while a rematerialised unit
 recomputes its forward in the backward pass (``recompute_launches``, see
 ``nn/remat.py``), and the backward passes through its autograd function
 (``backwards``; a backward is plain PyTorch, never a launch).
+It also keeps the set of (input shape, dtype) its launches were made at
+(``shapes``), so a run can hold each kernel to its plain version at every
+shape it met.
 """
 
 from __future__ import annotations
@@ -106,13 +109,17 @@ class KernelWrapper:
         self.launches = 0
         self.recompute_launches = 0
         self.backwards = 0
+        self.shapes = set()
 
-    def counted(self, rc: int, symbol: str | None = None) -> None:
+    def counted(self, rc: int, symbol: str | None = None, x: torch.Tensor | None = None) -> None:
         """Check the return code of C entry ``symbol`` (default ``self.symbol``;
-        cudaGetLastError after the launch) and count the launch."""
+        cudaGetLastError after the launch), count the launch and note the
+        shape and dtype of its first input ``x``."""
         if rc != 0:
             raise RuntimeError(f"{symbol or self.symbol}: CUDA error {rc}")
         self.launches += 1
+        if x is not None:
+            self.shapes.add((tuple(x.shape), x.dtype))
         if remat.recomputing():
             self.recompute_launches += 1
 

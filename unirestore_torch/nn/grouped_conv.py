@@ -189,7 +189,7 @@ class GroupedConvKernel(cuda_lib.KernelWrapper):
                 x.data_ptr(), wp.data_ptr(), None if bc is None else bc.data_ptr(),
                 out.data_ptr(), bsz, h, wd, c, c // groups,
                 cuda_lib.DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
-        self.counted(rc, symbol)
+        self.counted(rc, symbol, x)
         return out
 
 

@@ -102,7 +102,7 @@ def build_restore(args, noise_fn=None):
         trainable, _ = CKPT.load_trainable(args.checkpoint, trainable)
     sched = UR.schedule(cfg, device=dev)
     dt = torch.float32 if args.tiny else torch.bfloat16
-    frozen, trainable = _cast(frozen, dt), _cast(trainable, dt)
+    frozen, trainable = bridge.cast_tree(frozen, dt), bridge.cast_tree(trainable, dt)
     graphs = (GR.GraphedRestore(frozen, trainable, cfg, sched, device=dev) if args.cuda_graphs
               else None)
 
@@ -135,11 +135,6 @@ def build_restore(args, noise_fn=None):
 
     restore.graphs = graphs
     return restore, cfg
-
-
-def _cast(tree, dtype):
-    return bridge.unflatten_like({k: v.to(dtype) for k, v in bridge.flatten(tree).items()},
-                                 tree)
 
 
 def make_handler(restore, cfg, lock, stats):

@@ -14,12 +14,18 @@ template's value, so new tasks keep their fresh prompts).
 
 The optimizer state is the port's own (``train/optim.py``); restoring it into
 a state of another structure keeps the fresh state, as the JAX function does.
+
+``CheckpointManager`` keeps the ``save_top_k`` best checkpoints by a
+monitored metric under the JAX file's names (``step=<n>-val=<v>.npz``,
+``unirestore_tpu/train/checkpoints.py:129-174``) and adopts the files an
+earlier run left in its directory.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import warnings
 
 import numpy as np
@@ -98,3 +104,46 @@ def restore_opt_state(path: str, opt_state_template):
         else:
             out[key] = type(leaf)(arr)
     return bridge.unflatten_like(out, opt_state_template)
+
+
+class CheckpointManager:
+    """save_top_k by a monitored metric (ModelCheckpoint equivalent,
+    train_stage1.yaml:36-43)."""
+
+    def __init__(self, directory: str, save_top_k: int = 5, mode: str = "max",
+                 monitor: str = "val_monitor"):
+        self.dir = directory
+        self.save_top_k = save_top_k
+        self.mode = mode
+        self.monitor = monitor
+        self._saved: list[tuple[float, str]] = []
+        os.makedirs(directory, exist_ok=True)
+        # adopt checkpoints left by a previous run (trainer.resume) so top-k
+        # pruning spans restarts instead of only this process's saves
+        for fname in sorted(os.listdir(directory)):
+            m = re.fullmatch(r"step=\d+-val=(-?[\d.]+(?:[eE][+-]?\d+)?)\.npz", fname)
+            if m:
+                v = float(m.group(1))
+                self._saved.append((v if mode == "max" else -v, os.path.join(directory, fname)))
+        self._saved.sort(key=lambda t: -t[0])
+
+    def save(self, trainable, step: int, metric_value: float, opt_state=None, metadata=None):
+        fname = os.path.join(self.dir, f"step={step}-val={metric_value:.4f}.npz")
+        save_checkpoint(fname, trainable, step, opt_state,
+                        {**(metadata or {}), self.monitor: metric_value})
+        key = metric_value if self.mode == "max" else -metric_value
+        # a resumed run can re-save an identical step/val file name: replace
+        # the entry, never duplicate it (a duplicate would take a top-k slot,
+        # and popping it would delete the surviving entry's file)
+        self._saved = [t for t in self._saved if t[1] != fname]
+        self._saved.append((key, fname))
+        self._saved.sort(key=lambda t: -t[0])
+        while len(self._saved) > self.save_top_k:
+            _, worst = self._saved.pop()
+            if os.path.exists(worst):
+                os.remove(worst)
+        return fname
+
+    @property
+    def best_path(self):
+        return self._saved[0][1] if self._saved else None

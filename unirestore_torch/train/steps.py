@@ -58,8 +58,11 @@ class StepNoise:
     timesteps: torch.Tensor
 
 
-def draw_noise(cfg: UR.UniRestoreConfig, batch: dict, generator: torch.Generator) -> StepNoise:
-    """``StepNoise`` for ``batch`` drawn from ``generator`` (timesteps from ``TRAIN_TIMESTEPS``)."""
+def draw_noise(cfg: UR.UniRestoreConfig, batch: dict, generator: torch.Generator,
+               table: torch.Tensor | None = None) -> StepNoise:
+    """``StepNoise`` for ``batch`` drawn from ``generator`` (timesteps from
+    ``TRAIN_TIMESTEPS``; ``table``, if given, is that table already on the
+    batch's device, so the draw copies nothing from the host)."""
     hq = batch["hq"]
     b, h, w, _ = hq.shape
     shape = (b, h // 8, w // 8, cfg.vae.latent_channels)
@@ -67,7 +70,8 @@ def draw_noise(cfg: UR.UniRestoreConfig, batch: dict, generator: torch.Generator
     def normal():
         return torch.randn(shape, generator=generator, device=hq.device, dtype=hq.dtype)
 
-    buf = torch.tensor(UR.TRAIN_TIMESTEPS, dtype=torch.int32, device=hq.device)
+    buf = (torch.tensor(UR.TRAIN_TIMESTEPS, dtype=torch.int32, device=hq.device)
+           if table is None else table)
     idx = torch.randint(0, len(buf), (b,), generator=generator, device=hq.device)
     return StepNoise(normal(), normal(), normal(), buf[idx])
 
