@@ -5,6 +5,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+(``--fit-only`` runs phases 1, 2 and 9 alone, while iterating on the
+training entry point; it prints no result line.)
+
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. environment: card name, ``nvidia-smi`` name and power limit, TF32 off;
@@ -116,6 +119,7 @@ It needs one CUDA device and imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -1561,7 +1565,13 @@ def check_fit_shapes(K, G, KN, shapes, rows, gen) -> int:
     return added
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser("chip_smoke")
+    ap.add_argument("--fit-only", action="store_true",
+                    help="phases 1, 2 and 9 alone (phase 9's checks and the fit's shapes held to "
+                         "their plain versions), to iterate on the training entry point; prints "
+                         "phase 9's JSON and no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1595,10 +1605,15 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or ("spill" in line and "0 bytes spill" not in line):
                 log(f"  ptxas {lib.stem.split('-')[0]}: {line.strip()}")
-
-    # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {kern.symbol: [] for kern in KN.KERNELS}
+    if args.fit_only:
+        fit, launches, fit_shapes = run_fit(KN, bridge, TE, TS, OPT, TMAIN.main, png)
+        fit["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit_shapes, rows, gen)
+        log(json.dumps({"fit": fit, "launches": launches}))
+        return 0
+
+    # phase 3: kernels against their plain versions
     with torch.inference_mode():
         for kern, shape, heads in kernel_shapes(K):
             rows[kern.symbol].append(check_kernel(K, kern, shape, heads, gen))
