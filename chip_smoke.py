@@ -5,9 +5,6 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-(``--fit-only`` runs phases 1, 2 and 9 alone, while iterating on the
-training entry point; it prints no result line.)
-
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. environment: card name, ``nvidia-smi`` name and power limit, TF32 off;
@@ -90,14 +87,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the validation restores' launches equal the routing's at one DDIM step;
    every CFRM / Controller / SC-Tuner leaf changed or, where its updates fell
    below its fp32 resolution, carrying a nonzero Adam first moment in
-   ``last.npz``; every frozen byte as a fresh seeded build; ``step=3-...``, ``step=6-...`` and ``last.npz``
-   written; the first micro-step's losses bit-equal to ``make_train_step``
-   called directly on its batch and noise; one micro-step under
+   ``last.npz``; every frozen byte as a fresh seeded build; ``step=3-...``,
+   ``step=6-...`` and ``last.npz`` written; the first micro-step's losses
+   bit-equal to ``make_train_step`` called directly on its batch and noise;
+   one micro-step under
    ``torch.cuda.set_sync_debug_mode("error")``. Then ``--trainer.resume auto
    --trainer.max_steps 8`` (``last.npz`` at step 8), ``predict`` (one PNG per
-   image, each its input's size) and a run profiled over steps 2-6
-   (``--trainer.profiler``: device busy and idle share). Reported: p50
-   s/step and train img/s beside phase 6's, the loader wait per step, peak
+   image, each its input's size), a run without validation timed over
+   micro-steps 2-6 with the card synchronised at both ends, and a run
+   profiled over steps 2-6 (``--trainer.profiler``: device busy and idle
+   share). Reported: the timed run's s/step and train img/s beside phase
+   6's, the trainer's own ``[timing]`` p50 (the host time of a step call,
+   which does not wait for the card), the loader wait per step, peak
    memory. Every (kernel, shape) the fit, resume and predict launched that
    phase 3 did not hold is then held to its plain version as phase 3 holds
    its own (rows with ``"path": "fit"``);
@@ -119,7 +120,6 @@ It needs one CUDA device and imports nothing of JAX.
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import math
@@ -1329,6 +1329,40 @@ class StepProbe:
         return False
 
 
+class WindowTimer:
+    """Wraps ``Trainer._step`` for one fit of ``steps`` micro-steps: the wall
+    time from the end of micro-step 1 to the end of the last, the card
+    synchronised at both ends. It spans ``steps - 1`` whole loop iterations:
+    the loader wait, the batch's cast and the step."""
+
+    def __init__(self, TE, steps: int):
+        self.TE, self.steps, self.marks = TE, steps, []
+
+    def __enter__(self):
+        timer, orig = self, self.TE.Trainer._step
+        self.orig = orig
+
+        def step(trainer, step_fn, trainable, opt_state, batch, i, draw):
+            out = orig(trainer, step_fn, trainable, opt_state, batch, i, draw)
+            if i in (0, timer.steps - 1):
+                torch.cuda.synchronize()
+                timer.marks.append(time.perf_counter())
+            return out
+
+        self.TE.Trainer._step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.TE.Trainer._step = self.orig
+        return False
+
+    @property
+    def seconds(self) -> float:
+        if len(self.marks) != 2:
+            raise AssertionError(f"timed fit: {len(self.marks)} window marks, want 2")
+        return self.marks[1] - self.marks[0]
+
+
 def clone_tree(bridge, tree):
     return bridge.unflatten_like({k: v.detach().clone() for k, v in bridge.flatten(tree).items()},
                                  tree)
@@ -1430,9 +1464,9 @@ def fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
         raise AssertionError(f"fit checkpoints {ckpts}")
     direct = direct_step_check(bridge, TS, OPT, engine, trainer, probe.first)
     timing = {k: v for k, v in trainer.timing.items() if k != "loader_waits_s"}
-    log(f"fit: {fit_s:.1f} s in all; p50 {timing['p50_s']:.4f} s/step (mean "
-        f"{timing['mean_s']:.4f}, {timing['steps']} steps after the first), "
-        f"{timing['batch_size'] / timing['p50_s']:.3f} train img/s; loader wait "
+    log(f"fit: {fit_s:.1f} s in all; host time of a step call (not synchronised) p50 "
+        f"{timing['p50_s']:.4f} s (mean {timing['mean_s']:.4f}, {timing['steps']} steps "
+        f"after the first); loader wait "
         f"{timing['loader_wait_mean_s'] * 1e3:.2f} ms/step (each "
         f"{[round(w * 1e3, 2) for w in trainer.timing['loader_waits_s']]}); peak "
         f"{peak:.1f} GiB; checkpoints {ckpts}")
@@ -1471,22 +1505,42 @@ def fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
         raise AssertionError(f"predict wrote {len(pngs)} PNGs of sizes {sizes}")
     torch.cuda.empty_cache()
 
+    # timed: micro-steps 2-6 synchronised at both ends, no validation
+    KN.reset_counts()
+    no_val = ("--trainer.val_check_interval", "0", "--trainer.num_sanity_val_steps", "0")
+    with WindowTimer(TE, FIT_STEPS) as window:
+        _, timed = main_fn(fit_argv("fit", data_dir, work / "timed", *no_val))
+    shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+    n, batch = FIT_STEPS - 1, timed.timing["batch_size"]
+    waits = timed.timing["loader_waits_s"][1:]
+    timed = {"steps": n, "batch_size": batch, "wall_s": window.seconds,
+             "s_per_step": window.seconds / n, "train_img_s": n * batch / window.seconds,
+             "loader_wait_mean_s": sum(waits) / len(waits),
+             "host_step_call_p50_s": timed.timing["p50_s"]}
+    log(f"timed fit, micro-steps 2-{FIT_STEPS} (card synchronised at both ends): "
+        f"{timed['wall_s']:.4f} s, {timed['s_per_step']:.4f} s/step, "
+        f"{timed['train_img_s']:.3f} train img/s at batch {batch}; loader wait "
+        f"{timed['loader_wait_mean_s'] * 1e3:.2f} ms/step; host time of a step call p50 "
+        f"{timed['host_step_call_p50_s']:.4f} s")
+    torch.cuda.empty_cache()
+
     # profiled: steps 2-6 under torch.profiler (trainer.profiler), no validation
     KN.reset_counts()
     _, profiled = main_fn(fit_argv("fit", data_dir, work / "profiled", "--trainer.profiler",
-                                   str(work / "trace"), "--trainer.val_check_interval", "0",
-                                   "--trainer.num_sanity_val_steps", "0"))
+                                   str(work / "trace"), *no_val))
     shapes = merge_shapes(shapes, kernel_shapes_met(KN))
     prof = profiled.profile
     log(f"profiled fit, steps {prof.get('steps')}: device busy "
-        f"{prof.get('device_busy_s', float('nan')):.4f} s of {prof.get('device_span_s', float('nan')):.4f} s, "
+        f"{prof.get('device_busy_s', float('nan')):.4f} s of "
+        f"{prof.get('device_span_s', float('nan')):.4f} s, "
         f"idle share {prof.get('device_idle_share')}, {prof.get('kernels')} kernels; p50 "
         f"{profiled.timing['p50_s']:.4f} s/step under the profiler")
     if not prof.get("kernels"):
         raise AssertionError(f"the profiled fit recorded no device activity: {prof}")
     torch.cuda.empty_cache()
     result = {"res": FIT_RES, "steps": FIT_STEPS, "fit_seconds": fit_s, "peak_mem_gib": peak,
-              "timing": timing, "logs": logged, "checkpoints": ckpts, "direct_step": direct,
+              "timing": timing, "timed": timed, "logs": logged, "checkpoints": ckpts,
+              "direct_step": direct,
               "launches_per_micro_step": EXPECTED_TRAIN, "validation_launches": val,
               "trained_leaves": moved,
               "frozen_leaves_checked": n_frozen_check, "resume_seconds": resume_s,
@@ -1565,13 +1619,7 @@ def check_fit_shapes(K, G, KN, shapes, rows, gen) -> int:
     return added
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser("chip_smoke")
-    ap.add_argument("--fit-only", action="store_true",
-                    help="phases 1, 2 and 9 alone (phase 9's checks and the fit's shapes held to "
-                         "their plain versions), to iterate on the training entry point; prints "
-                         "phase 9's JSON and no result line")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1607,11 +1655,6 @@ def main(argv=None) -> int:
                 log(f"  ptxas {lib.stem.split('-')[0]}: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {kern.symbol: [] for kern in KN.KERNELS}
-    if args.fit_only:
-        fit, launches, fit_shapes = run_fit(KN, bridge, TE, TS, OPT, TMAIN.main, png)
-        fit["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit_shapes, rows, gen)
-        log(json.dumps({"fit": fit, "launches": launches}))
-        return 0
 
     # phase 3: kernels against their plain versions
     with torch.inference_mode():
@@ -1660,9 +1703,9 @@ def main(argv=None) -> int:
     fit["training_step_ms_phase6"] = training["ms_per_step"]
     fit["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit_shapes, rows, gen)
     log(f"fit: {fit['shapes_added_to_phase3']} (kernel, shape) pairs held to their plain "
-        f"versions after the fit; CLI p50 {fit['timing']['p50_s'] * 1e3:.1f} ms/step at batch "
-        f"{fit['timing']['batch_size']} vs phase 6's {training['ms_per_step']:.1f} ms/step at "
-        f"batch {BATCH}")
+        f"versions after the fit; CLI {fit['timed']['s_per_step'] * 1e3:.1f} ms/step at batch "
+        f"{fit['timed']['batch_size']} (synchronised window) vs phase 6's "
+        f"{training['ms_per_step']:.1f} ms/step at batch {BATCH}")
     torch.cuda.empty_cache()
 
     # phase 10: report; a path routes to a kernel when its expected count is not 0

@@ -112,9 +112,7 @@ def build(cfg: dict, tiny: bool = False, device=None):
     (default: the current CUDA device, which must exist).
 
     The engine trains and restores in bf16 (fp32 trainable masters), in fp32
-    with ``tiny``, as ``unirestore_torch.serve`` does. The trainer writes
-    TensorBoard events when the YAML's logger is a ``TensorBoardLogger``;
-    ``--trainer.logger.class_path null`` keeps the JSONL records only.
+    with ``tiny``, as ``unirestore_torch.serve`` does.
     """
     from .data.engine import DatasetEngine
     from .device import resolve_device
@@ -168,7 +166,6 @@ def build(cfg: dict, tiny: bool = False, device=None):
         split_step=t.get("split_step"),
         fsdp=bool(t.get("fsdp", False)),
         stop_after=t.get("stop_after"),
-        tensorboard=logger.get("class_path") == "TensorBoardLogger",
     )
 
     d = cfg.get("data", {}).get("init_args", {})

@@ -220,8 +220,7 @@ class Trainer:
 
     ``noise_fn(step, batch) -> steps.StepNoise``, if given, supplies each
     micro-step's noise (``step`` counts from 0 at the run's first step)
-    in place of the seeded generator's draws. ``tensorboard`` writes
-    TensorBoard events beside the JSONL metrics when it imports.
+    in place of the seeded generator's draws.
     """
 
     def __init__(self, max_steps: int = 1000, val_check_interval: int = 0,
@@ -234,7 +233,6 @@ class Trainer:
                  split_step: bool | None = None,
                  fsdp: bool = False,
                  stop_after: str | None = None,
-                 tensorboard: bool = True,
                  noise_fn=None):
         if split_step:
             raise NotImplementedError(
@@ -270,7 +268,7 @@ class Trainer:
         self.timing = {}
         self.profile = {}
         from .logging import MetricLogger
-        self.logger = MetricLogger(self.root, "train", use_tensorboard=tensorboard)
+        self.logger = MetricLogger(self.root, "train")
 
     def _log(self, step, logs):
         entry = {"step": step, **{k: float(v) for k, v in logs.items()}}
