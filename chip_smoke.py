@@ -102,6 +102,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    memory. Every (kernel, shape) the fit, resume and predict launched that
    phase 3 did not hold is then held to its plain version as phase 3 holds
    its own (rows with ``"path": "fit"``);
+11. (run after phase 9, before the report) stage 2 through the CLI:
+   ``unirestore_torch.main.main`` with ``fit --config
+   configs/train_stage2.yaml`` and dotted overrides only (phase 9's smoke
+   tree's ir, cls and seg lists, 12 micro-steps, validation every 6 over 2
+   batches, 2 sanity batches, the log directory): the ``mtl`` engine at full
+   width, TFA for ir / cls / seg trained through the frozen ResNet-50 and
+   DeepLabV3+-ResNet-50 critics (seeded, fp32), CFRM / Controller / SC-Tuner
+   frozen, batch 1, 512 px crops, accumulation 6, AdamW and OneCycle. Checks:
+   the mixture gave micro-steps of all three tasks; every micro-step's losses
+   finite; launches per micro-step and task as the routing implies, and the
+   validation restores' as their image sizes route them; only ``tfa`` leaves
+   changed, the frozen tree as a fresh build, both critics as a fresh build;
+   each task's prompt moved or carries a nonzero Adam first moment after the
+   first update; the first micro-step's losses bit-equal to a direct
+   ``make_train_step`` with the same task loss; a seg and a cls micro-step
+   under ``set_sync_debug_mode("error")``; the validation metrics hold
+   ``val_ir_lq/psnr``, the ``r50v1`` accuracies and the ``dlv3pr50`` IoU, and
+   ``val_monitor`` is the IR PSNR; ``step=6-...``, ``step=12-...`` and
+   ``last.npz``; a resume to step 13. Reported: s per micro-step of each task
+   (the card synchronised before and after each, each task's first left
+   out), the loader wait, peak memory, and the critics' share of a cls and a
+   seg micro-step's device time (profiled, by kernel family). Every (kernel,
+   shape) it met that was not held yet is held to its plain version (rows
+   with ``"path": "fit_stage2"``). Then one stage-2 loss for cls and one for
+   seg and the TFA gradient norm at full width, 256 px, fp32, card vs CPU;
 10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
@@ -110,7 +135,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    steps; ``serve``: phase 8's requests; ``restore_graph``,
    ``restore_fused_graph`` and ``serve_graph`` the same on the graph route,
    each graph's launches at capture times its replays; ``fit``: phase 9's
-   first fit, training and validation); each kernel must
+   first fit, training and validation; ``fit_stage2``: phase 11's fit); each
+   kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -125,6 +151,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -202,6 +229,43 @@ FIT_STEPS, FIT_VAL_EVERY, FIT_VAL_BATCHES, FIT_RESUME_STEPS = 6, 3, 2, 8
 FIT_RESTORE = (14, 7, 2, 0, 3)
 FIT_VAL_RESTORES = 2 * (2 + 2 * FIT_VAL_BATCHES)
 FIT_SYNC_CHECK_STEP = 3  # the micro-step run under set_sync_debug_mode("error")
+# phase 11: ``python -m unirestore_torch.main fit`` from the stage-2 YAML (the
+# mtl engine: TFA for ir, cls and seg trained through the frozen ResNet-50
+# and DeepLabV3+ critics; batch 1, accumulation 6) on phase 9's smoke tree,
+# with dotted overrides only: its lists, 12 micro-steps (two AdamW updates),
+# validation every 6 over 2 batches, 2 sanity batches. The data seed of the
+# YAML (the loader's default, 0) draws from the mixture's weights [0.2, 10, 1]
+# over the tree's 6 cls, 4 seg and 6 ir samples the tasks
+# seg seg cls ir seg seg ir cls seg seg seg seg; then a resume to step 13
+FIT2_YAML = REPO / "configs" / "train_stage2.yaml"
+FIT2_LISTS = (("DIVF2KOST", "ir", ("train", "val")), ("ImageNet", "cls", ("train", "val")),
+              ("FoggyCityscapes", "seg", ("train",)), ("Cityscapes", "seg", ("val",)))
+FIT2_STEPS, FIT2_ACCUM, FIT2_VAL_EVERY, FIT2_VAL_BATCHES, FIT2_SANITY = 12, 6, 6, 2, 2
+FIT2_RESUME_STEPS = 13
+FIT2_SYNC_CHECK_STEPS = (4, 7)  # a seg and a cls micro-step, after each task's first
+# launches (forward, recompute, backward) per stage-2 micro-step: no gradient
+# reaches an attention or a grouped conv (CFRM, Controller and SC-Tuner are
+# frozen; the TFA units come after the VAE mid block), so nothing is
+# recomputed or differentiated; one step's Controller and UNet, the three
+# CFRM grouped convs of the lq encode, the VAE mid block in two encodes and
+# one decode, and on cls and seg one more decode (the auxiliary IR loss)
+EXPECTED_STAGE2 = {"ir": {"ur_attention_btc": (14, 0, 0), "ur_attention_bh": (7, 0, 0),
+                          "ur_attention_stream": (3, 0, 0), "ur_attention_btc_out": (0, 0, 0),
+                          "ur_grouped_conv3": (3, 0, 0)}}
+EXPECTED_STAGE2["cls"] = EXPECTED_STAGE2["seg"] = {**EXPECTED_STAGE2["ir"],
+                                                   "ur_attention_stream": (4, 0, 0)}
+# validation restores: the sanity check's 2 ir batches (hq and lq), then at
+# steps 6 and 12 the 2-batch limit over the three loaders in turn: 2 ir
+# batches (hq and lq), 1 cls (hq and lq), 1 seg (lq)
+FIT2_VAL_RESTORES = {"ir": 2 * FIT2_SANITY + 2 * 2 * FIT2_VAL_BATCHES, "cls": 2 * 2, "seg": 2}
+# launches per validation restore, by the loader's image size: ir 512 x 512
+# after the evaluator's crop (latent T = 4096 / 1024 / 256, FIT_RESTORE); cls
+# 512 x 526 (the short edge resized to 512), padded to 512 x 576 (T = 4608 /
+# 1152 / 288: channel-flat attention only at T = 4608, T % 256 != 0 at 1152
+# goes head-major, and the VAE mid block's 512-wide head at T = 4608, not a
+# multiple of 1024, runs the plain version); seg 576 x 592, padded to 576 x
+# 640 (T = 5760 / 1440 / 360: all head-major, the mid block plain)
+FIT2_RESTORE = {"ir": FIT_RESTORE, "cls": (7, 14, 0, 0, 3), "seg": (0, 21, 0, 0, 3)}
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
 # gradient accumulation 2
@@ -1282,50 +1346,79 @@ def serve_graph_checks(KN, graphs, rows, reference, result):
 
 
 class StepProbe:
-    """Wraps ``Trainer._step`` for one fit: per micro-step launch counts
-    (forward, recompute, backward), the first micro-step's trainable tree,
-    batch and noise (for the direct step), and one micro-step run
-    under ``torch.cuda.set_sync_debug_mode("error")``: nothing in the noise
-    draw, the step or the optimizer update may wait for the card or copy from
-    the host. The prefetch's own copies run outside it."""
+    """Wraps ``Trainer._step`` and ``Trainer.validate`` for one fit: per
+    micro-step launch counts (forward, recompute, backward) and task, the
+    first micro-step's trainable tree, batch, noise and task (for the direct
+    step), the first batch and noise of each task, what each validation
+    returned, and the micro-steps ``sync_steps`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in the noise draw,
+    the step or the optimizer update may wait for the card or copy from the
+    host. The prefetch's own copies run outside it. With ``timed``, each
+    micro-step is timed with the card synchronised before and after it, and
+    its losses are read (``logs``); with
+    ``keep_after`` the trainable tree and the Adam first moments after that
+    micro-step are kept."""
 
-    def __init__(self, TE, KN, bridge):
+    def __init__(self, TE, KN, bridge, sync_steps=(FIT_SYNC_CHECK_STEP,), timed=False,
+                 keep_after=None):
         self.TE, self.KN, self.bridge = TE, KN, bridge
-        self.counts, self.first = [], None
+        self.sync_steps, self.timed, self.keep_after = sync_steps, timed, keep_after
+        self.counts, self.tasks, self.seconds, self.metrics, self.logs = [], [], [], [], []
+        self.first, self.first_by_task, self.after = None, {}, None
 
     def __enter__(self):
-        probe, orig = self, self.TE.Trainer._step
-        self.orig = orig
+        probe, orig, orig_validate = self, self.TE.Trainer._step, self.TE.Trainer.validate
+        self.orig, self.orig_validate = orig, orig_validate
 
         def step(trainer, step_fn, trainable, opt_state, batch, i, draw):
             before = train_counts(probe.KN)
             drawn = []
+            task = getattr(step_fn, "task", "ir")
 
             def draw_kept(b):
                 drawn.append(draw(b))
                 return drawn[-1]
 
+            kept = {"batch": {k: v.clone() for k, v in batch.items()}, "task": task}
             if i == 0:
-                probe.first = {"trainable": clone_tree(probe.bridge, trainable),
-                               "batch": {k: v.clone() for k, v in batch.items()}}
-            if i == FIT_SYNC_CHECK_STEP:
+                probe.first = {"trainable": clone_tree(probe.bridge, trainable), **kept}
+            if probe.timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if i in probe.sync_steps:
                 torch.cuda.set_sync_debug_mode("error")
             try:
                 out = orig(trainer, step_fn, trainable, opt_state, batch, i, draw_kept)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
+            if probe.timed:
+                torch.cuda.synchronize()
+                probe.seconds.append(time.perf_counter() - t0)
+                probe.logs.append({k: v.item() for k, v in out[2].items()})
             after = train_counts(probe.KN)
             probe.counts.append({s: tuple(a - b for a, b in zip(after[s], before[s]))
                                  for s in after})
+            probe.tasks.append(task)
             if i == 0:
                 probe.first["noise"] = drawn[0]
+            if task not in probe.first_by_task:
+                probe.first_by_task[task] = {**kept, "noise": drawn[0]}
+            if i == probe.keep_after:
+                probe.after = {"trainable": clone_tree(probe.bridge, out[0]),
+                               "mu": {k: v.clone() for k, v in out[1]["mu"].items()}}
             return out
 
+        def validate(trainer, *args, **kwargs):
+            probe.metrics.append(orig_validate(trainer, *args, **kwargs))
+            return probe.metrics[-1]
+
         self.TE.Trainer._step = step
+        self.TE.Trainer.validate = validate
         return self
 
     def __exit__(self, *exc):
         self.TE.Trainer._step = self.orig
+        self.TE.Trainer.validate = self.orig_validate
         return False
 
 
@@ -1385,36 +1478,36 @@ def fit_argv(command, data_dir: Path, root: Path, *extra) -> list:
             "--trainer.logger.init_args.save_dir", str(root), *extra]
 
 
-def direct_step_check(bridge, TS, OPT, engine, trainer, first) -> dict:
+def direct_step_check(bridge, TS, OPT, engine, trainer, first, te_loss_fn=None) -> dict:
     """The fit's first micro-step against ``make_train_step`` called directly
-    on the same trainable values, batch and noise: the losses bit-equal."""
+    on the same trainable values, batch, noise, task and task loss: the losses
+    bit-equal."""
     tx, _ = OPT.build(engine.optimizer_kwargs, engine.lr_scheduler_kwargs, trainer.max_steps,
                       first["batch"]["hq"].shape[0], trainer.accum, 1)
     tr = first["trainable"]
-    step = TS.make_train_step(engine.frozen, engine.cfg, engine.sched, engine.stage, tx, "ir")
+    step = TS.make_train_step(engine.frozen, engine.cfg, engine.sched, engine.stage, tx,
+                              first["task"], te_loss_fn=te_loss_fn)
     logs = step(tr, tx.init(TS.trained_leaves(engine.stage, tr)), first["batch"],
                 first["noise"])[2]
     logs = {k: v.item() for k, v in logs.items()}
     fit = trainer.logs[0]
     losses = [k for k in logs if k.startswith("train/loss")]
     unequal = {k: (fit[k], logs[k]) for k in losses if fit[k] != logs[k]}
-    log(f"fit step 1 vs a direct make_train_step call on its batch and noise: "
-        f"{len(losses) - len(unequal)} of {len(losses)} losses bit-equal; grad norm "
+    log(f"fit step 1 ({first['task']}) vs a direct make_train_step call on its batch and "
+        f"noise: {len(losses) - len(unequal)} of {len(losses)} losses bit-equal; grad norm "
         f"{fit['train/grad_norm']!r} vs {logs['train/grad_norm']!r}")
     if unequal:
         raise AssertionError(f"fit step 1 losses differ from the direct step: {unequal}")
-    return {"losses_bit_equal": len(losses),
+    return {"task": first["task"], "losses_bit_equal": len(losses),
             "grad_norm_fit": fit["train/grad_norm"], "grad_norm_direct": logs["train/grad_norm"]}
 
 
-def run_fit(KN, bridge, TE, TS, OPT, main_fn, png):
+def run_fit(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
     """Phase 9: ``unirestore_torch.main.main`` fit, resume and predict at full
-    width on the 576 px smoke tree, then a profiled fit. Returns (result,
-    launches by kernel of the first fit, the (shape, dtype) each kernel met)."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
-        return fit_in(KN, bridge, TE, TS, OPT, main_fn, png, Path(work))
+    width on the 576 px smoke tree it makes under ``work/data``, then a timed
+    and a profiled fit. Returns (result, launches by kernel of the first fit,
+    the (shape, dtype) each kernel met)."""
+    return fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work)
 
 
 def fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
@@ -1593,11 +1686,13 @@ def merge_shapes(a: dict, b: dict) -> dict:
     return {k: a[k] | b[k] for k in a}
 
 
-def check_fit_shapes(K, G, KN, shapes, rows, gen) -> int:
-    """Phase 3's comparison at every (shape, dtype) the fit gave a kernel that
-    phase 3's lists do not hold. Returns how many shapes it added."""
+def check_fit_shapes(K, G, KN, shapes, rows, gen, path: str = "fit") -> int:
+    """Phase 3's comparison at every (shape, dtype) a fit gave a kernel that
+    phase 3's lists and the rows already held do not hold (rows marked
+    ``"path": path``). Returns how many shapes it added."""
     held = {(kern.symbol, tuple(shape)) for kern, shape, _ in kernel_shapes(K)}
     held |= {(G.grouped_conv3.symbol, tuple(s)) for s in gconv_shapes()}
+    held |= {(symbol, tuple(row["shape"])) for symbol, rs in rows.items() for row in rs}
     added = 0
     with torch.inference_mode():
         for kern in KN.KERNELS:
@@ -1605,18 +1700,299 @@ def check_fit_shapes(K, G, KN, shapes, rows, gen) -> int:
                 if (kern.symbol, shape) in held:
                     continue
                 if dtype != torch.bfloat16:
-                    raise AssertionError(f"{kern.symbol}: the fit launched it in {dtype} at "
+                    raise AssertionError(f"{kern.symbol}: the {path} launched it in {dtype} at "
                                          f"{shape}; phase 3 holds bf16 launches only")
                 if kern is G.grouped_conv3:
                     row = check_gconv(G, shape, gen)
                 else:
                     heads = shape[2] // 64 if kern is K.fused_attention_btc_prescaled else 1
                     row = check_kernel(K, kern, shape, heads, gen)
-                row["path"] = "fit"
+                row["path"] = path
                 rows[kern.symbol].append(row)
                 held.add((kern.symbol, shape))
                 added += 1
     return added
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the stage-2 fit through the CLI
+# ---------------------------------------------------------------------------
+
+
+def fit2_argv(command, data_dir: Path, root: Path, *extra) -> list:
+    """``unirestore_torch.main`` arguments: the stage-2 YAML with dotted overrides only
+    (the smoke tree's lists, the step counts, validation and the log directory)."""
+    lists = data_dir / "lists"
+    argv = [command, "--config", str(FIT2_YAML)]
+    for name, lst, splits in FIT2_LISTS:
+        for split in splits:
+            argv += [f"--data.init_args.dataset_dict.{name}.{split}", str(lists / f"{lst}.list")]
+    return argv + ["--trainer.max_steps", str(FIT2_STEPS),
+                   "--trainer.val_check_interval", str(FIT2_VAL_EVERY),
+                   "--trainer.limit_val_batches", str(FIT2_VAL_BATCHES),
+                   "--trainer.num_sanity_val_steps", str(FIT2_SANITY),
+                   "--trainer.logger.init_args.save_dir", str(root), *extra]
+
+
+def profiled_device(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: the card's busy seconds, by
+    kernel family (``tools/profile_torch_restore.py:family``) and in all, and
+    the number of kernels."""
+    import importlib.util
+
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = importlib.util.spec_from_file_location("profile_torch_restore",
+                                                  REPO / "tools" / "profile_torch_restore.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_family, n = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            fam = tool.family(evt.name)
+            by_family[fam] = by_family.get(fam, 0.0) + evt.time_range.elapsed_us() / 1e6
+            n += 1
+    return {"device_busy_s": sum(by_family.values()), "kernels": n,
+            "device_s_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1]))}
+
+
+def critic_share(bridge, TS, OPT, engine, trainer, probe) -> dict:
+    """The critics' share of a ``cls`` and a ``seg`` micro-step's device time:
+    the card's busy time in the critic's forward and backward pass alone (the
+    task loss on fp32 predictions of the micro-step's shape, differentiated to
+    the predictions) over its busy time in a whole micro-step on the task's
+    first batch and noise of the fit, both profiled after a warm-up."""
+    te_fn = engine.te_loss_fn()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for task in ("cls", "seg"):
+        first = probe.first_by_task[task]
+        batch, noise = first["batch"], first["noise"]
+        tr = clone_tree(bridge, engine.trainable)
+        tx, _ = OPT.build(engine.optimizer_kwargs, engine.lr_scheduler_kwargs,
+                          trainer.max_steps, batch["hq"].shape[0], trainer.accum, 1)
+        state = tx.init(TS.trained_leaves(engine.stage, tr))
+        step = TS.make_train_step(engine.frozen, engine.cfg, engine.sched, engine.stage, tx,
+                                  task, te_loss_fn=te_fn)
+        preds = torch.rand(batch["hq"].shape, generator=gen, device="cuda")
+
+        def micro_step():
+            step(tr, state, batch, noise)
+
+        def critic():
+            p = preds.clone().requires_grad_(True)
+            with torch.enable_grad():
+                torch.autograd.grad(te_fn(p, batch["hq"], batch["gt"], task), [p])
+
+        micro_step()
+        critic()
+        whole, alone = profiled_device(micro_step), profiled_device(critic)
+        share = alone["device_busy_s"] / whole["device_busy_s"]
+        out[task] = {"micro_step": whole, "critic": alone, "critic_share": share}
+        log(f"stage-2 {task} micro-step, profiled: device busy {whole['device_busy_s']:.4f} s "
+            f"({whole['kernels']} kernels); the critic's forward and backward alone "
+            f"{alone['device_busy_s']:.4f} s ({alone['kernels']} kernels): share {share:.3f}; "
+            f"micro-step by family {whole['device_s_by_family']}")
+    return out
+
+
+def run_fit_stage2(KN, bridge, TE, TS, OPT, main_fn, work: Path):
+    """Phase 11: ``unirestore_torch.main.main`` fit from the stage-2 YAML on
+    phase 9's smoke tree under ``work/data``, its checks, the critics' share
+    of a micro-step, and a resume. Returns (result, launches by kernel of the
+    fit, the (shape, dtype) each kernel met)."""
+    data_dir, root = work / "data", work / "stage2"
+    symbols = [kern.symbol for kern in KN.KERNELS]
+    KN.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepProbe(TE, KN, bridge, sync_steps=FIT2_SYNC_CHECK_STEPS, timed=True,
+                   keep_after=FIT2_ACCUM - 1) as probe:
+        engine, trainer = main_fn(fit2_argv("fit", data_dir, root))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
+    shapes = kernel_shapes_met(KN)
+
+    tasks = tuple(probe.tasks)
+    log(f"stage-2 fit: micro-step tasks {tasks}")
+    if len(tasks) != FIT2_STEPS or set(tasks) != {"ir", "cls", "seg"}:
+        raise AssertionError(f"stage-2 fit: micro-steps {tasks}; want {FIT2_STEPS} covering "
+                             "ir, cls and seg")
+    for i, (task, counts) in enumerate(zip(tasks, probe.counts)):
+        if counts != EXPECTED_STAGE2[task]:
+            raise AssertionError(f"stage-2 micro-step {i + 1} ({task}): launches {counts} != "
+                                 f"{EXPECTED_STAGE2[task]}")
+    val = tuple(launches[s] - sum(EXPECTED_STAGE2[t][s][0] for t in tasks) for s in symbols)
+    want_val = tuple(sum(FIT2_VAL_RESTORES[t] * FIT2_RESTORE[t][i] for t in FIT2_RESTORE)
+                     for i in range(len(symbols)))
+    log(f"stage-2 fit: launches per micro-step as the routing implies for every task "
+        f"({ {t: EXPECTED_STAGE2[t]['ur_attention_stream'] for t in ('ir', 'cls', 'seg')} } "
+        f"wide-head); validation launches {val} = restores {FIT2_VAL_RESTORES} x "
+        f"{FIT2_RESTORE}: {val == want_val}")
+    if val != want_val:
+        raise AssertionError(f"stage-2 validation launches {val} != {want_val}")
+    logged = probe.logs
+    if len(logged) != FIT2_STEPS or not all(math.isfinite(v) for e in logged
+                                            for v in e.values()):
+        raise AssertionError(f"stage-2 fit: non-finite or missing losses {logged}")
+
+    # only the TFA leaves train; the frozen tree and both critics stay as built
+    before, now = bridge.flatten(probe.first["trainable"]), bridge.flatten(engine.trainable)
+    changed = [k for k in now if not torch.equal(now[k], before[k])]
+    families = sorted({k.split("//")[0] for k in changed})
+    n_tfa = sum(k.startswith("tfa//") for k in now)
+    log(f"stage-2 fit: {len(changed)} of {n_tfa} TFA leaves changed; families changed "
+        f"{families}")
+    if families != ["tfa"]:
+        raise AssertionError(f"stage-2 fit changed {families}; only tfa may change")
+    n_frozen = frozen_unchanged(bridge, engine)
+    fresh = bridge.flatten(TE.build_critics("mtl", device=engine.device))
+    critics = bridge.flatten(engine.critics)
+    touched = [k for k in fresh if not torch.equal(fresh[k], critics[k])]
+    if touched or fresh.keys() != critics.keys():
+        raise AssertionError(f"stage-2 fit changed the critics: {touched[:5]}")
+
+    # CE reaches each task's prompt: after the first update each prompt moved
+    # or carries a nonzero first moment
+    prompts = {}
+    for task in ("ir", "cls", "seg"):
+        k = f"tfa//task_prompts//{task}"
+        moved = not torch.equal(bridge.flatten(probe.after["trainable"])[k], before[k])
+        mu = probe.after["mu"][k].abs().max().item()
+        prompts[task] = {"moved": moved, "max_abs_first_moment": mu}
+        if not moved and mu == 0.0:
+            raise AssertionError(f"stage-2 fit: the {task} prompt got no gradient before the "
+                                 "first update")
+    log(f"stage-2 fit: task prompts after the first update {prompts}")
+
+    direct = direct_step_check(bridge, TS, OPT, engine, trainer, probe.first,
+                               te_loss_fn=engine.te_loss_fn())
+    metrics = probe.metrics
+    need = {"val_ir_lq/psnr", "val_cls_lq/r50v1", "val_cls_hq/r50v1", "val_seg_lq/dlv3pr50",
+            "val_monitor"}
+    if len(metrics) != FIT2_STEPS // FIT2_VAL_EVERY or any(
+            not need <= m.keys() or m["val_monitor"] != m["val_ir_lq/psnr"] for m in metrics):
+        raise AssertionError(f"stage-2 validation metrics {metrics}")
+    ckpts = sorted(p.name for p in (root / "checkpoints").iterdir())
+    if (len(ckpts) != 3 or ckpts[0] != "last.npz"
+            or not ckpts[1].startswith(f"step={FIT2_STEPS}-val=")
+            or not ckpts[2].startswith(f"step={FIT2_VAL_EVERY}-val=")):
+        raise AssertionError(f"stage-2 fit checkpoints {ckpts}")
+
+    # s per micro-step of each task, the card synchronised before and after
+    # each; each task's first micro-step is its warm-up
+    per_task = {}
+    for task in ("ir", "cls", "seg"):
+        secs = [s for t, s in zip(tasks, probe.seconds) if t == task]
+        per_task[task] = {"micro_steps": len(secs), "first_s": secs[0],
+                          "s_per_step": sum(secs[1:]) / len(secs[1:]), "each_s": secs}
+    waits = trainer.timing["loader_waits_s"]
+    share = critic_share(bridge, TS, OPT, engine, trainer, probe)
+    log(f"stage-2 fit: {fit_s:.1f} s in all; s per micro-step after each task's first "
+        f"(synchronised) " + ", ".join(f"{t} {v['s_per_step']:.4f} ({v['micro_steps'] - 1})"
+                                       for t, v in per_task.items())
+        + f"; loader wait {sum(waits) / len(waits) * 1e3:.2f} ms/step (each "
+        f"{[round(w * 1e3, 2) for w in waits]}); peak {peak:.2f} GiB; checkpoints {ckpts}; "
+        f"validation {metrics[-1]}")
+    del probe, engine, trainer
+    torch.cuda.empty_cache()
+
+    # resume to a later step
+    KN.reset_counts()
+    t0 = time.perf_counter()
+    _, trainer = main_fn(fit2_argv("fit", data_dir, root, "--trainer.resume", "auto",
+                                   "--trainer.max_steps", str(FIT2_RESUME_STEPS),
+                                   "--trainer.num_sanity_val_steps", "0"))
+    resume_s = time.perf_counter() - t0
+    shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+    from unirestore_torch.train import checkpoints as CKPT
+    meta = CKPT.load_checkpoint(str(root / "checkpoints" / "last.npz"))[1]
+    ran = len(trainer.timing["loader_waits_s"])
+    if meta["step"] != FIT2_RESUME_STEPS or ran != FIT2_RESUME_STEPS - FIT2_STEPS:
+        raise AssertionError(f"stage-2 resume: {ran} steps run, last.npz at step "
+                             f"{meta['step']}; want {FIT2_RESUME_STEPS - FIT2_STEPS} from step "
+                             f"{FIT2_STEPS}")
+    log(f"stage-2 resume: {ran} step from step {FIT2_STEPS} in {resume_s:.1f} s; last.npz step "
+        f"{meta['step']}")
+    del trainer
+    torch.cuda.empty_cache()
+    result = {"res": FIT_RES, "steps": FIT2_STEPS, "accumulation": FIT2_ACCUM, "tasks": tasks,
+              "fit_seconds": fit_s, "peak_mem_gib": peak, "s_per_micro_step": per_task,
+              "loader_wait_mean_s": sum(waits) / len(waits), "loader_waits_s": waits,
+              "logs": logged, "validation": metrics, "checkpoints": ckpts,
+              "direct_step": direct, "launches_per_micro_step": EXPECTED_STAGE2,
+              "validation_launches": val, "tfa_leaves_changed": len(changed),
+              "tfa_leaves": n_tfa, "prompts_after_first_update": prompts,
+              "frozen_leaves_checked": n_frozen, "critic_leaves_checked": len(fresh),
+              "critic_share": share, "resume_seconds": resume_s}
+    return result, launches, shapes
+
+
+def train2_reference_check(UR, KN, bridge, TS, TE) -> dict:
+    """Phase 11: one stage-2 loss for ``cls`` and one for ``seg`` and the TFA
+    gradient norm, full widths with the critics, 256 px, fp32, card vs CPU."""
+    cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
+    frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=11)
+    critics = TE.build_critics("mtl", device="cuda")
+    cpu_trees = (to_cpu(bridge, frozen), to_cpu(bridge, trainable), to_cpu(bridge, critics))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True, multi_task=True)
+    cfg_r = TS.with_remat(cfg)
+
+    def run(device, tree_f, tree_t, crit, batch, noise, task):
+        leaves = TS.trained_leaves(stage, tree_t)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        try:
+            nz = TS.StepNoise(*(x.to(device) for x in (noise.hq, noise.lq, noise.diffusion,
+                                                       noise.timesteps)))
+            loss, logs = TS.compute_losses(tree_f, tree_t, cfg_r, UR.schedule(cfg, device=device),
+                                           stage, {k: v.to(device) for k, v in batch.items()},
+                                           nz, task, TE.make_te_loss_fn("mtl", crit))
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        finally:
+            for p in leaves.values():
+                p.requires_grad_(False)
+        norm = sum(g.double().square().sum().item() for g in grads if g is not None) ** 0.5
+        return {k: v.item() for k, v in logs.items()}, norm
+
+    out = {}
+    for task in ("cls", "seg"):
+        batch = synthetic_pair(gen, 1, 256, torch.float32)
+        if task == "cls":
+            batch["gt"] = torch.tensor([417], device="cuda")
+        else:
+            labels = torch.randint(0, 19, (1, 256, 256), generator=gen, device="cuda")
+            labels[:, :32] = 255
+            batch["gt"] = labels
+        noise = TS.draw_noise(cfg, batch, gen)
+        KN.reset_counts()
+        gpu_logs, gpu_norm = run("cuda", frozen, trainable, critics, batch, noise, task)
+        counts = train_counts(KN)
+        t0 = time.perf_counter()
+        cpu_logs, cpu_norm = run("cpu", *cpu_trees, batch, noise, task)
+        cpu_s = time.perf_counter() - t0
+        loss_err = max(abs(gpu_logs[k] - cpu_logs[k]) / abs(cpu_logs[k]) for k in cpu_logs)
+        grad_err = abs(gpu_norm - cpu_norm) / cpu_norm
+        log(f"stage-2 reference {task}, 256 px fp32: card vs CPU max relative loss error "
+            f"{loss_err:.3e} (limit {TRAIN_LOSS_RTOL}), TFA gradient norm {gpu_norm:.6g} vs "
+            f"{cpu_norm:.6g}, error {grad_err:.3e} (limit {TRAIN_GRAD_RTOL}); losses card "
+            f"{gpu_logs} CPU {cpu_logs}; card launches {counts}; CPU {cpu_s:.1f} s")
+        finite = all(math.isfinite(v) for v in (*gpu_logs.values(), gpu_norm))
+        if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"card and CPU stage-2 {task} steps differ")
+        if any(counts[s][0] == 0 for s, c in EXPECTED_STAGE2[task].items() if c[0]):
+            raise AssertionError(f"a kernel did not run in the stage-2 reference: {counts}")
+        out[task] = {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err,
+                     "tfa_grad_norm_card": gpu_norm, "tfa_grad_norm_cpu": cpu_norm,
+                     "cpu_seconds": cpu_s}
+    return out
 
 
 def main() -> int:
@@ -1697,15 +2073,32 @@ def main() -> int:
     serving["cuda_graphs"], paths["serve_graph"], _ = run_serving(KN, serve, png, in_process)
     torch.cuda.empty_cache()
 
-    # phase 9: fit, resume and predict through the CLI; then phase 3's
-    # comparison at every shape the fit met that phase 3 had not held
-    fit, paths["fit"], fit_shapes = run_fit(KN, bridge, TE, TS, OPT, TMAIN.main, png)
-    fit["training_step_ms_phase6"] = training["ms_per_step"]
-    fit["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit_shapes, rows, gen)
-    log(f"fit: {fit['shapes_added_to_phase3']} (kernel, shape) pairs held to their plain "
-        f"versions after the fit; CLI {fit['timed']['s_per_step'] * 1e3:.1f} ms/step at batch "
-        f"{fit['timed']['batch_size']} (synchronised window) vs phase 6's "
-        f"{training['ms_per_step']:.1f} ms/step at batch {BATCH}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
+        # phase 9: fit, resume and predict through the CLI; then phase 3's
+        # comparison at every shape the fit met that phase 3 had not held
+        fit, paths["fit"], fit_shapes = run_fit(KN, bridge, TE, TS, OPT, TMAIN.main, png,
+                                                Path(work))
+        fit["training_step_ms_phase6"] = training["ms_per_step"]
+        fit["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit_shapes, rows, gen)
+        log(f"fit: {fit['shapes_added_to_phase3']} (kernel, shape) pairs held to their plain "
+            f"versions after the fit; CLI {fit['timed']['s_per_step'] * 1e3:.1f} ms/step at "
+            f"batch {fit['timed']['batch_size']} (synchronised window) vs phase 6's "
+            f"{training['ms_per_step']:.1f} ms/step at batch {BATCH}")
+        torch.cuda.empty_cache()
+
+        # phase 11: the stage-2 fit through the CLI on phase 9's smoke tree;
+        # phase 3's comparison at the shapes it met that were not held yet;
+        # then two stage-2 losses and the TFA gradient, card vs CPU
+        t0 = time.perf_counter()
+        fit2, paths["fit_stage2"], fit2_shapes = run_fit_stage2(KN, bridge, TE, TS, OPT,
+                                                                TMAIN.main, Path(work))
+    fit2["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit2_shapes, rows, gen,
+                                                      path="fit_stage2")
+    torch.cuda.empty_cache()
+    fit2["reference"] = train2_reference_check(UR, KN, bridge, TS, TE)
+    fit2["phase_seconds"] = time.perf_counter() - t0
+    log(f"stage-2 fit: {fit2['shapes_added_to_phase3']} (kernel, shape) pairs held to their "
+        f"plain versions after it; phase 11 took {fit2['phase_seconds']:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 10: report; a path routes to a kernel when its expected count is not 0
@@ -1717,7 +2110,9 @@ def main() -> int:
     routes.update(restore_graph=routes["restore"], restore_fused_graph=routes["restore_fused"],
                   serve_graph=list(SERVE_BATCH),
                   fit=[EXPECTED_TRAIN[kern.symbol][0] + FIT_RESTORE[i]
-                       for i, kern in enumerate(KN.KERNELS)])
+                       for i, kern in enumerate(KN.KERNELS)],
+                  fit_stage2=[EXPECTED_STAGE2["ir"][kern.symbol][0] + FIT_RESTORE[i]
+                              for i, kern in enumerate(KN.KERNELS)])
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -1755,6 +2150,7 @@ def main() -> int:
     log(json.dumps({"training": training}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"fit": fit}))
+    log(json.dumps({"fit_stage2": fit2}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -170,7 +170,9 @@ walked = {{'unirestore_torch.serve', 'unirestore_torch.zoo', 'unirestore_torch.o
            'unirestore_torch.ops.tiling', 'unirestore_torch.nn.attention_kernels',
            'unirestore_torch.main', 'unirestore_torch.config', 'unirestore_torch.train.engine',
            'unirestore_torch.data.loader', 'unirestore_torch.data.corruption.native',
-           'unirestore_torch.evalx.lpips', 'unirestore_torch.evalx.evaluators'}}
+           'unirestore_torch.evalx.lpips', 'unirestore_torch.evalx.evaluators',
+           'unirestore_torch.tasks', 'unirestore_torch.tasks.resnet',
+           'unirestore_torch.tasks.deeplab'}}
 assert walked <= set(sys.modules), walked - set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

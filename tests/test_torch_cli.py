@@ -26,6 +26,18 @@
 - The CLI as subprocesses on the CPU: ``fit`` with a validation interval,
   resumed with ``--trainer.resume auto``, and ``predict``; without a GPU
   and without ``--device`` it raises.
+- Stage 2 from ``configs/train_stage2.yaml`` (the ``mtl`` engine) on the
+  128 px smoke tree at a 128 px crop, the lists and step counts given as
+  dotted overrides: the port's ``Trainer.fit`` against the JAX one over two
+  micro-steps at accumulation 1 (two AdamW updates; the mixture's seed-0
+  draws make both ``seg`` steps, through DeepLabV3+), eps 1e-3 and
+  ``base_lr`` 4e-3 as above, both engines on one set of critics
+  (``test_torch_tasks.jax_critics``): every TFA leaf within 1e-5, every
+  other family bit-unchanged in both, the losses within 1e-5 relative. Then
+  the CLI as subprocesses: ``fit`` with sanity validation and a validation
+  interval (tasks seg, seg, cls, ir), ``validate`` and ``predict``. A ``cls``
+  batch's integer labels reach the step as int64 when the engine computes in
+  bf16.
 
 Both engines start from the port's seeded init (zero leaves filled), handed
 to the JAX engine in its layout (``test_torch_eval.jax_layout``); the JAX
@@ -48,6 +60,7 @@ import torch
 from test_torch_bridge import to_np
 from test_torch_data import make_smoke_tree
 from test_torch_eval import filled_init, jax_layout
+from test_torch_tasks import jax_critics
 from test_torch_train import _jax_noise
 from unirestore_torch import bridge
 from unirestore_torch import config as TC
@@ -55,6 +68,7 @@ from unirestore_torch import main as TMAIN
 from unirestore_torch.models import unirestore as TUR
 from unirestore_torch.ops import png
 from unirestore_torch.train import checkpoints as TCK
+from unirestore_torch.train import engine as TE
 from unirestore_torch.train import optim as TOPT
 from unirestore_torch.train import steps as TS
 from unirestore_tpu import config as JC
@@ -66,6 +80,11 @@ from unirestore_tpu.train import engine as JE
 REPO = Path(__file__).resolve().parent.parent
 STEPS = 4
 EPS = 1e-3
+STAGE2_YAML = REPO / "configs" / "train_stage2.yaml"
+STAGE2_STEPS = 2
+STAGE2_PARITY = ["--trainer.max_steps", str(STAGE2_STEPS), "--trainer.accumulate_grad_batches",
+                 "1", "--model.init_args.optimizer_kwargs.base_lr", "4e-3",
+                 "--trainer.num_sanity_val_steps", "0"]
 PARITY = ["--trainer.max_steps", str(STEPS), "--model.init_args.optimizer_kwargs.base_lr", "4e-3",
           "--data.init_args.train.resolution", "128"]
 NO_TENSORBOARD = ("tensorflow", "torch.utils.tensorboard")
@@ -130,6 +149,48 @@ def jax_fit(smoke128, tmp_path_factory):
 
 def _overrides(root, *extra):
     return ["--trainer.logger.init_args.save_dir", str(root), *extra]
+
+
+def _stage2_overrides(smoke_yaml, root, *extra):
+    """The stage-2 YAML's dotted overrides onto a smoke tree: its lists, a
+    128 px crop, no loader threads, the log directory."""
+    lists = Path(smoke_yaml).parent / "lists"
+    out = []
+    for name, lst, splits in (("DIVF2KOST", "ir", ("train", "val")),
+                              ("ImageNet", "cls", ("train", "val")),
+                              ("FoggyCityscapes", "seg", ("train",)),
+                              ("Cityscapes", "seg", ("val",))):
+        for split in splits:
+            out += [f"--data.init_args.dataset_dict.{name}.{split}", str(lists / f"{lst}.list")]
+    return out + ["--data.init_args.train.resolution", "128", "--data.init_args.num_workers", "0",
+                  *_overrides(root, *extra)]
+
+
+@pytest.fixture(scope="module")
+def jax_fit_stage2(smoke128, tmp_path_factory):
+    """The JAX stage-2 ``Trainer.fit`` of the parity comparison, run once."""
+    root = tmp_path_factory.mktemp("jax_stage2")
+    ct = TUR.tiny_config(use_tfa=True, tasks=("ir", "cls", "seg"))
+    frozen, trainable = filled_init(ct)
+    pair = (jax_layout(frozen), jax_layout(trainable))
+    critics = jax_critics()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in NO_TENSORBOARD:
+            mp.setitem(sys.modules, name, None)
+        mp.setattr(JE, "make_mesh", lambda: JMESH.make_mesh(jax.devices()[:1]))
+        mp.setattr(JUR, "init", lambda key, cfg: pair)
+        mp.setattr(JE, "build_critics",
+                   lambda *a, **k: jax.tree.map(jax.numpy.asarray, critics))
+        mp.setattr(optax, "adamw", _forcing(optax.adamw, eps=EPS))
+        jcfg = JC.load_config(STAGE2_YAML, _stage2_overrides(smoke128, root, *STAGE2_PARITY))
+        jeng, jtr, jdata, _ = JC.build(jcfg, tiny=True)
+        jtr.fit(jeng, jdata, None)
+    rng, keys = jax.random.fold_in(jax.random.PRNGKey(42), 0), []
+    for _ in range(STAGE2_STEPS):
+        rng, sub = jax.random.split(rng)
+        keys.append(sub)
+    return {"init": (frozen, trainable), "critics": critics, "engine": jeng, "trainer": jtr,
+            "keys": keys, "smoke": smoke128}
 
 
 def _port_run(smoke, root, *extra, noise_fn=None, params=None):
@@ -282,6 +343,105 @@ def test_cli_needs_a_gpu_unless_a_device_is_given(smoke, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TMAIN.main(["fit", "--config", str(smoke), "--tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMAIN.main(["fit", "--config", str(STAGE2_YAML), "--tiny"])
     with pytest.raises(SystemExit):
         TMAIN.main(["fit", "--config", str(smoke), "--tiny", "--device", "cpu",
                     "--distributed"])
+
+
+def test_stage2_fit_matches_jax(tmp_path, jax_fit_stage2, monkeypatch):
+    jf = jax_fit_stage2
+    jeng, keys = jf["engine"], jf["keys"]
+    monkeypatch.setattr(TOPT, "AdamW", _forcing(TOPT.AdamW, eps=EPS))
+    cfg = TC.load_config(STAGE2_YAML, _stage2_overrides(jf["smoke"], tmp_path, *STAGE2_PARITY))
+    teng, ttr, data, _ = TC.build(cfg, tiny=True, device="cpu")
+    init = tuple(bridge.unflatten_like({k: v.clone() for k, v in bridge.flatten(t).items()}, t)
+                 for t in jf["init"])
+    teng.configure_model(init)
+    teng.critics = bridge.critics_from_jax(jf["critics"], device="cpu")
+    ttr.noise_fn = lambda step, batch: _jax_noise(jeng.cfg, {"hq": batch["hq"].numpy()},
+                                                  keys[step])
+    ttr.fit(teng, data, None)
+
+    jtr = jf["trainer"]
+    assert [e["step"] for e in ttr.logs] == [e["step"] for e in jtr.logs] == [1]
+    for got, want in zip(ttr.logs, jtr.logs):
+        assert "train/loss_seg" in want
+        for k, v in want.items():
+            if k.startswith("train/"):
+                np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=k)
+    want = bridge.flatten(bridge.load_tree(jax.tree.map(np.asarray, jeng.trainable),
+                                           teng.trainable, device="cpu"))
+    before = bridge.flatten(jf["init"][1])
+    moved = set()
+    for k, p in bridge.flatten(teng.trainable).items():
+        if k.startswith("tfa//"):
+            np.testing.assert_allclose(to_np(p), to_np(want[k]), atol=1e-5, rtol=0, err_msg=k)
+            moved |= {k} if not torch.equal(p, before[k]) else set()
+        else:  # the frozen families: bit-unchanged in both
+            assert torch.equal(p, before[k]) and torch.equal(want[k], before[k]), k
+    assert moved == {k for k in want if k.startswith("tfa//")}
+
+
+def test_stage2_cli_fit_validate_and_predict_on_the_cpu(smoke128, tmp_path):
+    root = tmp_path / "logs"
+    base = ["--config", str(STAGE2_YAML), "--tiny", "--device", "cpu",
+            *_stage2_overrides(smoke128, root, "--trainer.limit_val_batches", "3")]
+    out = _cli("fit", *base, "--trainer.max_steps", "4", "--trainer.val_check_interval", "4",
+               "--trainer.accumulate_grad_batches", "2", "--trainer.log_every_n_steps", "1")
+    assert "Skipping frenc ckpt placeholder" in out and "Skipping cnet ckpt placeholder" in out
+    assert "[sanity] running 2 validation steps" in out and "[fit] done at step 4" in out
+    for task in ("seg", "cls", "ir"):
+        assert f"train/loss_{task}=" in out, task
+    for key in ("val_ir_lq/psnr", "val_cls_lq/r50v1", "val_cls_hq/r50v1", "val_seg_lq/dlv3pr50"):
+        assert key in out, key
+    ckpts = sorted(p.name for p in (root / "checkpoints").iterdir())
+    assert len(ckpts) == 2 and ckpts[0] == "last.npz" and ckpts[1].startswith("step=4-val=")
+    flat, meta = TCK.load_checkpoint(str(root / "checkpoints" / "last.npz"))
+    assert meta["step"] == 4
+    # only the TFA leaves train: the rest of last.npz is the seeded init
+    ct = TUR.tiny_config(use_tfa=True, tasks=("ir", "cls", "seg"))
+    _, init = TUR.init(ct, device="cpu", seed=42)
+    moved = set()
+    for k, v in bridge.flatten(bridge.to_numpy_tree(init)).items():
+        saved = flat[f"trainable//{k}"]
+        if not np.array_equal(saved, v):
+            moved.add(k.split("//")[0])
+    assert moved == {"tfa"}
+
+    out = _cli("validate", *base)
+    assert "val_monitor" in out and "val_seg_lq/dlv3pr50" in out
+    out = _cli("predict", *base)
+    pngs = sorted((root / "predict").iterdir())
+    assert "[predict] wrote outputs" in out and len(pngs) >= 10
+    for p in pngs:
+        assert png.decode(p.read_bytes()).dtype == np.uint8
+
+
+def test_integer_labels_keep_their_dtype_in_a_bf16_fit(smoke128, tmp_path, monkeypatch):
+    """An ImageNet class above 256 is not exact in bf16: the fit casts only
+    the float tensors of a batch to ``compute_dtype``."""
+    lists = smoke128.parent / "lists"
+    rows = (lists / "cls.list").read_text().splitlines()
+    labelled = tmp_path / "cls999.list"
+    labelled.write_text("\n".join(" ".join(r.split()[:2] + ["999"]) for r in rows))
+    # the mixture's seed-0 draws: seg, seg, cls
+    cfg = TC.load_config(STAGE2_YAML, _stage2_overrides(
+        smoke128, tmp_path, "--trainer.max_steps", "3", "--trainer.num_sanity_val_steps", "0",
+        "--data.init_args.dataset_dict.ImageNet.train", str(labelled)))
+    engine, trainer, data, _ = TC.build(cfg, tiny=True, device="cpu")
+    engine.compute_dtype = torch.bfloat16
+    seen = {}
+
+    def step(self, step_fn, trainable, opt_state, batch, i, draw):
+        seen[step_fn.task] = {k: v.clone() for k, v in batch.items()}
+        return trainable, opt_state, {"train/loss": torch.zeros(())}
+
+    monkeypatch.setattr(TE.Trainer, "_step", step)
+    trainer.fit(engine, data, None)
+    assert seen.keys() == {"seg", "cls"}
+    for batch in seen.values():
+        assert batch["lq"].dtype == batch["hq"].dtype == torch.bfloat16
+        assert batch["gt"].dtype == torch.int64
+    assert seen["cls"]["gt"].tolist() == [999]

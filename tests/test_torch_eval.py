@@ -10,6 +10,10 @@ loader and the checkpoint manager.
   ``PRNGKey(0)`` draws, recomputed and injected). The restores agree to
   about 1e-5, and uint8 rounding of the predictions turns that into a few
   one-level flips.
+- ``MultiTaskEvaluator``, ``ClassificationEvaluator`` and
+  ``SemanticSegmentationEvaluator`` against the JAX ones over the smoke
+  tree's mtl validation lists with one restore function, one set of probes
+  and one LPIPS: identical metric dicts; the segmentation dumps identical.
 - ``load_config``: the same document from the four YAMLs under every
   override form.
 - ``CheckpointManager``: the same files kept, the same files adopted.
@@ -27,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from test_torch_data import make_smoke_tree
 from test_torch_pipeline import _jax_noise
@@ -37,6 +42,8 @@ from unirestore_torch.evalx import evaluators as TEV
 from unirestore_torch.evalx import lpips as TL
 from unirestore_torch.evalx import metrics as TM
 from unirestore_torch.models import unirestore as TUR
+from unirestore_torch.tasks import deeplab as TDL
+from unirestore_torch.tasks import resnet as TRN
 from unirestore_torch.train import checkpoints as TCK
 from unirestore_torch.train import engine as TE
 from unirestore_tpu import config as JC
@@ -162,15 +169,128 @@ def test_load_config_raises_like_jax():
 
 
 def test_build_refuses_what_is_not_ported():
+    """The mtl engine of stage 2 builds; the cls and seg engines (their probe
+    zoos), det (a detector critic), the NR suite and FID still raise."""
     cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml")
+    engine, _, data, factory = TC.build(cfg, tiny=True, device="cpu")
+    assert engine.engine_type == "mtl" and engine.stage.multi_task and engine.stage.train_tfa
+    assert not (engine.stage.train_cfrm or engine.stage.train_cnet)
+    assert data.task == "mtl" and callable(factory)
+    for task in ("cls", "seg"):
+        cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml",
+                             ["--model.class_path", f"unirestore_tpu.{task}"])
+        with pytest.raises(NotImplementedError, match="Queue A 5"):
+            TC.build(cfg, tiny=True, device="cpu")
+    cfg = TC.load_config(REPO / "configs" / "train_stage3.yaml")
     with pytest.raises(NotImplementedError, match="Queue A 5"):
-        TC.build(cfg, tiny=True, device="cpu")  # the mtl engine
+        TC.build(cfg, tiny=True, device="cpu")  # the det engine
     cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--model.init_args.eval_mode", "NR"])
     with pytest.raises(NotImplementedError, match="NR"):
         TC.build(cfg, tiny=True, device="cpu")
     cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--model.init_args.compute_fid", "true"])
     with pytest.raises(NotImplementedError, match="compute_fid"):
         TC.build(cfg, tiny=True, device="cpu")
+
+
+def _fixed_restore(images, task):
+    """A restore function both evaluators share: a per-task affine map."""
+    gain = {"ir": 0.9, "cls": 0.8, "seg": 0.7}[task]
+    return np.clip(np.asarray(images) * gain + 0.05, 0.0, 1.0)
+
+
+def _fixed_probes():
+    """Numpy probes both evaluators share: logits linear in the pixels."""
+    rng = np.random.default_rng(7)
+    w_cls = rng.standard_normal((3, 5)).astype(np.float32)
+    w_seg = rng.standard_normal((3, 19)).astype(np.float32)
+    return {"cls": lambda x: np.asarray(x).mean(axis=(1, 2)) @ w_cls,
+            "seg": lambda x: np.asarray(x) @ w_seg}
+
+
+def _mtl_evaluators(EV, probes, lpips_fn):
+    return EV.MultiTaskEvaluator(
+        EV.ImageRestorationEvaluator(_fixed_restore, lpips_fn=lpips_fn),
+        EV.ClassificationEvaluator(_fixed_restore, {"r50v1": probes["cls"]}),
+        EV.SemanticSegmentationEvaluator(_fixed_restore, {"dlv3pr50": probes["seg"]}))
+
+
+def test_mtl_evaluators_match_jax(tmp_path):
+    """The multi-task, classification and segmentation evaluators against the
+    JAX ones over the smoke tree's mtl validation lists, one restore function,
+    one set of probes and one LPIPS: identical metric dicts."""
+    make_smoke_tree(tmp_path)
+    lists = tmp_path / "lists"
+    dd = {"DIVF2KOST": {"val": str(lists / "ir.list")}, "ImageNet": {"val": str(lists / "cls.list")},
+          "Cityscapes": {"val": str(lists / "seg.list")}}
+    data = TDE.DatasetEngine(task="mtl", val={"type": "val", "batch_size": 1}, dataset_dict=dd,
+                             num_workers=0)
+    probes = _fixed_probes()
+    lpips_fn = TL.make_lpips(TL.LPIPS(TL.lpips_init(device="cpu")), device="cpu")
+    ev_t, ev_j = _mtl_evaluators(TEV, probes, lpips_fn), _mtl_evaluators(JEV, probes, lpips_fn)
+    cls_t = TEV.ClassificationEvaluator(_fixed_restore, {"a": probes["cls"]}, monitor="a")
+    cls_j = JEV.ClassificationEvaluator(_fixed_restore, {"a": probes["cls"]}, monitor="a")
+    seg_t = TEV.SemanticSegmentationEvaluator(_fixed_restore, {"b": probes["seg"]}, tta=False)
+    seg_j = JEV.SemanticSegmentationEvaluator(_fixed_restore, {"b": probes["seg"]}, tta=False)
+    seen = set()
+    for loader in data.val_dataloader():
+        for i, batch in enumerate(loader):
+            if i == 2:
+                break
+            seen.add(batch["task"])
+            ev_t.validation_step(batch)
+            ev_j.validation_step(batch)
+            if batch["task"] == "cls":
+                cls_t.validation_step(batch)
+                cls_j.validation_step(batch)
+            if batch["task"] == "seg":
+                seg_t.validation_step(batch)
+                seg_j.validation_step(batch)
+    assert seen == {"ir", "cls", "seg"}
+    got, want = ev_t.epoch_end(), ev_j.epoch_end()
+    assert got == want
+    assert {"val_ir_lq/psnr", "val_ir_hq/lpips", "val_cls_lq/r50v1", "val_cls_hq/r50v1",
+            "val_seg_lq/dlv3pr50"} <= got.keys()
+    assert got["val_monitor"] == got["val_ir_lq/psnr"]
+    assert cls_t.epoch_end() == cls_j.epoch_end()
+    assert seg_t.epoch_end() == seg_j.epoch_end()
+
+
+def test_seg_evaluator_dumps_like_jax(tmp_path):
+    """``save_dir``: the restored lq and the Cityscapes-palette prediction per image."""
+    probes = _fixed_probes()
+    rng = np.random.default_rng(8)
+    batch = {"lq": rng.uniform(size=(2, 40, 48, 3)).astype(np.float32),
+             "gt": rng.integers(0, 19, (2, 40, 48)), "fname": ["a.jpg", "b.png"], "task": "seg"}
+    outs = {}
+    for name, EV in (("port", TEV), ("jax", JEV)):
+        ev = EV.SemanticSegmentationEvaluator(_fixed_restore, {"b": probes["seg"]},
+                                              save_dir=str(tmp_path / name))
+        ev.validation_step(batch)
+        outs[name] = {p.relative_to(tmp_path / name): np.asarray(Image.open(p))
+                      for p in sorted((tmp_path / name).rglob("*.png"))}
+    assert sorted(map(str, outs["port"])) == ["lq/a.png", "lq/b.png", "seg/a.png", "seg/b.png"]
+    assert outs["port"].keys() == outs["jax"].keys()
+    for k in outs["port"]:
+        np.testing.assert_array_equal(outs["port"][k], outs["jax"][k], err_msg=str(k))
+
+
+def test_mtl_probes_are_the_critics(tmp_path):
+    """``config.build``'s mtl evaluator probes the engine's critics (built
+    once, shared with the fit) in fp32 and keeps them across epochs."""
+    cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml")
+    engine, _, _, factory = TC.build(cfg, tiny=True, device="cpu")
+    ev1, ev2 = factory(engine), factory(engine)
+    probe = ev1.evals["cls"].classifiers["r50v1"]
+    assert probe is ev2.evals["cls"].classifiers["r50v1"]
+    assert ev1.evals["ir"].lpips_fn is ev2.evals["ir"].lpips_fn
+    x = np.random.default_rng(9).uniform(size=(1, 64, 80, 3)).astype(np.float32)
+    critics = engine.build_critics()
+    with torch.no_grad():
+        want = TRN.resnet_apply(critics["cls"], torch.from_numpy(x)).numpy()
+        want_seg = TDL.deeplabv3plus_apply(critics["seg"], torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(probe(x), want)
+    np.testing.assert_array_equal(ev1.evals["seg"].seg_models["dlv3pr50"](x), want_seg)
+    assert engine.build_critics() is critics
 
 
 def test_checkpoint_manager_keeps_and_adopts_like_jax(tmp_path):

@@ -22,7 +22,17 @@ framework. Tolerances:
   either framework;
 - optimizer alone against optax: 1e-6 (a few fp32 ulps of the O(1)
   parameters after six steps of the same arithmetic in another order).
+
+The stage-2 ``mtl`` losses run the tiny model at 64 px with the real-width
+critics (ResNet-50, DeepLabV3+-ResNet-50; the JAX critics with random BN
+statistics, ``test_torch_tasks.jax_critics``, carried across): losses at 1e-5
+relative and TFA gradients at 1e-4 of each family's largest, as above. The
+same comparison must fail when the port leaves out the auxiliary IR decode
+of a ``cls`` batch.
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,14 +42,18 @@ import pytest
 import torch
 
 from test_torch_bridge import to_np
+from test_torch_eval import filled_init
+from test_torch_tasks import jax_critics
 from unirestore_torch import bridge
 from unirestore_torch.models import unirestore as TUR
 from unirestore_torch.nn import remat as TRM
 from unirestore_torch.train import checkpoints as TCK
 from unirestore_torch.train import optim as TOPT
+from unirestore_torch.train import engine as TE
 from unirestore_torch.train import steps as TS
 from unirestore_tpu.models import unirestore as JUR
 from unirestore_tpu.train import checkpoints as JCK
+from unirestore_tpu.train import engine as JE
 from unirestore_tpu.train import optim as JOPT
 from unirestore_tpu.train import steps as JS
 
@@ -53,8 +67,7 @@ STAGES = {
 }
 
 
-def _setup(use_tfa, seed=0):
-    tasks = ("ir", "det")
+def _setup(use_tfa, seed=0, tasks=("ir", "det")):
     cj = JUR.tiny_config(use_tfa=use_tfa, tasks=tasks)
     ct = TUR.tiny_config(use_tfa=use_tfa, tasks=tasks)
     frozen, trainable = JUR.init(jax.random.PRNGKey(seed), cj)
@@ -92,12 +105,13 @@ def _jax_noise(cfg, batch, rng):
                                                dtype=torch.int32))
 
 
-def _port_grads(ft, tt, ct, stage, batch, noise, task):
+def _port_grads(ft, tt, ct, stage, batch, noise, task, te_loss_fn=None):
     leaves = bridge.flatten(tt)
     for p in leaves.values():
         p.requires_grad_(True)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    loss, logs = TS.compute_losses(ft, tt, ct, TUR.schedule(ct), stage, tb, noise, task)
+    loss, logs = TS.compute_losses(ft, tt, ct, TUR.schedule(ct), stage, tb, noise, task,
+                                   te_loss_fn)
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     for p in leaves.values():
         p.requires_grad_(False)
@@ -105,20 +119,8 @@ def _port_grads(ft, tt, ct, stage, batch, noise, task):
                         for (k, p), g in zip(leaves.items(), grads)}
 
 
-@pytest.mark.parametrize("name", list(STAGES))
-def test_compute_losses_and_grads_match_jax(name):
-    stage_kw, task = STAGES[name]
-    cj, ct, (fj, tj), (ft, tt) = _setup(use_tfa=True)
-    batch = _batch(3, b=1, hw=128) if name == "stage1" else _batch(3)
-    rng = jax.random.PRNGKey(4)
-    sched = JUR.schedule(cj)
-    fn = jax.jit(jax.value_and_grad(
-        lambda tr, b, r: JS.compute_losses(fj, tr, cj, sched, JS.StageConfig(**stage_kw),
-                                           b, r, task), has_aux=True))
-    (loss_j, logs_j), grads_j = fn(tj, batch, rng)
-
-    loss, logs, grads = _port_grads(ft, tt, ct, TS.StageConfig(**stage_kw), batch,
-                                    _jax_noise(cj, batch, rng), task)
+def _assert_losses_and_grads_match(stage_kw, task, tt, loss, logs, grads, loss_j, logs_j,
+                                   grads_j):
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
     assert logs.keys() == logs_j.keys()
     for k in logs:
@@ -139,6 +141,86 @@ def test_compute_losses_and_grads_match_jax(name):
         other_prompt = k.startswith("tfa//task_prompts//") and not k.endswith("//" + task)
         if mask[k] and not other_prompt:
             assert float(want[k].abs().max()) > 0, f"{k}: a trained leaf got no gradient"
+
+
+@pytest.mark.parametrize("name", list(STAGES))
+def test_compute_losses_and_grads_match_jax(name):
+    stage_kw, task = STAGES[name]
+    cj, ct, (fj, tj), (ft, tt) = _setup(use_tfa=True)
+    batch = _batch(3, b=1, hw=128) if name == "stage1" else _batch(3)
+    rng = jax.random.PRNGKey(4)
+    sched = JUR.schedule(cj)
+    fn = jax.jit(jax.value_and_grad(
+        lambda tr, b, r: JS.compute_losses(fj, tr, cj, sched, JS.StageConfig(**stage_kw),
+                                           b, r, task), has_aux=True))
+    (loss_j, logs_j), grads_j = fn(tj, batch, rng)
+
+    loss, logs, grads = _port_grads(ft, tt, ct, TS.StageConfig(**stage_kw), batch,
+                                    _jax_noise(cj, batch, rng), task)
+    _assert_losses_and_grads_match(stage_kw, task, tt, loss, logs, grads, loss_j, logs_j,
+                                   grads_j)
+
+
+MTL_STAGE = dict(train_cfrm=False, train_cnet=False, train_tfa=True, multi_task=True)
+
+
+def _mtl_batch(task, seed=3):
+    batch = _batch(seed, b=1)
+    rng = np.random.default_rng(seed + 100)
+    if task == "cls":
+        batch["gt"] = np.array([417])
+    elif task == "seg":
+        gt = rng.integers(0, 19, (1, 64, 64))
+        gt[:, :8] = 255
+        batch["gt"] = gt
+    return batch
+
+
+@functools.lru_cache(maxsize=None)
+def _mtl_setup():
+    """The tiny mtl model from the port's seeded init with its zero leaves
+    filled (the JAX init costs seconds of compiles), and the critics."""
+    tasks = ("ir", "cls", "seg")
+    cj, ct = JUR.tiny_config(use_tfa=True, tasks=tasks), TUR.tiny_config(use_tfa=True, tasks=tasks)
+    port_pair = filled_init(ct, seed=2)
+    jax_pair = tuple(jax.tree.map(jnp.asarray, bridge.to_numpy_tree(t)) for t in port_pair)
+    critics = jax_critics()
+    return (cj, ct, jax_pair, port_pair, jax.tree.map(jnp.asarray, critics),
+            bridge.critics_from_jax(critics, device="cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _mtl_jax(task):
+    cj, _, (fj, tj), _, jcrit, _ = _mtl_setup()
+    batch, rng = _mtl_batch(task), jax.random.PRNGKey(6)
+    # the critics enter as arguments: closed over, XLA would fold them as constants
+    fn = jax.jit(jax.value_and_grad(
+        lambda tr, crit, b, r: JS.compute_losses(fj, tr, cj, JUR.schedule(cj),
+                                                 JS.StageConfig(**MTL_STAGE), b, r, task,
+                                                 te_loss_fn=JE.make_te_loss_fn("mtl", crit)),
+        has_aux=True))
+    (loss_j, logs_j), grads_j = fn(tj, jcrit, batch, rng)
+    return batch, rng, loss_j, logs_j, grads_j
+
+
+def _mtl_compare(task, port_stage):
+    cj, ct, _, (ft, tt), _, tcrit = _mtl_setup()
+    batch, rng, loss_j, logs_j, grads_j = _mtl_jax(task)
+    loss, logs, grads = _port_grads(ft, tt, ct, port_stage, batch, _jax_noise(cj, batch, rng),
+                                    task, TE.make_te_loss_fn("mtl", tcrit))
+    _assert_losses_and_grads_match(MTL_STAGE, task, tt, loss, logs, grads, loss_j, logs_j,
+                                   grads_j)
+
+
+@pytest.mark.parametrize("task", ["ir", "cls", "seg"])
+def test_mtl_losses_and_grads_through_the_critics_match_jax(task):
+    _mtl_compare(task, TS.StageConfig(**MTL_STAGE))
+
+
+def test_mtl_parity_catches_a_left_out_auxiliary_decode():
+    left_out = dataclasses.replace(TS.StageConfig(**MTL_STAGE), multi_task=False)
+    with pytest.raises(AssertionError):
+        _mtl_compare("cls", left_out)
 
 
 def test_two_train_steps_match_jax_monolithic_step():

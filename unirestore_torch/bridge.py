@@ -13,6 +13,11 @@ and shapes: a key missing on either side, or a shape that differs, raises
 extra keys, as checkpoint loading does). ``to_numpy_tree`` is the inverse: the
 port's tree as nested numpy arrays in the JAX layout, which
 ``train/checkpoints.py`` writes so that each package reads the other's files.
+
+``critics_from_jax`` is the same path for the frozen critics of stage 2
+(``unirestore_tpu/tasks/resnet.py``, ``deeplab.py``): their JAX trees, by
+task, against the port's own critic trees (``tasks.critic_init(task,
+"meta")``) as templates.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from .device import resolve_device
 from .models import unirestore as UR
+from .tasks import critic_init
 
 # key separator of the flat format (unirestore_tpu/train/checkpoints.py:29)
 SEP = "//"
@@ -125,6 +131,12 @@ def from_jax(frozen, trainable, cfg, *, device=None, dtype=torch.float32):
     frozen_t, trainable_t = UR.init(cfg, device="meta")
     return (load_tree(frozen, frozen_t, device=device, dtype=dtype),
             load_tree(trainable, trainable_t, device=device, dtype=dtype))
+
+
+def critics_from_jax(critics, *, device=None, dtype=torch.float32) -> dict:
+    """The JAX critic trees by task (``{"cls": ..., "seg": ...}``) -> the port's."""
+    return {task: load_tree(tree, critic_init(task, "meta"), device=device, dtype=dtype)
+            for task, tree in critics.items()}
 
 
 def load_null_embedding(path, shape=(1, 77, 1024), *, device=None, dtype=torch.float32):

@@ -5,10 +5,12 @@ The port's counterpart of ``unirestore_tpu/config.py``: ``load_config``,
 copied as they are, so the reference YAMLs in ``configs/`` drive the port
 unchanged (the ``unirestore_tpu.*`` and ``core.engine_unifie.*`` class paths
 are accepted as strings). ``build`` covers the ``ir`` engine with the FR
-evaluation (PSNR, SSIM, LPIPS). Not ported yet, each raising
-``NotImplementedError`` (ROADMAP Queue A 5): the ``mtl``, ``cls``, ``seg``
-and ``det`` engines, which need the frozen critic networks; the NR
-``eval_mode``; ``compute_fid``.
+evaluation (PSNR, SSIM, LPIPS) and the ``mtl`` engine of stage 2 with the
+multi-task evaluation (the IR evaluator, the ``r50v1`` classification and
+``dlv3pr50`` segmentation probes on the engine's critics). Not ported yet,
+each raising ``NotImplementedError`` (ROADMAP Queue A 5): the ``cls`` and
+``seg`` engines, which need their probe zoos, and the ``det`` engine, which
+needs a detector; the NR ``eval_mode``; ``compute_fid``.
 
 Same document shape as the reference configs (configs/train_stage*.yaml):
 ``seed_everything``, ``trainer{...}``, ``model{class_path, init_args}``,
@@ -107,6 +109,12 @@ def engine_type(cfg: dict) -> str:
     return ENGINE_ALIASES[cp]
 
 
+# engine types ``build`` refuses, and what each needs
+NOT_PORTED = {"cls": "the classifier probe zoo (tasks/classifier_zoo.py)",
+              "seg": "the segmentation probe zoo (tasks/seg_zoo.py, RefineNet)",
+              "det": "the detector critics (RetinaNet, Faster R-CNN)"}
+
+
 def build(cfg: dict, tiny: bool = False, device=None):
     """Returns (engine, trainer, data_engine, evaluator_factory) on ``device``
     (default: the current CUDA device, which must exist).
@@ -121,17 +129,16 @@ def build(cfg: dict, tiny: bool = False, device=None):
 
     dev = resolve_device(device)
     etype = engine_type(cfg)
-    if etype != "ir":
-        raise NotImplementedError(
-            f"engine type {etype!r} needs the frozen critic networks, which are not "
-            "ported yet (ROADMAP Queue A 5); the port builds the 'ir' engine")
+    if etype in NOT_PORTED:
+        raise NotImplementedError(f"engine type {etype!r} needs {NOT_PORTED[etype]}, which "
+                                  "are not ported yet (ROADMAP Queue A 5)")
     m = copy.deepcopy(cfg.get("model", {}).get("init_args", {}))
     eval_mode = m.get("eval_mode", "FR")
-    if eval_mode != "FR":
+    if etype == "ir" and eval_mode != "FR":
         raise NotImplementedError(
             f"eval_mode {eval_mode!r}: the NR metric suite is not ported yet "
             "(ROADMAP Queue A 5)")
-    if m.get("compute_fid"):
+    if etype == "ir" and m.get("compute_fid"):
         raise NotImplementedError("compute_fid: FID and its Inception network are not "
                                   "ported yet (ROADMAP Queue A 5)")
     engine = UniFIEEngine(
@@ -171,19 +178,32 @@ def build(cfg: dict, tiny: bool = False, device=None):
     d = cfg.get("data", {}).get("init_args", {})
     data = DatasetEngine(**d) if d else None
 
-    # LPIPS is built once and reused across validate() epochs
+    # LPIPS and the critic probes are built once and reused across validate() epochs
     _eval_cache = {}
 
-    def evaluator_factory(eng):
-        restore = eng.restore_fn()
-        save_dir = os.path.join(root, "dumps") if m.get("save_image") else None
+    def lpips():
         # the reference FR collection always includes LPIPS(alex)
         # (eval_image_restoration.py:184)
         if "lpips" not in _eval_cache:
             from .evalx.lpips import make_lpips
             _eval_cache["lpips"] = make_lpips(device=dev)
+        return _eval_cache["lpips"]
+
+    def evaluator_factory(eng):
+        restore = eng.restore_fn()
+        if etype == "mtl":
+            if "mtl_probes" not in _eval_cache:
+                critics = eng.build_critics()
+                _eval_cache["mtl_probes"] = {task: EV.probe(task, critics[task], eng.device)
+                                             for task in ("cls", "seg")}
+            probes = _eval_cache["mtl_probes"]
+            return EV.MultiTaskEvaluator(
+                EV.ImageRestorationEvaluator(restore, lpips_fn=lpips()),
+                EV.ClassificationEvaluator(restore, {"r50v1": probes["cls"]}),
+                EV.SemanticSegmentationEvaluator(restore, {"dlv3pr50": probes["seg"]}))
+        save_dir = os.path.join(root, "dumps") if m.get("save_image") else None
         return EV.ImageRestorationEvaluator(
             restore, need_crop=m.get("need_crop", True),
-            save_dir=save_dir, lpips_fn=_eval_cache["lpips"])
+            save_dir=save_dir, lpips_fn=lpips())
 
     return engine, trainer, data, evaluator_factory

@@ -5,14 +5,16 @@ same commands, the same ``--tiny`` flag and the same dotted overrides,
 applied onto the YAML document by ``config.load_config``:
 
     python -m unirestore_torch.main fit --config configs/train_stage1.yaml
+    python -m unirestore_torch.main fit --config configs/train_stage2.yaml
     python -m unirestore_torch.main validate --config configs/val.yaml --trainer.logger null
     python -m unirestore_torch.main fit --config <smoke>/smoke.yaml --tiny --device cpu
 
 ``--device`` takes the place of ``--platform``: by default the current CUDA
 device, which must exist (no device and no ``--device`` raises); the tests
 pass ``--device cpu``. ``--distributed`` is not ported yet (ROADMAP Queue A
-6). ``predict`` restores the val lists through ``restore_tiled_fn`` and writes
-one PNG per image (``ops/png.py``) under ``<save_dir>/predict``.
+6). ``predict`` restores the val lists through ``restore_tiled_fn`` with task
+``ir`` (for the ``mtl`` engine of stage 2: its ir, cls and seg lists) and
+writes one PNG per image (``ops/png.py``) under ``<save_dir>/predict``.
 """
 
 from __future__ import annotations

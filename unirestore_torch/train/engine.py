@@ -8,8 +8,13 @@ and adapter-only checkpoints (``checkpoints.py``), all on one device.
 
 ``UniFIEEngine`` builds the params (the port's seeded init with
 ``seed_everything`` as its seed, then the converted sd-turbo weights of
-``zoo.py``, then stage-surgery ``ckpt_path`` files) and owns the restore
-closures; ``Trainer.fit`` / ``Trainer.validate`` are the JAX loops: sanity
+``zoo.py``, then stage-surgery ``ckpt_path`` files), the frozen critics of
+stage 2 (``build_critics``: ResNet-50 for ``cls``, DeepLabV3+-ResNet-50 for
+``seg``, fp32, from ``weights/resnet50_v1.npz`` and
+``weights/deeplabv3plus_resnet50.npz`` or, warned, a seeded init, as the JAX
+``zoo.load_npz_tree`` falls back) with the task loss that runs through them
+(``make_te_loss_fn``: 10·L1 ``ir``, 0.1·CE ``cls`` and ``seg`` under ``mtl``),
+and owns the restore closures; ``Trainer.fit`` / ``Trainer.validate`` are the JAX loops: sanity
 validation, micro-steps counted one per batch (so with accumulation 2 the
 optimizer updates every second step and the OneCycle schedule spans
 ``max_steps`` micro-steps), a validation interval with top-k checkpoints and
@@ -27,8 +32,12 @@ Differences from the JAX engine:
   ``compute_dtype`` (bf16 by default) and the trainable masters in fp32, and
   each batch is cast to ``compute_dtype``.
 - Restores run eagerly (the JAX engine keeps an LRU of compiled ones).
-- Only the ``ir`` engine type: the others need the frozen critics
-  (ROADMAP Queue A 5).
+- The ``ir`` and ``mtl`` engine types. ``build_critics`` and
+  ``make_te_loss_fn`` also take ``cls`` and ``seg``, but ``config.build``
+  refuses those engines (their probe zoos are not ported), and ``det``, whose
+  detector critics are not ported, raises here (ROADMAP Queue A 5). The
+  critics are built once per engine and shared by the fit and the
+  evaluator.
 - Not offered, each raising with its reason: ``split_step`` and
   ``stop_after`` (they exist for the TPU's compiler; the JAX package's test
   ``test_split_step_matches_monolithic`` shows the split step equals the
@@ -44,10 +53,12 @@ import time
 import numpy as np
 import torch
 
-from .. import bridge, zoo
+from .. import bridge, tasks, zoo
 from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..models import unirestore as UR
+from ..tasks import deeplab as DL
+from ..tasks import resnet as RN
 from . import checkpoints as CKPT
 from . import optim as OPT
 from . import steps as ST
@@ -84,14 +95,59 @@ def build_model_config(model_kwargs: dict) -> tuple[UR.UniRestoreConfig, ST.Stag
     return cfg, stage
 
 
-def make_te_loss_fn(engine_type: str):
-    """te_loss_fn(preds, hq, gt, task) of the ``ir`` engine: the L1 loss."""
-    if engine_type != "ir":
-        raise NotImplementedError(f"engine type {engine_type!r} needs the frozen critic "
-                                  "networks (ROADMAP Queue A 5)")
+CRITIC_TASKS = {"ir": (), "mtl": ("cls", "seg"), "cls": ("cls",), "seg": ("seg",)}
+
+
+def _refuse_det(engine_type: str):
+    if engine_type == "det":
+        raise NotImplementedError("engine type 'det' needs the detector critics (RetinaNet, "
+                                  "Faster R-CNN), which are not ported yet (ROADMAP Queue A 5)")
+    if engine_type not in CRITIC_TASKS:
+        raise KeyError(engine_type)
+
+
+def build_critics(engine_type: str, downstream: str | None = None, device=None,
+                  weights_dir=None) -> dict:
+    """The frozen critics of an engine type by task, fp32 on ``device``
+    (``unirestore_tpu/train/engine.py:64-90``): the converted weights where the
+    file exists, else the seeded init with a warning. ``downstream`` picks the
+    detector of ``det``, which is not ported and raises."""
+    _refuse_det(engine_type)
+    critics = {}
+    for task in CRITIC_TASKS[engine_type]:
+        p, _ = zoo.load_npz_tree(tasks.CRITIC_WEIGHTS[task], tasks.critic_init(task, device),
+                                 weights_dir)
+        critics[task] = bridge.unflatten_like(
+            {k: v.contiguous(memory_format=torch.channels_last) if v.ndim == 4 else v
+             for k, v in bridge.flatten(p).items()}, p)
+    return critics
+
+
+def make_te_loss_fn(engine_type: str, critics: dict | None = None):
+    """te_loss_fn(preds, hq, gt, task) for the train step
+    (``unirestore_tpu/train/engine.py:93-132``): the critics see the
+    predictions in fp32."""
+    _refuse_det(engine_type)
+
+    def l1(p32, hq):
+        return torch.mean(torch.abs(p32 - hq.float()))
+
+    def ce(task, p32, gt):
+        if task == "cls":
+            return RN.cross_entropy_loss(RN.resnet_apply(critics["cls"], p32), gt)
+        return DL.seg_cross_entropy_loss(DL.deeplabv3plus_apply(critics["seg"], p32), gt)
 
     def fn(preds, hq, gt, task):
-        return torch.mean(torch.abs(preds.float() - hq.float()))
+        p32 = preds.float()
+        if engine_type == "mtl":
+            if task == "ir":
+                return 10.0 * l1(p32, hq)
+            if task in ("cls", "seg"):
+                return 0.1 * ce(task, p32, gt)
+            raise KeyError(f"Task [{task}] is not defined!")
+        if engine_type == "ir":
+            return l1(p32, hq)
+        return ce(engine_type, p32, gt)
 
     return fn
 
@@ -109,7 +165,8 @@ class UniFIEEngine:
     ``params``, if given, is the (frozen, trainable) pair to start from in
     place of the seeded init (the parity tests hand in the JAX init carried
     across by ``bridge``); the zoo weights and ``ckpt_path`` files still
-    apply on top.
+    apply on top. ``critics``, if given, are the critics by task in place
+    of ``build_critics``' (the parity tests hand in the JAX critics).
     """
 
     engine_type = "ir"
@@ -119,7 +176,7 @@ class UniFIEEngine:
                  eval_mode: str = "FR", save_image: bool = False,
                  need_crop: bool = True, downstream: str | None = None,
                  tiny: bool = False, seed: int = 42,
-                 compute_dtype: str = "bfloat16", device=None, params=None):
+                 compute_dtype: str = "bfloat16", device=None, params=None, critics=None):
         self.model_kwargs = model_kwargs or {}
         self.optimizer_kwargs = optimizer_kwargs or {
             "opt": "adamw", "base_lr": 1e-4, "base_bsz": 64}
@@ -140,6 +197,7 @@ class UniFIEEngine:
         self.cfg = cfg
         self.stage = stage
         self.sched = UR.schedule(cfg, device=self.device)
+        self.critics = critics
         self.configure_model(params)
 
     # -- model/param construction (engine_unifie.py:35-133) ---------------
@@ -166,9 +224,17 @@ class UniFIEEngine:
         self.frozen = bridge.cast_tree(frozen, self.compute_dtype)
         self.trainable = bridge.cast_tree(trainable, torch.float32)
 
-    def te_loss_fn(self):
-        """te_loss_fn(preds, hq, gt, task) for the train step."""
-        return make_te_loss_fn(self.engine_type)
+    def build_critics(self) -> dict:
+        """The engine type's frozen critics, built on the first call and kept."""
+        if self.critics is None:
+            self.critics = build_critics(self.engine_type, self.downstream, self.device)
+        return self.critics
+
+    def te_loss_fn(self, critics: dict | None = None):
+        """te_loss_fn(preds, hq, gt, task) for the train step, through
+        ``critics`` (default: ``build_critics()``)."""
+        critics = self.build_critics() if critics is None else critics
+        return make_te_loss_fn(self.engine_type, critics)
 
     # -- inference ---------------------------------------------------------
 
@@ -290,7 +356,7 @@ class Trainer:
                              total_steps=self.max_steps, batch_size=batch_size,
                              accum_iter=self.accum, num_devices=1)
         print(f"[optimizer] peak lr {peak:.2e} over {self.max_steps} steps")
-        te_fn = engine.te_loss_fn() if engine.cfg.use_tfa else None
+        te_fn = engine.te_loss_fn(engine.build_critics()) if engine.cfg.use_tfa else None
 
         start_step = 0
         resume_path = self.resume
@@ -370,6 +436,8 @@ class Trainer:
                 waits.append(time.perf_counter() - t_wait)
                 task = batch.pop("task")
                 batch.pop("fname", None)
+                # integer labels keep their dtype: an ImageNet class above
+                # 256 is not exact in bf16
                 dev_batch = {k: v.to(dt) if v.is_floating_point() else v
                              for k, v in batch.items() if isinstance(v, torch.Tensor)}
                 with timer:

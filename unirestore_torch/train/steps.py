@@ -180,6 +180,7 @@ def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
     per-unit rematerialisation (same values, less activation memory).
     ``logs`` holds ``compute_losses``' terms and ``train/grad_norm``, the
     global norm of the trained leaves' gradients (not finite if any is not).
+    The step's ``task`` attribute names its task.
     """
     cfg = with_remat(cfg) if remat else cfg
 
@@ -203,4 +204,5 @@ def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads.values()]))
         return trainable, opt_state, logs
 
+    step.task = task
     return step

@@ -1,6 +1,7 @@
 """Pretrained-weight zoo: converted checkpoints where present (mirrors ``unirestore_tpu/zoo.py``).
 
-External weights (sd-turbo VAE/UNet, the null text embedding) are converted
+External weights (sd-turbo VAE/UNet, the null text embedding, LPIPS, the
+stage-2 critics ``resnet50_v1`` and ``deeplabv3plus_resnet50``) are converted
 offline by ``tools/convert_*.py`` into flat ``//``-keyed ``.npz`` files in the
 JAX layout, and ``sd_null_emb.npy``, in a weights directory. This module
 merges them into the port's parameter trees through ``bridge.load_tree``. A
