@@ -127,6 +127,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
    shape) it met that was not held yet is held to its plain version (rows
    with ``"path": "fit_stage2"``). Then one stage-2 loss for cls and one for
    seg and the TFA gradient norm at full width, 256 px, fp32, card vs CPU;
+12. (run after phase 11, before the report) stage 3 through the CLI:
+   ``unirestore_torch.main.main`` with ``fit --config
+   configs/train_stage3.yaml`` and dotted overrides only (the smoke tree's
+   COCO list; phase 9's ``last.npz`` for frenc and cnet and phase 11's for
+   tedit, so the three stages chain; 12 micro-steps, validation every 6 over
+   2 batches, the log directory): the ``det`` engine at full width, only the
+   TFA task prompts trained through the frozen RetinaNet (seeded, fp32),
+   batch 1, 512 px crops, accumulation 6. Checks: CFRM, Controller, control
+   and the TFA editors bit-equal to the checkpoints they came from and the
+   det prompt at its fresh init before step 1; after the fit only the task
+   prompts changed (det and ir with gradients, cls and seg by weight decay
+   alone, zero Adam first moments), the frozen tree and the critic as fresh
+   builds; every micro-step's losses finite and step 1's bit-equal to a
+   direct ``make_train_step``; a micro-step under
+   ``set_sync_debug_mode("error")`` (the detector's loss reads nothing back
+   to the host); launches per micro-step and per validation restore as the
+   routing implies; the validation keys ``val_lq/map`` and ``val_monitor``;
+   ``step=6-...``, ``step=12-...``, ``last.npz`` and a resume to step 13.
+   Then the same with ``--model.init_args.downstream fastrcnn`` for 6
+   micro-steps (one update, one validation of 2 batches, a micro-step under
+   the sync check). Reported: s per micro-step (the card synchronised before
+   and after each, the first left out), the loader wait, peak memory, and
+   each detector's share of a micro-step's device time (profiled, by kernel
+   family). Every (kernel, shape) it met that was not held yet is held to its
+   plain version (rows with ``"path": "fit_stage3"``). Then the RetinaNet and
+   the Faster R-CNN stage-3 losses and the prompts' gradient norm at full
+   width, 256 px, fp32, card vs CPU;
 10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
@@ -135,8 +162,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    steps; ``serve``: phase 8's requests; ``restore_graph``,
    ``restore_fused_graph`` and ``serve_graph`` the same on the graph route,
    each graph's launches at capture times its replays; ``fit``: phase 9's
-   first fit, training and validation; ``fit_stage2``: phase 11's fit); each
-   kernel must
+   first fit, training and validation; ``fit_stage2``: phase 11's fit;
+   ``fit_stage3``: phase 12's RetinaNet fit); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -266,6 +293,27 @@ FIT2_VAL_RESTORES = {"ir": 2 * FIT2_SANITY + 2 * 2 * FIT2_VAL_BATCHES, "cls": 2 
 # multiple of 1024, runs the plain version); seg 576 x 592, padded to 576 x
 # 640 (T = 5760 / 1440 / 360: all head-major, the mid block plain)
 FIT2_RESTORE = {"ir": FIT_RESTORE, "cls": (7, 14, 0, 0, 3), "seg": (0, 21, 0, 0, 3)}
+# phase 12: ``python -m unirestore_torch.main fit`` from the stage-3 YAML (the
+# det engine: only the TFA task prompts train, through the frozen RetinaNet;
+# batch 1, 512 px crops, accumulation 6) on phase 9's smoke tree, with dotted
+# overrides only: its COCO list (4 images of 120 x 140 px, one box each),
+# phase 9's last.npz for frenc and cnet and phase 11's for tedit (the three
+# stages chained), 12 micro-steps (two AdamW updates), validation every 6
+# over 2 batches; then a resume to step 13, and a fit through Faster R-CNN
+# (``downstream: fastrcnn``) of 6 micro-steps: one update, one validation
+FIT3_YAML = REPO / "configs" / "train_stage3.yaml"
+FIT3_STEPS, FIT3_ACCUM, FIT3_VAL_EVERY, FIT3_VAL_BATCHES = 12, 6, 6, 2
+FIT3_RESUME_STEPS = 13
+FIT3_FRCNN_STEPS = 6
+FIT3_SYNC_CHECK_STEP = 2  # after the first micro-step has made the cached constants
+# launches per stage-3 micro-step: those of a stage-2 cls or seg micro-step
+# (the det decode and the auxiliary IR decode); no gradient reaches a kernel
+EXPECTED_STAGE3 = EXPECTED_STAGE2["cls"]
+# validation restores: the lq image of each batch; a 120 x 140 image upscales
+# to 512 x 597 and pads to 512 x 640 (latent T = 5120 / 1280 / 320: channel-
+# flat at 5120 and 1280, head-major at 320, the VAE mid block at T = 5120
+# streaming), the routes of a 512 x 512 restore
+FIT3_RESTORE = FIT_RESTORE
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
 # gradient accumulation 2
@@ -1379,7 +1427,7 @@ class StepProbe:
                 drawn.append(draw(b))
                 return drawn[-1]
 
-            kept = {"batch": {k: v.clone() for k, v in batch.items()}, "task": task}
+            kept = {"batch": clone_batch(batch), "task": task}
             if i == 0:
                 probe.first = {"trainable": clone_tree(probe.bridge, trainable), **kept}
             if probe.timed:
@@ -1454,6 +1502,11 @@ class WindowTimer:
         if len(self.marks) != 2:
             raise AssertionError(f"timed fit: {len(self.marks)} window marks, want 2")
         return self.marks[1] - self.marks[0]
+
+
+def clone_batch(batch: dict) -> dict:
+    """A batch's tensors cloned, those of a nested dict (detection targets) too."""
+    return {k: clone_batch(v) if isinstance(v, dict) else v.clone() for k, v in batch.items()}
 
 
 def clone_tree(bridge, tree):
@@ -1736,8 +1789,8 @@ def fit2_argv(command, data_dir: Path, root: Path, *extra) -> list:
 
 def profiled_device(fn) -> dict:
     """``fn()`` once under ``torch.profiler``: the card's busy seconds, by
-    kernel family (``tools/profile_torch_restore.py:family``) and in all, and
-    the number of kernels."""
+    kernel family (``tools/profile_torch_restore.py:family``) and in all, the
+    number of kernels, and the eight kernel names that took the most time."""
     import importlib.util
 
     from torch.profiler import ProfilerActivity, profile
@@ -1750,18 +1803,21 @@ def profiled_device(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_family, n = {}, 0
+    by_family, by_name, n = {}, {}, 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
-            fam = tool.family(evt.name)
-            by_family[fam] = by_family.get(fam, 0.0) + evt.time_range.elapsed_us() / 1e6
+            fam, sec = tool.family(evt.name), evt.time_range.elapsed_us() / 1e6
+            by_family[fam] = by_family.get(fam, 0.0) + sec
+            by_name[evt.name[:120]] = by_name.get(evt.name[:120], 0.0) + sec
             n += 1
     return {"device_busy_s": sum(by_family.values()), "kernels": n,
-            "device_s_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1]))}
+            "device_s_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+            "top_kernels_s": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
 
 
-def critic_share(bridge, TS, OPT, engine, trainer, probe) -> dict:
-    """The critics' share of a ``cls`` and a ``seg`` micro-step's device time:
+def critic_share(bridge, TS, OPT, engine, trainer, probe, tasks=("cls", "seg"),
+                 label="stage-2") -> dict:
+    """The critics' share of a micro-step's device time for each of ``tasks``:
     the card's busy time in the critic's forward and backward pass alone (the
     task loss on fp32 predictions of the micro-step's shape, differentiated to
     the predictions) over its busy time in a whole micro-step on the task's
@@ -1769,7 +1825,7 @@ def critic_share(bridge, TS, OPT, engine, trainer, probe) -> dict:
     te_fn = engine.te_loss_fn()
     gen = torch.Generator(device="cuda").manual_seed(13)
     out = {}
-    for task in ("cls", "seg"):
+    for task in tasks:
         first = probe.first_by_task[task]
         batch, noise = first["batch"], first["noise"]
         tr = clone_tree(bridge, engine.trainable)
@@ -1793,10 +1849,11 @@ def critic_share(bridge, TS, OPT, engine, trainer, probe) -> dict:
         whole, alone = profiled_device(micro_step), profiled_device(critic)
         share = alone["device_busy_s"] / whole["device_busy_s"]
         out[task] = {"micro_step": whole, "critic": alone, "critic_share": share}
-        log(f"stage-2 {task} micro-step, profiled: device busy {whole['device_busy_s']:.4f} s "
+        log(f"{label} {task} micro-step, profiled: device busy {whole['device_busy_s']:.4f} s "
             f"({whole['kernels']} kernels); the critic's forward and backward alone "
             f"{alone['device_busy_s']:.4f} s ({alone['kernels']} kernels): share {share:.3f}; "
-            f"micro-step by family {whole['device_s_by_family']}")
+            f"micro-step by family {whole['device_s_by_family']}; the critic by family "
+            f"{alone['device_s_by_family']}, its top kernels {alone['top_kernels_s'][:4]}")
     return out
 
 
@@ -1995,6 +2052,313 @@ def train2_reference_check(UR, KN, bridge, TS, TE) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the stage-3 fit through the CLI
+# ---------------------------------------------------------------------------
+
+
+def fit3_argv(command, work: Path, root: Path, *extra) -> list:
+    """``unirestore_torch.main`` arguments: the stage-3 YAML with dotted overrides only
+    (the smoke tree's COCO list, the stage-1 and stage-2 checkpoints of phases 9
+    and 11, the step counts, validation and the log directory)."""
+    det_list = str(work / "data" / "lists" / "det.list")
+    stage1, stage2 = (str(work / d / "checkpoints" / "last.npz") for d in ("logs", "stage2"))
+    kwargs = "--model.init_args.model_kwargs"
+    return [command, "--config", str(FIT3_YAML),
+            "--data.init_args.dataset_dict.COCO.train", det_list,
+            "--data.init_args.dataset_dict.COCO.val", det_list,
+            f"{kwargs}.frenc.ckpt_path", stage1, f"{kwargs}.cnet.ckpt_path", stage1,
+            f"{kwargs}.tedit.ckpt_path", stage2,
+            "--trainer.max_steps", str(FIT3_STEPS),
+            "--trainer.val_check_interval", str(FIT3_VAL_EVERY),
+            "--trainer.limit_val_batches", str(FIT3_VAL_BATCHES),
+            "--trainer.logger.init_args.save_dir", str(root), *extra]
+
+
+def stage3_surgery_check(bridge, engine, first, work: Path) -> dict:
+    """The trainable tree before the first micro-step: CFRM, Controller and
+    control bit-equal to phase 9's last.npz, the TFA editors and the ir, cls
+    and seg prompts to phase 11's, the det prompt to its fresh init."""
+    from unirestore_torch.train import checkpoints as CKPT
+    stage1 = CKPT.load_checkpoint(str(work / "logs" / "checkpoints" / "last.npz"))[0]
+    stage2 = CKPT.load_checkpoint(str(work / "stage2" / "checkpoints" / "last.npz"))[0]
+    from unirestore_torch.models import tfa as TFA
+    from unirestore_torch.nn.init import make_init
+    counts = {"stage1": 0, "stage2": 0, "fresh": 0}
+    for k, v in bridge.flatten(bridge.to_numpy_tree(first)).items():
+        if k.split("//")[0] in ("cfrm", "controller", "control"):
+            source, want = "stage1", stage1[f"trainable//{k}"]
+        elif k == "tfa//task_prompts//det":
+            if f"trainable//{k}" in stage2:
+                raise AssertionError("the stage-2 checkpoint has a det prompt")
+            source = "fresh"
+            want = TFA.task_prompts_init(make_init(None, "cpu", seed=engine.seed), ("det",),
+                                         engine.cfg.prompt_len, v.shape[-1])["det"].numpy()
+        else:
+            source, want = "stage2", stage2[f"trainable//{k}"]
+        if v.shape != want.shape or not (v == want).all():
+            raise AssertionError(f"stage-3 surgery: {k} differs from its {source} source")
+        counts[source] += 1
+    log(f"stage-3 surgery: {counts['stage1']} CFRM / Controller / control leaves bit-equal to "
+        f"phase 9's last.npz, {counts['stage2']} TFA leaves to phase 11's, the det prompt at "
+        f"its fresh init")
+    return counts
+
+
+def stage3_prompts_check(bridge, TS, OPT, engine, trainer, before, last: Path) -> dict:
+    """After the fit only ``tfa//task_prompts//*`` changed, the det prompt
+    among them; the det and ir prompts carry nonzero Adam first moments (their
+    gradients), the cls and seg prompts zero ones: weight decay alone moves
+    them, by less than one fp32 step where the rate is small."""
+    from unirestore_torch.train import checkpoints as CKPT
+    before, now = bridge.flatten(before), bridge.flatten(engine.trainable)
+    changed = sorted(k for k in now if not torch.equal(now[k], before[k]))
+    prompts = sorted(f"tfa//task_prompts//{t}" for t in engine.cfg.tasks)
+    tx, _ = OPT.build(engine.optimizer_kwargs, engine.lr_scheduler_kwargs, trainer.max_steps,
+                      trainer.timing["batch_size"], trainer.accum, 1)
+    trained = TS.trained_leaves(engine.stage, engine.trainable)
+    mu = CKPT.restore_opt_state(str(last), tx.init(trained))["mu"]
+    first_moment = {k.rsplit("//", 1)[1]: mu[k].abs().max().item() for k in prompts}
+    log(f"stage-3 fit: changed leaves {changed}; largest |Adam first moment| per prompt "
+        f"{first_moment}")
+    if not set(changed) <= set(prompts) or "tfa//task_prompts//det" not in changed \
+            or sorted(trained) != prompts:
+        raise AssertionError(f"stage-3 fit changed {changed}, trains {sorted(trained)}; only "
+                             f"the task prompts {prompts} may, the det prompt among them")
+    if not (first_moment["det"] and first_moment["ir"]) or first_moment["cls"] or \
+            first_moment["seg"]:
+        raise AssertionError(f"stage-3 prompt gradients {first_moment}: want det and ir only")
+    return {"changed": changed, "max_abs_first_moment": first_moment}
+
+
+def run_fit_stage3(KN, bridge, TE, TS, OPT, main_fn, work: Path):
+    """Phase 12: ``unirestore_torch.main.main`` fit from the stage-3 YAML on
+    phase 9's smoke tree, chained to the checkpoints of phases 9 and 11, its
+    checks, the critic's share of a micro-step, a resume, and a fit through
+    Faster R-CNN. Returns (result, launches by kernel of the RetinaNet fit,
+    the (shape, dtype) each kernel met in phase 12)."""
+    root = work / "stage3"
+    symbols = [kern.symbol for kern in KN.KERNELS]
+    KN.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepProbe(TE, KN, bridge, sync_steps=(FIT3_SYNC_CHECK_STEP,), timed=True) as probe:
+        engine, trainer = main_fn(fit3_argv("fit", work, root))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
+    shapes = kernel_shapes_met(KN)
+
+    if engine.engine_type != "det" or engine.downstream != "retinanet" or \
+            probe.tasks != ["det"] * FIT3_STEPS:
+        raise AssertionError(f"stage-3 fit: engine {engine.engine_type} / {engine.downstream}, "
+                             f"micro-steps {probe.tasks}")
+    surgery = stage3_surgery_check(bridge, engine, probe.first["trainable"], work)
+    for i, counts in enumerate(probe.counts):
+        if counts != EXPECTED_STAGE3:
+            raise AssertionError(f"stage-3 micro-step {i + 1}: launches {counts} != "
+                                 f"{EXPECTED_STAGE3}")
+    val = tuple(launches[s] - FIT3_STEPS * EXPECTED_STAGE3[s][0] for s in symbols)
+    restores = FIT3_STEPS // FIT3_VAL_EVERY * FIT3_VAL_BATCHES
+    want_val = tuple(restores * n for n in FIT3_RESTORE)
+    log(f"stage-3 fit: launches per micro-step {EXPECTED_STAGE3} for all {FIT3_STEPS}; "
+        f"validation launches {val} = {restores} restores x {FIT3_RESTORE}: {val == want_val}")
+    if val != want_val:
+        raise AssertionError(f"stage-3 validation launches {val} != {want_val}")
+    logged = probe.logs
+    if len(logged) != FIT3_STEPS or not all(math.isfinite(v) for e in logged
+                                            for v in e.values()):
+        raise AssertionError(f"stage-3 fit: non-finite or missing losses {logged}")
+    prompts = stage3_prompts_check(bridge, TS, OPT, engine, trainer, probe.first["trainable"],
+                                   root / "checkpoints" / "last.npz")
+    n_frozen = frozen_unchanged(bridge, engine)
+    fresh = bridge.flatten(TE.build_critics("det", "retinanet", device=engine.device))
+    critic = bridge.flatten(engine.critics)
+    touched = [k for k in fresh if not torch.equal(fresh[k], critic[k])]
+    if touched or fresh.keys() != critic.keys():
+        raise AssertionError(f"stage-3 fit changed the critic: {touched[:5]}")
+    direct = direct_step_check(bridge, TS, OPT, engine, trainer, probe.first,
+                               te_loss_fn=engine.te_loss_fn())
+    metrics = probe.metrics
+    if len(metrics) != FIT3_STEPS // FIT3_VAL_EVERY or any(
+            set(m) != {"val_lq/map", "val_monitor"} or m["val_monitor"] != m["val_lq/map"]
+            for m in metrics):
+        raise AssertionError(f"stage-3 validation metrics {metrics}")
+    ckpts = sorted(p.name for p in (root / "checkpoints").iterdir())
+    if (len(ckpts) != 3 or ckpts[0] != "last.npz"
+            or not ckpts[1].startswith(f"step={FIT3_STEPS}-val=")
+            or not ckpts[2].startswith(f"step={FIT3_VAL_EVERY}-val=")):
+        raise AssertionError(f"stage-3 fit checkpoints {ckpts}")
+    secs = probe.seconds
+    timing = {"micro_steps": len(secs), "first_s": secs[0],
+              "s_per_micro_step": sum(secs[1:]) / len(secs[1:]), "each_s": secs}
+    waits = trainer.timing["loader_waits_s"]
+    share = critic_share(bridge, TS, OPT, engine, trainer, probe, ("det",), "stage-3 RetinaNet")
+    log(f"stage-3 fit: {fit_s:.1f} s in all; {timing['s_per_micro_step']:.4f} s per micro-step "
+        f"after the first ({timing['first_s']:.4f} s; card synchronised before and after each); "
+        f"loader wait {sum(waits) / len(waits) * 1e3:.2f} ms/step (each "
+        f"{[round(w * 1e3, 2) for w in waits]}); peak {peak:.2f} GiB; checkpoints {ckpts}; "
+        f"validation {metrics}; losses {[round(e['train/loss'], 4) for e in logged]}")
+    del probe, engine, trainer
+    torch.cuda.empty_cache()
+
+    # resume to a later step
+    KN.reset_counts()
+    t0 = time.perf_counter()
+    _, trainer = main_fn(fit3_argv("fit", work, root, "--trainer.resume", "auto",
+                                   "--trainer.max_steps", str(FIT3_RESUME_STEPS)))
+    resume_s = time.perf_counter() - t0
+    shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+    from unirestore_torch.train import checkpoints as CKPT
+    meta = CKPT.load_checkpoint(str(root / "checkpoints" / "last.npz"))[1]
+    ran = len(trainer.timing["loader_waits_s"])
+    if meta["step"] != FIT3_RESUME_STEPS or ran != FIT3_RESUME_STEPS - FIT3_STEPS:
+        raise AssertionError(f"stage-3 resume: {ran} steps run, last.npz at step "
+                             f"{meta['step']}; want {FIT3_RESUME_STEPS - FIT3_STEPS} from step "
+                             f"{FIT3_STEPS}")
+    log(f"stage-3 resume: {ran} step from step {FIT3_STEPS} in {resume_s:.1f} s; last.npz step "
+        f"{meta['step']}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # Faster R-CNN: one update, one validation
+    KN.reset_counts()
+    frcnn_root = work / "stage3_fastrcnn"
+    t0 = time.perf_counter()
+    with StepProbe(TE, KN, bridge, sync_steps=(FIT3_SYNC_CHECK_STEP,), timed=True) as probe:
+        engine, trainer = main_fn(fit3_argv(
+            "fit", work, frcnn_root, "--model.init_args.downstream", "fastrcnn",
+            "--trainer.max_steps", str(FIT3_FRCNN_STEPS)))
+    torch.cuda.synchronize()
+    frcnn_s = time.perf_counter() - t0
+    frcnn_launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
+    shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+    if "rpn" not in engine.critics["det"] or any(c != EXPECTED_STAGE3 for c in probe.counts):
+        raise AssertionError(f"Faster R-CNN fit: critic keys {sorted(engine.critics['det'])}, "
+                             f"launches {probe.counts}")
+    frcnn_val = tuple(frcnn_launches[s] - FIT3_FRCNN_STEPS * EXPECTED_STAGE3[s][0]
+                      for s in symbols)
+    if frcnn_val != tuple(FIT3_VAL_BATCHES * n for n in FIT3_RESTORE):
+        raise AssertionError(f"Faster R-CNN fit validation launches {frcnn_val}")
+    frcnn_logs, frcnn_metrics = probe.logs, probe.metrics
+    if len(frcnn_logs) != FIT3_FRCNN_STEPS or not all(
+            math.isfinite(v) for e in frcnn_logs for v in e.values()):
+        raise AssertionError(f"Faster R-CNN fit: non-finite or missing losses {frcnn_logs}")
+    if len(frcnn_metrics) != 1 or set(frcnn_metrics[0]) != {"val_lq/map", "val_monitor"}:
+        raise AssertionError(f"Faster R-CNN fit validation metrics {frcnn_metrics}")
+    frcnn_prompts = stage3_prompts_check(bridge, TS, OPT, engine, trainer,
+                                         probe.first["trainable"],
+                                         frcnn_root / "checkpoints" / "last.npz")
+    fdirect = direct_step_check(bridge, TS, OPT, engine, trainer, probe.first,
+                                te_loss_fn=engine.te_loss_fn())
+    fsecs = probe.seconds
+    frcnn_share = critic_share(bridge, TS, OPT, engine, trainer, probe, ("det",),
+                               "stage-3 Faster R-CNN")
+    log(f"stage-3 Faster R-CNN fit: {frcnn_s:.1f} s in all; "
+        f"{sum(fsecs[1:]) / len(fsecs[1:]):.4f} s per micro-step after the first "
+        f"({fsecs[0]:.4f} s); validation {frcnn_metrics}; losses "
+        f"{[round(e['train/loss'], 4) for e in frcnn_logs]}")
+    del probe, engine, trainer
+    torch.cuda.empty_cache()
+    result = {"res": FIT_RES, "steps": FIT3_STEPS, "accumulation": FIT3_ACCUM,
+              "fit_seconds": fit_s, "peak_mem_gib": peak, "timing": timing,
+              "loader_wait_mean_s": sum(waits) / len(waits), "loader_waits_s": waits,
+              "logs": logged, "validation": metrics, "checkpoints": ckpts,
+              "surgery": surgery, "prompts": prompts, "direct_step": direct,
+              "launches_per_micro_step": EXPECTED_STAGE3, "validation_launches": val,
+              "frozen_leaves_checked": n_frozen, "critic_leaves_checked": len(fresh),
+              "critic_share": share, "resume_seconds": resume_s,
+              "fastrcnn": {"steps": FIT3_FRCNN_STEPS, "fit_seconds": frcnn_s,
+                           "s_per_micro_step": sum(fsecs[1:]) / len(fsecs[1:]),
+                           "each_s": fsecs, "logs": frcnn_logs, "validation": frcnn_metrics,
+                           "validation_launches": frcnn_val, "prompts": frcnn_prompts,
+                           "direct_step": fdirect, "critic_share": frcnn_share}}
+    return result, launches, shapes
+
+
+def to_device(batch: dict, device) -> dict:
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in batch.items()}
+
+
+def train3_reference_check(UR, KN, bridge, TS, TE) -> dict:
+    """Phase 12: one stage-3 loss through RetinaNet and one through Faster
+    R-CNN and the task prompts' gradient norm, full widths with the critic,
+    256 px, fp32, card vs CPU. The Faster R-CNN sampling draws are the CPU
+    generator's on both sides (``tasks.fasterrcnn.loss_uniforms`` is patched
+    for the comparison), as a CUDA generator draws other numbers."""
+    from unirestore_torch.tasks import fasterrcnn as FRC
+
+    cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg", "det"))
+    frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=11)
+    cpu_trees = (to_cpu(bridge, frozen), to_cpu(bridge, trainable))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True,
+                           tfa_prompts_only=True, multi_task=True)
+    cfg_r = TS.with_remat(cfg)
+    batch = synthetic_pair(gen, 1, 256, torch.float32)
+    boxes = torch.zeros((1, 64, 4), device="cuda")
+    boxes[0, :3] = torch.tensor([[16.0, 24.0, 120.0, 140.0], [100.0, 40.0, 230.0, 200.0],
+                                 [30.0, 150.0, 90.0, 250.0]])
+    mask = torch.zeros((1, 64), dtype=torch.bool, device="cuda")
+    mask[0, :3] = True
+    labels = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
+    labels[0, :3] = torch.tensor([1, 3, 18])
+    batch["gt"] = {"boxes": boxes, "labels": labels, "mask": mask}
+    noise = TS.draw_noise(cfg, batch, gen)
+    draw = FRC.loss_uniforms
+
+    def run(device, tree_f, tree_t, crit, downstream):
+        leaves = TS.trained_leaves(stage, tree_t)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        try:
+            nz = TS.StepNoise(*(x.to(device) for x in (noise.hq, noise.lq, noise.diffusion,
+                                                       noise.timesteps)))
+            loss, logs = TS.compute_losses(tree_f, tree_t, cfg_r, UR.schedule(cfg, device=device),
+                                           stage, to_device(batch, device), nz, "det",
+                                           TE.make_te_loss_fn("det", crit, downstream))
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        finally:
+            for p in leaves.values():
+                p.requires_grad_(False)
+        norm = sum(g.double().square().sum().item() for g in grads if g is not None) ** 0.5
+        return {k: v.item() for k, v in logs.items()}, norm
+
+    out = {}
+    FRC.loss_uniforms = lambda b, h, w, device: tuple(u.to(device) for u in draw(b, h, w, "cpu"))
+    try:
+        for downstream in ("retinanet", "fastrcnn"):
+            critics = TE.build_critics("det", downstream, device="cuda")
+            KN.reset_counts()
+            gpu_logs, gpu_norm = run("cuda", frozen, trainable, critics, downstream)
+            counts = train_counts(KN)
+            t0 = time.perf_counter()
+            cpu_logs, cpu_norm = run("cpu", *cpu_trees, to_cpu(bridge, critics), downstream)
+            cpu_s = time.perf_counter() - t0
+            loss_err = max(abs(gpu_logs[k] - cpu_logs[k]) / abs(cpu_logs[k]) for k in cpu_logs)
+            grad_err = abs(gpu_norm - cpu_norm) / cpu_norm
+            log(f"stage-3 reference {downstream}, 256 px fp32: card vs CPU max relative loss "
+                f"error {loss_err:.3e} (limit {TRAIN_LOSS_RTOL}), prompt gradient norm "
+                f"{gpu_norm:.6g} vs {cpu_norm:.6g}, error {grad_err:.3e} (limit "
+                f"{TRAIN_GRAD_RTOL}); losses card {gpu_logs} CPU {cpu_logs}; card launches "
+                f"{counts}; CPU {cpu_s:.1f} s")
+            finite = all(math.isfinite(v) for v in (*gpu_logs.values(), gpu_norm))
+            if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
+                raise AssertionError(f"card and CPU stage-3 {downstream} losses differ")
+            if any(counts[s][0] == 0 for s, c in EXPECTED_STAGE3.items() if c[0]):
+                raise AssertionError(f"a kernel did not run in the stage-3 reference: {counts}")
+            out[downstream] = {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err,
+                               "prompt_grad_norm_card": gpu_norm,
+                               "prompt_grad_norm_cpu": cpu_norm, "cpu_seconds": cpu_s}
+            del critics
+            torch.cuda.empty_cache()
+    finally:
+        FRC.loss_uniforms = draw
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2092,13 +2456,28 @@ def main() -> int:
         t0 = time.perf_counter()
         fit2, paths["fit_stage2"], fit2_shapes = run_fit_stage2(KN, bridge, TE, TS, OPT,
                                                                 TMAIN.main, Path(work))
-    fit2["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit2_shapes, rows, gen,
-                                                      path="fit_stage2")
+        fit2["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit2_shapes, rows, gen,
+                                                          path="fit_stage2")
+        torch.cuda.empty_cache()
+        fit2["reference"] = train2_reference_check(UR, KN, bridge, TS, TE)
+        fit2["phase_seconds"] = time.perf_counter() - t0
+        log(f"stage-2 fit: {fit2['shapes_added_to_phase3']} (kernel, shape) pairs held to "
+            f"their plain versions after it; phase 11 took {fit2['phase_seconds']:.1f} s")
+        torch.cuda.empty_cache()
+
+        # phase 12: the stage-3 fit through the CLI, chained to the checkpoints
+        # of phases 9 and 11; phase 3's comparison at the shapes it met that
+        # were not held yet; then the two detectors' losses, card vs CPU
+        t0 = time.perf_counter()
+        fit3, paths["fit_stage3"], fit3_shapes = run_fit_stage3(KN, bridge, TE, TS, OPT,
+                                                                TMAIN.main, Path(work))
+    fit3["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit3_shapes, rows, gen,
+                                                      path="fit_stage3")
     torch.cuda.empty_cache()
-    fit2["reference"] = train2_reference_check(UR, KN, bridge, TS, TE)
-    fit2["phase_seconds"] = time.perf_counter() - t0
-    log(f"stage-2 fit: {fit2['shapes_added_to_phase3']} (kernel, shape) pairs held to their "
-        f"plain versions after it; phase 11 took {fit2['phase_seconds']:.1f} s")
+    fit3["reference"] = train3_reference_check(UR, KN, bridge, TS, TE)
+    fit3["phase_seconds"] = time.perf_counter() - t0
+    log(f"stage-3 fit: {fit3['shapes_added_to_phase3']} (kernel, shape) pairs held to their "
+        f"plain versions after it; phase 12 took {fit3['phase_seconds']:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 10: report; a path routes to a kernel when its expected count is not 0
@@ -2112,6 +2491,8 @@ def main() -> int:
                   fit=[EXPECTED_TRAIN[kern.symbol][0] + FIT_RESTORE[i]
                        for i, kern in enumerate(KN.KERNELS)],
                   fit_stage2=[EXPECTED_STAGE2["ir"][kern.symbol][0] + FIT_RESTORE[i]
+                              for i, kern in enumerate(KN.KERNELS)],
+                  fit_stage3=[EXPECTED_STAGE3[kern.symbol][0] + FIT3_RESTORE[i]
                               for i, kern in enumerate(KN.KERNELS)])
     entries = []
     for i, kern in enumerate(KN.KERNELS):
@@ -2151,6 +2532,7 @@ def main() -> int:
     log(json.dumps({"serving": serving}))
     log(json.dumps({"fit": fit}))
     log(json.dumps({"fit_stage2": fit2}))
+    log(json.dumps({"fit_stage3": fit3}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

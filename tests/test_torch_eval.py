@@ -169,8 +169,8 @@ def test_load_config_raises_like_jax():
 
 
 def test_build_refuses_what_is_not_ported():
-    """The mtl engine of stage 2 builds; the cls and seg engines (their probe
-    zoos), det (a detector critic), the NR suite and FID still raise."""
+    """The mtl engine of stage 2 and the det engine of stage 3 build; the cls
+    and seg engines (their probe zoos), the NR suite and FID still raise."""
     cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml")
     engine, _, data, factory = TC.build(cfg, tiny=True, device="cpu")
     assert engine.engine_type == "mtl" and engine.stage.multi_task and engine.stage.train_tfa
@@ -182,8 +182,9 @@ def test_build_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="Queue A 5"):
             TC.build(cfg, tiny=True, device="cpu")
     cfg = TC.load_config(REPO / "configs" / "train_stage3.yaml")
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        TC.build(cfg, tiny=True, device="cpu")  # the det engine
+    engine, _, data, _ = TC.build(cfg, tiny=True, device="cpu")  # the det engine
+    assert engine.engine_type == "det" and engine.downstream == "retinanet"
+    assert engine.stage.tfa_prompts_only and engine.stage.multi_task and data.task == "det"
     cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--model.init_args.eval_mode", "NR"])
     with pytest.raises(NotImplementedError, match="NR"):
         TC.build(cfg, tiny=True, device="cpu")

@@ -185,10 +185,13 @@ def test_build_critics_loads_converted_weights_or_keeps_the_seeded_init(tmp_path
     for k, v in bridge.flatten(loaded).items():
         assert v.dtype == torch.float32 and torch.equal(v, want[k]), k
 
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        TE.build_critics("det", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        TE.make_te_loss_fn("det", {})
+    # the det engine's critic is the detector ``downstream`` names (its
+    # parity is in test_torch_detection.py); unknown engine types raise
+    assert "rpn" not in TE.build_critics("det", device="meta")["det"]
+    with pytest.raises(KeyError):
+        TE.build_critics("nope", device="cpu")
+    with pytest.raises(KeyError):
+        TE.make_te_loss_fn("nope", {})
     with pytest.raises(NotImplementedError, match="Queue A 5"):
         TDL.deeplab_factory("deeplabv3plus_mobilenet")
     with pytest.raises(ValueError, match="unknown"):

@@ -14,10 +14,10 @@ extra keys, as checkpoint loading does). ``to_numpy_tree`` is the inverse: the
 port's tree as nested numpy arrays in the JAX layout, which
 ``train/checkpoints.py`` writes so that each package reads the other's files.
 
-``critics_from_jax`` is the same path for the frozen critics of stage 2
-(``unirestore_tpu/tasks/resnet.py``, ``deeplab.py``): their JAX trees, by
-task, against the port's own critic trees (``tasks.critic_init(task,
-"meta")``) as templates.
+``critics_from_jax`` is the same path for the frozen critics of stages 2
+and 3 (``unirestore_tpu/tasks/resnet.py``, ``deeplab.py``, ``retinanet.py``,
+``fasterrcnn.py``): their JAX trees, by task, against the port's own critic
+trees (``tasks.critic_init(task, "meta", downstream)``) as templates.
 """
 
 from __future__ import annotations
@@ -133,9 +133,12 @@ def from_jax(frozen, trainable, cfg, *, device=None, dtype=torch.float32):
             load_tree(trainable, trainable_t, device=device, dtype=dtype))
 
 
-def critics_from_jax(critics, *, device=None, dtype=torch.float32) -> dict:
-    """The JAX critic trees by task (``{"cls": ..., "seg": ...}``) -> the port's."""
-    return {task: load_tree(tree, critic_init(task, "meta"), device=device, dtype=dtype)
+def critics_from_jax(critics, *, device=None, dtype=torch.float32,
+                     downstream: str | None = None) -> dict:
+    """The JAX critic trees by task (``{"cls": ..., "seg": ...}``, or ``{"det":
+    ...}`` of the detector ``downstream`` names) -> the port's."""
+    return {task: load_tree(tree, critic_init(task, "meta", downstream), device=device,
+                            dtype=dtype)
             for task, tree in critics.items()}
 
 

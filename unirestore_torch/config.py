@@ -5,12 +5,13 @@ The port's counterpart of ``unirestore_tpu/config.py``: ``load_config``,
 copied as they are, so the reference YAMLs in ``configs/`` drive the port
 unchanged (the ``unirestore_tpu.*`` and ``core.engine_unifie.*`` class paths
 are accepted as strings). ``build`` covers the ``ir`` engine with the FR
-evaluation (PSNR, SSIM, LPIPS) and the ``mtl`` engine of stage 2 with the
+evaluation (PSNR, SSIM, LPIPS), the ``mtl`` engine of stage 2 with the
 multi-task evaluation (the IR evaluator, the ``r50v1`` classification and
-``dlv3pr50`` segmentation probes on the engine's critics). Not ported yet,
-each raising ``NotImplementedError`` (ROADMAP Queue A 5): the ``cls`` and
-``seg`` engines, which need their probe zoos, and the ``det`` engine, which
-needs a detector; the NR ``eval_mode``; ``compute_fid``.
+``dlv3pr50`` segmentation probes on the engine's critics) and the ``det``
+engine of stage 3 with the detection evaluation (mAP of the critic, RetinaNet
+or, with ``downstream: fastrcnn``, Faster R-CNN). Not ported yet, each raising
+``NotImplementedError`` (ROADMAP Queue A 5): the ``cls`` and ``seg`` engines,
+which need their probe zoos; the NR ``eval_mode``; ``compute_fid``.
 
 Same document shape as the reference configs (configs/train_stage*.yaml):
 ``seed_everything``, ``trainer{...}``, ``model{class_path, init_args}``,
@@ -111,8 +112,7 @@ def engine_type(cfg: dict) -> str:
 
 # engine types ``build`` refuses, and what each needs
 NOT_PORTED = {"cls": "the classifier probe zoo (tasks/classifier_zoo.py)",
-              "seg": "the segmentation probe zoo (tasks/seg_zoo.py, RefineNet)",
-              "det": "the detector critics (RetinaNet, Faster R-CNN)"}
+              "seg": "the segmentation probe zoo (tasks/seg_zoo.py, RefineNet)"}
 
 
 def build(cfg: dict, tiny: bool = False, device=None):
@@ -178,7 +178,8 @@ def build(cfg: dict, tiny: bool = False, device=None):
     d = cfg.get("data", {}).get("init_args", {})
     data = DatasetEngine(**d) if d else None
 
-    # LPIPS and the critic probes are built once and reused across validate() epochs
+    # LPIPS, the critic probes and the detector are built once and reused
+    # across validate() epochs
     _eval_cache = {}
 
     def lpips():
@@ -202,6 +203,17 @@ def build(cfg: dict, tiny: bool = False, device=None):
                 EV.ClassificationEvaluator(restore, {"r50v1": probes["cls"]}),
                 EV.SemanticSegmentationEvaluator(restore, {"dlv3pr50": probes["seg"]}))
         save_dir = os.path.join(root, "dumps") if m.get("save_image") else None
+        if etype == "det":
+            if "detector" not in _eval_cache:
+                from .tasks import fasterrcnn as FRC
+                from .tasks import retinanet as RET
+                critic = eng.build_critics()["det"]
+                detect = (FRC.fasterrcnn_detect if m.get("downstream") == "fastrcnn"
+                          else RET.retinanet_detect)
+                _eval_cache["detector"] = lambda imgs: detect(critic, imgs,
+                                                              score_threshold=0.05)
+            return EV.DetectionEvaluator(restore, _eval_cache["detector"],
+                                         iou_thresholds=(0.1,), save_dir=save_dir)
         return EV.ImageRestorationEvaluator(
             restore, need_crop=m.get("need_crop", True),
             save_dir=save_dir, lpips_fn=lpips())

@@ -213,13 +213,14 @@ def device_prefetch(iterator, device, depth: int = 2):
     the JAX loader's ``device_prefetch``, which staged them by
     ``jax.device_put``).
 
-    Each batch's numpy arrays become tensors; the other entries pass through.
-    On a CUDA device the arrays are copied into pinned host memory and from
-    there, with ``non_blocking=True``, on a side stream; the batch carries an
-    event recorded after its copies. When the batch is handed out, the
-    consuming stream waits on that event (no host wait) and every tensor is
-    marked with ``record_stream``, so its memory is not reused before the
-    consumer is done with it. On the CPU the arrays are only converted.
+    Each batch's numpy arrays, and those of a dict in it (the padded
+    detection targets), become tensors; the other entries pass through. On a
+    CUDA device the arrays are copied into pinned host memory and from there,
+    with ``non_blocking=True``, on a side stream; the batch carries an event
+    recorded after its copies. When the batch is handed out, the consuming
+    stream waits on that event (no host wait) and every tensor is marked with
+    ``record_stream``, so its memory is not reused before the consumer is done
+    with it. On the CPU the arrays are only converted.
     """
     import collections
 
@@ -230,28 +231,35 @@ def device_prefetch(iterator, device, depth: int = 2):
     side = torch.cuda.Stream(device) if cuda else None
     buf = collections.deque()
 
+    def convert(b, fn):
+        return {k: fn(v) if isinstance(v, np.ndarray)
+                else convert(v, fn) if isinstance(v, dict) else v for k, v in b.items()}
+
+    def tensors(b):
+        for v in b.values():
+            if isinstance(v, torch.Tensor):
+                yield v
+            elif isinstance(v, dict):
+                yield from tensors(v)
+
     def put(b):
-        arrays = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in b.items()
-                  if isinstance(v, np.ndarray)}
-        rest = {k: v for k, v in b.items() if k not in arrays}
         if not cuda:
-            return {**arrays, **rest}, None
+            return convert(b, lambda v: torch.from_numpy(np.ascontiguousarray(v))), None
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            arrays = {k: v.pin_memory().to(device, non_blocking=True)
-                      for k, v in arrays.items()}
+            b = convert(b, lambda v: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                        .to(device, non_blocking=True))
             ready = torch.cuda.Event()
             ready.record(side)
-        return {**arrays, **rest}, ready
+        return b, ready
 
     def take(item):
         b, ready = item
         if ready is not None:
             stream = torch.cuda.current_stream(device)
             stream.wait_event(ready)
-            for v in b.values():
-                if isinstance(v, torch.Tensor):
-                    v.record_stream(stream)
+            for v in tensors(b):
+                v.record_stream(stream)
         return b
 
     it = iter(iterator)

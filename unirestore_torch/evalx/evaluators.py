@@ -1,7 +1,8 @@
 """Evaluation over a restore function (the port of
 ``unirestore_tpu/evalx/evaluators.py``: ``center_crop``, the FR protocol of
 ``ImageRestorationEvaluator``, ``ClassificationEvaluator``,
-``SemanticSegmentationEvaluator`` and ``MultiTaskEvaluator``).
+``SemanticSegmentationEvaluator``, ``DetectionEvaluator`` and
+``MultiTaskEvaluator``).
 
 IR protocol (eval_image_restoration.py): center-crop <= 512^2, restore [hq,
 lq], quantize to uint8 levels, PSNR / SSIM and LPIPS against the target;
@@ -10,10 +11,11 @@ lq] with task ``cls``, quantize, top-1 accuracy (macro) of each probe.
 Segmentation: the restored lq only, each probe's logits averaged over the
 scales 1.0 / 0.8 / 0.6 (cv2 bilinear resizes on the host), 19-class IoU.
 Multi-task: each batch to the evaluator of its ``task``; monitor
-val_ir_lq/psnr. A probe is ``fn(images_nhwc01) -> logits`` on numpy. The NR
-metric suite (the JAX evaluator's ``eval_mode`` NR and ALL), FID and the
-detection evaluator are not ported yet (ROADMAP Queue A 5; ``config.build``
-refuses them).
+val_ir_lq/psnr. Detection: the restored lq only, quantised, the detector's
+boxes scored by mAP at IoU 0.1. A probe is ``fn(images_nhwc01) -> logits`` on
+numpy, a detector ``fn(images_nhwc01) -> [{boxes, scores, labels}]``. The NR
+metric suite (the JAX evaluator's ``eval_mode`` NR and ALL) and FID are not
+ported yet (ROADMAP Queue A 5; ``config.build`` refuses them).
 
 The ``restore_fn(images_nhwc, task) -> images_nhwc`` closure takes and gives
 numpy in [0, 1] (``train/engine.py:UniFIEEngine.restore_fn``).
@@ -242,6 +244,67 @@ class SemanticSegmentationEvaluator:
         if self.monitor is not None:
             out["val_monitor"] = out.get(f"{prefix}_lq/{self.monitor}", 0.0)
         self.task_metric.reset_metrics()
+        return out
+
+
+class DetectionEvaluator:
+    """Detection protocol (eval_detection.py; JAX ``DetectionEvaluator``,
+    ``unirestore_tpu/evalx/evaluators.py:307-364``): restore the lq images with
+    task ``det``, quantise to uint8 levels, run the detector and feed
+    ``MeanAveragePrecision`` at the IoU thresholds given; monitor
+    ``val_lq/map``."""
+
+    def __init__(self, restore_fn, detector_fn, iou_thresholds=(0.1,),
+                 save_dir: str | None = None):
+        """``detector_fn(images) -> list of {boxes, scores, labels}``;
+        ``save_dir``: restored images with the predicted boxes drawn
+        (<save_dir>/det, eval_detection.py:84-94, 286-318)."""
+        self.restore_fn = restore_fn
+        self.detector_fn = detector_fn
+        self.save_dir = save_dir
+        self.eval_types = ["lq"]
+        self.map = {t: M.MeanAveragePrecision(iou_thresholds) for t in self.eval_types}
+
+    @staticmethod
+    def _draw_boxes(img_u8, boxes, color=(255, 0, 0), width: int = 2):
+        h, w = img_u8.shape[:2]
+        for x0, y0, x1, y1 in np.asarray(boxes, np.int64):
+            x0, x1 = np.clip([x0, x1], 0, w - 1)
+            y0, y1 = np.clip([y0, y1], 0, h - 1)
+            for t in range(width):
+                img_u8[np.clip(y0 + t, 0, h - 1), x0:x1 + 1] = color
+                img_u8[np.clip(y1 - t, 0, h - 1), x0:x1 + 1] = color
+                img_u8[y0:y1 + 1, np.clip(x0 + t, 0, w - 1)] = color
+                img_u8[y0:y1 + 1, np.clip(x1 - t, 0, w - 1)] = color
+        return img_u8
+
+    def _save_det(self, preds, dets, fnames):
+        """PNGs through ``ops/png.py`` (the card's machine has no PIL)."""
+        if self.save_dir is None or fnames is None:
+            return
+        from ..ops import png
+
+        d = os.path.join(self.save_dir, "det")
+        os.makedirs(d, exist_ok=True)
+        for img, det, name in zip(preds, dets, fnames):
+            arr = (np.clip(img, 0, 1) * 255).astype(np.uint8).copy()
+            with open(os.path.join(d, f"{_stem(name)}.png"), "wb") as f:
+                f.write(png.encode(self._draw_boxes(arr, det["boxes"])))
+
+    def validation_step(self, batch):
+        targets = batch["gt"] if isinstance(batch["gt"], list) else [batch["gt"]]
+        pred = np.asarray(self.restore_fn(batch["lq"], "det"), np.float32)
+        # uint8 quantisation before the probe, as every other evaluator
+        # (eval_detection.py:74: mul(255).round_().clamp_().div_(255))
+        dets = self.detector_fn(M.quantize_preds(pred))
+        self.map["lq"].update(dets, targets)
+        self._save_det(pred, dets, batch.get("fname"))
+
+    def epoch_end(self, prefix: str = "val"):
+        out = {f"{prefix}_lq/map": self.map["lq"].compute()}
+        out["val_monitor"] = out[f"{prefix}_lq/map"]
+        for m in self.map.values():
+            m.reset()
         return out
 
 

@@ -6,6 +6,7 @@ applied onto the YAML document by ``config.load_config``:
 
     python -m unirestore_torch.main fit --config configs/train_stage1.yaml
     python -m unirestore_torch.main fit --config configs/train_stage2.yaml
+    python -m unirestore_torch.main fit --config configs/train_stage3.yaml
     python -m unirestore_torch.main validate --config configs/val.yaml --trainer.logger null
     python -m unirestore_torch.main fit --config <smoke>/smoke.yaml --tiny --device cpu
 

@@ -13,6 +13,7 @@ per-channel scale/shift applied in the input dtype.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -165,6 +166,37 @@ def upsample_nearest_2x(x):
     b, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
     return x.reshape(b, 2 * h, 2 * w, c)
+
+
+_NEAREST_INDEX: dict = {}
+
+
+def _nearest_index(in_size: int, out_size: int, device):
+    """floor(i * (in / out)) for i < out, the product in fp32 as the JAX
+    function computes it; made once per (sizes, device), so that a resize
+    copies nothing from the host after its first call (a normal tensor even
+    under ``inference_mode``, so that autograd may save it)."""
+    key = (in_size, out_size, str(device))
+    if key not in _NEAREST_INDEX:
+        src = np.floor(np.arange(out_size, dtype=np.float32) * np.float32(in_size / out_size))
+        with torch.inference_mode(False):
+            _NEAREST_INDEX[key] = torch.as_tensor(src.astype(np.int64), device=device)
+    return _NEAREST_INDEX[key]
+
+
+def resize_nearest(x, size: tuple[int, int]):
+    """Nearest-neighbour NHWC resize (JAX ``resize_nearest``,
+    ``unirestore_tpu/nn/layers.py:186-192``): output row i reads row
+    floor(i * (h / oh)), with the product in fp32. At ratios such as 17 -> 33
+    this is JAX's mapping, which ``F.interpolate(mode="nearest")`` need not
+    reproduce."""
+    _, h, w, _ = x.shape
+    oh, ow = size
+    if (h, w) == (oh, ow):
+        return x
+    rows = _nearest_index(h, oh, x.device)
+    cols = _nearest_index(w, ow, x.device)
+    return x.index_select(1, rows).index_select(2, cols)
 
 
 def pixel_shuffle(x, factor: int = 2):

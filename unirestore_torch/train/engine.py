@@ -9,12 +9,15 @@ and adapter-only checkpoints (``checkpoints.py``), all on one device.
 ``UniFIEEngine`` builds the params (the port's seeded init with
 ``seed_everything`` as its seed, then the converted sd-turbo weights of
 ``zoo.py``, then stage-surgery ``ckpt_path`` files), the frozen critics of
-stage 2 (``build_critics``: ResNet-50 for ``cls``, DeepLabV3+-ResNet-50 for
-``seg``, fp32, from ``weights/resnet50_v1.npz`` and
-``weights/deeplabv3plus_resnet50.npz`` or, warned, a seeded init, as the JAX
+stages 2 and 3 (``build_critics``: ResNet-50 for ``cls``, DeepLabV3+-ResNet-50
+for ``seg``, RetinaNet or, with ``downstream: fastrcnn``, Faster R-CNN for
+``det``, fp32, from ``weights/resnet50_v1.npz``,
+``deeplabv3plus_resnet50.npz``, ``retinanet_resnet50.npz`` or
+``fasterrcnn_resnet50.npz`` or, warned, a seeded init, as the JAX
 ``zoo.load_npz_tree`` falls back) with the task loss that runs through them
-(``make_te_loss_fn``: 10·L1 ``ir``, 0.1·CE ``cls`` and ``seg`` under ``mtl``),
-and owns the restore closures; ``Trainer.fit`` / ``Trainer.validate`` are the JAX loops: sanity
+(``make_te_loss_fn``: 10·L1 ``ir``, 0.1·CE ``cls`` and ``seg`` under ``mtl``;
+the detector's loss on padded targets under ``det``), and owns the restore
+closures; ``Trainer.fit`` / ``Trainer.validate`` are the JAX loops: sanity
 validation, micro-steps counted one per batch (so with accumulation 2 the
 optimizer updates every second step and the OneCycle schedule spans
 ``max_steps`` micro-steps), a validation interval with top-k checkpoints and
@@ -32,12 +35,13 @@ Differences from the JAX engine:
   ``compute_dtype`` (bf16 by default) and the trainable masters in fp32, and
   each batch is cast to ``compute_dtype``.
 - Restores run eagerly (the JAX engine keeps an LRU of compiled ones).
-- The ``ir`` and ``mtl`` engine types. ``build_critics`` and
+- The ``ir``, ``mtl`` and ``det`` engine types. ``build_critics`` and
   ``make_te_loss_fn`` also take ``cls`` and ``seg``, but ``config.build``
-  refuses those engines (their probe zoos are not ported), and ``det``, whose
-  detector critics are not ported, raises here (ROADMAP Queue A 5). The
-  critics are built once per engine and shared by the fit and the
-  evaluator.
+  refuses those engines (their probe zoos are not ported, ROADMAP Queue A 5).
+  The critics are built once per engine and shared by the fit and the
+  evaluator. A ``det`` batch's ragged targets are padded to 64 boxes
+  (``padded_targets``) before the batch is staged, so they reach the card
+  with its images.
 - Not offered, each raising with its reason: ``split_step`` and
   ``stop_after`` (they exist for the TPU's compiler; the JAX package's test
   ``test_split_step_matches_monolithic`` shows the split step equals the
@@ -58,7 +62,9 @@ from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..models import unirestore as UR
 from ..tasks import deeplab as DL
+from ..tasks import fasterrcnn as FRC
 from ..tasks import resnet as RN
+from ..tasks import retinanet as RET
 from . import checkpoints as CKPT
 from . import optim as OPT
 from . import steps as ST
@@ -95,15 +101,9 @@ def build_model_config(model_kwargs: dict) -> tuple[UR.UniRestoreConfig, ST.Stag
     return cfg, stage
 
 
-CRITIC_TASKS = {"ir": (), "mtl": ("cls", "seg"), "cls": ("cls",), "seg": ("seg",)}
-
-
-def _refuse_det(engine_type: str):
-    if engine_type == "det":
-        raise NotImplementedError("engine type 'det' needs the detector critics (RetinaNet, "
-                                  "Faster R-CNN), which are not ported yet (ROADMAP Queue A 5)")
-    if engine_type not in CRITIC_TASKS:
-        raise KeyError(engine_type)
+CRITIC_TASKS = {"ir": (), "mtl": ("cls", "seg"), "cls": ("cls",), "seg": ("seg",),
+                "det": ("det",)}
+MAX_BOXES = 64  # detection targets padded per image (unirestore_tpu/train/engine.py:448-451)
 
 
 def build_critics(engine_type: str, downstream: str | None = None, device=None,
@@ -111,23 +111,26 @@ def build_critics(engine_type: str, downstream: str | None = None, device=None,
     """The frozen critics of an engine type by task, fp32 on ``device``
     (``unirestore_tpu/train/engine.py:64-90``): the converted weights where the
     file exists, else the seeded init with a warning. ``downstream`` picks the
-    detector of ``det``, which is not ported and raises."""
-    _refuse_det(engine_type)
+    detector of ``det``: Faster R-CNN for ``fastrcnn``, RetinaNet otherwise."""
     critics = {}
     for task in CRITIC_TASKS[engine_type]:
-        p, _ = zoo.load_npz_tree(tasks.CRITIC_WEIGHTS[task], tasks.critic_init(task, device),
-                                 weights_dir)
+        name = tasks.CRITIC_WEIGHTS[tasks.critic_name(task, downstream)]
+        p, _ = zoo.load_npz_tree(name, tasks.critic_init(task, device, downstream), weights_dir)
         critics[task] = bridge.unflatten_like(
             {k: v.contiguous(memory_format=torch.channels_last) if v.ndim == 4 else v
              for k, v in bridge.flatten(p).items()}, p)
     return critics
 
 
-def make_te_loss_fn(engine_type: str, critics: dict | None = None):
+def make_te_loss_fn(engine_type: str, critics: dict | None = None,
+                    downstream: str | None = None):
     """te_loss_fn(preds, hq, gt, task) for the train step
     (``unirestore_tpu/train/engine.py:93-132``): the critics see the
-    predictions in fp32."""
-    _refuse_det(engine_type)
+    predictions in fp32. Under ``det``, ``gt`` is the padded dict {"boxes",
+    "labels", "mask"} and the loss is the detector's, through Faster R-CNN
+    for ``downstream`` ``fastrcnn`` and RetinaNet otherwise."""
+    if engine_type not in CRITIC_TASKS:
+        raise KeyError(engine_type)
 
     def l1(p32, hq):
         return torch.mean(torch.abs(p32 - hq.float()))
@@ -136,6 +139,10 @@ def make_te_loss_fn(engine_type: str, critics: dict | None = None):
         if task == "cls":
             return RN.cross_entropy_loss(RN.resnet_apply(critics["cls"], p32), gt)
         return DL.seg_cross_entropy_loss(DL.deeplabv3plus_apply(critics["seg"], p32), gt)
+
+    def det(p32, gt):
+        loss = FRC.fasterrcnn_loss if downstream == "fastrcnn" else RET.retinanet_loss
+        return loss(critics["det"], p32, gt["boxes"], gt["labels"], gt["mask"])
 
     def fn(preds, hq, gt, task):
         p32 = preds.float()
@@ -147,9 +154,22 @@ def make_te_loss_fn(engine_type: str, critics: dict | None = None):
             raise KeyError(f"Task [{task}] is not defined!")
         if engine_type == "ir":
             return l1(p32, hq)
+        if engine_type == "det":
+            return det(p32, gt)
         return ce(engine_type, p32, gt)
 
     return fn
+
+
+def padded_targets(batches):
+    """The batches of a loader with each ``det`` batch's ragged ``gt`` list
+    made the padded numpy dict {"boxes", "labels", "mask"} (``pad_targets``),
+    so that its arrays travel with the batch's other arrays to the device."""
+    for batch in batches:
+        if batch.get("task") == "det" and isinstance(batch.get("gt"), list):
+            boxes, labels, mask = RET.pad_targets(batch["gt"], MAX_BOXES)
+            batch = {**batch, "gt": {"boxes": boxes, "labels": labels, "mask": mask}}
+        yield batch
 
 
 def noise_generator(seed: int, start_step: int, device) -> torch.Generator:
@@ -234,7 +254,7 @@ class UniFIEEngine:
         """te_loss_fn(preds, hq, gt, task) for the train step, through
         ``critics`` (default: ``build_critics()``)."""
         critics = self.build_critics() if critics is None else critics
-        return make_te_loss_fn(self.engine_type, critics)
+        return make_te_loss_fn(self.engine_type, critics, self.downstream)
 
     # -- inference ---------------------------------------------------------
 
@@ -422,7 +442,7 @@ class Trainer:
         step = start_step
         waits, prof = [], None
         t0 = time.time()
-        it = device_prefetch(train_loader, dev)
+        it = device_prefetch(padded_targets(train_loader), dev)
         with contextlib.ExitStack() as tracing:
             while step < self.max_steps:
                 if trace_window and step + 1 == trace_window[0]:
@@ -431,15 +451,18 @@ class Trainer:
                 try:
                     batch = next(it)
                 except StopIteration:
-                    it = device_prefetch(train_loader, dev)
+                    it = device_prefetch(padded_targets(train_loader), dev)
                     batch = next(it)
                 waits.append(time.perf_counter() - t_wait)
                 task = batch.pop("task")
                 batch.pop("fname", None)
                 # integer labels keep their dtype: an ImageNet class above
-                # 256 is not exact in bf16
+                # 256 is not exact in bf16; detection targets stay as padded
+                # (fp32 boxes, as in the JAX loop)
                 dev_batch = {k: v.to(dt) if v.is_floating_point() else v
                              for k, v in batch.items() if isinstance(v, torch.Tensor)}
+                if isinstance(batch.get("gt"), dict):
+                    dev_batch["gt"] = batch["gt"]
                 with timer:
                     _, opt_state, logs = self._step(get_step(task), engine.trainable, opt_state,
                                                     dev_batch, step - start_step, draw)
