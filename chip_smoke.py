@@ -154,6 +154,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain version (rows with ``"path": "fit_stage3"``). Then the RetinaNet and
    the Faster R-CNN stage-3 losses and the prompts' gradient norm at full
    width, 256 px, fp32, card vs CPU;
+13. (run after phase 12, before the report) the ``cls`` and ``seg`` engines
+   and their probe zoos: every probe (each ``classifier_zoo._SPECS`` entry,
+   ``dlv3pr50`` and ``rflwr101``) built seeded in fp32 on the card and run on
+   one seeded batch (1 x 512 x 512 for the classifiers, resized to 224 px
+   inside; 1 x 576 x 592 for the segmenters), its logits within 1e-4 of the
+   largest |logit| of the same tree and batch on the CPU and no launch of
+   the repo's kernels, with how far the input reaches the logits (their
+   change against a blank image), ms per call, the device's kernels per call
+   and busy ms by kernel family; then
+   ``unirestore_torch.main.main`` with ``fit --config
+   configs/train_stage2.yaml`` and dotted overrides only
+   (``--model.class_path unirestore_tpu.cls --data.init_args.task cls
+   --model.init_args.eval_mode all``; then ``...seg ... single``; phase 9's
+   smoke tree, 6 micro-steps, one validation over 2 batches). Checks: finite
+   losses; step 1 bit-equal to a direct ``make_train_step`` with the
+   engine's task loss; only leaves the stage's filter selects changed, the
+   engine's own prompt among them; the frozen tree and the critic as fresh
+   builds; a micro-step under ``set_sync_debug_mode("error")``; launches per
+   micro-step and per validation restore as the routing implies; the
+   validation keys of every probe of the set (``val_hq`` and ``val_lq`` for
+   cls, ``val_lq`` for seg) and ``val_monitor`` equal to ``val_lq/r50v1``
+   (cls) or ``val_lq/rflwr101`` (seg); ``last.npz``. Then ``validate`` runs
+   of the cls engine with ``all_ft`` (monitor ``r50v1_ft``) and ``CUB`` (a
+   list of the tree's cls images, labels mod 200; monitor ``cub_r50``) and
+   of the seg engine with ``all``: keys, monitor and launches. Reported: s
+   per micro-step (the card synchronised before and after each, the first
+   left out), validation s per image of each probe set, peak memory, the
+   probes' share of a validation's device time (profiled). Every (kernel,
+   shape) met that was not held yet is held to its plain version (rows with
+   ``"path": "fit_cls"`` or ``"fit_seg"``);
 10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
@@ -163,7 +193,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``restore_fused_graph`` and ``serve_graph`` the same on the graph route,
    each graph's launches at capture times its replays; ``fit``: phase 9's
    first fit, training and validation; ``fit_stage2``: phase 11's fit;
-   ``fit_stage3``: phase 12's RetinaNet fit); each kernel must
+   ``fit_stage3``: phase 12's RetinaNet fit; ``fit_cls`` and ``fit_seg``:
+   phase 13's fits of the two engines); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -314,6 +345,24 @@ EXPECTED_STAGE3 = EXPECTED_STAGE2["cls"]
 # flat at 5120 and 1280, head-major at 320, the VAE mid block at T = 5120
 # streaming), the routes of a 512 x 512 restore
 FIT3_RESTORE = FIT_RESTORE
+# phase 13: ``python -m unirestore_torch.main fit|validate`` from the stage-2
+# YAML made the cls or the seg engine by dotted overrides only
+# (``--model.class_path unirestore_tpu.cls|seg --data.init_args.task
+# cls|seg --model.init_args.eval_mode <mode>``) on phase 9's smoke tree: 6
+# micro-steps (one AdamW update at the YAML's accumulation 6) and one
+# validation over 2 batches at step 6 with the probe set of FIT13_MODES; then
+# validate runs with the other probe sets (VALIDATE13). Every probe of the
+# zoos is first held to its CPU run on one seeded batch (PROBE_SHAPES)
+FIT13_STEPS, FIT13_SYNC_CHECK_STEP = 6, 2
+FIT13_MODES = {"cls": ("all", "r50v1"), "seg": ("single", "rflwr101")}
+VALIDATE13 = (("cls", "all_ft", "r50v1_ft"), ("cls", "CUB", "cub_r50"), ("seg", "all", "rflwr101"))
+# a validation batch restores hq and lq (cls) or lq alone (seg)
+FIT13_RESTORES = {"cls": 2, "seg": 1}
+PROBE_SHAPES = {"cls": (1, 512, 512, 3), "seg": (1, 576, 592, 3)}
+# fp32 probe logits, card vs CPU, relative to the largest |logit|: other
+# convolution algorithms and summation orders (about 1e-6 relative a layer)
+# through up to 101 layers
+PROBE_RTOL = 1e-4
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
 # gradient accumulation 2
@@ -1398,7 +1447,8 @@ class StepProbe:
     micro-step launch counts (forward, recompute, backward) and task, the
     first micro-step's trainable tree, batch, noise and task (for the direct
     step), the first batch and noise of each task, what each validation
-    returned, and the micro-steps ``sync_steps`` run under
+    returned and its seconds with the card synchronised at both ends (and
+    the last one's arguments), and the micro-steps ``sync_steps`` run under
     ``torch.cuda.set_sync_debug_mode("error")``: nothing in the noise draw,
     the step or the optimizer update may wait for the card or copy from the
     host. The prefetch's own copies run outside it. With ``timed``, each
@@ -1413,6 +1463,7 @@ class StepProbe:
         self.sync_steps, self.timed, self.keep_after = sync_steps, timed, keep_after
         self.counts, self.tasks, self.seconds, self.metrics, self.logs = [], [], [], [], []
         self.first, self.first_by_task, self.after = None, {}, None
+        self.val_seconds, self.val_args = [], None
 
     def __enter__(self):
         probe, orig, orig_validate = self, self.TE.Trainer._step, self.TE.Trainer.validate
@@ -1457,7 +1508,12 @@ class StepProbe:
             return out
 
         def validate(trainer, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             probe.metrics.append(orig_validate(trainer, *args, **kwargs))
+            torch.cuda.synchronize()
+            probe.val_seconds.append(time.perf_counter() - t0)
+            probe.val_args = args
             return probe.metrics[-1]
 
         self.TE.Trainer._step = step
@@ -1772,7 +1828,8 @@ def check_fit_shapes(K, G, KN, shapes, rows, gen, path: str = "fit") -> int:
 # ---------------------------------------------------------------------------
 
 
-def fit2_argv(command, data_dir: Path, root: Path, *extra) -> list:
+def fit2_argv(command, data_dir: Path, root: Path, *extra, steps: int = FIT2_STEPS,
+              val_every: int = FIT2_VAL_EVERY, sanity: int = FIT2_SANITY) -> list:
     """``unirestore_torch.main`` arguments: the stage-2 YAML with dotted overrides only
     (the smoke tree's lists, the step counts, validation and the log directory)."""
     lists = data_dir / "lists"
@@ -1780,10 +1837,10 @@ def fit2_argv(command, data_dir: Path, root: Path, *extra) -> list:
     for name, lst, splits in FIT2_LISTS:
         for split in splits:
             argv += [f"--data.init_args.dataset_dict.{name}.{split}", str(lists / f"{lst}.list")]
-    return argv + ["--trainer.max_steps", str(FIT2_STEPS),
-                   "--trainer.val_check_interval", str(FIT2_VAL_EVERY),
+    return argv + ["--trainer.max_steps", str(steps),
+                   "--trainer.val_check_interval", str(val_every),
                    "--trainer.limit_val_batches", str(FIT2_VAL_BATCHES),
-                   "--trainer.num_sanity_val_steps", str(FIT2_SANITY),
+                   "--trainer.num_sanity_val_steps", str(sanity),
                    "--trainer.logger.init_args.save_dir", str(root), *extra]
 
 
@@ -2359,6 +2416,265 @@ def train3_reference_check(UR, KN, bridge, TS, TE) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the cls and seg engines and their probe zoos
+# ---------------------------------------------------------------------------
+
+
+def probe_names() -> list:
+    from unirestore_torch.tasks import classifier_zoo as CZ
+    from unirestore_torch.tasks import seg_zoo as SZ
+    return [*CZ._SPECS, *(n for n in SZ._WEIGHTS if not n.endswith(("_ft", "_fifo")))]
+
+
+def probe_apply(name):
+    """``apply(p, images)`` of a zoo probe, on tensors."""
+    from unirestore_torch.tasks import classifier_zoo as CZ
+    from unirestore_torch.tasks import seg_zoo as SZ
+    if name in SZ._WEIGHTS:
+        return lambda p, x: SZ.seg_probe_apply(name, p, x)
+    return lambda p, x: CZ.classifier_apply(name, p, x)
+
+
+def check_probes(KN, bridge, gen) -> dict:
+    """Phase 13: every probe of the zoos (each classifier spec, ``dlv3pr50``
+    and ``rflwr101``) built seeded in fp32 on the card and run on one seeded
+    batch (PROBE_SHAPES), against the same tree and batch on the CPU: logits
+    within PROBE_RTOL of the largest |logit|. Reported beside it, how far the
+    input reaches the logits (their largest change against a blank image,
+    over the largest |logit|): with the seeded init's unit BatchNorm
+    statistics a deep stack of convolutions can shrink the signal until the
+    logits are the head's bias, and then the comparison holds the head alone.
+    Per probe: ms per call (events,
+    or graph replay under GRAPH_MS), the repo's kernel launches in a call (0:
+    the probes' attention is einsum, fp32 softmax, einsum), and the device's
+    kernels per call and busy ms by kernel family (profiled)."""
+    from unirestore_torch.tasks import seg_zoo as SZ
+    out = {}
+    for name in probe_names():
+        apply = probe_apply(name)
+        kind = "seg" if name in SZ._WEIGHTS else "cls"
+        tree = bridge.probe_init(name, "cuda")
+        x = torch.rand(PROBE_SHAPES[kind], generator=gen, device="cuda")
+        with torch.inference_mode():
+            KN.reset_counts()
+            got = apply(tree, x)
+            launches = sum(kern.launches for kern in KN.KERNELS)
+            ms, timer = cuda_ms(lambda: apply(tree, x), 5), "events"
+            if ms < GRAPH_MS:
+                ms, timer = graph_ms(lambda: apply(tree, x)), "graph"
+            prof = profiled_device(lambda: apply(tree, x))
+            blank = apply(tree, torch.zeros_like(x))
+            t0 = time.perf_counter()
+            ref = apply(to_cpu(bridge, tree), x.cpu())
+            cpu_s = time.perf_counter() - t0
+        scale = ref.abs().max().item()
+        err = (got.cpu() - ref).abs().max().item()
+        reach = (got - blank).abs().max().item() / scale
+        n_params = sum(v.numel() for v in bridge.flatten(tree).values())
+        row = {"shape": list(x.shape), "logits": list(got.shape), "params_m": n_params / 1e6,
+               "max_abs_err": err, "max_abs_logit": scale, "rel_err": err / scale,
+               "input_reach": reach,
+               "ms": ms, "timer": timer, "repo_kernel_launches": launches,
+               "device_kernels_per_call": prof["kernels"],
+               "device_ms_by_family": {k: v * 1e3 for k, v in prof["device_s_by_family"].items()},
+               "cpu_s": cpu_s}
+        log(f"probe {name}: {tuple(x.shape)} -> {tuple(got.shape)}, {n_params / 1e6:.1f} M "
+            f"params; card vs CPU max abs {err:.3e} of |logit| {scale:.4g} (rel {err / scale:.2e}, "
+            f"limit {PROBE_RTOL}); the input moves the logits by {reach:.3g} of the largest "
+            f"(against a blank image); {ms:.4f} ms a call ({timer}); {prof['kernels']} device "
+            f"kernels a call, busy {prof['device_busy_s'] * 1e3:.4f} ms "
+            f"{ {k: round(v, 4) for k, v in row['device_ms_by_family'].items()} }; repo kernel "
+            f"launches {launches}; CPU {cpu_s:.2f} s")
+        if not (err <= PROBE_RTOL * scale and torch.isfinite(got).all()) or launches:
+            raise AssertionError(f"probe {name}: card vs CPU {err} > {PROBE_RTOL} x {scale}, or "
+                                 f"{launches} repo kernel launches")
+        out[name] = row
+        del tree, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def fit13_argv(command, work: Path, root: Path, task: str, mode: str, *extra) -> list:
+    """``unirestore_torch.main`` arguments: the stage-2 YAML made the ``task``
+    engine with probe set ``mode`` by dotted overrides only (the smoke tree's
+    lists, the step counts, validation and the log directory)."""
+    return fit2_argv(command, work / "data", root, "--model.class_path",
+                     f"unirestore_tpu.{task}", "--data.init_args.task", task,
+                     "--model.init_args.eval_mode", mode, *extra, steps=FIT13_STEPS,
+                     val_every=FIT13_STEPS, sanity=0)
+
+
+def validation_keys(task: str, mode: str) -> set:
+    from unirestore_torch.tasks import classifier_zoo as CZ
+    from unirestore_torch.tasks import seg_zoo as SZ
+    if task == "cls":
+        return {f"val_{e}/{p}" for p in CZ.model_types_for(mode) for e in ("hq", "lq")}
+    return {f"val_lq/{p}" for p in SZ.model_types_for(mode)}
+
+
+def check_validation(task, mode, monitor, metrics, launches) -> dict:
+    """One validation's keys and monitor, and its restores' launches."""
+    want = validation_keys(task, mode) | {"val_monitor"}
+    if len(metrics) != 1 or set(metrics[0]) != want or \
+            metrics[0]["val_monitor"] != metrics[0][f"val_lq/{monitor}"]:
+        raise AssertionError(f"{task} {mode} validation: {metrics}; want the keys {sorted(want)} "
+                             f"and val_monitor = val_lq/{monitor}")
+    restores = FIT13_RESTORES[task] * FIT2_VAL_BATCHES
+    want_val = tuple(restores * n for n in FIT2_RESTORE[task])
+    if launches != want_val:
+        raise AssertionError(f"{task} {mode} validation launches {launches} != {want_val}")
+    return metrics[0]
+
+
+def probes_share(task, trainer, val_args) -> dict:
+    """The probes' share of a validation's device time: one validation
+    (``Trainer.validate`` with the fit's engine, data and evaluator factory)
+    profiled, against the evaluator's own probe calls alone on images of its
+    first batch's size, as many as the validation makes (cls: hq and lq per
+    batch; seg: the three-scale TTA of ``_predict_logits``)."""
+    import numpy as np
+
+    from unirestore_torch.evalx import evaluators as EV
+
+    engine, data, factory = val_args
+    whole = profiled_device(lambda: trainer.validate(engine, data, factory))
+    evaluator = factory(engine)
+    batch = next(iter(data.val_dataloader()))
+    imgs = EV.center_crop(np.asarray(batch["lq"], np.float32), 960, 1664)
+    calls = FIT13_RESTORES[task] * FIT2_VAL_BATCHES
+
+    def probes():
+        for _ in range(calls):
+            if task == "cls":
+                for clf in evaluator.classifiers.values():
+                    clf(imgs)
+            else:
+                for model in evaluator.seg_models.values():
+                    evaluator._predict_logits(model, imgs)
+
+    probes()
+    alone = profiled_device(probes)
+    share = alone["device_busy_s"] / whole["device_busy_s"]
+    log(f"{task} validation, profiled: device busy {whole['device_busy_s']:.4f} s "
+        f"({whole['kernels']} kernels) by family {whole['device_s_by_family']}; the probes "
+        f"alone on {calls} images of {imgs.shape[1:3]}: {alone['device_busy_s']:.4f} s "
+        f"({alone['kernels']} kernels): share {share:.3f}")
+    return {"validation": whole, "probes": alone, "probes_share": share,
+            "image": list(imgs.shape[1:3])}
+
+
+def run_engine_fit(KN, bridge, TE, TS, OPT, main_fn, work: Path, task: str):
+    """Phase 13: a fit of the ``task`` engine from the stage-2 YAML, its checks,
+    timings and the probes' share of its validation. Returns (result, launches
+    by kernel of the fit, the (shape, dtype) each kernel met)."""
+    mode, monitor = FIT13_MODES[task]
+    root = work / f"engine_{task}"
+    symbols = [kern.symbol for kern in KN.KERNELS]
+    KN.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepProbe(TE, KN, bridge, sync_steps=(FIT13_SYNC_CHECK_STEP,), timed=True) as probe:
+        engine, trainer = main_fn(fit13_argv("fit", work, root, task, mode))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
+    shapes = kernel_shapes_met(KN)
+
+    if engine.engine_type != task or probe.tasks != [task] * FIT13_STEPS:
+        raise AssertionError(f"{task} engine fit: engine {engine.engine_type}, micro-steps "
+                             f"{probe.tasks}")
+    for i, counts in enumerate(probe.counts):
+        if counts != EXPECTED_STAGE2[task]:
+            raise AssertionError(f"{task} engine micro-step {i + 1}: launches {counts} != "
+                                 f"{EXPECTED_STAGE2[task]}")
+    val = tuple(launches[s] - FIT13_STEPS * EXPECTED_STAGE2[task][s][0] for s in symbols)
+    metrics = check_validation(task, mode, monitor, probe.metrics, val)
+    logged = probe.logs
+    if len(logged) != FIT13_STEPS or not all(math.isfinite(v) for e in logged
+                                             for v in e.values()):
+        raise AssertionError(f"{task} engine fit: non-finite or missing losses {logged}")
+
+    # only the leaves the stage's filter selects move; the frozen tree and the
+    # critic stay as built
+    trained = TS.trained_leaves(engine.stage, engine.trainable)
+    before, now = bridge.flatten(probe.first["trainable"]), bridge.flatten(engine.trainable)
+    changed = sorted(k for k in now if not torch.equal(now[k], before[k]))
+    if not changed or not set(changed) <= set(trained) or \
+            f"tfa//task_prompts//{task}" not in changed:
+        raise AssertionError(f"{task} engine fit changed {changed[:8]} ({len(changed)}); "
+                             f"trains {len(trained)} leaves")
+    n_frozen = frozen_unchanged(bridge, engine)
+    fresh = bridge.flatten(TE.build_critics(task, device=engine.device))
+    critic = bridge.flatten(engine.critics)
+    touched = [k for k in fresh if not torch.equal(fresh[k], critic[k])]
+    if touched or fresh.keys() != critic.keys():
+        raise AssertionError(f"{task} engine fit changed the critic: {touched[:5]}")
+    direct = direct_step_check(bridge, TS, OPT, engine, trainer, probe.first,
+                               te_loss_fn=engine.te_loss_fn())
+    ckpts = sorted(p.name for p in (root / "checkpoints").iterdir())
+    if "last.npz" not in ckpts:
+        raise AssertionError(f"{task} engine fit checkpoints {ckpts}")
+    secs = probe.seconds
+    timing = {"micro_steps": len(secs), "first_s": secs[0],
+              "s_per_micro_step": sum(secs[1:]) / len(secs[1:]), "each_s": secs}
+    images = FIT2_VAL_BATCHES
+    val_s = probe.val_seconds[0]
+    share = probes_share(task, trainer, probe.val_args)
+    log(f"{task} engine fit ({mode}): {fit_s:.1f} s in all; {timing['s_per_micro_step']:.4f} s "
+        f"per micro-step after the first ({timing['first_s']:.4f} s; card synchronised before "
+        f"and after each); launches per micro-step {EXPECTED_STAGE2[task]} for all "
+        f"{FIT13_STEPS}, validation launches {val}; {len(changed)} of {len(trained)} trained "
+        f"leaves changed; validation {val_s:.3f} s, {val_s / images:.3f} s per image; peak "
+        f"{peak:.2f} GiB; checkpoints {ckpts}; validation {metrics}")
+    del probe, engine, trainer
+    torch.cuda.empty_cache()
+    result = {"eval_mode": mode, "monitor": monitor, "steps": FIT13_STEPS,
+              "fit_seconds": fit_s, "peak_mem_gib": peak, "timing": timing,
+              "logs": logged, "validation": metrics, "validation_seconds": val_s,
+              "validation_s_per_image": val_s / images, "checkpoints": ckpts,
+              "direct_step": direct, "launches_per_micro_step": EXPECTED_STAGE2[task],
+              "validation_launches": val, "leaves_changed": len(changed),
+              "leaves_trained": len(trained), "frozen_leaves_checked": n_frozen,
+              "critic_leaves_checked": len(fresh), "probes_share": share}
+    return result, launches, shapes
+
+
+def run_validates(KN, TE, bridge, main_fn, work: Path):
+    """Phase 13: ``validate`` of the cls engine with ``all_ft`` and ``CUB`` (a
+    list of the smoke tree's cls images, labels mod 200) and of the seg engine
+    with ``all``: keys, monitors, launches, s per image. Returns (results, the
+    (shape, dtype) each kernel met)."""
+    lists = work / "data" / "lists"
+    rows = (lists / "cls.list").read_text().splitlines()
+    cub = lists / "cub.list"
+    cub.write_text("\n".join(" ".join([*r.split()[:2], str(int(r.split()[2]) % 200)])
+                             for r in rows))
+    shapes, out = {kern.symbol: set() for kern in KN.KERNELS}, {}
+    for task, mode, monitor in VALIDATE13:
+        extra = (("--data.init_args.val.type", "CUB",
+                  "--data.init_args.dataset_dict.CUB.val", str(cub)) if mode == "CUB" else ())
+        KN.reset_counts()
+        t0 = time.perf_counter()
+        with StepProbe(TE, KN, bridge) as probe:
+            main_fn(fit13_argv("validate", work, work / f"validate_{mode}", task, mode, *extra))
+        run_s = time.perf_counter() - t0
+        shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+        launches = tuple(kern.launches for kern in KN.KERNELS)
+        metrics = check_validation(task, mode, monitor, probe.metrics, launches)
+        val_s = probe.val_seconds[0]
+        log(f"{task} validate ({mode}, monitor {monitor}): {run_s:.1f} s in all, validation "
+            f"{val_s:.3f} s, {val_s / FIT2_VAL_BATCHES:.3f} s per image; launches {launches}; "
+            f"{metrics}")
+        out[f"{task}_{mode}"] = {"run_seconds": run_s, "validation_seconds": val_s,
+                                 "validation_s_per_image": val_s / FIT2_VAL_BATCHES,
+                                 "launches": launches, "validation": metrics}
+        del probe
+        torch.cuda.empty_cache()
+    return out, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2471,14 +2787,36 @@ def main() -> int:
         t0 = time.perf_counter()
         fit3, paths["fit_stage3"], fit3_shapes = run_fit_stage3(KN, bridge, TE, TS, OPT,
                                                                 TMAIN.main, Path(work))
-    fit3["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit3_shapes, rows, gen,
-                                                      path="fit_stage3")
-    torch.cuda.empty_cache()
-    fit3["reference"] = train3_reference_check(UR, KN, bridge, TS, TE)
-    fit3["phase_seconds"] = time.perf_counter() - t0
-    log(f"stage-3 fit: {fit3['shapes_added_to_phase3']} (kernel, shape) pairs held to their "
-        f"plain versions after it; phase 12 took {fit3['phase_seconds']:.1f} s")
-    torch.cuda.empty_cache()
+        fit3["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit3_shapes, rows, gen,
+                                                          path="fit_stage3")
+        torch.cuda.empty_cache()
+        fit3["reference"] = train3_reference_check(UR, KN, bridge, TS, TE)
+        fit3["phase_seconds"] = time.perf_counter() - t0
+        log(f"stage-3 fit: {fit3['shapes_added_to_phase3']} (kernel, shape) pairs held to "
+            f"their plain versions after it; phase 12 took {fit3['phase_seconds']:.1f} s")
+        torch.cuda.empty_cache()
+
+        # phase 13: every probe of the zoos card vs CPU; a fit of the cls and of
+        # the seg engine through the CLI; validate runs with the other probe
+        # sets; phase 3's comparison at the shapes they met that were not held
+        t0 = time.perf_counter()
+        engines = {"probes": check_probes(KN, bridge, gen)}
+        for task in ("cls", "seg"):
+            engines[task], paths[f"fit_{task}"], shapes13 = run_engine_fit(
+                KN, bridge, TE, TS, OPT, TMAIN.main, Path(work), task)
+            engines[task]["shapes_added_to_phase3"] = check_fit_shapes(
+                K, G, KN, shapes13, rows, gen, path=f"fit_{task}")
+            torch.cuda.empty_cache()
+        engines["validate"], shapes13 = run_validates(KN, TE, bridge, TMAIN.main, Path(work))
+        engines["validate_shapes_added_to_phase3"] = check_fit_shapes(
+            K, G, KN, shapes13, rows, gen, path="fit_cls")
+        engines["phase_seconds"] = time.perf_counter() - t0
+        log(f"engines: (kernel, shape) pairs held to their plain versions after the cls fit "
+            f"{engines['cls']['shapes_added_to_phase3']}, the seg fit "
+            f"{engines['seg']['shapes_added_to_phase3']}, the validate runs "
+            f"{engines['validate_shapes_added_to_phase3']}; phase 13 took "
+            f"{engines['phase_seconds']:.1f} s")
+        torch.cuda.empty_cache()
 
     # phase 10: report; a path routes to a kernel when its expected count is not 0
     routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
@@ -2493,7 +2831,9 @@ def main() -> int:
                   fit_stage2=[EXPECTED_STAGE2["ir"][kern.symbol][0] + FIT_RESTORE[i]
                               for i, kern in enumerate(KN.KERNELS)],
                   fit_stage3=[EXPECTED_STAGE3[kern.symbol][0] + FIT3_RESTORE[i]
-                              for i, kern in enumerate(KN.KERNELS)])
+                              for i, kern in enumerate(KN.KERNELS)],
+                  **{f"fit_{t}": [EXPECTED_STAGE2[t][kern.symbol][0] + FIT2_RESTORE[t][i]
+                                  for i, kern in enumerate(KN.KERNELS)] for t in ("cls", "seg")})
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -2533,6 +2873,7 @@ def main() -> int:
     log(json.dumps({"fit": fit}))
     log(json.dumps({"fit_stage2": fit2}))
     log(json.dumps({"fit_stage3": fit3}))
+    log(json.dumps({"engines": engines}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

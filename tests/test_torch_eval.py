@@ -169,8 +169,8 @@ def test_load_config_raises_like_jax():
 
 
 def test_build_refuses_what_is_not_ported():
-    """The mtl engine of stage 2 and the det engine of stage 3 build; the cls
-    and seg engines (their probe zoos), the NR suite and FID still raise."""
+    """The mtl engine of stage 2, the cls and seg engines (with their probe
+    zoos) and the det engine of stage 3 build; the NR suite and FID still raise."""
     cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml")
     engine, _, data, factory = TC.build(cfg, tiny=True, device="cpu")
     assert engine.engine_type == "mtl" and engine.stage.multi_task and engine.stage.train_tfa
@@ -178,9 +178,11 @@ def test_build_refuses_what_is_not_ported():
     assert data.task == "mtl" and callable(factory)
     for task in ("cls", "seg"):
         cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml",
-                             ["--model.class_path", f"unirestore_tpu.{task}"])
-        with pytest.raises(NotImplementedError, match="Queue A 5"):
-            TC.build(cfg, tiny=True, device="cpu")
+                             ["--model.class_path", f"unirestore_tpu.{task}",
+                              "--data.init_args.task", task])
+        engine, _, data, factory = TC.build(cfg, tiny=True, device="cpu")
+        assert engine.engine_type == task and engine.stage.train_tfa
+        assert data.task == task and callable(factory)
     cfg = TC.load_config(REPO / "configs" / "train_stage3.yaml")
     engine, _, data, _ = TC.build(cfg, tiny=True, device="cpu")  # the det engine
     assert engine.engine_type == "det" and engine.downstream == "retinanet"

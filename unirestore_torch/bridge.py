@@ -17,7 +17,9 @@ port's tree as nested numpy arrays in the JAX layout, which
 ``critics_from_jax`` is the same path for the frozen critics of stages 2
 and 3 (``unirestore_tpu/tasks/resnet.py``, ``deeplab.py``, ``retinanet.py``,
 ``fasterrcnn.py``): their JAX trees, by task, against the port's own critic
-trees (``tasks.critic_init(task, "meta", downstream)``) as templates.
+trees (``tasks.critic_init(task, "meta", downstream)``) as templates;
+``probes_from_jax`` for the probes of the classification and segmentation
+zoos (``tasks/classifier_zoo.py``, ``tasks/seg_zoo.py``), by probe name.
 """
 
 from __future__ import annotations
@@ -140,6 +142,30 @@ def critics_from_jax(critics, *, device=None, dtype=torch.float32,
     return {task: load_tree(tree, critic_init(task, "meta", downstream), device=device,
                             dtype=dtype)
             for task, tree in critics.items()}
+
+
+def probe_init(model_type: str, device=None):
+    """The seeded tree of a classifier or segmentation probe of the zoos, by name
+    (``device="meta"``: shapes only)."""
+    from .tasks import classifier_zoo as CZ
+    from .tasks import seg_zoo as SZ
+    if model_type in SZ._WEIGHTS:
+        return SZ.seg_probe_init(model_type, device=device)
+    return CZ.classifier_init(model_type, device=device)
+
+
+def probes_from_jax(trees, *, device=None, dtype=torch.float32, cut=None) -> dict:
+    """The JAX trees of zoo probes by name (``{"vit": ..., "rflwr101": ...}``) ->
+    the port's, against the zoos' own seeded trees as templates. ``cut(name,
+    tree)``, if given, is applied to each template first: the same depth cut
+    that made a shortened JAX tree (block lists sliced)."""
+    out = {}
+    for name, tree in trees.items():
+        template = probe_init(name, "meta")
+        if cut is not None:
+            template = cut(name, template)
+        out[name] = load_tree(tree, template, device=device, dtype=dtype)
+    return out
 
 
 def load_null_embedding(path, shape=(1, 77, 1024), *, device=None, dtype=torch.float32):

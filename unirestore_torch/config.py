@@ -4,14 +4,17 @@ The port's counterpart of ``unirestore_tpu/config.py``: ``load_config``,
 ``_parse_scalar``, ``set_dotted``, ``ENGINE_ALIASES`` and ``engine_type`` are
 copied as they are, so the reference YAMLs in ``configs/`` drive the port
 unchanged (the ``unirestore_tpu.*`` and ``core.engine_unifie.*`` class paths
-are accepted as strings). ``build`` covers the ``ir`` engine with the FR
-evaluation (PSNR, SSIM, LPIPS), the ``mtl`` engine of stage 2 with the
+are accepted as strings). ``build`` covers every engine: ``ir`` with the FR
+evaluation (PSNR, SSIM, LPIPS); the ``mtl`` engine of stage 2 with the
 multi-task evaluation (the IR evaluator, the ``r50v1`` classification and
-``dlv3pr50`` segmentation probes on the engine's critics) and the ``det``
-engine of stage 3 with the detection evaluation (mAP of the critic, RetinaNet
-or, with ``downstream: fastrcnn``, Faster R-CNN). Not ported yet, each raising
-``NotImplementedError`` (ROADMAP Queue A 5): the ``cls`` and ``seg`` engines,
-which need their probe zoos; the NR ``eval_mode``; ``compute_fid``.
+``dlv3pr50`` segmentation probes on the engine's critics); ``cls`` and ``seg``
+with the classification and segmentation probe zoos their ``eval_mode``
+selects (``tasks/classifier_zoo.py``: ``single``, ``all``, ``all_ft``,
+``CUB``, ``bare``; ``tasks/seg_zoo.py``: ``single``, ``all``, ``bare``); and
+the ``det`` engine of stage 3 with the detection evaluation (mAP of the
+critic, RetinaNet or, with ``downstream: fastrcnn``, Faster R-CNN). Not
+ported yet, each raising ``NotImplementedError`` (ROADMAP Queue A 5): the NR
+``eval_mode`` of the ``ir`` engine; ``compute_fid``.
 
 Same document shape as the reference configs (configs/train_stage*.yaml):
 ``seed_everything``, ``trainer{...}``, ``model{class_path, init_args}``,
@@ -110,11 +113,6 @@ def engine_type(cfg: dict) -> str:
     return ENGINE_ALIASES[cp]
 
 
-# engine types ``build`` refuses, and what each needs
-NOT_PORTED = {"cls": "the classifier probe zoo (tasks/classifier_zoo.py)",
-              "seg": "the segmentation probe zoo (tasks/seg_zoo.py, RefineNet)"}
-
-
 def build(cfg: dict, tiny: bool = False, device=None):
     """Returns (engine, trainer, data_engine, evaluator_factory) on ``device``
     (default: the current CUDA device, which must exist).
@@ -129,9 +127,6 @@ def build(cfg: dict, tiny: bool = False, device=None):
 
     dev = resolve_device(device)
     etype = engine_type(cfg)
-    if etype in NOT_PORTED:
-        raise NotImplementedError(f"engine type {etype!r} needs {NOT_PORTED[etype]}, which "
-                                  "are not ported yet (ROADMAP Queue A 5)")
     m = copy.deepcopy(cfg.get("model", {}).get("init_args", {}))
     eval_mode = m.get("eval_mode", "FR")
     if etype == "ir" and eval_mode != "FR":
@@ -178,8 +173,8 @@ def build(cfg: dict, tiny: bool = False, device=None):
     d = cfg.get("data", {}).get("init_args", {})
     data = DatasetEngine(**d) if d else None
 
-    # LPIPS, the critic probes and the detector are built once and reused
-    # across validate() epochs
+    # LPIPS, the critic probes, the probe zoos and the detector are built once
+    # and reused across validate() epochs
     _eval_cache = {}
 
     def lpips():
@@ -203,6 +198,27 @@ def build(cfg: dict, tiny: bool = False, device=None):
                 EV.ClassificationEvaluator(restore, {"r50v1": probes["cls"]}),
                 EV.SemanticSegmentationEvaluator(restore, {"dlv3pr50": probes["seg"]}))
         save_dir = os.path.join(root, "dumps") if m.get("save_image") else None
+        if etype == "cls":
+            # eval_mode selects the probe set (eval_classification.py:36-48);
+            # the monitor per :93-102
+            mode = m.get("eval_mode", "single")
+            if "cls_zoo" not in _eval_cache:
+                from .tasks import classifier_zoo as CZ
+                _eval_cache["cls_zoo"] = CZ.build_classifier_zoo(mode, device=eng.device)
+            zoo = _eval_cache["cls_zoo"]
+            monitor = {"all_ft": "r50v1_ft", "CUB": "cub_r50"}.get(mode, "r50v1" if zoo else None)
+            return EV.ClassificationEvaluator(restore, zoo, monitor=monitor)
+        if etype == "seg":
+            # eval_mode selects the probe set (eval_semantic_segmentation.py:37-50);
+            # the monitor is rflwr101 (:102)
+            if "seg_zoo" not in _eval_cache:
+                from .tasks import seg_zoo as SZ
+                _eval_cache["seg_zoo"] = SZ.build_seg_zoo(m.get("eval_mode", "single"),
+                                                          device=eng.device)
+            zoo = _eval_cache["seg_zoo"]
+            return EV.SemanticSegmentationEvaluator(
+                restore, zoo, monitor="rflwr101" if "rflwr101" in zoo else None,
+                save_dir=save_dir)
         if etype == "det":
             if "detector" not in _eval_cache:
                 from .tasks import fasterrcnn as FRC

@@ -36,19 +36,24 @@ def _stem(name: str) -> str:
     return os.path.splitext(str(name))[0]
 
 
-def probe(task: str, critic, device):
-    """The validation probe over a critic: fn(images_nhwc01 numpy) -> logits
-    float32 numpy, run in fp32 on ``device`` (``tasks.critic_apply``)."""
+def as_probe(apply_fn, device):
+    """A probe over ``apply_fn(images) -> logits`` on tensors: fn(images_nhwc01
+    numpy) -> logits float32 numpy, run in fp32 on ``device``."""
     import torch
-
-    from ..tasks import critic_apply
 
     def run(images):
         with torch.inference_mode():
             x = torch.as_tensor(np.asarray(images, np.float32), device=device)
-            return critic_apply(task, critic, x).float().cpu().numpy()
+            return apply_fn(x).float().cpu().numpy()
 
     return run
+
+
+def probe(task: str, critic, device):
+    """The validation probe over a critic (``tasks.critic_apply``)."""
+    from ..tasks import critic_apply
+
+    return as_probe(lambda x: critic_apply(task, critic, x), device)
 
 
 def center_crop(img: np.ndarray, upper_h: int, upper_w: int) -> np.ndarray:

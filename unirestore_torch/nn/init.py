@@ -32,11 +32,20 @@ class Init:
             t.uniform_(-bound, bound, generator=self.generator)
         return t
 
+    def normal(self, shape, std: float) -> torch.Tensor:
+        t = torch.empty(shape, device=self.device, dtype=self.dtype)
+        if t.device.type != "meta":
+            t.normal_(0.0, std, generator=self.generator)
+        return t
+
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(shape, device=self.device, dtype=self.dtype)
 
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, device=self.device, dtype=self.dtype)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(shape, value, device=self.device, dtype=self.dtype)
 
 
 def make_init(generator=None, device=None, dtype=torch.float32, seed: int = 0) -> Init:

@@ -1,6 +1,9 @@
 """Frozen downstream networks: the critics of stages 2 and 3 and the
 validation probes (mirrors ``unirestore_tpu/tasks``: ``resnet``, ``deeplab``,
-``retinanet`` and ``fasterrcnn``).
+``retinanet`` and ``fasterrcnn``; and the probe zoos of the ``cls`` and
+``seg`` engines, ``classifier_zoo`` over ``vgg``, ``vit``, ``rvt``, ``swin``,
+``convnext`` and ``efficientnet``, and ``seg_zoo`` over ``refinenet``; all
+ported. ``backbones``, the non-ResNet DeepLab backbones, is not).
 
 ``critic_init(task, device, downstream)`` builds the critic of a task with the
 seeded init the JAX engine's ``build_critics`` uses in place of missing

@@ -8,7 +8,8 @@ the input size. NHWC, inference BatchNorm, the JAX tree's keys and shapes
 (conv kernels OIHW; the backbone is ``resnet_init``'s tree without ``fc``).
 
 Only the ResNet backbones are ported: ``mobilenetv2``, ``xception`` and the
-HRNets (``unirestore_tpu/tasks/backbones.py``) raise (ROADMAP Queue A 5).
+HRNets raise until ``tasks/backbones.py`` (``unirestore_tpu/tasks/backbones.py``)
+is ported (ROADMAP Queue A 5). No probe set and no critic reaches them.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ def _require_resnet(backbone: str):
     if backbone not in BACKBONE_CHANNELS:
         raise ValueError(f"unknown deeplab backbone {backbone}")
     if backbone not in RESNET_BACKBONES:
-        raise NotImplementedError(f"deeplab backbone {backbone!r} is not ported yet "
-                                  "(ROADMAP Queue A 5); the port has the ResNet backbones")
+        raise NotImplementedError(f"deeplab backbone {backbone!r} needs tasks/backbones.py, "
+                                  "which is not ported yet (ROADMAP Queue A 5); the port has "
+                                  "the ResNet backbones")
 
 
 def _conv_bn_init(ini, cin, cout, k):
