@@ -184,6 +184,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    probes' share of a validation's device time (profiled). Every (kernel,
    shape) met that was not held yet is held to its plain version (rows with
    ``"path": "fit_cls"`` or ``"fit_seg"``);
+14. (run after phase 13, before the report) validation with the no-reference
+   suite and FID: ``unirestore_torch.main.main`` with ``validate --config
+   configs/val.yaml`` and dotted overrides only (the smoke tree's IR val
+   list, phase 9's ``last.npz`` for frenc and cnet and phase 11's for tedit,
+   two images), once with ``--model.init_args.eval_mode ALL
+   --model.init_args.compute_fid true`` and once with ``eval_mode NR``: the
+   full-width restore in bf16 at one DDIM step, LPIPS, FID over the seeded
+   InceptionV3, and the 10-metric NR suite (8 seeded fp32 networks on the
+   card, NIQE and PI on the host from the committed ``weights/*.npz``).
+   Checks: exactly the JAX evaluator's keys, all finite, ``val_monitor``
+   equal to ``val_lq/psnr`` (ALL) or ``val_lq/niqe`` (NR); launches as 4 (ALL)
+   or 2 (NR) validation restores route them, the NR networks launching none;
+   NIQE and NRQM rerun on the run's uint8 predictions bit-equal; one call of
+   each neural metric and of FID's extractor under
+   ``set_sync_debug_mode("warn")`` makes at most one synchronisation (the
+   read-back); every NR network and the Inception extractor seeded in fp32
+   (BatchNorm statistics set from the batch for CLIP-IQA, NIMA and HyperIQA,
+   whose seeded init erases the input) on one seeded 512 x 512 batch,
+   card vs CPU, within 1e-4 of the largest |value| on the features before the
+   head and on the score, with each one's reach. Reported: validation s per
+   image in ALL and NR, FID's compute seconds, host s per image of NIQE and
+   NRQM, ms per call of each network with the card's busy ms and kernels, the
+   NR networks' share of an NR validation's device time (profiled), peak
+   memory, the phase's seconds. Every (kernel, shape) met that was not held
+   yet is held to its plain version (rows with ``"path": "validate_nr"``);
 10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
@@ -194,7 +219,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    each graph's launches at capture times its replays; ``fit``: phase 9's
    first fit, training and validation; ``fit_stage2``: phase 11's fit;
    ``fit_stage3``: phase 12's RetinaNet fit; ``fit_cls`` and ``fit_seg``:
-   phase 13's fits of the two engines); each kernel must
+   phase 13's fits of the two engines; ``validate_all`` and ``validate_nr``:
+   phase 14's two validate runs); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -363,6 +389,30 @@ PROBE_SHAPES = {"cls": (1, 512, 512, 3), "seg": (1, 576, 592, 3)}
 # convolution algorithms and summation orders (about 1e-6 relative a layer)
 # through up to 101 layers
 PROBE_RTOL = 1e-4
+# phase 14: ``python -m unirestore_torch.main validate`` from configs/val.yaml
+# with dotted overrides only (the smoke tree's IR val list; phase 9's last.npz
+# for frenc and cnet and phase 11's for tedit; two images): eval_mode ALL with
+# compute_fid, then NR. A validation restores hq and lq (ALL) or lq alone (NR),
+# each at 512 x 512 after the evaluator's crop, one DDIM step (FIT_RESTORE)
+VAL14_YAML = REPO / "configs" / "val.yaml"
+VAL14_RUNS = (("ALL", True), ("NR", False))
+VAL14_IMAGES = 2
+VAL14_RESTORES = {"ALL": 2 * VAL14_IMAGES, "NR": VAL14_IMAGES}
+# each NR network and FID's Inception in fp32 on one seeded batch, card vs CPU,
+# relative to the largest |value| of the features before the head and of the
+# score: other convolution algorithms and summation orders (about 1e-6
+# relative a layer) through up to 200 layers
+NR_SHAPE = (1, RES, RES, 3)
+NR_RTOL = 1e-4
+# the networks compared with BatchNorm statistics set from the batch: at the
+# seeded init's unit statistics their input reaches the score by 2.3e-5
+# (clipiqa), 4.2e-4 (nima-koniq) and 8.8e-4 (hyperiqa) of its largest (CPU
+# tests); the input moves Inception's pool3 features by 0.43 of their largest
+# as seeded (CPU test), and with batch statistics its layers without residual
+# scaling amplify the two devices' summation orders to 3.4e-4 of the largest
+# feature, so it is compared as seeded
+NR_CALIBRATED = ("clipiqa", "nima-koniq", "hyperiqa")
+
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
 # gradient accumulation 2
@@ -2675,6 +2725,306 @@ def run_validates(KN, TE, bridge, main_fn, work: Path):
     return out, shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 14: validate with the NR metric suite and FID through the CLI
+# ---------------------------------------------------------------------------
+
+
+def val14_argv(work: Path, root: Path, mode: str, fid: bool) -> list:
+    """``unirestore_torch.main validate`` arguments: ``configs/val.yaml`` with
+    dotted overrides only (the smoke tree's IR val list, phase 9's
+    ``last.npz`` for frenc and cnet and phase 11's for tedit, the eval mode,
+    FID, two images and the log directory)."""
+    stage1, stage2 = (str(work / d / "checkpoints" / "last.npz") for d in ("logs", "stage2"))
+    kwargs = "--model.init_args.model_kwargs"
+    argv = ["validate", "--config", str(VAL14_YAML),
+            "--data.init_args.dataset_dict.DIVF2KOST.val", str(work / "data" / "lists" / "ir.list"),
+            f"{kwargs}.frenc.ckpt_path", stage1, f"{kwargs}.cnet.ckpt_path", stage1,
+            f"{kwargs}.tedit.ckpt_path", stage2, "--model.init_args.eval_mode", mode,
+            "--trainer.limit_val_batches", str(VAL14_IMAGES),
+            "--trainer.logger.init_args.save_dir", str(root)]
+    return argv + (["--model.init_args.compute_fid", "true"] if fid else [])
+
+
+def val14_keys(mode: str, fid: bool) -> set:
+    """The JAX evaluator's keys (``unirestore_tpu/evalx/evaluators.py:131-166``)."""
+    from unirestore_torch.evalx.nr_suite import DEFAULT_NR_METRICS
+    names = list(DEFAULT_NR_METRICS)
+    if mode != "NR":
+        names += ["psnr", "ssim", "lpips"] + (["fid"] if fid else [])
+    etypes = ("lq",) if mode == "NR" else ("hq", "lq")
+    return {f"val_{e}/{n}" for e in etypes for n in names} | {"val_monitor"}
+
+
+class HostMetricProbe:
+    """Wraps ``NIQEMetric.update``, ``NRQMMetric.update`` and ``FID.compute``:
+    per call the images (uint8 levels, as the evaluator quantised them), the
+    metric's running total before and after it and its host seconds; FID's
+    compute seconds."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from unirestore_torch.evalx import fid, niqe, nrqm
+        self.calls = {"niqe": [], "nrqm": []}
+        self.fid_s = []
+        self.orig = [(niqe.NIQEMetric, "update", niqe.NIQEMetric.update),
+                     (nrqm.NRQMMetric, "update", nrqm.NRQMMetric.update),
+                     (fid.FID, "compute", fid.FID.compute)]
+        probe = self
+
+        def wrap(key, orig):
+            def update(m, images):
+                before, t0 = m.total, time.perf_counter()
+                orig(m, images)
+                probe.calls[key].append({"images": np.array(images, copy=True),
+                                         "before": before, "after": m.total,
+                                         "s": time.perf_counter() - t0})
+            return update
+
+        def compute(m, orig=fid.FID.compute):
+            t0 = time.perf_counter()
+            out = orig(m)
+            probe.fid_s.append(time.perf_counter() - t0)
+            return out
+
+        niqe.NIQEMetric.update = wrap("niqe", niqe.NIQEMetric.update)
+        nrqm.NRQMMetric.update = wrap("nrqm", nrqm.NRQMMetric.update)
+        fid.FID.compute = compute
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.orig:
+            setattr(cls, name, fn)
+        return False
+
+
+def nr_parts(name: str):
+    """``fn(p, images) -> (the features before the head, the score)`` of a
+    network of the suite; for ``inception``, (the pool3 features, their mean)."""
+    from unirestore_torch.evalx import clipiqa as CIQ
+    from unirestore_torch.evalx import hyperiqa as HIQ
+    from unirestore_torch.evalx import inception as INC
+    from unirestore_torch.evalx import maniqa as MAN
+    from unirestore_torch.evalx import musiq as MUS
+    from unirestore_torch.evalx import nima as NIM
+
+    if name == "clipiqa":
+        return lambda p, x: (CIQ.image_features(p, x), CIQ.clipiqa_score(p, x))
+    if name.startswith("musiq"):
+        n = 10 if name == "musiq-ava" else 1
+        return lambda p, x: (lambda cls: (cls, MUS.musiq_head(p, cls, n)))(
+            MUS.musiq_tokens(p, x)[:, 0])
+    if name == "nima-koniq":
+        return lambda p, x: (lambda f: (f, NIM.nima_head(p, f, 1)))(NIM.nima_features(p, x))
+    if name == "maniqa":
+        return lambda p, x: (lambda f: (f, MAN.maniqa_head(p, f)))(MAN.maniqa_features(p, x))
+    if name == "hyperiqa":
+        return lambda p, x: (HIQ.hyperiqa_content(p, x)[1].mean(dim=(1, 2)),
+                             HIQ.hyperiqa_score(p, x))
+    return lambda p, x: (lambda f: (f, f.mean(dim=-1)))(INC.inception_v3_features(p, x))
+
+
+def calibrate_bn(TRN, fn, tree, x) -> int:
+    """Every BatchNorm's running statistics of ``tree`` set to those of its input
+    in one pass of ``fn`` on ``x`` (per channel over batch and space): with the
+    seeded init's unit statistics the deep stacks shrink the input away, and the
+    comparison would hold the heads alone. Returns how many were set."""
+    norm, seen = TRN.batch_norm, []
+
+    def calibrating(p, h, eps=1e-5):
+        if h[..., 0].numel() > 1:
+            p["mean"].copy_(h.mean(dim=(0, 1, 2)))
+            p["var"].copy_(h.var(dim=(0, 1, 2), unbiased=False))
+            seen.append(1)
+        return norm(p, h, eps)
+
+    TRN.batch_norm = calibrating
+    try:
+        with torch.no_grad():
+            fn(tree, x)
+    finally:
+        TRN.batch_norm = norm
+    return len(seen)
+
+
+def check_nr_nets(KN, bridge, gen) -> dict:
+    """Phase 14: every network of the NR suite and FID's Inception, seeded in
+    fp32 (BatchNorm statistics set from the batch for NR_CALIBRATED), on one
+    seeded 512 x 512
+    batch on the card and on the CPU: the features before the head and the
+    score within NR_RTOL of their largest |value| on the CPU, no launch of the
+    repo's kernels. Reported beside it, each one's reach (the change of the
+    compared quantity between the batch and a smooth ramp, over its largest
+    magnitude), ms per call (events), and the device's kernels and busy ms per
+    call (profiled)."""
+    from unirestore_torch.evalx import nr_suite as NRS
+    from unirestore_torch.tasks import resnet as TRN
+    x = torch.rand(NR_SHAPE, generator=gen, device="cuda")
+    yy = torch.linspace(0, 1, NR_SHAPE[1], device="cuda")[:, None, None]
+    xx = torch.linspace(0, 1, NR_SHAPE[2], device="cuda")[None, :, None]
+    ramp = ((0.7 * yy + 0.3 * xx + 0.2 * torch.arange(3, device="cuda")) % 1.0)[None]
+    out = {}
+    for name in NRS.NETS:
+        parts = nr_parts(name)
+        tree = bridge.nr_init(name, "cuda")
+        n_bn = calibrate_bn(TRN, parts, tree, x) if name in NR_CALIBRATED else 0
+        with torch.inference_mode():
+            KN.reset_counts()
+            feats, score = parts(tree, x)
+            launches = sum(kern.launches for kern in KN.KERNELS)
+            feats2, score2 = parts(tree, ramp)
+            ms = cuda_ms(lambda: parts(tree, x), 5)
+            prof = profiled_device(lambda: parts(tree, x))
+            t0 = time.perf_counter()
+            ref_f, ref_s = parts(to_cpu(bridge, tree), x.cpu())
+            cpu_s = time.perf_counter() - t0
+        row = {"features": list(feats.shape), "batchnorms_calibrated": n_bn, "ms": ms,
+               "device_kernels_per_call": prof["kernels"],
+               "device_busy_ms": prof["device_busy_s"] * 1e3,
+               "repo_kernel_launches": launches, "cpu_s": cpu_s}
+        for what, got, ref, other in (("features", feats, ref_f, feats2),
+                                      ("score", score, ref_s, score2)):
+            scale = ref.abs().max().item()
+            err = (got.cpu() - ref).abs().max().item()
+            row[what] = {"max_abs_err": err, "max_abs": scale, "rel_err": err / scale,
+                         "reach": (got - other).abs().max().item() / scale,
+                         "value": got.flatten()[:4].tolist() if what == "score" else None}
+            if not (err <= NR_RTOL * scale and torch.isfinite(got).all()):
+                raise AssertionError(f"NR net {name} {what}: card vs CPU {err} > {NR_RTOL} x "
+                                     f"{scale}")
+        if launches:
+            raise AssertionError(f"NR net {name}: {launches} launches of the repo's kernels")
+        log(f"NR net {name}: {tuple(x.shape)} -> features {tuple(feats.shape)}; card vs CPU "
+            f"features rel {row['features']['rel_err']:.2e} (reach "
+            f"{row['features']['reach']:.3g}), score rel {row['score']['rel_err']:.2e} (reach "
+            f"{row['score']['reach']:.3g}), limit {NR_RTOL}; {ms:.3f} ms a call; "
+            f"{prof['kernels']} device kernels, busy {prof['device_busy_s'] * 1e3:.3f} ms; "
+            f"{n_bn} BatchNorms calibrated; CPU {cpu_s:.2f} s")
+        out[name] = row
+        del tree, feats, score, ref_f, ref_s
+        torch.cuda.empty_cache()
+    return out
+
+
+def neural_calls(calls: dict, image) -> dict:
+    """Phase 14: per call (a neural metric's ``update``, FID's extractor) on a
+    512 x 512 prediction: host ms of the whole call (upload, network, the one
+    read-back), the card's busy ms and kernels (one call profiled), and the
+    synchronisations one call makes under ``torch.cuda.set_sync_debug_mode
+    ("warn")`` (the design: one, the read-back)."""
+    import warnings
+
+    out = {}
+    for name, call in calls.items():
+        call(image)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            call(image)
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        prof = profiled_device(lambda: call(image))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:  # only the call's own warnings are counted, not the mode switch's
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                call(image)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+        out[name] = {"host_ms": host_ms, "device_busy_ms": prof["device_busy_s"] * 1e3,
+                     "device_kernels": prof["kernels"], "syncs": len(where), "sync_at": where}
+        log(f"NR call {name}: {host_ms:.3f} ms a call (host clock, to the read-back), device "
+            f"busy {prof['device_busy_s'] * 1e3:.3f} ms in {prof['kernels']} kernels; "
+            f"{len(where)} synchronisation(s) under the sync debug mode, at {where}")
+        if len(where) > 1:
+            raise AssertionError(f"NR call {name}: synchronisations at {where}, want one "
+                                 "read-back")
+    return out
+
+
+def run_validate_nr(KN, TE, bridge, main_fn, work: Path, gen):
+    """Phase 14: ``validate`` from ``configs/val.yaml`` in ALL with FID and in NR
+    (two images each): keys, monitors and launches; NIQE and NRQM rerun on the
+    run's predictions bit for bit; each neural metric's and the extractor's
+    call timed and checked for syncs; the NR networks' share of an NR
+    validation's device time; then every network card vs CPU. Returns (result,
+    launches by path, the (shape, dtype) each kernel met)."""
+    from unirestore_torch.evalx import niqe, nrqm
+    from unirestore_torch.evalx.nr_suite import NeuralNR
+    t_phase = time.perf_counter()
+    symbols = [kern.symbol for kern in KN.KERNELS]
+    shapes, out, paths = {s: set() for s in symbols}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode, fid in VAL14_RUNS:
+        KN.reset_counts()
+        t0 = time.perf_counter()
+        with StepProbe(TE, KN, bridge) as probe, HostMetricProbe() as host:
+            engine, trainer = main_fn(val14_argv(work, work / f"validate14_{mode}", mode, fid))
+        run_s = time.perf_counter() - t0
+        shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+        launches = tuple(kern.launches for kern in KN.KERNELS)
+        want = tuple(VAL14_RESTORES[mode] * n for n in FIT_RESTORE)
+        (metrics,) = probe.metrics
+        keys = val14_keys(mode, fid)
+        monitor = "val_lq/niqe" if mode == "NR" else "val_lq/psnr"
+        if set(metrics) != keys or metrics["val_monitor"] != metrics[monitor] or \
+                not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"validate {mode}: {metrics}; want the keys {sorted(keys)}, "
+                                 f"finite, and val_monitor = {monitor}")
+        if launches != want:
+            raise AssertionError(f"validate {mode}: launches {launches} != {want}")
+        # NIQE and NRQM are host code: rerun on the same uint8 predictions from
+        # the same running total, they must land on the same bits
+        for key, cls in (("niqe", niqe.NIQEMetric), ("nrqm", nrqm.NRQMMetric)):
+            for call in host.calls[key]:
+                fresh = cls(weights_dir=str(REPO / "weights"))
+                fresh.total = call["before"]
+                fresh.update(call["images"])
+                if fresh.total != call["after"]:
+                    raise AssertionError(f"{key} rerun {fresh.total!r} != {call['after']!r}")
+        images = {k: sum(len(c["images"]) for c in v) for k, v in host.calls.items()}
+        host_s = {k: sum(c["s"] for c in v) / max(images[k], 1) for k, v in host.calls.items()}
+        val_s = probe.val_seconds[0]
+        row = {"run_seconds": run_s, "validation_seconds": val_s,
+               "validation_s_per_image": val_s / VAL14_IMAGES, "launches": launches,
+               "validation": metrics, "host_s_per_image": host_s, "host_images": images,
+               "fid_compute_s": host.fid_s}
+        log(f"validate {mode}{' with FID' if fid else ''}: {run_s:.1f} s in all, validation "
+            f"{val_s:.3f} s, {val_s / VAL14_IMAGES:.3f} s per image; launches {launches}; host "
+            f"s per image {host_s} over {images} images, NIQE and NRQM rerun bit-equal; FID "
+            f"compute {host.fid_s} s; {monitor} = {metrics['val_monitor']:.4f}; {metrics}")
+        engine, data, factory = probe.val_args
+        evaluator = factory(engine)
+        pred = host.calls["niqe"][0]["images"]
+        if fid:
+            row["calls"] = neural_calls({"inception": evaluator.fid["lq"].extractor}, pred)
+        else:
+            nets = {k: m for k, m in evaluator.nr["lq"].items() if isinstance(m, NeuralNR)}
+            whole = profiled_device(lambda: trainer.validate(engine, data, factory))
+            alone = profiled_device(lambda: [m.scores(pred) for m in nets.values()
+                                             for _ in range(VAL14_IMAGES)])
+            row["nr_share"] = {"validation_busy_s": whole["device_busy_s"],
+                               "nr_busy_s": alone["device_busy_s"],
+                               "share": alone["device_busy_s"] / whole["device_busy_s"],
+                               "validation_by_family": whole["device_s_by_family"]}
+            log(f"NR validation, profiled: device busy {whole['device_busy_s']:.4f} s "
+                f"({whole['kernels']} kernels) by family {whole['device_s_by_family']}; the NR "
+                f"networks alone on {VAL14_IMAGES} images: {alone['device_busy_s']:.4f} s "
+                f"({alone['kernels']} kernels): share {row['nr_share']['share']:.3f}")
+            row["calls"] = neural_calls({k: m.update for k, m in nets.items()}, pred)
+        out[mode] = row
+        paths[f"validate_{mode.lower()}"] = dict(zip(symbols, launches))
+        del probe, host, engine, trainer, data, factory, evaluator
+        torch.cuda.empty_cache()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["nets"] = check_nr_nets(KN, bridge, gen)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out, paths, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2818,6 +3168,18 @@ def main() -> int:
             f"{engines['phase_seconds']:.1f} s")
         torch.cuda.empty_cache()
 
+        # phase 14: validate through the CLI in ALL with FID and in NR, the NR
+        # suite's networks and FID's Inception card vs CPU; phase 3's comparison
+        # at the shapes the restores met that were not held yet
+        nr14, nr_paths, shapes14 = run_validate_nr(KN, TE, bridge, TMAIN.main, Path(work), gen)
+        paths.update(nr_paths)
+        nr14["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes14, rows, gen,
+                                                          path="validate_nr")
+        log(f"NR validate: {nr14['shapes_added_to_phase3']} (kernel, shape) pairs held to "
+            f"their plain versions after it; phase 14 took {nr14['phase_seconds']:.1f} s, peak "
+            f"{nr14['peak_mem_gib']:.2f} GiB")
+        torch.cuda.empty_cache()
+
     # phase 10: report; a path routes to a kernel when its expected count is not 0
     routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
                           for i in range(len(KN.KERNELS))],
@@ -2833,7 +3195,9 @@ def main() -> int:
                   fit_stage3=[EXPECTED_STAGE3[kern.symbol][0] + FIT3_RESTORE[i]
                               for i, kern in enumerate(KN.KERNELS)],
                   **{f"fit_{t}": [EXPECTED_STAGE2[t][kern.symbol][0] + FIT2_RESTORE[t][i]
-                                  for i, kern in enumerate(KN.KERNELS)] for t in ("cls", "seg")})
+                                  for i, kern in enumerate(KN.KERNELS)] for t in ("cls", "seg")},
+                  **{f"validate_{m.lower()}": [VAL14_RESTORES[m] * n for n in FIT_RESTORE]
+                     for m, _ in VAL14_RUNS})
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -2874,6 +3238,7 @@ def main() -> int:
     log(json.dumps({"fit_stage2": fit2}))
     log(json.dumps({"fit_stage3": fit3}))
     log(json.dumps({"engines": engines}))
+    log(json.dumps({"validate_nr": nr14}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -172,7 +172,12 @@ walked = {{'unirestore_torch.serve', 'unirestore_torch.zoo', 'unirestore_torch.o
            'unirestore_torch.data.loader', 'unirestore_torch.data.corruption.native',
            'unirestore_torch.evalx.lpips', 'unirestore_torch.evalx.evaluators',
            'unirestore_torch.tasks', 'unirestore_torch.tasks.resnet',
-           'unirestore_torch.tasks.deeplab'}}
+           'unirestore_torch.tasks.deeplab', 'unirestore_torch.evalx.fid',
+           'unirestore_torch.evalx.inception', 'unirestore_torch.evalx.niqe',
+           'unirestore_torch.evalx.nrqm', 'unirestore_torch.evalx.clipiqa',
+           'unirestore_torch.evalx.hyperiqa', 'unirestore_torch.evalx.nima',
+           'unirestore_torch.evalx.musiq', 'unirestore_torch.evalx.maniqa',
+           'unirestore_torch.evalx.nr_suite'}}
 assert walked <= set(sys.modules), walked - set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -170,7 +170,9 @@ def test_load_config_raises_like_jax():
 
 def test_build_refuses_what_is_not_ported():
     """The mtl engine of stage 2, the cls and seg engines (with their probe
-    zoos) and the det engine of stage 3 build; the NR suite and FID still raise."""
+    zoos), the det engine of stage 3 and the ir engine's NR and ALL
+    ``eval_mode`` and ``compute_fid`` build; the trainer still refuses
+    ``fsdp``."""
     cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml")
     engine, _, data, factory = TC.build(cfg, tiny=True, device="cpu")
     assert engine.engine_type == "mtl" and engine.stage.multi_task and engine.stage.train_tfa
@@ -187,11 +189,14 @@ def test_build_refuses_what_is_not_ported():
     engine, _, data, _ = TC.build(cfg, tiny=True, device="cpu")  # the det engine
     assert engine.engine_type == "det" and engine.downstream == "retinanet"
     assert engine.stage.tfa_prompts_only and engine.stage.multi_task and data.task == "det"
-    cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--model.init_args.eval_mode", "NR"])
-    with pytest.raises(NotImplementedError, match="NR"):
-        TC.build(cfg, tiny=True, device="cpu")
-    cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--model.init_args.compute_fid", "true"])
-    with pytest.raises(NotImplementedError, match="compute_fid"):
+    for mode in ("NR", "ALL", "FR"):
+        cfg = TC.load_config(REPO / "configs" / "val.yaml",
+                             ["--model.init_args.eval_mode", mode,
+                              "--model.init_args.compute_fid", "true"])
+        engine, _, _, factory = TC.build(cfg, tiny=True, device="cpu")
+        assert engine.engine_type == "ir" and callable(factory)
+    cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--trainer.fsdp", "true"])
+    with pytest.raises(NotImplementedError, match="fsdp"):
         TC.build(cfg, tiny=True, device="cpu")
 
 

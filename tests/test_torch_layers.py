@@ -9,8 +9,8 @@ CPU in fp32. Tolerances:
 - norms: 1e-5. Both sides compute E[x^2] - E[x]^2 in fp32 and fold the
   affine the same way, so only summation order differs.
 - schedules: 1e-6; identical fp32 formulas on the same fp32 table.
-- bicubic resize: 1e-5; JAX gathers and sums 4 taps per axis in fp32, torch
-  interpolates with the same weights in another order.
+- bicubic resize: 1e-5; both gather and sum 4 taps per axis in fp32 with
+  float64 tap positions and weights (the port's ``ops/resize.py``).
 """
 
 import dataclasses

@@ -19,7 +19,9 @@ and 3 (``unirestore_tpu/tasks/resnet.py``, ``deeplab.py``, ``retinanet.py``,
 ``fasterrcnn.py``): their JAX trees, by task, against the port's own critic
 trees (``tasks.critic_init(task, "meta", downstream)``) as templates;
 ``probes_from_jax`` for the probes of the classification and segmentation
-zoos (``tasks/classifier_zoo.py``, ``tasks/seg_zoo.py``), by probe name.
+zoos (``tasks/classifier_zoo.py``, ``tasks/seg_zoo.py``), by probe name;
+``nr_from_jax`` for the networks of the no-reference suite and FID's
+Inception (``evalx/nr_suite.py:NETS``), by suite name.
 """
 
 from __future__ import annotations
@@ -166,6 +168,24 @@ def probes_from_jax(trees, *, device=None, dtype=torch.float32, cut=None) -> dic
             template = cut(name, template)
         out[name] = load_tree(tree, template, device=device, dtype=dtype)
     return out
+
+
+def nr_init(name: str, device=None):
+    """The seeded tree of a network of the NR suite or of FID's extractor, by
+    suite name (``"clipiqa"``, ``"musiq"``, ``"musiq-ava"``, ``"musiq-paq2piq"``,
+    ``"musiq-spaq"``, ``"nima-koniq"``, ``"maniqa"``, ``"hyperiqa"``,
+    ``"inception"``; ``device="meta"``: shapes only)."""
+    from .evalx import nr_suite
+    return nr_suite.net_init(name, device=device)
+
+
+def nr_from_jax(trees, *, device=None, dtype=torch.float32) -> dict:
+    """The JAX trees of NR networks by suite name (``{"clipiqa": ..., "inception":
+    ...}``) -> the port's, against the suite's own seeded trees as templates. The
+    flat keys are those ``zoo.load_npz_tree`` reads, so one converted ``.npz``
+    serves both packages."""
+    return {name: load_tree(tree, nr_init(name, "meta"), device=device, dtype=dtype)
+            for name, tree in trees.items()}
 
 
 def load_null_embedding(path, shape=(1, 77, 1024), *, device=None, dtype=torch.float32):

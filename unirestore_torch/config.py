@@ -4,17 +4,17 @@ The port's counterpart of ``unirestore_tpu/config.py``: ``load_config``,
 ``_parse_scalar``, ``set_dotted``, ``ENGINE_ALIASES`` and ``engine_type`` are
 copied as they are, so the reference YAMLs in ``configs/`` drive the port
 unchanged (the ``unirestore_tpu.*`` and ``core.engine_unifie.*`` class paths
-are accepted as strings). ``build`` covers every engine: ``ir`` with the FR
-evaluation (PSNR, SSIM, LPIPS); the ``mtl`` engine of stage 2 with the
+are accepted as strings). ``build`` covers every engine: ``ir`` with its
+``eval_mode`` FR (PSNR, SSIM, LPIPS; FID with ``compute_fid``), NR (the
+no-reference suite of ``evalx/nr_suite.py``, ``nr_metrics`` selecting its
+members) or ALL (both); the ``mtl`` engine of stage 2 with the
 multi-task evaluation (the IR evaluator, the ``r50v1`` classification and
 ``dlv3pr50`` segmentation probes on the engine's critics); ``cls`` and ``seg``
 with the classification and segmentation probe zoos their ``eval_mode``
 selects (``tasks/classifier_zoo.py``: ``single``, ``all``, ``all_ft``,
 ``CUB``, ``bare``; ``tasks/seg_zoo.py``: ``single``, ``all``, ``bare``); and
 the ``det`` engine of stage 3 with the detection evaluation (mAP of the
-critic, RetinaNet or, with ``downstream: fastrcnn``, Faster R-CNN). Not
-ported yet, each raising ``NotImplementedError`` (ROADMAP Queue A 5): the NR
-``eval_mode`` of the ``ir`` engine; ``compute_fid``.
+critic, RetinaNet or, with ``downstream: fastrcnn``, Faster R-CNN).
 
 Same document shape as the reference configs (configs/train_stage*.yaml):
 ``seed_everything``, ``trainer{...}``, ``model{class_path, init_args}``,
@@ -129,13 +129,6 @@ def build(cfg: dict, tiny: bool = False, device=None):
     etype = engine_type(cfg)
     m = copy.deepcopy(cfg.get("model", {}).get("init_args", {}))
     eval_mode = m.get("eval_mode", "FR")
-    if etype == "ir" and eval_mode != "FR":
-        raise NotImplementedError(
-            f"eval_mode {eval_mode!r}: the NR metric suite is not ported yet "
-            "(ROADMAP Queue A 5)")
-    if etype == "ir" and m.get("compute_fid"):
-        raise NotImplementedError("compute_fid: FID and its Inception network are not "
-                                  "ported yet (ROADMAP Queue A 5)")
     engine = UniFIEEngine(
         model_kwargs=m.get("model_kwargs", {}),
         optimizer_kwargs=m.get("optimizer_kwargs"),
@@ -173,8 +166,9 @@ def build(cfg: dict, tiny: bool = False, device=None):
     d = cfg.get("data", {}).get("init_args", {})
     data = DatasetEngine(**d) if d else None
 
-    # LPIPS, the critic probes, the probe zoos and the detector are built once
-    # and reused across validate() epochs
+    # LPIPS, FID's Inception, the NR suite, the critic probes, the probe zoos
+    # and the detector are built once, on the engine's device, and reused
+    # across validate() epochs: every metric resets its state in epoch_end
     _eval_cache = {}
 
     def lpips():
@@ -230,8 +224,26 @@ def build(cfg: dict, tiny: bool = False, device=None):
                                                               score_threshold=0.05)
             return EV.DetectionEvaluator(restore, _eval_cache["detector"],
                                          iou_thresholds=(0.1,), save_dir=save_dir)
+        fid = None
+        # FID is an FR-protocol metric: the reference builds it only for FR and
+        # ALL (eval_image_restoration.py:180-187); NR has no target to give the
+        # real features
+        if m.get("compute_fid") and eval_mode in ("FR", "ALL"):
+            if "fid" not in _eval_cache:
+                from .evalx.fid import FID
+                from .evalx.inception import make_fid_extractor
+                extractor, dim = make_fid_extractor(device=eng.device)
+                _eval_cache["fid"] = {t: FID(extractor, dim) for t in ("hq", "lq")}
+            fid = _eval_cache["fid"]
+        nr = None
+        if eval_mode in ("NR", "ALL"):
+            if "nr" not in _eval_cache:
+                from .evalx.nr_suite import build_nr_suite
+                _eval_cache["nr"] = build_nr_suite(m.get("nr_metrics"), device=eng.device)
+            nr = _eval_cache["nr"]
         return EV.ImageRestorationEvaluator(
-            restore, need_crop=m.get("need_crop", True),
-            save_dir=save_dir, lpips_fn=lpips())
+            restore, eval_mode=eval_mode, need_crop=m.get("need_crop", True),
+            save_dir=save_dir, lpips_fn=lpips() if eval_mode in ("FR", "ALL") else None,
+            fid=fid, nr_metrics=nr)
 
     return engine, trainer, data, evaluator_factory

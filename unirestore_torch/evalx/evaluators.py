@@ -1,21 +1,21 @@
 """Evaluation over a restore function (the port of
-``unirestore_tpu/evalx/evaluators.py``: ``center_crop``, the FR protocol of
-``ImageRestorationEvaluator``, ``ClassificationEvaluator``,
-``SemanticSegmentationEvaluator``, ``DetectionEvaluator`` and
-``MultiTaskEvaluator``).
+``unirestore_tpu/evalx/evaluators.py``: ``center_crop``,
+``ImageRestorationEvaluator`` with its ``eval_mode`` FR, NR and ALL,
+``ClassificationEvaluator``, ``SemanticSegmentationEvaluator``,
+``DetectionEvaluator`` and ``MultiTaskEvaluator``).
 
 IR protocol (eval_image_restoration.py): center-crop <= 512^2, restore [hq,
-lq], quantize to uint8 levels, PSNR / SSIM and LPIPS against the target;
-monitor val_lq/psnr. Classification: center-crop <= 960 x 1664, restore [hq,
+lq] (lq alone in NR), quantize to uint8 levels; in FR and ALL PSNR / SSIM,
+LPIPS and FID against the target; in NR and ALL the no-reference suite
+(``evalx/nr_suite.py``) on each prediction; monitor val_lq/psnr, or
+val_lq/niqe in NR. Classification: center-crop <= 960 x 1664, restore [hq,
 lq] with task ``cls``, quantize, top-1 accuracy (macro) of each probe.
 Segmentation: the restored lq only, each probe's logits averaged over the
 scales 1.0 / 0.8 / 0.6 (cv2 bilinear resizes on the host), 19-class IoU.
 Multi-task: each batch to the evaluator of its ``task``; monitor
 val_ir_lq/psnr. Detection: the restored lq only, quantised, the detector's
 boxes scored by mAP at IoU 0.1. A probe is ``fn(images_nhwc01) -> logits`` on
-numpy, a detector ``fn(images_nhwc01) -> [{boxes, scores, labels}]``. The NR
-metric suite (the JAX evaluator's ``eval_mode`` NR and ALL) and FID are not
-ported yet (ROADMAP Queue A 5; ``config.build`` refuses them).
+numpy, a detector ``fn(images_nhwc01) -> [{boxes, scores, labels}]``.
 
 The ``restore_fn(images_nhwc, task) -> images_nhwc`` closure takes and gives
 numpy in [0, 1] (``train/engine.py:UniFIEEngine.restore_fn``).
@@ -23,6 +23,7 @@ numpy in [0, 1] (``train/engine.py:UniFIEEngine.restore_fn``).
 
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
@@ -49,6 +50,18 @@ def as_probe(apply_fn, device):
     return run
 
 
+def upload(images, device):
+    """numpy NHWC -> an fp32 tensor on ``device``; to the card through pinned
+    memory without waiting for it, so that a metric's read-back of its result
+    is the one point of its call where the host waits for the card."""
+    import torch
+
+    x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
+    if device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
 def probe(task: str, critic, device):
     """The validation probe over a critic (``tasks.critic_apply``)."""
     from ..tasks import critic_apply
@@ -65,18 +78,47 @@ def center_crop(img: np.ndarray, upper_h: int, upper_w: int) -> np.ndarray:
     return img[:, top:top + ch, left:left + cw]
 
 
+def _clone_metric(m):
+    """A fresh-state copy that shares any underlying network (the
+    NetworkSharedMultioutputWrapper semantics, task.py:30-60). PI's inner NIQE
+    and NRQM are copied too: a shared NRQM would mix the hq and lq streams and
+    be cleared by the first clone's reset."""
+    c = copy.copy(m)
+    if hasattr(c, "niqe"):
+        c.niqe = copy.copy(c.niqe)
+        c.niqe.reset()
+    if getattr(c, "nrqm", None) is not None:
+        c.nrqm = copy.copy(c.nrqm)
+        c.nrqm.reset()
+    if hasattr(c, "reset"):
+        c.reset()
+    return c
+
+
 class ImageRestorationEvaluator:
-    def __init__(self, restore_fn, need_crop: bool = True, lpips_fn=None,
-                 save_dir: str | None = None):
+    def __init__(self, restore_fn, eval_mode: str = "FR", need_crop: bool = True,
+                 lpips_fn=None, fid=None, save_dir: str | None = None,
+                 nr_metrics: dict | None = None):
+        """``fid``: eval_type -> ``evalx.fid.FID``; ``nr_metrics``: name ->
+        MeanMetric-style NR scorer (the pyiqa set, eval_image_restoration.py:
+        190-203; ``evalx.nr_suite.build_nr_suite``), applied to the restored
+        prediction of each eval_type, each with its own state."""
         self.restore_fn = restore_fn
+        self.eval_mode = eval_mode
         self.need_crop = need_crop
-        self.eval_types = ["hq", "lq"]
+        self.eval_types = ["lq"] if eval_mode == "NR" else ["hq", "lq"]
         self.task_metric = TaskMetric(self.eval_types)
-        self.task_metric.add_metric("psnr", M.MeanMetric)
-        self.task_metric.add_metric("ssim", M.MeanMetric)
+        if eval_mode in ("FR", "ALL"):
+            self.task_metric.add_metric("psnr", M.MeanMetric)
+            self.task_metric.add_metric("ssim", M.MeanMetric)
         self.lpips_fn = lpips_fn
         if lpips_fn is not None:
             self.task_metric.add_metric("lpips", M.MeanMetric)
+        self.fid = fid
+        self.nr = {}
+        if nr_metrics and eval_mode in ("NR", "ALL"):
+            self.nr = {etype: {k: _clone_metric(v) for k, v in nr_metrics.items()}
+                       for etype in self.eval_types}
         self.save_dir = save_dir  # per-image PNG dumps (reference
         # eval_image_restoration.py:84-98) into save_dir/{hq,lq}/
         self.logger = None  # optional MetricLogger for batch-0 grids
@@ -114,7 +156,7 @@ class ImageRestorationEvaluator:
             if hq is not None:
                 hq = center_crop(hq, 512, 512)
         inputs = {}
-        if hq is not None:
+        if "hq" in self.eval_types and hq is not None:
             inputs["hq"] = hq
         inputs["lq"] = lq
         for etype, imgs in inputs.items():
@@ -122,7 +164,7 @@ class ImageRestorationEvaluator:
             pred = M.quantize_preds(pred)
             self._maybe_save(etype, pred, batch.get("fname"))
             self._maybe_log_grid(etype, imgs, pred)
-            if hq is not None:
+            if hq is not None and self.eval_mode in ("FR", "ALL"):
                 target = np.clip(hq, 0, 1).astype(np.float32)
                 mm = self.task_metric.metrics[etype]
                 for p, t in zip(pred, target):
@@ -131,13 +173,29 @@ class ImageRestorationEvaluator:
                 if self.lpips_fn is not None:
                     for v in np.asarray(self.lpips_fn(pred, target)):
                         mm["lpips"].update(float(v))
+                if self.fid is not None:
+                    self.fid[etype].update(pred, real=False)
+                    self.fid[etype].update(target, real=True)
+            for m in self.nr.get(etype, {}).values():
+                m.update(pred)
         self._batch_idx += 1
         return pred
 
     def epoch_end(self, prefix: str = "val"):
         out = self.task_metric.compute_metrics(prefix)
-        # monitor: PSNR (FR) — eval_image_restoration.py:104
-        out["val_monitor"] = out.get(f"{prefix}_lq/psnr", 0.0)
+        if self.fid is not None:
+            for etype, fid in self.fid.items():
+                out[f"{prefix}_{etype}/fid"] = fid.compute()
+                # fresh fake statistics each epoch, the real ones kept
+                # (torchmetrics' reset_real_features=False, evalx/fid.py)
+                fid.reset(reset_real_features=False)
+        for etype, metrics in self.nr.items():
+            for name, m in metrics.items():
+                out[f"{prefix}_{etype}/{name}"] = float(m.compute())
+                m.reset()
+        # monitor: PSNR (FR, ALL) or NIQE (NR), eval_image_restoration.py:104
+        key = "niqe" if self.eval_mode == "NR" else "psnr"
+        out["val_monitor"] = out.get(f"{prefix}_lq/{key}", 0.0)
         self.task_metric.reset_metrics()
         return out
 
