@@ -209,6 +209,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    NR networks' share of an NR validation's device time (profiled), peak
    memory, the phase's seconds. Every (kernel, shape) met that was not held
    yet is held to its plain version (rows with ``"path": "validate_nr"``);
+15. (run after phase 14, before the report) the ``spade`` control type, the
+   optimizers and the DeepLab backbones: phase 4's model, batch, noise and
+   modes with ``control_type="spade"`` and ``UNetConfig(control_type=
+   "spade")`` (22 SPADE blocks, 53.02 M more trainable parameters), each
+   restore eagerly (under ``set_sync_debug_mode("error")``) and from one
+   ``GraphedRestore`` graph: launches per restore equal to phase 4's of the
+   mode, the replay within one uint8 level of the eager restore, img/s both
+   ways, PSNR of each cached mode and the fused route against exact, and
+   exact under ``scedit`` and ``spade`` in turns on both routes (SPADE's
+   share of the restore); the SPADE restore (unfused, fused, graph) and one
+   SPADE stage-1 loss with its per-family gradient norms at 256 px in fp32,
+   card vs CPU, as phases 5 and 7; the full-width SPADE stage-1 step (512 px,
+   batch 8, remat, bf16 frozen) with AdamW, ``lamb`` and ``adafactor``, one
+   warm-up and three timed steps each: ms/step, train img/s, peak memory,
+   launches per step (forward as phase 6's; recompute and backward over the
+   whole UNet); every optimizer name of the JAX ``make_optimizer`` over a
+   seeded tree (two updates, clip, accumulation 2), card vs CPU; every
+   DeepLab name over MobileNetV2, Xception and HRNetV2-32 / -48, fp32 at
+   512 x 512, card vs CPU with its reach and ms a call, no repo kernel
+   launch. Every (kernel, shape) met that was not held yet is held to its
+   plain version (rows with ``"path": "spade"``). To run it alone from a
+   throwaway script: ``nn.kernels.build_all()``, then ``chip_smoke.run_phase15
+   (UR, KN, GR, bridge, TS, OPT, gen)``;
 10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
@@ -220,7 +243,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    first fit, training and validation; ``fit_stage2``: phase 11's fit;
    ``fit_stage3``: phase 12's RetinaNet fit; ``fit_cls`` and ``fit_seg``:
    phase 13's fits of the two engines; ``validate_all`` and ``validate_nr``:
-   phase 14's two validate runs); each kernel must
+   phase 14's two validate runs; ``restore_spade_exact``, ``_encoder``,
+   ``_deep``, ``_fused``: phase 15's eager restore of the mode plus its
+   graph's launches at capture times its replays; ``train_spade``: phase
+   15's twelve steps); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -412,6 +438,42 @@ NR_RTOL = 1e-4
 # scaling amplify the two devices' summation orders to 3.4e-4 of the largest
 # feature, so it is compared as seeded
 NR_CALIBRATED = ("clipiqa", "nima-koniq", "hyperiqa")
+# phase 15: the restore under the ``spade`` control type in phase 4's modes
+# (name, cache mode, stride, warmup, fused out-projection); the kernel paths
+# of the kernels line by name. SPADE adds no attention and no grouped conv, so
+# each restore launches phase 4's counts of its mode (EXPECTED).
+SPADE_RUNS = (("none", "none", 2, 0, False), ("encoder", "encoder", 2, 0, False),
+              ("deep", "deep", 17, 3, False), ("fused", "none", 2, 0, True))
+SPADE_PATHS = {"none": "restore_spade_exact", "encoder": "restore_spade_encoder",
+               "deep": "restore_spade_deep", "fused": "restore_spade_fused"}
+# launches per stage-1 step under SPADE, (forward, remat recompute, backward):
+# the forward is phase 6's; a SPADE in every UNet resnet puts trainable leaves
+# in the down path and the mid block too, so every rematerialised UNet unit is
+# recomputed (btc 10, bh 5; the mid block's T = 64 head runs plain) and every
+# attention of the Controller and the UNet is differentiated (btc 14, bh 7)
+EXPECTED_TRAIN_SPADE = {"ur_attention_btc": (14, 10, 14), "ur_attention_bh": (7, 5, 7),
+                        "ur_attention_stream": (2, 0, 0), "ur_attention_btc_out": (0, 0, 0),
+                        "ur_grouped_conv3": (3, 3, 3)}
+# the SPADE step's optimizers: AdamW (the stage-1 YAML's) and the two names
+# with the most work per step; one warm-up and SPADE_TRAIN_STEPS timed steps
+# each, accumulation 1 so that every step updates
+SPADE_OPTS = ("adamw", "lamb", "adafactor")
+SPADE_TRAIN_STEPS = 3
+# every name of the JAX ``make_optimizer``; two updates (accumulation 2, clip,
+# OneCycle) card vs CPU in float64, where the comparison reads the port's
+# arithmetic: in fp32 an element whose coupled-decay input cancels to within
+# Adam's eps flips its step when the clip factor moves by one ulp (a sum in
+# another order), which puts fp32 6.3e-4 of a leaf's largest from fp64 on one
+# CPU for ``adam`` (9.3e-4 ``nadam``); the limit is the CPU tests' against optax
+OPT_NAMES = ("adamw", "nadamw", "radam", "lamb", "lion", "adafactor", "lars", "sgdw",
+             "adam", "nadam", "adamax", "sgd", "momentum", "rmsprop", "adagrad", "adadelta")
+OPT_SHAPES = {"norm//b": (320,), "lin//w": (1280, 320), "conv//w": (640, 320, 3, 3)}
+OPT_RTOL = 1e-5
+# every DeepLab name the port's factory builds beyond the ResNets, fp32, one
+# seeded 512 x 512 image, card vs CPU relative to the largest |logit|
+DEEPLAB_NAMES = tuple(f"deeplabv3{plus}_{b}" for b in ("mobilenet", "xception", "hrnetv2_32",
+                                                        "hrnetv2_48") for plus in ("", "plus"))
+DEEPLAB_RTOL = 1e-4
 
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
@@ -1267,9 +1329,10 @@ def run_training(UR, KN, bridge, TS, OPT):
     return result, launches
 
 
-def train_reference_check(UR, KN, bridge, TS):
-    """Phase 7: one stage-1 loss and gradient, full widths, 256 px, fp32, card vs CPU."""
-    cfg = UR.UniRestoreConfig()
+def train_reference_check(UR, KN, bridge, TS, cfg=None):
+    """Phase 7: one stage-1 loss and gradient, full widths, 256 px, fp32, card vs
+    CPU (``cfg``: ``UniRestoreConfig()``, unless given)."""
+    cfg = cfg or UR.UniRestoreConfig()
     frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=7)
     gen = torch.Generator(device="cuda").manual_seed(8)
     batch = synthetic_pair(gen, 1, 256, torch.float32)
@@ -3025,6 +3088,314 @@ def run_validate_nr(KN, TE, bridge, main_fn, work: Path, gen):
     return out, paths, shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 15: SPADE control, the optimizers, the DeepLab backbones
+# ---------------------------------------------------------------------------
+
+
+def spade_config(UR, cfg=None):
+    """``cfg`` (phase 4's model) under the ``spade`` control type: the UNet
+    built with SPADE (``UNetConfig(control_type="spade")``), which
+    ``UniRestoreConfig(control_type="spade")`` alone does not do."""
+    cfg = cfg or UR.UniRestoreConfig()
+    return dataclasses.replace(cfg, control_type="spade",
+                               unet=dataclasses.replace(cfg.unet, control_type="spade"))
+
+
+def timed(KN, fn) -> tuple:
+    """(output, seconds, launches in KERNELS order) of ``fn()`` with the card
+    synchronised before and after and the counters reset before."""
+    KN.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, counts_of(KN)
+
+
+def run_spade_restores(UR, KN, GR, bridge, gen):
+    """Phase 15's restores: phase 4's model, batch and noise under SPADE, each
+    of SPADE_RUNS eagerly (under ``set_sync_debug_mode("error")``), then
+    captured in one ``GraphedRestore`` and replayed once; exact also under
+    ``scedit`` (phase 4's model) eagerly and from a graph, in turns with SPADE,
+    for SPADE's share of the restore. Returns (result, launches by path, the
+    (shape, dtype) each kernel met)."""
+    base = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
+    cfg = spade_config(UR, base)
+    frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=1)
+    n_spade = sum(v.numel() for v in bridge.flatten(trainable["control"]).values())
+    images, noise, restore = restore_inputs(UR, cfg, frozen, trainable, gen)
+    sched = UR.schedule(cfg, device="cuda")
+    symbols = [kern.symbol for kern in KN.KERNELS]
+    shapes, outs, paths, result = {s: set() for s in symbols}, {}, {}, {}
+    restore(cfg, 1)  # warm-up: every shape once
+    restore(dataclasses.replace(cfg, fused_out_attention=True), 1)
+    for name, mode, stride, warmup, fused in SPADE_RUNS:
+        c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride, cache_warmup=warmup,
+                                fused_out_attention=fused)
+        torch.cuda.reset_peak_memory_stats()
+        KN.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = restore(c, STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        eager_s, counts = time.perf_counter() - t0, counts_of(KN)
+        shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if eager.shape != images.shape or not torch.isfinite(eager).all():
+            raise AssertionError(f"spade {name}: output {tuple(eager.shape)} or non-finite values")
+        if counts != EXPECTED[name]:
+            raise AssertionError(f"spade {name}: launches {counts} != phase 4's {EXPECTED[name]}")
+        KN.reset_counts()
+        graphed = GR.GraphedRestore(frozen, trainable, c, sched, device="cuda")
+        graphed(images, "ir", num_inference_steps=STEPS, **noise)  # warm-up and capture
+        shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+        (stats,) = graphed.stats.values()
+        captured = tuple(stats.launches[s] for s in symbols)
+        replay, graph_s, replay_counts = timed(
+            KN, lambda: graphed(images, "ir", num_inference_steps=STEPS, **noise))
+        if captured != EXPECTED[name] or any(replay_counts):
+            raise AssertionError(f"spade graph {name}: launches at capture {captured}, in a "
+                                 f"replay {replay_counts}; want {EXPECTED[name]} and none")
+        levels = uint8_levels(replay, eager)
+        if levels > 1:
+            raise AssertionError(f"spade graph {name}: {levels} uint8 levels from eager")
+        paths[SPADE_PATHS[name]] = {s: n + stats.launches[s] * stats.replays
+                                    for s, n in zip(symbols, counts)}
+        outs[name] = eager
+        result[name] = {"mode": mode, "stride": stride, "warmup": warmup,
+                        "fused_out_attention": fused, "launches": counts,
+                        "eager_seconds": eager_s, "eager_img_per_s": BATCH / eager_s,
+                        "graph_seconds": graph_s, "graph_img_per_s": BATCH / graph_s,
+                        "capture_seconds": stats.capture_seconds,
+                        "warmup_seconds": stats.warmup_seconds, "peak_mem_gib_eager": peak,
+                        "graph_vs_eager_uint8_levels": levels,
+                        "graph_vs_eager_max_abs": (replay.float() - eager.float()).abs()
+                        .max().item()}
+        log(f"spade restore {name} (mode {mode}, stride {stride}, warmup {warmup}, fused "
+            f"out-projection {fused}): eager {eager_s:.3f} s, {BATCH / eager_s:.3f} img/s; graph "
+            f"{graph_s:.3f} s, {BATCH / graph_s:.3f} img/s (capture + instantiate "
+            f"{stats.capture_seconds:.3f} s); launches {counts} (phase 4's), graph vs eager "
+            f"{levels} uint8 levels; eager peak {peak:.2f} GiB")
+        del graphed, replay
+        torch.cuda.empty_cache()
+    for name in ("encoder", "deep", "fused"):
+        result[name]["psnr_vs_exact"] = psnr_u8(outs["none"], outs[name])
+    log("spade PSNR vs exact: " + ", ".join(f"{n} {result[n]['psnr_vs_exact']:.2f} dB"
+                                            for n in ("encoder", "deep", "fused")))
+    del outs
+
+    # SPADE's share of an exact restore: phase 4's scedit model on the same
+    # batch and noise, in turns with SPADE (scedit, spade, spade, scedit) per route
+    frozen_s, trainable_s = make_params(UR, bridge, base, torch.bfloat16, seed=1)
+    graphs = {"scedit": GR.GraphedRestore(frozen_s, trainable_s, base, sched, device="cuda"),
+              "spade": GR.GraphedRestore(frozen, trainable, cfg, sched, device="cuda")}
+    calls = {("scedit", "eager"): lambda: UR.restore(frozen_s, trainable_s, base, sched, images,
+                                                     "ir", num_inference_steps=STEPS,
+                                                     device="cuda", **noise),
+             ("spade", "eager"): lambda: restore(cfg, STEPS),
+             ("scedit", "graph"): lambda: graphs["scedit"](images, "ir",
+                                                           num_inference_steps=STEPS, **noise),
+             ("spade", "graph"): lambda: graphs["spade"](images, "ir",
+                                                         num_inference_steps=STEPS, **noise)}
+    for model in ("scedit", "spade"):
+        calls[(model, "graph")]()  # capture
+    sec = {k: [] for k in calls}
+    for route in ("eager", "graph"):
+        for model in ("scedit", "spade", "spade", "scedit"):
+            sec[(model, route)].append(timed(KN, calls[(model, route)])[1])
+    share = {}
+    for route in ("eager", "graph"):
+        t_sc, t_sp = (sum(sec[(m, route)]) / 2 for m in ("scedit", "spade"))
+        share[route] = {"scedit_s": t_sc, "spade_s": t_sp, "spade_share": (t_sp - t_sc) / t_sp}
+    log(f"spade share of an exact restore (in turns with scedit): {share}")
+    del graphs, calls, frozen_s, trainable_s
+    torch.cuda.empty_cache()
+    result["spade_params_m"] = n_spade / 1e6
+    result["share_of_exact"] = share
+    return result, paths, shapes
+
+
+def run_spade_training(UR, KN, bridge, TS, OPT, gen):
+    """The full-width stage-1 step under SPADE (sd-turbo widths without TFA, bf16
+    frozen, fp32 trainable, remat on, 512 px, batch 8) with each of SPADE_OPTS
+    from the stage-1 YAML's kwargs at accumulation 1: one warm-up and
+    SPADE_TRAIN_STEPS timed steps each, launches per step EXPECTED_TRAIN_SPADE,
+    finite logs; after AdamW every trained leaf changed or holds a nonzero first
+    moment (phase 9's rule), the frozen bytes as built.
+    Returns (result, launches, the (shape, dtype) each kernel met)."""
+    cfg = spade_config(UR)
+    frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=3,
+                                    trainable_dtype=torch.float32)
+    stage = TS.StageConfig(train_cfrm=True, train_cnet=True, train_tfa=False)
+    sched = UR.schedule(cfg, device="cuda")
+    frozen_before = {k: v.clone() for k, v in bridge.flatten(frozen).items()}
+    symbols = [kern.symbol for kern in KN.KERNELS]
+    launches, shapes, result = dict.fromkeys(symbols, 0), {s: set() for s in symbols}, {}
+    n_trained = sum(v.numel() for v in TS.trained_leaves(stage, trainable).values())
+    for name in SPADE_OPTS:
+        tx, peak_lr = OPT.build({**STAGE1_OPT, "opt": name}, STAGE1_SCHED, STAGE1_MAX_STEPS,
+                                BATCH, 1, 1)
+        state = tx.init(TS.trained_leaves(stage, trainable))
+        step = TS.make_train_step(frozen, cfg, sched, stage, tx, "ir", remat=True)
+        before = {k: v.clone() for k, v in TS.trained_leaves(stage, trainable).items()}
+        rows = []
+        for i in range(1 + SPADE_TRAIN_STEPS):
+            batch = synthetic_pair(gen, BATCH, RES, torch.bfloat16)
+            noise = TS.draw_noise(cfg, batch, gen)
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            logs, sec, _ = timed(KN, lambda: step(trainable, state, batch, noise)[2])
+            counts = train_counts(KN)
+            shapes = merge_shapes(shapes, kernel_shapes_met(KN))
+            for kern in KN.KERNELS:
+                launches[kern.symbol] += kern.launches
+            logs = {k: v.item() for k, v in logs.items()}
+            if not all(math.isfinite(v) for v in logs.values()):
+                raise AssertionError(f"spade {name} step {i}: non-finite logs {logs}")
+            if counts != EXPECTED_TRAIN_SPADE:
+                raise AssertionError(f"spade {name} step {i}: launches {counts} != "
+                                     f"{EXPECTED_TRAIN_SPADE}")
+            rows.append({"seconds": sec, "logs": logs})
+        if name == "adamw":  # as phase 9: a leaf whose update is below its ulp (a gradient
+            # of about 1e-11 behind a NAF gate) holds a nonzero first moment
+            unchanged = [k for k, v in TS.trained_leaves(stage, trainable).items()
+                         if torch.equal(v, before[k])]
+            stuck = [k for k in unchanged if not state["mu"][k].any()]
+            if stuck:
+                raise AssertionError(f"spade adamw: {len(stuck)} trained leaves neither changed "
+                                     f"nor hold a first moment: {stuck[:5]}")
+            result["adamw_unchanged_with_moment"] = len(unchanged)
+        sec = [r["seconds"] for r in rows[1:]]
+        mean = sum(sec) / len(sec)
+        result[name] = {"ms_per_step": mean * 1e3, "ms_per_step_each": [x * 1e3 for x in sec],
+                        "train_img_per_s": BATCH / mean, "peak_lr": peak_lr,
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "losses": [r["logs"] for r in rows]}
+        log(f"spade training, {name}: {mean * 1e3:.1f} ms/step over {SPADE_TRAIN_STEPS} steps "
+            f"({min(sec) * 1e3:.1f}-{max(sec) * 1e3:.1f}), {BATCH / mean:.3f} train img/s, peak "
+            f"{result[name]['peak_mem_gib']:.2f} GiB; launches per step {counts}; loss "
+            f"{rows[-1]['logs'].get('train/loss', float('nan')):.5g}")
+        del state, step
+        torch.cuda.empty_cache()
+    touched = [k for k, v in bridge.flatten(frozen).items() if not torch.equal(v, frozen_before[k])]
+    if touched:
+        raise AssertionError(f"spade training changed frozen leaves: {touched[:5]}")
+    result.update(batch=BATCH, res=RES, steps_timed=SPADE_TRAIN_STEPS, accumulation=1,
+                  trained_params_m=n_trained / 1e6, launches_per_step=EXPECTED_TRAIN_SPADE)
+    return result, launches, shapes
+
+
+def check_optimizers(OPT) -> dict:
+    """Every name of OPT_NAMES: two updates (accumulation 2, global-norm clip 5,
+    OneCycle from 1e-2, weight decay 0.1) over one seeded tree with a 1-D leaf,
+    a 1280 x 320 matrix and a 640 x 320 x 3 x 3 conv kernel (``adafactor``
+    factors both), in float64 on the card and on the CPU: each leaf within
+    OPT_RTOL of its largest |value|; then ms per fp32 update on the card
+    (accumulation 1)."""
+    gen = torch.Generator().manual_seed(15)
+    params = {k: 0.5 * torch.randn(s, generator=gen) for k, s in OPT_SHAPES.items()}
+    grads = [{k: torch.randn(s, generator=gen) for k, s in OPT_SHAPES.items()} for _ in range(4)]
+    out = {}
+    for name in OPT_NAMES:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            tx = OPT.make_optimizer(name, lr=OPT.make_lr_schedule("onecycle", 1e-2, 6),
+                                    weight_decay=0.1, accum_iter=2, grad_clip=5.0)
+            p = {k: v.to(dev, torch.float64, copy=True) for k, v in params.items()}
+            st = tx.init(p)
+            for g in grads:
+                tx.update(st, p, {k: v.to(dev, torch.float64) for k, v in g.items()})
+            got[dev] = p
+        err = max(((got["cuda"][k].cpu() - v).abs().max() / v.abs().max()).item()
+                  for k, v in got["cpu"].items())
+        moved = all(not torch.equal(got["cpu"][k].float(), params[k]) for k in params)
+        tx = OPT.make_optimizer(name, lr=1e-3, weight_decay=0.1, grad_clip=5.0)
+        p = {k: v.float() for k, v in got["cuda"].items()}
+        g = {k: v.cuda() for k, v in grads[0].items()}
+        st = tx.init(p)
+        ms = cuda_ms(lambda: tx.update(st, p, g), 5)
+        out[name] = {"rel_err": err, "ms_per_update": ms}
+        log(f"optimizer {name}: card vs CPU {err:.2e} of each leaf's largest (limit {OPT_RTOL}); "
+            f"{ms:.3f} ms an update on the card")
+        if not (err <= OPT_RTOL and moved):
+            raise AssertionError(f"optimizer {name}: card vs CPU {err} > {OPT_RTOL}, or a leaf "
+                                 "did not move")
+    return out
+
+
+def check_deeplab(KN, bridge, gen) -> dict:
+    """Every name of DEEPLAB_NAMES built seeded in fp32 on the card (unit
+    BatchNorm statistics) and run on one seeded 512 x 512 image, against the
+    same tree and image on the CPU: logits within DEEPLAB_RTOL of the largest
+    |logit|, no launch of the repo's kernels; the input's reach (the logits'
+    largest change against a blank image over the largest |logit|), ms per call."""
+    from unirestore_torch.nn.init import make_init
+    from unirestore_torch.tasks import deeplab as DL
+    out = {}
+    for name in DEEPLAB_NAMES:
+        init_fn, apply_fn = DL.deeplab_factory(name)
+        tree = init_fn(make_init(device="cuda", seed=16))
+        x = torch.rand((1, 512, 512, 3), generator=gen, device="cuda")
+        with torch.inference_mode():
+            got, _, counts = timed(KN, lambda: apply_fn(tree, x))
+            ms, timer = cuda_ms(lambda: apply_fn(tree, x), 5), "events"
+            blank = apply_fn(tree, torch.zeros_like(x))
+            t0 = time.perf_counter()
+            ref = apply_fn(to_cpu(bridge, tree), x.cpu())
+            cpu_s = time.perf_counter() - t0
+        scale = ref.abs().max().item()
+        err = (got.cpu() - ref).abs().max().item()
+        reach = (got - blank).abs().max().item() / scale
+        n_params = sum(v.numel() for v in bridge.flatten(tree).values())
+        out[name] = {"params_m": n_params / 1e6, "logits": list(got.shape), "max_abs_err": err,
+                     "max_abs_logit": scale, "rel_err": err / scale, "input_reach": reach,
+                     "ms": ms, "timer": timer, "repo_kernel_launches": sum(counts), "cpu_s": cpu_s}
+        log(f"deeplab {name}: {n_params / 1e6:.1f} M params, {tuple(x.shape)} -> "
+            f"{tuple(got.shape)}; card vs CPU {err:.3e} of |logit| {scale:.4g} (rel "
+            f"{err / scale:.2e}, limit {DEEPLAB_RTOL}); reach {reach:.3g}; {ms:.3f} ms a call; "
+            f"repo kernel launches {sum(counts)}; CPU {cpu_s:.2f} s")
+        if not (err <= DEEPLAB_RTOL * scale and torch.isfinite(got).all()) or any(counts):
+            raise AssertionError(f"deeplab {name}: card vs CPU {err} > {DEEPLAB_RTOL} x {scale}, "
+                                 f"or repo kernel launches {counts}")
+        del tree, got, ref, blank
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, train_ms_scedit=None):
+    """Phase 15: the SPADE restores (``run_spade_restores``), the SPADE restore
+    and stage-1 loss and gradient card vs CPU (``reference_check``,
+    ``train_reference_check`` under ``spade_config``), the SPADE step
+    (``run_spade_training``, beside phase 6's ``train_ms_scedit`` when given),
+    every optimizer and every DeepLab backbone card vs CPU. Returns (result,
+    launches by path, the (shape, dtype) each kernel met)."""
+    t0 = time.perf_counter()
+    out, paths, shapes = run_spade_restores(UR, KN, GR, bridge, gen)
+    out["reference"] = reference_check(UR, KN, GR, bridge, spade_config(
+        UR, UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))))
+    torch.cuda.empty_cache()
+    out["training"], paths["train_spade"], train_shapes = run_spade_training(UR, KN, bridge, TS,
+                                                                              OPT, gen)
+    shapes = merge_shapes(shapes, train_shapes)
+    if train_ms_scedit is not None:
+        spade_ms = out["training"]["adamw"]["ms_per_step"]
+        out["training"]["scedit_ms_per_step_phase6"] = train_ms_scedit
+        out["training"]["spade_share_of_step"] = (spade_ms - train_ms_scedit) / spade_ms
+    torch.cuda.empty_cache()
+    out["training"]["reference"] = train_reference_check(UR, KN, bridge, TS, spade_config(UR))
+    torch.cuda.empty_cache()
+    out["optimizers"] = check_optimizers(OPT)
+    out["deeplab"] = check_deeplab(KN, bridge, gen)
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(f"phase 15 took {out['phase_seconds']:.1f} s")
+    return out, paths, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3180,6 +3551,17 @@ def main() -> int:
             f"{nr14['peak_mem_gib']:.2f} GiB")
         torch.cuda.empty_cache()
 
+    # phase 15: the SPADE restores and step, every optimizer and every DeepLab
+    # backbone; phase 3's comparison at the shapes they met that were not held
+    spade, spade_paths, shapes15 = run_phase15(UR, KN, GR, bridge, TS, OPT, gen,
+                                               training["ms_per_step"])
+    paths.update(spade_paths)
+    spade["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes15, rows, gen,
+                                                       path="spade")
+    log(f"spade: {spade['shapes_added_to_phase3']} (kernel, shape) pairs held to their plain "
+        "versions after phase 15")
+    torch.cuda.empty_cache()
+
     # phase 10: report; a path routes to a kernel when its expected count is not 0
     routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
                           for i in range(len(KN.KERNELS))],
@@ -3197,7 +3579,9 @@ def main() -> int:
                   **{f"fit_{t}": [EXPECTED_STAGE2[t][kern.symbol][0] + FIT2_RESTORE[t][i]
                                   for i, kern in enumerate(KN.KERNELS)] for t in ("cls", "seg")},
                   **{f"validate_{m.lower()}": [VAL14_RESTORES[m] * n for n in FIT_RESTORE]
-                     for m, _ in VAL14_RUNS})
+                     for m, _ in VAL14_RUNS},
+                  **{SPADE_PATHS[run[0]]: list(EXPECTED[run[0]]) for run in SPADE_RUNS},
+                  train_spade=[EXPECTED_TRAIN_SPADE[kern.symbol][0] for kern in KN.KERNELS])
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -3239,6 +3623,7 @@ def main() -> int:
     log(json.dumps({"fit_stage3": fit3}))
     log(json.dumps({"engines": engines}))
     log(json.dumps({"validate_nr": nr14}))
+    log(json.dumps({"spade": spade}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -192,8 +192,8 @@ def test_build_critics_loads_converted_weights_or_keeps_the_seeded_init(tmp_path
         TE.build_critics("nope", device="cpu")
     with pytest.raises(KeyError):
         TE.make_te_loss_fn("nope", {})
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        TDL.deeplab_factory("deeplabv3plus_mobilenet")
+    # every backbone of the factory builds (their parity: test_torch_backbones.py)
+    assert all(map(callable, TDL.deeplab_factory("deeplabv3plus_mobilenet")))
     with pytest.raises(ValueError, match="unknown"):
         TDL.deeplab_factory("deeplabv3plus_vgg")
 

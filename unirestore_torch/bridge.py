@@ -41,7 +41,10 @@ SEP = "//"
 
 
 def flatten(tree, prefix: str = "") -> dict:
-    """Nested dict/list tree -> {"a//0//w": leaf}."""
+    """Nested dict/list tree -> {"a//0//w": leaf}; a None node holds no leaf
+    (as in a JAX pytree)."""
+    if tree is None:
+        return {}
     if isinstance(tree, Mapping):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -57,6 +60,8 @@ def flatten(tree, prefix: str = "") -> dict:
 def unflatten_like(flat: Mapping, template):
     """Rebuild ``template``'s structure with the leaves of ``flat``."""
     def rebuild(node, prefix):
+        if node is None:
+            return None
         if isinstance(node, Mapping):
             return {k: rebuild(v, f"{prefix}{k}{SEP}") for k, v in node.items()}
         if isinstance(node, (list, tuple)):

@@ -1,12 +1,27 @@
 """SC-Tuner skip adapters for the UNet (mirrors ``unirestore_tpu/models/scedit.py``).
 
 ``csce_adapter``: out = tuner(x + proj(cond)) + proj(cond) + x, with
-tuner = 1x1 -> GELU -> 1x1, one adapter per UNet skip tensor.
+tuner = 1x1 -> GELU -> 1x1, one adapter per UNet skip tensor;
+``sce_adapter`` (JAX ``scedit.py:19-31``): the same without the condition,
+out = tuner(x) + x.
 """
 
 from __future__ import annotations
 
 from ..nn import layers as L
+
+
+def sce_adapter_init(ini, c_in: int, c_emb: int):
+    return {
+        "tuner_in": L.conv2d_init(ini, c_in, c_emb, 1),
+        "tuner_out": L.conv2d_init(ini, c_emb, c_in, 1),
+    }
+
+
+def sce_adapter(p, x):
+    h = L.conv2d(p["tuner_in"], x, padding=0)
+    h = L.conv2d(p["tuner_out"], L.gelu(h), padding=0)
+    return h + x
 
 
 def csce_adapter_init(ini, c_in: int, c_emb: int, c_cond: int):

@@ -3,8 +3,11 @@
 sd-turbo UNet (SD 2.1 architecture): block_out_channels (320, 640, 1280,
 1280), CrossAttnDownBlock2D x3 + DownBlock2D, heads (5, 10, 20, 20),
 cross-attention dim 1024, linear transformer projections, GroupNorm(32,
-eps=1e-5). Control type ``scedit`` only: the 12 skip tensors of the down
-path pass through SC-Tuner adapters fed by the Controller's maps. NHWC maps.
+eps=1e-5). The Controller's per-scale maps steer it by the control type:
+``scedit`` passes the 12 skip tensors of the down path through SC-Tuner
+adapters; ``spade`` modulates the conv2 output of each of the 22
+ResnetBlock2Ds with a SPADE layer (``_resnet_maybe_spade``, JAX
+``unet.py:201-218``). NHWC maps.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from ..nn import remat as RM
 from ..nn import resnet as R
 from ..nn import transformer as T
 from . import scedit as SC
+from . import spade as SP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +37,7 @@ class UNetConfig:
     cross_attention_dim: int = 1024
     norm_num_groups: int = 32
     eps: float = 1e-5
-    control_type: str = "scedit"  # "scedit" | "none"
+    control_type: str = "scedit"  # "scedit" | "spade" | "none"
     control_channels: int = 256
     # rematerialise each (resnet, attention) unit and the mid block in the
     # backward pass (JAX ``UNetConfig.remat``); the train step turns it on
@@ -128,13 +132,24 @@ def unet_init(ini, cfg: UNetConfig):
 
 
 def control_adapters_init(ini, cfg: UNetConfig):
-    """Trainable control-injection params (``scedit`` or ``none``)."""
+    """Trainable control-injection params for the configured mode (JAX
+    ``control_adapters_init``, ``unet.py:154-175``)."""
     if cfg.control_type == "scedit":
         return {"csc_editors": SC.sc_tuner_init(ini, cfg.skip_channels(),
                                                 cfg.control_channels)}
-    if cfg.control_type == "none":
-        return {}
-    raise NotImplementedError(f"control_type {cfg.control_type!r} is not ported")
+    if cfg.control_type == "spade":
+        # one SPADE per ResnetBlock2D of the UNet, in traversal order
+        chans = cfg.block_out_channels
+
+        def spades(c, n):
+            return [SP.spade_init(ini, c, cfg.control_channels) for _ in range(n)]
+
+        return {"spades": {
+            "down": [spades(c, cfg.layers_per_block) for c in chans],
+            "mid": spades(chans[-1], 2),
+            "up": [spades(c, cfg.layers_per_block + 1) for c in reversed(chans)],
+        }}
+    return {}
 
 
 # ---------------------------------------------------------------------------
@@ -142,31 +157,52 @@ def control_adapters_init(ini, cfg: UNetConfig):
 # ---------------------------------------------------------------------------
 
 
-def _unit_body(cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states):
-    h = R.resnet_block(res_p, h, temb, groups=cfg.norm_num_groups, eps=cfg.eps)
+def _resnet_maybe_spade(p_res, x, temb, cfg, spade_p, control, scale_idx):
+    """ResnetBlock2D, with SPADE on the conv2 output before the shortcut add
+    when ``spade_p`` is given (JAX ``_resnet_maybe_spade``)."""
+    modulate = None if spade_p is None else (
+        lambda h: SP.spade(spade_p, h, control[scale_idx]))
+    return R.resnet_block(p_res, x, temb, groups=cfg.norm_num_groups, eps=cfg.eps,
+                          modulate=modulate)
+
+
+def _unit_body(cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states, control=None,
+               spade_p=None):
+    h = _resnet_maybe_spade(res_p, h, temb, cfg, spade_p, control, scale_idx)
     if attn_p is not None:
         h = T.transformer_2d(attn_p, h, encoder_hidden_states,
                              heads=cfg.heads[scale_idx], groups=cfg.norm_num_groups)
     return h
 
 
-def _unit(cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states):
-    """One (ResnetBlock2D, Transformer2D) unit; ``attn_p`` may be None.
+def _unit(cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states, control=None,
+          spade_p=None):
+    """One (ResnetBlock2D, Transformer2D) unit; ``attn_p`` may be None, and
+    ``spade_p`` is the unit's SPADE under the ``spade`` control type.
 
     Rematerialised in the backward pass when ``cfg.remat``.
     """
-    args = (cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states)
+    args = (cfg, scale_idx, res_p, attn_p, h, temb, encoder_hidden_states, control, spade_p)
     return RM.checkpoint(_unit_body, *args) if cfg.remat else _unit_body(*args)
 
 
-def _mid(cfg, mid, h, emb, encoder_hidden_states):
-    h = _unit_body(cfg, -1, mid["resnet1"], mid["attn"], h, emb, encoder_hidden_states)
-    return R.resnet_block(mid["resnet2"], h, emb, groups=cfg.norm_num_groups, eps=cfg.eps)
+def _mid(cfg, mid, h, emb, encoder_hidden_states, control=None, sp1=None, sp2=None):
+    deepest = len(cfg.block_out_channels) - 1
+    h = _unit_body(cfg, deepest, mid["resnet1"], mid["attn"], h, emb, encoder_hidden_states,
+                   control, sp1)
+    return _resnet_maybe_spade(mid["resnet2"], h, emb, cfg, sp2, control, deepest)
 
 
 def _use_scedit(control, control_params):
     return (control is not None and control_params is not None
             and "csc_editors" in control_params)
+
+
+def _spades(control, control_params):
+    """The SPADE tree under the ``spade`` control type, else None."""
+    if control is not None and control_params is not None and "spades" in control_params:
+        return control_params["spades"]
+    return None
 
 
 def unet_time_embedding(p, cfg: UNetConfig, timesteps, dtype):
@@ -176,19 +212,23 @@ def unet_time_embedding(p, cfg: UNetConfig, timesteps, dtype):
 
 def unet_encode(p, cfg: UNetConfig, sample, emb, encoder_hidden_states,
                 control=None, control_params=None):
-    """Down path + mid + SC-Tuner skip injection. Returns (h_mid, skips)."""
+    """Down path + mid (SPADE in each resnet under ``spade``) + SC-Tuner skip
+    injection under ``scedit``. Returns (h_mid, skips)."""
+    spades = _spades(control, control_params)
     h = L.conv2d(p["conv_in"], sample, padding=1)
     skips = [h]
     for i, blk in enumerate(p["down_blocks"]):
         for j, res in enumerate(blk["resnets"]):
             attn = blk["attentions"][j] if blk["attentions"] else None
-            h = _unit(cfg, i, res, attn, h, emb, encoder_hidden_states)
+            sp = spades["down"][i][j] if spades else None
+            h = _unit(cfg, i, res, attn, h, emb, encoder_hidden_states, control, sp)
             skips.append(h)
         if "downsample" in blk:
             h = R.downsample(blk["downsample"], h)
             skips.append(h)
 
-    args = (cfg, p["mid"], h, emb, encoder_hidden_states)
+    sp1, sp2 = spades["mid"] if spades else (None, None)
+    args = (cfg, p["mid"], h, emb, encoder_hidden_states, control, sp1, sp2)
     h = RM.checkpoint(_mid, *args) if cfg.remat else _mid(*args)
 
     if _use_scedit(control, control_params):
@@ -211,6 +251,7 @@ def unet_decode(p, cfg: UNetConfig, h, skips, emb, encoder_hidden_states,
     block (after the previous block's upsample), the feature the ``deep``
     cache mode keeps.
     """
+    spades = _spades(control, control_params)
     skips = list(skips)
     n_levels = len(cfg.block_out_channels)
     deep = None
@@ -220,7 +261,9 @@ def unet_decode(p, cfg: UNetConfig, h, skips, emb, encoder_hidden_states,
         for j, res in enumerate(blk["resnets"]):
             h = torch.cat([h, skips.pop()], dim=-1)
             attn = blk["attentions"][j] if blk["attentions"] else None
-            h = _unit(cfg, n_levels - 1 - i, res, attn, h, emb, encoder_hidden_states)
+            sp = spades["up"][i][j] if spades else None
+            h = _unit(cfg, n_levels - 1 - i, res, attn, h, emb, encoder_hidden_states,
+                      control, sp)
         if "upsample" in blk:
             h = R.upsample(blk["upsample"], h)
     h = _head(p, cfg, h)
@@ -231,13 +274,16 @@ def unet_down_shallow(p, cfg: UNetConfig, sample, emb, encoder_hidden_states,
                       control=None, control_params=None):
     """Level-0 down path only (conv_in + the first down block's units, no
     downsample). Returns the three full-resolution skips, after SC-Tuner
-    injection when configured."""
+    injection when configured; under ``spade`` each resnet takes its SPADE at
+    scale 0."""
+    spades = _spades(control, control_params)
     h = L.conv2d(p["conv_in"], sample, padding=1)
     skips = [h]
     blk = p["down_blocks"][0]
     for j, res in enumerate(blk["resnets"]):
         attn = blk["attentions"][j] if blk["attentions"] else None
-        h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states)
+        sp = spades["down"][0][j] if spades else None
+        h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states, control, sp)
         skips.append(h)
     if _use_scedit(control, control_params):
         # the first len(skips) editors are the level-0 ones
@@ -249,14 +295,16 @@ def unet_down_shallow(p, cfg: UNetConfig, sample, emb, encoder_hidden_states,
 def unet_up_shallow(p, cfg: UNetConfig, deep, skips0, emb,
                     encoder_hidden_states, control=None, control_params=None):
     """Shallowest up block + head, fed by the cached deep feature and the
-    level-0 skips from ``unet_down_shallow``."""
+    level-0 skips from ``unet_down_shallow`` (SPADE at scale 0 under ``spade``)."""
+    spades = _spades(control, control_params)
     skips = list(skips0)
     blk = p["up_blocks"][-1]
     h = deep
     for j, res in enumerate(blk["resnets"]):
         h = torch.cat([h, skips.pop()], dim=-1)
         attn = blk["attentions"][j] if blk["attentions"] else None
-        h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states)
+        sp = spades["up"][-1][j] if spades else None
+        h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states, control, sp)
     return _head(p, cfg, h)
 
 

@@ -46,11 +46,14 @@ class UniRestoreConfig:
     controller: CTRL.ControllerConfig = dataclasses.field(
         default_factory=CTRL.ControllerConfig)
     use_cfrm: bool = True
-    control_type: str = "scedit"  # "scedit" | "none" (no Controller)
+    control_type: str = "scedit"  # "scedit" | "spade" | "none" (no Controller)
     tasks: tuple = ("ir",)
     prompt_len: int = 1
     use_tfa: bool = False
     num_inference_steps: int = 1
+    # alias for cache_mode="encoder" (JAX ``encoder_propagation``); applies
+    # when ddim_denoise gets no cache_mode and cfg.cache_mode is "none"
+    encoder_propagation: bool = False
     # "none" = exact; "encoder" = reuse Controller + UNet encoder features at
     # follower steps; "deep" = reuse the deep UNet feature and recompute
     # only the full-resolution level at follower steps
@@ -68,7 +71,7 @@ class UniRestoreConfig:
 
     @property
     def use_cnet(self):
-        return self.control_type == "scedit"
+        return self.control_type in ("scedit", "spade")
 
 
 def tiny_config(use_tfa: bool = True, control_type: str = "scedit",
@@ -177,7 +180,8 @@ def predict_z0(frozen, trainable, cfg, sched, zt, conditions, timesteps):
 
 
 def ddim_denoise(frozen, trainable, cfg, sched, zt, z0_lq, num_inference_steps=None,
-                 cache_mode=None, cache_stride=None, cache_warmup=None):
+                 encoder_propagation=False, cache_mode=None, cache_stride=None,
+                 cache_warmup=None):
     """DDIM loop with per-step Controller control.
 
     Cache modes as the JAX function: ``encoder`` runs the Controller and UNet
@@ -185,10 +189,15 @@ def ddim_denoise(frozen, trainable, cfg, sched, zt, z0_lq, num_inference_steps=N
     keeps the feature entering the shallowest up block and recomputes only
     the full-resolution level at followers. Steps: ``warmup`` full steps,
     then groups of ``stride`` (key + followers), then the remainder as full
-    steps.
+    steps. ``encoder_propagation`` (or ``cfg.encoder_propagation`` when no
+    ``cache_mode`` is passed and ``cfg.cache_mode`` is "none") is an alias for
+    ``cache_mode="encoder"`` (JAX ``unirestore.py:211-215``).
     """
     n = num_inference_steps or cfg.num_inference_steps
     mode = cache_mode if cache_mode is not None else cfg.cache_mode
+    if encoder_propagation or (cache_mode is None and cfg.encoder_propagation
+                               and mode == "none"):
+        mode = "encoder"
     if mode not in ("none", "encoder", "deep"):
         raise ValueError(f"cache_mode must be 'none', 'encoder' or 'deep', got {mode!r}")
     stride = cache_stride if cache_stride is not None else cfg.cache_stride

@@ -25,8 +25,10 @@ def resnet_block_init(ini, cin: int, cout: int, temb_dim: int | None = None):
     return p
 
 
-def resnet_block(p, x, temb=None, groups: int = 32, eps: float = 1e-5):
-    """norm1 -> silu -> conv1 -> (+temb) -> norm2 -> silu -> conv2 -> +shortcut."""
+def resnet_block(p, x, temb=None, groups: int = 32, eps: float = 1e-5, modulate=None):
+    """norm1 -> silu -> conv1 -> (+temb) -> norm2 -> silu -> conv2 -> +shortcut;
+    ``modulate``, if given, maps the conv2 output before the add (the UNet's
+    SPADE control)."""
     h = L.silu(L.group_norm(p["norm1"], x, groups=groups, eps=eps))
     h = L.conv2d(p["conv1"], h, padding=1)
     if temb is not None and "time_emb_proj" in p:
@@ -34,6 +36,8 @@ def resnet_block(p, x, temb=None, groups: int = 32, eps: float = 1e-5):
         h = h + t[:, None, None, :].to(h.dtype)
     h = L.silu(L.group_norm(p["norm2"], h, groups=groups, eps=eps))
     h = L.conv2d(p["conv2"], h, padding=1)
+    if modulate is not None:
+        h = modulate(h)
     if "conv_shortcut" in p:
         x = L.conv2d(p["conv_shortcut"], x, padding=0)
     return x + h

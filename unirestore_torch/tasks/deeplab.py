@@ -1,15 +1,15 @@
-"""DeepLabV3+ over a ResNet backbone (the port of ``unirestore_tpu/tasks/deeplab.py``).
+"""DeepLabV3 / V3+ (the port of ``unirestore_tpu/tasks/deeplab.py``).
 
 The frozen segmentation critic of stage 2 and the ``dlv3pr50`` validation
-probe: ``deeplabv3plus_resnet50`` with 19 classes at output stride 16. ASPP
-at atrous rates 6/12/18 with the image-pooling branch, the 48-channel
+probe are ``deeplabv3plus_resnet50`` with 19 classes at output stride 16.
+ASPP at atrous rates 6/12/18 with the image-pooling branch, the 48-channel
 low-level projection, the 3x3 decoder, and the logits resized bilinearly to
 the input size. NHWC, inference BatchNorm, the JAX tree's keys and shapes
-(conv kernels OIHW; the backbone is ``resnet_init``'s tree without ``fc``).
-
-Only the ResNet backbones are ported: ``mobilenetv2``, ``xception`` and the
-HRNets raise until ``tasks/backbones.py`` (``unirestore_tpu/tasks/backbones.py``)
-is ported (ROADMAP Queue A 5). No probe set and no critic reaches them.
+(conv kernels OIHW; a ResNet backbone is ``resnet_init``'s tree without
+``fc``). ``deeplab_factory`` also builds every other name of the reference's
+factory over ``tasks/backbones.py``: MobileNetV2, aligned Xception and
+HRNetV2-32 / -48 (the HRNets at output stride 4). No probe set and no critic
+reaches those.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..nn import layers as L
 from ..ops.resize import resize_bilinear
+from . import backbones as BB
 from . import resnet as RN
 
 ASPP_RATES = (6, 12, 18)
@@ -32,13 +33,30 @@ BACKBONE_CHANNELS = {
 RESNET_BACKBONES = ("resnet50", "resnet101")
 
 
-def _require_resnet(backbone: str):
-    if backbone not in BACKBONE_CHANNELS:
-        raise ValueError(f"unknown deeplab backbone {backbone}")
-    if backbone not in RESNET_BACKBONES:
-        raise NotImplementedError(f"deeplab backbone {backbone!r} needs tasks/backbones.py, "
-                                  "which is not ported yet (ROADMAP Queue A 5); the port has "
-                                  "the ResNet backbones")
+def _backbone_init(ini, backbone: str):
+    if backbone in RESNET_BACKBONES:
+        p = RN.resnet_init(ini, backbone)
+        del p["fc"]
+        return p
+    if backbone == "mobilenetv2":
+        return BB.mobilenet_v2_init(ini)
+    if backbone == "xception":
+        return BB.xception_init(ini)
+    if backbone.startswith("hrnetv2"):
+        return BB.hrnetv2_init(ini, width=int(backbone.split("_")[-1]))
+    raise ValueError(f"unknown deeplab backbone {backbone}")
+
+
+def _backbone_features(p, backbone: str, x, output_stride: int):
+    """{"low", "high"} of a backbone (JAX ``_backbone_features``)."""
+    if backbone in RESNET_BACKBONES:
+        f = RN.resnet_features(p, x, output_stride=output_stride)
+        return {"low": f["c2"], "high": f["c5"]}
+    if backbone == "mobilenetv2":
+        return BB.mobilenet_v2_features(p, x, output_stride)
+    if backbone.startswith("hrnetv2"):
+        return BB.hrnetv2_features(p, x, width=int(backbone.split("_")[-1]))
+    return BB.xception_features(p, x, output_stride)
 
 
 def _conv_bn_init(ini, cin, cout, k):
@@ -48,9 +66,7 @@ def _conv_bn_init(ini, cin, cout, k):
 def deeplabv3plus_init(ini, num_classes: int = 19, backbone: str = "resnet50",
                        plus: bool = True):
     """The parameter tree (``ini``: an ``nn.init.Init``)."""
-    _require_resnet(backbone)
-    p = {"backbone": RN.resnet_init(ini, backbone)}
-    del p["backbone"]["fc"]
+    p = {"backbone": _backbone_init(ini, backbone)}
     c_high, c_low = BACKBONE_CHANNELS[backbone]
     p["aspp"] = {
         "conv1x1": _conv_bn_init(ini, c_high, 256, 1),
@@ -75,11 +91,10 @@ def _cb(p, x, padding="SAME", dilation=1):
 def deeplabv3plus_apply(p, images, preprocess_input: bool = True,
                         backbone: str = "resnet50", output_stride: int = 16):
     """[0, 1] NHWC images -> logits at the input size (B, H, W, classes)."""
-    _require_resnet(backbone)
     h_in, w_in = images.shape[1:3]
     x = RN.normalize(images) if preprocess_input else images
-    feats = RN.resnet_features(p["backbone"], x, output_stride=output_stride)
-    high, low = feats["c5"], feats["c2"]
+    feats = _backbone_features(p["backbone"], backbone, x, output_stride)
+    high, low = feats["high"], feats["low"]
 
     branches = [_cb(p["aspp"]["conv1x1"], high, padding=0)]
     for rate, bp in zip(ASPP_RATES, p["aspp"]["atrous"]):
@@ -99,13 +114,16 @@ def deeplabv3plus_apply(p, images, preprocess_input: bool = True,
 
 def deeplab_factory(name: str, num_classes: int = 19, output_stride: int = 16):
     """(init_fn(ini), apply_fn(p, images)) for a ``modeling.py`` name such as
-    ``deeplabv3plus_resnet50``; the other backbones raise."""
+    ``deeplabv3plus_resnet50``, ``deeplabv3_mobilenet`` or
+    ``deeplabv3plus_hrnetv2_48``; the HRNets run at output stride 4
+    (``unirestore_tpu/tasks/deeplab.py:137-138``)."""
     plus = name.startswith("deeplabv3plus_")
     backbone = name.split("_", 1)[1]
     backbone = {"mobilenet": "mobilenetv2"}.get(backbone, backbone)
     if backbone not in BACKBONE_CHANNELS:
         raise ValueError(f"unknown deeplab variant {name}")
-    _require_resnet(backbone)
+    if backbone.startswith("hrnetv2"):
+        output_stride = 4
 
     def init_fn(ini):
         return deeplabv3plus_init(ini, num_classes, backbone, plus=plus)

@@ -82,7 +82,9 @@ def load_subtree(path: str, template, keys):
 
 def restore_opt_state(path: str, opt_state_template):
     """The optimizer state by flat leaf index; a file of another structure (leaf
-    count) or a leaf of another shape keeps the template's value."""
+    count) or a leaf of another shape keeps the template's value. Each tensor
+    keeps the template leaf's dtype, device and strides, so that a resumed run
+    reduces over its state in the order the first run did."""
     flat, meta = load_checkpoint(path)
     leaves = bridge.flatten(opt_state_template)
     n_saved = meta.get("opt_num_leaves")
@@ -99,8 +101,8 @@ def restore_opt_state(path: str, opt_state_template):
             arr = None
         if arr is None:
             out[key] = leaf
-        elif isinstance(leaf, torch.Tensor):
-            out[key] = torch.as_tensor(arr, dtype=leaf.dtype, device=leaf.device)
+        elif isinstance(leaf, torch.Tensor):  # in the template leaf's memory layout
+            out[key] = torch.empty_like(leaf).copy_(torch.as_tensor(arr))
         else:
             out[key] = type(leaf)(arr)
     return bridge.unflatten_like(out, opt_state_template)

@@ -3,8 +3,8 @@
 Maps the reference's YAML surface (model_kwargs {frenc, cnet, tedit},
 optimizer_kwargs, lr_scheduler_kwargs; engine_unifie.py:19-133) onto the
 port's pieces: ``UniRestoreConfig`` + (frozen, trainable) trees, the eager
-train step of ``steps.py``, AdamW with gradient accumulation (``optim.py``)
-and adapter-only checkpoints (``checkpoints.py``), all on one device.
+train step of ``steps.py``, the optimizer ``optimizer_kwargs.opt`` names with
+gradient accumulation (``optim.py``) and adapter-only checkpoints (``checkpoints.py``), all on one device.
 
 ``UniFIEEngine`` builds the params (the port's seeded init with
 ``seed_everything`` as its seed, then the converted sd-turbo weights of
@@ -35,10 +35,7 @@ Differences from the JAX engine:
   ``compute_dtype`` (bf16 by default) and the trainable masters in fp32, and
   each batch is cast to ``compute_dtype``.
 - Restores run eagerly (the JAX engine keeps an LRU of compiled ones).
-- The ``ir``, ``mtl`` and ``det`` engine types. ``build_critics`` and
-  ``make_te_loss_fn`` also take ``cls`` and ``seg``, but ``config.build``
-  refuses those engines (their probe zoos are not ported, ROADMAP Queue A 5).
-  The critics are built once per engine and shared by the fit and the
+- The critics are built once per engine and shared by the fit and the
   evaluator. A ``det`` batch's ragged targets are padded to 64 boxes
   (``padded_targets``) before the batch is staged, so they reach the card
   with its images.
