@@ -232,6 +232,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain version (rows with ``"path": "spade"``). To run it alone from a
    throwaway script: ``nn.kernels.build_all()``, then ``chip_smoke.run_phase15
    (UR, KN, GR, bridge, TS, OPT, gen)``;
+16. (run after phase 15, before the report) data parallelism
+   (``unirestore_torch/parallel``): (a) phase 9's first fit (its YAML,
+   overrides and smoke tree; no validation) under ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1`` with
+   ``--distributed`` (NCCL at world size 1) for 2 micro-steps, and at the same
+   time with ``--trainer.fsdp true``: launches per micro-step as phase 6's, every logged
+   loss bit-equal to phase 9's same micro-step, ``last.npz``'s trainable tree
+   bit-equal to phase 9's after micro-step 2; (b) phase 6's cell at two ranks
+   on the one card over gloo (NCCL takes one rank a device), global batch 8
+   (2 x 4) with phase 6's seeds, DDP and then FSDP, 2 steps each: launches per
+   rank and step as phase 6's, the global loss and gradient norm within
+   ``TRAIN_LOSS_RTOL`` / ``TRAIN_GRAD_RTOL`` of phase 6's first two steps;
+   each rank's ms per step, the gradient sync's and FSDP's gathers' ms, memory
+   held and peak; (c) the restore cell's persistent bytes per rank, frozen
+   bf16, trainable fp32 and AdamW slots, replicated and under FSDP
+   (``fsdp_spec``) at 2, 4 and 8 ranks. The ranks are this script run as
+   ``chip_smoke.py --worker fit|train ...`` by torchrun. Every (kernel, shape)
+   they met that was not held yet is held to its plain version (rows with
+   ``"path": "fit_ddp"`` / ``"train_ddp2"``);
 10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
@@ -246,7 +265,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    phase 14's two validate runs; ``restore_spade_exact``, ``_encoder``,
    ``_deep``, ``_fused``: phase 15's eager restore of the mode plus its
    graph's launches at capture times its replays; ``train_spade``: phase
-   15's twelve steps); each kernel must
+   15's twelve steps; ``fit_ddp`` and ``fit_fsdp``: phase 16's world-1 fits;
+   ``train_ddp2`` and ``train_fsdp2``: phase 16's two-rank steps, both
+   ranks); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -259,6 +280,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -268,6 +290,7 @@ import urllib.error
 import urllib.request
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -474,6 +497,21 @@ OPT_RTOL = 1e-5
 DEEPLAB_NAMES = tuple(f"deeplabv3{plus}_{b}" for b in ("mobilenet", "xception", "hrnetv2_32",
                                                         "hrnetv2_48") for plus in ("", "plus"))
 DEEPLAB_RTOL = 1e-4
+
+# phase 16: data parallelism through torch.distributed. (a) phase 9's first
+# fit (its YAML, overrides and smoke tree) under ``torch.distributed.run
+# --standalone --nproc_per_node 1 ... fit --distributed`` (NCCL at world size
+# 1) for DDP_STEPS micro-steps, and at once with ``--trainer.fsdp true``; (b)
+# phase 6's stage-1 cell (full width, bf16 frozen, 512 px, AdamW) at two
+# ranks on the one card over gloo (NCCL refuses two ranks on one device),
+# global batch BATCH (2 x 4), DDP and FSDP, DDP_STEPS steps each, against
+# phase 6's first DDP_STEPS steps on the same 8 rows and noise; (c) the
+# per-rank persistent state bytes, replicated vs FSDP, of the restore cell's
+# trees at STATE_WORLDS ranks (the port's counterpart of
+# tools/debug_fsdp_memory.py)
+DDP_STEPS, DDP_WORLD = 2, 2
+STATE_WORLDS = (2, 4, 8)
+DDP_TIMEOUT = 300
 
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
@@ -1568,13 +1606,15 @@ class StepProbe:
     micro-step is timed with the card synchronised before and after it, and
     its losses are read (``logs``); with
     ``keep_after`` the trainable tree and the Adam first moments after that
-    micro-step are kept."""
+    micro-step are kept. Every micro-step's logged tensors are kept
+    (``step_logs``), read after the fit."""
 
     def __init__(self, TE, KN, bridge, sync_steps=(FIT_SYNC_CHECK_STEP,), timed=False,
                  keep_after=None):
         self.TE, self.KN, self.bridge = TE, KN, bridge
         self.sync_steps, self.timed, self.keep_after = sync_steps, timed, keep_after
         self.counts, self.tasks, self.seconds, self.metrics, self.logs = [], [], [], [], []
+        self.step_logs = []
         self.first, self.first_by_task, self.after = None, {}, None
         self.val_seconds, self.val_args = [], None
 
@@ -1608,6 +1648,7 @@ class StepProbe:
                 probe.seconds.append(time.perf_counter() - t0)
                 probe.logs.append({k: v.item() for k, v in out[2].items()})
             after = train_counts(probe.KN)
+            probe.step_logs.append(out[2])
             probe.counts.append({s: tuple(a - b for a, b in zip(after[s], before[s]))
                                  for s in after})
             probe.tasks.append(task)
@@ -1728,7 +1769,9 @@ def run_fit(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
     """Phase 9: ``unirestore_torch.main.main`` fit, resume and predict at full
     width on the 576 px smoke tree it makes under ``work/data``, then a timed
     and a profiled fit. Returns (result, launches by kernel of the first fit,
-    the (shape, dtype) each kernel met)."""
+    the (shape, dtype) each kernel met, phase 16's reference: the first
+    fit's losses of its first ``DDP_STEPS`` micro-steps and its trainable
+    tree after them, in the checkpoint's layout)."""
     return fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work)
 
 
@@ -1747,10 +1790,13 @@ def fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
     KN.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with StepProbe(TE, KN, bridge) as probe:
+    with StepProbe(TE, KN, bridge, keep_after=DDP_STEPS - 1) as probe:
         engine, trainer = main_fn(fit_argv("fit", data_dir, root))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    reference16 = {"logs": [{k: v.item() for k, v in e.items()}
+                            for e in probe.step_logs[:DDP_STEPS]],
+                   "trainable": bridge.flatten(bridge.to_numpy_tree(probe.after["trainable"]))}
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
     shapes = kernel_shapes_met(KN)
@@ -1861,7 +1907,7 @@ def fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
               "frozen_leaves_checked": n_frozen_check, "resume_seconds": resume_s,
               "predict_seconds": predict_s, "predict_pngs": len(pngs),
               "profile": {**prof, "p50_s_profiled": profiled.timing["p50_s"]}}
-    return result, launches, shapes
+    return result, launches, shapes, reference16
 
 
 def trained_leaves_moved(bridge, TS, OPT, engine, trainer, before, last) -> dict:
@@ -3395,6 +3441,360 @@ def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, train_ms_scedit=None):
     log(f"phase 15 took {out['phase_seconds']:.1f} s")
     return out, paths, shapes
 
+# ---------------------------------------------------------------------------
+# phase 16: data parallelism
+# ---------------------------------------------------------------------------
+
+
+def torchrun(*jobs) -> list:
+    """Each job ``(nproc, args, log_path)`` as ``python -m torch.distributed.run
+    --standalone --nproc_per_node nproc args`` (a local rendezvous on a free
+    port), all started at once, each one's output in its ``log_path``.
+    Returns [(output, seconds from the start until it was seen to end)];
+    fails with a failed job's output tail. A job still running after
+    ``DDP_TIMEOUT`` s is terminated (torchrun stops its ranks)."""
+    t0 = time.perf_counter()
+    running = []
+    for nproc, args, log_path in jobs:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc), *args]
+        with open(log_path, "w") as out:
+            running.append((subprocess.Popen(cmd, cwd=REPO, stdout=out,
+                                             stderr=subprocess.STDOUT), args, log_path))
+    results, failed = [], []
+    for proc, args, log_path in running:
+        try:
+            rc = proc.wait(timeout=max(DDP_TIMEOUT - (time.perf_counter() - t0), 1.0))
+        except subprocess.TimeoutExpired:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            rc = f"timeout after {DDP_TIMEOUT} s"
+        output = log_path.read_text()
+        results.append((output, time.perf_counter() - t0))
+        if rc != 0:
+            failed.append(f"torchrun of {args[:3]} exited {rc}:\n{output[-3000:]}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return results
+
+
+def shapes_to_json(KN) -> dict:
+    return {s: [[list(shape), str(dt).removeprefix("torch.")] for shape, dt in met]
+            for s, met in kernel_shapes_met(KN).items()}
+
+
+def shapes_from_json(met: dict) -> dict:
+    return {s: {(tuple(shape), getattr(torch, dt)) for shape, dt in v} for s, v in met.items()}
+
+
+def fit_worker(out: str, argv: list) -> None:
+    """Phase 16 (a), one rank under torchrun: ``unirestore_torch.main.main(argv)``
+    with each micro-step's launches counted (``Trainer._step`` wrapped, as
+    ``StepProbe`` does); writes ``<out>.<rank>.json``: the counts, the logged
+    losses, the run's launches and (shape, dtype)s, peak memory, timing."""
+    from unirestore_torch import main as TMAIN
+    from unirestore_torch.nn import kernels as KN
+    from unirestore_torch.train import engine as TE
+
+    KN.build_all()
+    counts, orig = [], TE.Trainer._step
+
+    def step(trainer, *args):
+        before = train_counts(KN)
+        result = orig(trainer, *args)
+        after = train_counts(KN)
+        counts.append({s: [a - b for a, b in zip(after[s], before[s])] for s in after})
+        return result
+
+    TE.Trainer._step = step
+    KN.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, trainer = TMAIN.main(argv)
+    timing = {k: v for k, v in trainer.timing.items() if k != "loader_waits_s"}
+    Path(f"{out}.{os.environ['RANK']}.json").write_text(json.dumps({
+        "counts": counts, "logs": trainer.logs, "timing": timing,
+        "launches": {kern.symbol: kern.launches for kern in KN.KERNELS},
+        "shapes": shapes_to_json(KN), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
+
+
+def train_worker(out: str) -> None:
+    """Phase 16 (b), one of ``DDP_WORLD`` ranks on the one card over gloo:
+    phase 6's parameters, optimizer and inputs (the same seeds), this rank's
+    rows of each global batch and of its noise, ``DDP_STEPS`` steps of the
+    step with the process group, replicated (DDP) and then, from a fresh
+    build, in shards (FSDP). The learning rate is phase 6's (one device): the
+    update after step 2 is then phase 6's. The collectives are timed with the
+    card synchronised around each (``reduce_gradients``: the gradient sync;
+    ``gather_tree``: FSDP's gathers). Writes ``<out>.<rank>.json``: by mode,
+    each step's seconds, logs, launch counts, (shape, dtype)s and
+    collective seconds, the memory held between steps and the peak."""
+    import torch.distributed as dist
+
+    from unirestore_torch import bridge
+    from unirestore_torch.models import unirestore as UR
+    from unirestore_torch.nn import kernels as KN
+    from unirestore_torch.parallel import distributed as DIST
+    from unirestore_torch.parallel import fsdp as FSDP
+    from unirestore_torch.parallel import mesh as MESH
+    from unirestore_torch.train import optim as OPT
+    from unirestore_torch.train import steps as TS
+
+    DIST.init_distributed(force=True, backend="gloo", device="cuda:0")
+    try:
+        KN.build_all()
+        rank, mesh = DIST.rank(), MESH.make_mesh()
+        group = mesh.get_group("data")
+        cfg = UR.UniRestoreConfig()
+        stage = TS.StageConfig(train_cfrm=True, train_cnet=True, train_tfa=False)
+        rows_of = DIST.process_local_rows(BATCH)
+        timers = {"reduce_gradients": [], "gather_tree": []}
+
+        def timed(name):
+            fn = getattr(FSDP, name)
+
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = fn(*args)
+                torch.cuda.synchronize()
+                timers[name].append(time.perf_counter() - t0)
+                return result
+            return run
+
+        for name in timers:
+            setattr(FSDP, name, timed(name))
+
+        def run(mode: str) -> dict:
+            frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=3,
+                                            trainable_dtype=torch.float32)
+            tx, _ = OPT.build(STAGE1_OPT, STAGE1_SCHED, STAGE1_MAX_STEPS, BATCH, STAGE1_ACCUM, 1)
+            MESH.replicate(mesh, trainable)
+            state = tx.init(TS.trained_leaves(stage, trainable))
+            fractions = None
+            if mode == "fsdp":
+                frozen = FSDP.fsdp_shard(mesh, frozen)
+                trainable = FSDP.fsdp_shard(mesh, trainable)
+                state = tx.shard_state(state, TS.trained_leaves(stage, trainable), rank)
+                fractions = [FSDP.sharded_fraction(trainable), FSDP.sharded_fraction(frozen)]
+            torch.cuda.empty_cache()
+            held_gib = torch.cuda.memory_allocated() / 2**30
+            step = TS.make_train_step(frozen, cfg, UR.schedule(cfg, device="cuda"), stage, tx,
+                                      "ir", remat=True, group=group)
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            steps = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(DDP_STEPS):
+                batch = synthetic_pair(gen, BATCH, RES, torch.bfloat16)
+                noise = TS.draw_noise(cfg, batch, gen)  # phase 6's global draws
+                local = {k: v[rows_of] for k, v in batch.items()}
+                KN.reset_counts()
+                n_sync = len(timers["reduce_gradients"]), len(timers["gather_tree"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs = step(trainable, state, local, TS.local_noise(noise, rows_of))[2]
+                torch.cuda.synchronize()
+                steps.append({"seconds": time.perf_counter() - t0,
+                              "logs": {k: v.item() for k, v in logs.items()},
+                              "counts": train_counts(KN), "shapes": shapes_to_json(KN),
+                              "sync_s": sum(timers["reduce_gradients"][n_sync[0]:]),
+                              "gather_s": sum(timers["gather_tree"][n_sync[1]:]),
+                              "launches": {kern.symbol: kern.launches for kern in KN.KERNELS}})
+            return {"steps": steps, "fractions": fractions, "held_gib": held_gib,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+        result = {mode: run(mode) for mode in ("ddp", "fsdp")}
+        result["backend"] = dist.get_backend(group)
+        Path(f"{out}.{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def worker(args: list) -> int:
+    """A rank of phase 16 under torchrun: ``fit <out> <main argv...>`` or
+    ``train <out>``."""
+    kind, out, *rest = args
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if kind == "fit":
+        fit_worker(out, rest)
+    else:
+        train_worker(out)
+    return 0
+
+
+def run_fit_ddp(KN, TE, reference16, work: Path) -> tuple:
+    """Phase 16 (a): phase 9's first fit under torchrun at world size 1 over
+    NCCL, ``DDP_STEPS`` micro-steps, replicated and, at the same time, with
+    ``--trainer.fsdp true``. Each micro-step's launches equal phase 6's, its
+    logged losses are bit-equal to phase 9's same micro-step, and ``last.npz``
+    holds phase 9's trainable tree after those micro-steps bit for bit."""
+    from unirestore_torch.train import checkpoints as CKPT
+
+    result, paths, shapes = {}, {}, {kern.symbol: set() for kern in KN.KERNELS}
+    modes = (("ddp", ()), ("fsdp", ("--trainer.fsdp", "true")))
+    jobs = []
+    for mode, extra in modes:
+        argv = fit_argv("fit", work / "data", work / f"fit_{mode}", "--trainer.max_steps",
+                        str(DDP_STEPS), "--trainer.val_check_interval", "0",
+                        "--trainer.num_sanity_val_steps", "0", "--trainer.log_every_n_steps",
+                        "1", "--distributed", *extra)
+        jobs.append((1, [str(REPO / "chip_smoke.py"), "--worker", "fit",
+                         str(work / f"fit_{mode}_rank"), *argv], work / f"fit_{mode}.log"))
+    # the two runs share the card at once: each is mostly process start,
+    # loader and checkpoint, and only their results are compared
+    runs = torchrun(*jobs)
+    for (mode, _), (stdout, sec) in zip(modes, runs):
+        root, out = work / f"fit_{mode}", work / f"fit_{mode}_rank"
+        rank0 = json.loads(Path(f"{out}.0.json").read_text())
+        counts = [{s: tuple(c) for s, c in e.items()} for e in rank0["counts"]]
+        if len(counts) != DDP_STEPS or any(c != EXPECTED_TRAIN for c in counts):
+            raise AssertionError(f"fit_{mode}: launches per micro-step {counts} != "
+                                 f"{EXPECTED_TRAIN}")
+        if "[distributed] process 0/1" not in stdout or (mode == "fsdp"
+                                                       and "[fsdp] sharded" not in stdout):
+            raise AssertionError(f"fit_{mode}: no process group or FSDP line:\n{stdout[-2000:]}")
+        unequal = {}
+        for i, (got, want) in enumerate(zip(rank0["logs"], reference16["logs"])):
+            for k, v in want.items():
+                if k.startswith("train/loss") and got[k] != v:
+                    unequal[f"{i + 1} {k}"] = (got[k], v)
+        flat, meta = CKPT.load_checkpoint(str(root / "checkpoints" / "last.npz"))
+        differ = [k for k, v in reference16["trainable"].items()
+                  if not np.array_equal(flat[f"trainable//{k}"], v)]
+        grad_norms = [(e["train/grad_norm"], w["train/grad_norm"])
+                      for e, w in zip(rank0["logs"], reference16["logs"])]
+        log(f"fit_{mode} (torchrun, NCCL, world 1; both runs at once): {sec:.1f} s; launches "
+            f"per micro-step equal phase 6's; logged losses of micro-steps 1-{DDP_STEPS} vs phase 9's: "
+            f"{'bit-equal' if not unequal else unequal}; last.npz at step {meta['step']}: "
+            f"{len(reference16['trainable']) - len(differ)} of {len(reference16['trainable'])} "
+            f"trainable leaves bit-equal to phase 9's after micro-step {DDP_STEPS}; grad norms "
+            f"(run, phase 9) {grad_norms}; peak {rank0['peak_mem_gib']:.2f} GiB")
+        if unequal or differ or meta["step"] != DDP_STEPS:
+            raise AssertionError(f"fit_{mode} differs from phase 9: losses {unequal}, "
+                                 f"leaves {differ[:5]}, step {meta['step']}")
+        paths[f"fit_{mode}"] = rank0["launches"]
+        shapes = merge_shapes(shapes, shapes_from_json(rank0["shapes"]))
+        result[mode] = {"seconds": sec, "losses_bit_equal": True, "leaves_bit_equal":
+                        len(reference16["trainable"]), "grad_norms_run_phase9": grad_norms,
+                        "peak_mem_gib": rank0["peak_mem_gib"], "timing": rank0["timing"]}
+    return result, paths, shapes
+
+
+def run_train_ddp2(KN, training: dict, work: Path) -> tuple:
+    """Phase 16 (b): phase 6's cell at ``DDP_WORLD`` ranks on the one card over
+    gloo, DDP and then FSDP in one torchrun: launches per rank and step equal phase 6's, the
+    global loss and gradient norm within ``TRAIN_LOSS_RTOL`` /
+    ``TRAIN_GRAD_RTOL`` of phase 6's first ``DDP_STEPS`` steps on the same 8
+    rows and noise."""
+    result, paths, shapes = {}, {}, {kern.symbol: set() for kern in KN.KERNELS}
+    out = work / "train_ddp2_rank"
+    [(_, sec)] = torchrun((DDP_WORLD, [str(REPO / "chip_smoke.py"), "--worker", "train",
+                                       str(out)], work / "train_ddp2.log"))
+    by_rank = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(DDP_WORLD)]
+    backend = by_rank[0]["backend"]
+    log(f"two ranks on one card ({backend}): DDP then FSDP in one torchrun, {sec:.1f} s")
+    result["seconds"] = sec
+    for mode in ("ddp", "fsdp"):
+        ranks = [res[mode] for res in by_rank]
+        launches = {kern.symbol: 0 for kern in KN.KERNELS}
+        errors = []
+        for r, res in enumerate(ranks):
+            for i, st in enumerate(res["steps"]):
+                counts = {s: tuple(c) for s, c in st["counts"].items()}
+                if counts != EXPECTED_TRAIN:
+                    raise AssertionError(f"train_{mode}2 rank {r} step {i}: launches {counts} "
+                                         f"!= {EXPECTED_TRAIN}")
+                for s, n in st["launches"].items():
+                    launches[s] += n
+                shapes = merge_shapes(shapes, shapes_from_json(st["shapes"]))
+                want = training["losses"][i]
+                loss_err = abs(st["logs"]["train/loss"] - want["train/loss"]) / abs(
+                    want["train/loss"])
+                grad_err = abs(st["logs"]["train/grad_norm"] - want["train/grad_norm"]) / abs(
+                    want["train/grad_norm"])
+                errors.append((loss_err, grad_err))
+                if st["logs"] != ranks[0]["steps"][i]["logs"]:
+                    raise AssertionError(f"train_{mode}2 step {i}: ranks log different values")
+        loss_err = max(e[0] for e in errors)
+        grad_err = max(e[1] for e in errors)
+        ms = [[st["seconds"] * 1e3 for st in res["steps"]] for res in ranks]
+        sync = [[st["sync_s"] * 1e3 for st in res["steps"]] for res in ranks]
+        gather = [[st["gather_s"] * 1e3 for st in res["steps"]] for res in ranks]
+        peak = [res["peak_mem_gib"] for res in ranks]
+        log(f"train_{mode}2 ({DDP_WORLD} ranks on one card, {backend}, batch "
+            f"{DDP_WORLD} x {BATCH // DDP_WORLD}): ms per step by rank {ms}; "
+            f"gradient sync ms {sync}; gathers ms {gather}; vs phase 6 (one rank, batch "
+            f"{BATCH}): loss {loss_err:.3e} (limit {TRAIN_LOSS_RTOL}), grad norm "
+            f"{grad_err:.3e} (limit {TRAIN_GRAD_RTOL}); held {ranks[0]['held_gib']:.2f} GiB, "
+            f"peak {peak} GiB; sharded fractions {ranks[0]['fractions']}; launches per rank "
+            f"and step equal phase 6's")
+        if loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"train_{mode}2 differs from phase 6: loss {loss_err}, "
+                                 f"grad norm {grad_err}")
+        paths[f"train_{mode}2"] = launches
+        result[mode] = {"ms_per_step_by_rank": ms, "sync_ms_by_rank": sync,
+                        "gather_ms_by_rank": gather, "loss_rel_err": loss_err,
+                        "grad_norm_rel_err": grad_err, "held_gib": ranks[0]["held_gib"],
+                        "peak_mem_gib_by_rank": peak, "sharded_fractions": ranks[0]["fractions"],
+                        "logs": [st["logs"] for st in ranks[0]["steps"]]}
+    return result, paths, shapes
+
+
+def state_bytes(UR, FSDP) -> dict:
+    """Phase 16 (c): persistent bytes per rank of the restore cell's trees,
+    replicated against FSDP (``fsdp_spec``), at each of ``STATE_WORLDS`` ranks:
+    the frozen tree in bf16, the trainable tree in fp32 and AdamW's two fp32
+    slots over it (as ``tools/debug_fsdp_memory.py`` counts them)."""
+    cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
+    frozen, trainable = UR.init(cfg, device="meta")
+    trees = {"frozen_bf16": (frozen, 2), "trainable_fp32": (trainable, 4),
+             "adamw_slots_fp32": (trainable, 8)}
+    from unirestore_torch import bridge
+    out = {}
+    for n in STATE_WORLDS:
+        rows = {}
+        for name, (tree, nbytes) in trees.items():
+            leaves = list(bridge.flatten(tree).values())
+            rep = sum(v.numel() for v in leaves) * nbytes
+            sharded = sum((v.numel() // n if FSDP.fsdp_spec(v, n) else v.numel())
+                          for v in leaves) * nbytes
+            rows[name] = {"replicated_gib": rep / 2**30, "fsdp_gib": sharded / 2**30}
+        rows["total"] = {k: sum(r[k] for r in rows.values())
+                         for k in ("replicated_gib", "fsdp_gib")}
+        out[n] = rows
+    log("state bytes per rank (GiB, replicated -> FSDP): " + "; ".join(
+        f"n={n}: " + ", ".join(f"{k} {v['replicated_gib']:.3f} -> {v['fsdp_gib']:.3f}"
+                               for k, v in rows.items()) for n, rows in out.items()))
+    return out
+
+
+def run_phase16(K, G, KN, TE, UR, rows, gen, reference16, training, work: Path) -> tuple:
+    """Phase 16: (a), (b) and (c); then phase 3's comparison at every (kernel,
+    shape) they met that was not held yet. Returns (result, launches by path)."""
+    from unirestore_torch.parallel import fsdp as FSDP
+
+    t0 = time.perf_counter()
+    result = {}
+    result["fit"], paths, shapes = run_fit_ddp(KN, TE, reference16, work)
+    result["fit"]["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes, rows, gen,
+                                                               path="fit_ddp")
+    result["train"], train_paths, shapes = run_train_ddp2(KN, training, work)
+    paths.update(train_paths)
+    result["train"]["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes, rows, gen,
+                                                                 path="train_ddp2")
+    result["state_bytes"] = state_bytes(UR, FSDP)
+    result["phase_seconds"] = time.perf_counter() - t0
+    log(f"data parallelism: (kernel, shape) pairs held to their plain versions after the "
+        f"world-1 fits {result['fit']['shapes_added_to_phase3']}, the two-rank steps "
+        f"{result['train']['shapes_added_to_phase3']}; phase 16 took "
+        f"{result['phase_seconds']:.1f} s")
+    return result, paths
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3477,8 +3877,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
         # phase 9: fit, resume and predict through the CLI; then phase 3's
         # comparison at every shape the fit met that phase 3 had not held
-        fit, paths["fit"], fit_shapes = run_fit(KN, bridge, TE, TS, OPT, TMAIN.main, png,
-                                                Path(work))
+        fit, paths["fit"], fit_shapes, reference16 = run_fit(KN, bridge, TE, TS, OPT,
+                                                             TMAIN.main, png, Path(work))
         fit["training_step_ms_phase6"] = training["ms_per_step"]
         fit["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit_shapes, rows, gen)
         log(f"fit: {fit['shapes_added_to_phase3']} (kernel, shape) pairs held to their plain "
@@ -3551,16 +3951,26 @@ def main() -> int:
             f"{nr14['peak_mem_gib']:.2f} GiB")
         torch.cuda.empty_cache()
 
-    # phase 15: the SPADE restores and step, every optimizer and every DeepLab
-    # backbone; phase 3's comparison at the shapes they met that were not held
-    spade, spade_paths, shapes15 = run_phase15(UR, KN, GR, bridge, TS, OPT, gen,
-                                               training["ms_per_step"])
-    paths.update(spade_paths)
-    spade["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes15, rows, gen,
-                                                       path="spade")
-    log(f"spade: {spade['shapes_added_to_phase3']} (kernel, shape) pairs held to their plain "
-        "versions after phase 15")
-    torch.cuda.empty_cache()
+        # phase 15: the SPADE restores and step, every optimizer and every
+        # DeepLab backbone; phase 3's comparison at the shapes they met that
+        # were not held
+        spade, spade_paths, shapes15 = run_phase15(UR, KN, GR, bridge, TS, OPT, gen,
+                                                   training["ms_per_step"])
+        paths.update(spade_paths)
+        spade["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes15, rows, gen,
+                                                           path="spade")
+        log(f"spade: {spade['shapes_added_to_phase3']} (kernel, shape) pairs held to their "
+            "plain versions after phase 15")
+        torch.cuda.empty_cache()
+
+        # phase 16: phase 9's fit under torchrun at world size 1 (NCCL), DDP
+        # and FSDP; phase 6's cell at two ranks on the card (gloo), DDP and
+        # FSDP; the state bytes per rank; phase 3's comparison at new shapes
+        parallel, parallel_paths = run_phase16(K, G, KN, TE, UR, rows, gen, reference16,
+                                               training, Path(work))
+        paths.update(parallel_paths)
+        del reference16
+        torch.cuda.empty_cache()
 
     # phase 10: report; a path routes to a kernel when its expected count is not 0
     routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
@@ -3581,7 +3991,9 @@ def main() -> int:
                   **{f"validate_{m.lower()}": [VAL14_RESTORES[m] * n for n in FIT_RESTORE]
                      for m, _ in VAL14_RUNS},
                   **{SPADE_PATHS[run[0]]: list(EXPECTED[run[0]]) for run in SPADE_RUNS},
-                  train_spade=[EXPECTED_TRAIN_SPADE[kern.symbol][0] for kern in KN.KERNELS])
+                  train_spade=[EXPECTED_TRAIN_SPADE[kern.symbol][0] for kern in KN.KERNELS],
+                  **{path: routes["train"] for path in ("fit_ddp", "fit_fsdp", "train_ddp2",
+                                                        "train_fsdp2")})
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -3624,6 +4036,7 @@ def main() -> int:
     log(json.dumps({"engines": engines}))
     log(json.dumps({"validate_nr": nr14}))
     log(json.dumps({"spade": spade}))
+    log(json.dumps({"parallel": parallel}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3632,4 +4045,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(worker(sys.argv[2:]) if sys.argv[1:2] == ["--worker"] else main())

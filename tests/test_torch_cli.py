@@ -345,7 +345,10 @@ def test_cli_needs_a_gpu_unless_a_device_is_given(smoke, monkeypatch):
         TMAIN.main(["fit", "--config", str(smoke), "--tiny"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TMAIN.main(["fit", "--config", str(STAGE2_YAML), "--tiny"])
-    with pytest.raises(SystemExit):
+    # --distributed starts a process group; outside torchrun there is none to join
+    for name in ("MASTER_ADDR", "WORLD_SIZE", "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="no rendezvous"):
         TMAIN.main(["fit", "--config", str(smoke), "--tiny", "--device", "cpu",
                     "--distributed"])
 

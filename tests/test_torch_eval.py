@@ -171,8 +171,8 @@ def test_load_config_raises_like_jax():
 def test_build_refuses_what_is_not_ported():
     """The mtl engine of stage 2, the cls and seg engines (with their probe
     zoos), the det engine of stage 3 and the ir engine's NR and ALL
-    ``eval_mode`` and ``compute_fid`` build; the trainer still refuses
-    ``fsdp``."""
+    ``eval_mode`` and ``compute_fid`` build, and so does ``trainer.fsdp``;
+    the trainer still refuses ``split_step``."""
     cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml")
     engine, _, data, factory = TC.build(cfg, tiny=True, device="cpu")
     assert engine.engine_type == "mtl" and engine.stage.multi_task and engine.stage.train_tfa
@@ -196,7 +196,9 @@ def test_build_refuses_what_is_not_ported():
         engine, _, _, factory = TC.build(cfg, tiny=True, device="cpu")
         assert engine.engine_type == "ir" and callable(factory)
     cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--trainer.fsdp", "true"])
-    with pytest.raises(NotImplementedError, match="fsdp"):
+    assert TC.build(cfg, tiny=True, device="cpu")[1].fsdp
+    cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--trainer.split_step", "true"])
+    with pytest.raises(NotImplementedError, match="split_step"):
         TC.build(cfg, tiny=True, device="cpu")
 
 

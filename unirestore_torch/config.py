@@ -191,7 +191,9 @@ def build(cfg: dict, tiny: bool = False, device=None):
                 EV.ImageRestorationEvaluator(restore, lpips_fn=lpips()),
                 EV.ClassificationEvaluator(restore, {"r50v1": probes["cls"]}),
                 EV.SemanticSegmentationEvaluator(restore, {"dlv3pr50": probes["seg"]}))
-        save_dir = os.path.join(root, "dumps") if m.get("save_image") else None
+        # under data parallelism every rank validates and rank 0 alone dumps
+        save_dir = (os.path.join(root, "dumps") if m.get("save_image") and trainer.rank == 0
+                    else None)
         if etype == "cls":
             # eval_mode selects the probe set (eval_classification.py:36-48);
             # the monitor per :93-102

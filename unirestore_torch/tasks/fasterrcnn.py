@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn import layers as L
+from ..parallel.distributed import process_local_rows, world_size
 from . import resnet as RN
 from .retinanet import (_pairwise_iou, decode_boxes, detector_input, encode_boxes, match,
                         nms, on_device, take)
@@ -291,12 +292,17 @@ def _kth_largest(x, k: int):
 def loss_uniforms(batch: int, h: int, w: int, device):
     """The sampling scores ``fasterrcnn_loss`` draws when it is given none:
     (B, RPN anchors) and (B, post-NMS proposals) uniforms in [0, 1) from a
-    generator on ``device`` seeded 0 on every call."""
+    generator on ``device`` seeded 0 on every call. Under data parallelism
+    ``batch`` is this rank's part of a global batch: the uniforms are drawn
+    for the global batch and cut to the rank's rows, as JAX draws one sample
+    for the global batch (``unirestore_tpu/train/engine.py:122-126``)."""
     n = on_device(rpn_anchors_for_shape, h, w, device=device).shape[0]
     post = min(POST_NMS, PRE_NMS, n)
     gen = torch.Generator(device=device).manual_seed(0)
-    return (torch.rand((batch, n), generator=gen, device=device),
-            torch.rand((batch, post), generator=gen, device=device))
+    total = batch * world_size()
+    rows = process_local_rows(total)
+    return (torch.rand((total, n), generator=gen, device=device)[rows],
+            torch.rand((total, post), generator=gen, device=device)[rows])
 
 
 def fasterrcnn_loss(p, images, gt_boxes, gt_labels, gt_mask, num_classes: int = 91,

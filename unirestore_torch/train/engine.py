@@ -4,7 +4,8 @@ Maps the reference's YAML surface (model_kwargs {frenc, cnet, tedit},
 optimizer_kwargs, lr_scheduler_kwargs; engine_unifie.py:19-133) onto the
 port's pieces: ``UniRestoreConfig`` + (frozen, trainable) trees, the eager
 train step of ``steps.py``, the optimizer ``optimizer_kwargs.opt`` names with
-gradient accumulation (``optim.py``) and adapter-only checkpoints (``checkpoints.py``), all on one device.
+gradient accumulation (``optim.py``) and adapter-only checkpoints (``checkpoints.py``), on one
+device or data-parallel over a process group (``parallel/``).
 
 ``UniFIEEngine`` builds the params (the port's seeded init with
 ``seed_everything`` as its seed, then the converted sd-turbo weights of
@@ -42,11 +43,18 @@ Differences from the JAX engine:
 - Not offered, each raising with its reason: ``split_step`` and
   ``stop_after`` (they exist for the TPU's compiler; the JAX package's test
   ``test_split_step_matches_monolithic`` shows the split step equals the
-  monolithic one), ``fsdp`` (ROADMAP Queue A 6) and a device mesh (one card).
+  monolithic one).
+- Data parallelism is a process group, one rank per card (``torchrun``; the
+  JAX trainer meshes every local device without a flag). Every rank loads the
+  same global batch and keeps its rows before the device copy; the step
+  averages the gradients over the group. Under ``fsdp`` the trees and the
+  optimizer state are held in shards between steps and gathered by each
+  step (``parallel/fsdp.py``), not just in time per layer.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
@@ -58,6 +66,9 @@ from .. import bridge, tasks, zoo
 from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..models import unirestore as UR
+from ..parallel import distributed as DIST
+from ..parallel import fsdp as FSDP
+from ..parallel import mesh as MESH
 from ..tasks import deeplab as DL
 from ..tasks import fasterrcnn as FRC
 from ..tasks import resnet as RN
@@ -304,6 +315,17 @@ class Trainer:
     ``noise_fn(step, batch) -> steps.StepNoise``, if given, supplies each
     micro-step's noise (``step`` counts from 0 at the run's first step)
     in place of the seeded generator's draws.
+
+    Under a process group (``parallel.init_distributed``) the trainer is
+    data-parallel over its ``make_mesh()`` (``unirestore_tpu/train/engine.py:
+    318-453``): the peak learning rate scales with the world size, as JAX's
+    does with its device count; every rank starts from rank 0's state
+    (``replicate``) or, with ``fsdp``, holds its shards of it
+    (``fsdp_shard``); every rank loads the same global batch and keeps its
+    ``process_local_rows``; the step noise is drawn at the global batch's
+    shape from the shared seed and cut to the rank's rows (``noise_fn`` is
+    called with the global batch). Every rank validates; rank 0 alone writes
+    checkpoints and the logger's files, and the others wait for it.
     """
 
     def __init__(self, max_steps: int = 1000, val_check_interval: int = 0,
@@ -327,9 +349,9 @@ class Trainer:
             raise NotImplementedError(
                 "trainer.stop_after warms the TPU compiler's cache through the split step; "
                 "the port compiles nothing ahead of a step")
-        if fsdp:
-            raise NotImplementedError("trainer.fsdp: sharded training is not ported yet "
-                                      "(ROADMAP Queue A 6); the port trains on one card")
+        # FSDP (ZeRO-3): trainable, frozen and optimizer state held in shards
+        # over the data axis between steps (parallel/fsdp.py)
+        self.fsdp = fsdp
         self.max_steps = max_steps
         # restart-based recovery (Lightning ckpt_path resume): True/"auto"
         # resumes from <root>/checkpoints/last.npz when present; a path
@@ -347,11 +369,15 @@ class Trainer:
         self.seed = seed
         self.profiler = profiler  # logdir for a torch.profiler trace, or None
         self.noise_fn = noise_fn
+        self.mesh = MESH.make_mesh()
+        self.group = self.mesh.get_group("data")
+        self.rank = DIST.rank()
+        self._global_batch = None  # the host batch of which this rank steps on a part
         self.logs = []
         self.timing = {}
         self.profile = {}
-        from .logging import MetricLogger
-        self.logger = MetricLogger(self.root, "train")
+        from .logging import MetricLogger, NullLogger
+        self.logger = MetricLogger(self.root, "train") if self.rank == 0 else NullLogger()
 
     def _log(self, step, logs):
         entry = {"step": step, **{k: float(v) for k, v in logs.items()}}
@@ -361,17 +387,72 @@ class Trainer:
         print(f"[step {step}] {msg}", flush=True)
 
     def _step(self, step_fn, trainable, opt_state, batch, step, draw):
-        """One micro-step: its noise (``noise_fn`` or ``draw``), then ``step_fn``."""
-        noise = self.noise_fn(step, batch) if self.noise_fn is not None else draw(batch)
+        """One micro-step: its noise (``noise_fn`` or ``draw``), then ``step_fn``.
+        Where this rank holds a part of the global batch, ``noise_fn`` is given
+        the global one and its draws are cut to the rank's rows."""
+        if self.noise_fn is None:
+            noise = draw(batch)
+        elif self._global_batch is None:
+            noise = self.noise_fn(step, batch)
+        else:
+            g = self._global_batch
+            noise = ST.local_noise(self.noise_fn(step, g),
+                                   DIST.process_local_rows(g["hq"].shape[0]))
         return step_fn(trainable, opt_state, batch, noise)
+
+    def write_once(self, write) -> None:
+        """``write()`` on rank 0; every rank of the group waits for it."""
+        if self.rank == 0:
+            write()
+        if self.group is not None:
+            torch.distributed.barrier(self.group)
+
+    def _save(self, path, trainable, step, opt_state, mgr=None, metric=None) -> None:
+        """``last.npz`` (or, with ``mgr``, a top-k checkpoint) of the whole
+        trees: under FSDP every rank gathers, rank 0 writes."""
+        trainable = FSDP.gather_tree(trainable, self.group)
+        opt_state = FSDP.gather_tree(opt_state, self.group)
+        if mgr is not None:
+            self.write_once(lambda: mgr.save(trainable, step, metric))
+        self.write_once(lambda: CKPT.save_checkpoint(path, trainable, step, opt_state=opt_state))
+
+    @contextlib.contextmanager
+    def _whole(self, engine):
+        """The engine holding its whole trees for the body (validation): under
+        FSDP gathered from its shards, which it holds again afterwards."""
+        sharded = engine.frozen, engine.trainable
+        engine.frozen = FSDP.gather_tree(engine.frozen, self.group)
+        engine.trainable = FSDP.gather_tree(engine.trainable, self.group)
+        try:
+            yield
+        finally:
+            engine.frozen, engine.trainable = sharded
+
+    def _sanity(self, engine, data, evaluator_factory) -> None:
+        """``num_sanity_val_steps`` validation batches, their metrics discarded."""
+        evaluator = evaluator_factory(engine)
+        loaders = data.val_dataloader()
+        if not isinstance(loaders, (list, tuple)):
+            loaders = [loaders]
+        n = 0
+        for loader in loaders:
+            for b in loader:
+                evaluator.validation_step(b)
+                n += 1
+                if n >= self.num_sanity_val_steps:
+                    break
+            if n >= self.num_sanity_val_steps:
+                break
+        evaluator.epoch_end()
 
     def fit(self, engine: UniFIEEngine, data, evaluator_factory=None):
         dev, dt = engine.device, engine.compute_dtype
+        n_dev = self.mesh.size()
         train_loader = data.train_dataloader()
-        batch_size = train_loader.batch_size
+        batch_size = train_loader.batch_size  # the global batch: every rank loads it whole
         tx, peak = OPT.build(engine.optimizer_kwargs, engine.lr_scheduler_kwargs,
                              total_steps=self.max_steps, batch_size=batch_size,
-                             accum_iter=self.accum, num_devices=1)
+                             accum_iter=self.accum, num_devices=n_dev)
         print(f"[optimizer] peak lr {peak:.2e} over {self.max_steps} steps")
         te_fn = engine.te_loss_fn(engine.build_critics()) if engine.cfg.use_tfa else None
 
@@ -401,27 +482,29 @@ class Trainer:
             if task not in steps_by_task:
                 steps_by_task[task] = ST.make_train_step(
                     engine.frozen, engine.cfg, engine.sched, engine.stage, tx, task,
-                    te_loss_fn=te_fn)
+                    te_loss_fn=te_fn, group=self.group)
             return steps_by_task[task]
+
+        # placement (JAX engine.py:377-388): every rank starts from rank 0's
+        # state; under FSDP each then keeps its shards of it
+        for tree in (engine.trainable, engine.frozen, opt_state):
+            MESH.replicate(self.mesh, tree)
+        if self.fsdp:
+            engine.trainable = FSDP.fsdp_shard(self.mesh, engine.trainable)
+            engine.frozen = FSDP.fsdp_shard(self.mesh, engine.frozen)
+            rank = torch.distributed.get_rank(self.group) if self.group is not None else 0
+            opt_state = tx.shard_state(opt_state, ST.trained_leaves(engine.stage,
+                                                                    engine.trainable), rank)
+            print(f"[fsdp] sharded {FSDP.sharded_fraction(engine.trainable):.0%} of trainable / "
+                  f"{FSDP.sharded_fraction(engine.frozen):.0%} of frozen elements over {n_dev} "
+                  "devices", flush=True)
 
         # sanity validation before fit (Lightning num_sanity_val_steps,
         # train_stage1.yaml:25)
         if self.num_sanity_val_steps and evaluator_factory and data:
             print(f"[sanity] running {self.num_sanity_val_steps} validation steps")
-            evaluator = evaluator_factory(engine)
-            loaders = data.val_dataloader()
-            if not isinstance(loaders, (list, tuple)):
-                loaders = [loaders]
-            n = 0
-            for loader in loaders:
-                for b in loader:
-                    evaluator.validation_step(b)
-                    n += 1
-                    if n >= self.num_sanity_val_steps:
-                        break
-                if n >= self.num_sanity_val_steps:
-                    break
-            evaluator.epoch_end()
+            with self._whole(engine):
+                self._sanity(engine, data, evaluator_factory)
 
         mgr = CKPT.CheckpointManager(os.path.join(self.root, "checkpoints"), self.save_top_k,
                                      self.monitor_mode)
@@ -434,12 +517,21 @@ class Trainer:
         table = torch.tensor(UR.TRAIN_TIMESTEPS, dtype=torch.int32, device=dev)
 
         def draw(batch):
-            return ST.draw_noise(engine.cfg, batch, gen, table)
+            return ST.draw_noise(engine.cfg, batch, gen, table, world=n_dev)
+
+        held = collections.deque()  # the global batches in the prefetch, for noise_fn
+
+        def local_batches():
+            for b in padded_targets(train_loader):
+                if self.noise_fn is not None and n_dev > 1:
+                    held.append({k: torch.as_tensor(v) for k, v in b.items()
+                                 if isinstance(v, np.ndarray)})
+                yield MESH.shard_batch(self.mesh, b)
 
         step = start_step
         waits, prof = [], None
         t0 = time.time()
-        it = device_prefetch(padded_targets(train_loader), dev)
+        it = device_prefetch(local_batches(), dev)
         with contextlib.ExitStack() as tracing:
             while step < self.max_steps:
                 if trace_window and step + 1 == trace_window[0]:
@@ -448,9 +540,10 @@ class Trainer:
                 try:
                     batch = next(it)
                 except StopIteration:
-                    it = device_prefetch(padded_targets(train_loader), dev)
+                    it = device_prefetch(local_batches(), dev)
                     batch = next(it)
                 waits.append(time.perf_counter() - t_wait)
+                self._global_batch = held.popleft() if held else None
                 task = batch.pop("task")
                 batch.pop("fname", None)
                 # integer labels keep their dtype: an ImageNet class above
@@ -481,13 +574,17 @@ class Trainer:
                     self._log(step, logs)
                 if self.val_check_interval and evaluator_factory and \
                         step % self.val_check_interval == 0:
-                    metrics = self.validate(engine, data, evaluator_factory)
-                    mgr.save(engine.trainable, step, metrics.get("val_monitor", 0.0))
+                    with self._whole(engine):
+                        metrics = self.validate(engine, data, evaluator_factory)
                     # crash-recovery state: at most one val interval is lost
-                    CKPT.save_checkpoint(os.path.join(self.root, "checkpoints", "last.npz"),
-                                         engine.trainable, step, opt_state=opt_state)
+                    self._save(os.path.join(self.root, "checkpoints", "last.npz"),
+                               engine.trainable, step, opt_state, mgr,
+                               metrics.get("val_monitor", 0.0))
+        self._global_batch = None
         final = os.path.join(self.root, "checkpoints", "last.npz")
-        CKPT.save_checkpoint(final, engine.trainable, step, opt_state=opt_state)
+        self._save(final, engine.trainable, step, opt_state)
+        engine.frozen = FSDP.gather_tree(engine.frozen, self.group)
+        engine.trainable = FSDP.gather_tree(engine.trainable, self.group)
         ts = timer.summary()
         self.timing = {**ts, "loader_wait_mean_s": sum(waits) / max(len(waits), 1),
                        "loader_waits_s": waits, "batch_size": batch_size}

@@ -63,3 +63,17 @@ class MetricLogger:
         self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
+
+
+class NullLogger:
+    """The logger of a data-parallel rank other than 0: it writes nothing, so
+    that rank 0 alone writes the run's files."""
+
+    def log_scalars(self, step: int, scalars: dict):
+        pass
+
+    def log_images(self, step: int, tag: str, images):
+        pass
+
+    def close(self):
+        pass

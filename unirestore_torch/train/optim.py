@@ -30,6 +30,15 @@ accumulation), which ``train/checkpoints.py`` saves and restores. ``update``
 changes the parameters in place (no second copy of the trainable tree is
 made). Decay rates raised to the update count are taken in fp32 by repeated
 squaring, as XLA computes optax's ``decay ** count``.
+
+Under FSDP (``parallel/fsdp.py``) a parameter may be a ``Shard``, this rank's
+block of the leaf, and its slots are then ``Shard``s of theirs
+(``Optimizer.shard_state``). Elementwise rules update a block as they would
+the whole leaf; the four places that read a whole leaf or the whole tree
+take their sums over the process group: the global-norm clip, the trust
+ratio of ``lamb`` and ``lars``, ``adafactor``'s block RMS and its factored
+moments' means along the sharded axis (whose factoring follows the full
+shape).
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ from collections.abc import Callable, Mapping
 
 import numpy as np
 import torch
+
+from ..parallel.fsdp import Shard, global_norm, group_sum, leaf_norms, shard_tensor
 
 
 def effective_lr(base_lr: float, base_bsz: int, batch_size: int,
@@ -97,26 +108,20 @@ def _debias(decay: float, count: int) -> float:
     return float(np.float32(1.0) - _pow32(decay, count))
 
 
-def _trust_ratio(p, u, coefficient: float = 1.0):
-    """optax ``scale_by_trust_ratio``: coefficient * |p| / |u|, 1 where a norm is 0."""
-    pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
-    ratio = coefficient * pn / un
-    return torch.where((pn == 0) | (un == 0), torch.ones_like(ratio), ratio)
-
-
-def _rms(x):
-    return x.square().mean().sqrt()
-
-
 class Optimizer:
     """The part every optimizer shares: the state, ``MultiSteps`` accumulation
     (a running mean, one update every ``accum_iter`` calls), global-norm
     clipping, the learning rate (a constant or a schedule of the update count),
     and coupled L2 decay (``coupled``: ``weight_decay * p`` added to the clipped
     gradient of every leaf with ndim >= 2). A rule names its per-leaf ``slots``
-    and computes each leaf's change in ``delta``."""
+    and computes each leaf's change in ``delta``.
+
+    While ``update`` runs, ``_shards`` holds the ``Shard`` of each sharded
+    parameter and ``_group`` the process group its sums run over."""
 
     slots: tuple = ()
+    _shards: dict = {}
+    _group = None
 
     def __init__(self, lr=1e-4, weight_decay: float = 0.0, grad_clip: float | None = None,
                  accum_iter: int = 1, coupled: bool = False):
@@ -147,14 +152,67 @@ class Optimizer:
         """The change of leaf ``k`` at update ``t`` (1-based), updating its slots."""
         raise NotImplementedError
 
+    def slot_axis(self, name: str, shape: tuple, axis: int):
+        """The axis along which slot ``name`` of a leaf of full ``shape``
+        sharded along ``axis`` is sharded with it; None: the slot is whole."""
+        return axis
+
+    def shard_state(self, state: dict, params: Mapping, rank: int) -> dict:
+        """``state`` (built for the full leaves) with each slot of a parameter
+        that ``params`` holds as a ``Shard`` cut to this rank's block of it."""
+        out = dict(state)
+        for name, sub in state.items():
+            if not isinstance(sub, dict):
+                continue
+            out[name] = dict(sub)
+            for k, t in sub.items():
+                p = params[k]
+                axis = self.slot_axis(name, p.shape, p.axis) if isinstance(p, Shard) else None
+                if axis is not None:
+                    out[name][k] = shard_tensor(t, axis, p.parts, rank)
+        return out
+
+    def _norm(self, k: str, x):
+        """The 2-norm of the whole leaf ``k`` of which ``x`` is this rank's part."""
+        if k in self._shards:
+            return leaf_norms({k: x}, self._shards, self._group)[k]
+        return torch.linalg.vector_norm(x)
+
+    def _trust_ratio(self, k: str, p, u, coefficient: float = 1.0):
+        """optax ``scale_by_trust_ratio``: coefficient * |p| / |u|, 1 where a norm is 0."""
+        pn, un = self._norm(k, p), self._norm(k, u)
+        ratio = coefficient * pn / un
+        return torch.where((pn == 0) | (un == 0), torch.ones_like(ratio), ratio)
+
+    def _rms(self, k: str, x):
+        if k in self._shards:
+            return self._norm(k, x) / math.sqrt(self._shards[k].numel)
+        return x.square().mean().sqrt()
+
     @torch.no_grad()
-    def update(self, state: dict, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, torch.Tensor]) -> bool:
-        """Apply one call's gradients; returns whether the parameters changed."""
+    def update(self, state: dict, params: Mapping, grads: Mapping[str, torch.Tensor],
+               group=None) -> bool:
+        """Apply one call's gradients; returns whether the parameters changed.
+        A parameter given as a ``Shard`` is updated in its block, with
+        ``grads`` holding the block's gradient and whole-leaf sums taken over
+        ``group``."""
+        self._shards = {k: p for k, p in params.items() if isinstance(p, Shard)}
+        self._group = group
+        try:
+            return self._update(state, {k: getattr(p, "local", p) for k, p in params.items()},
+                                grads)
+        finally:
+            self._shards, self._group = {}, None
+
+    def _update(self, state: dict, params: Mapping[str, torch.Tensor],
+                grads: Mapping[str, torch.Tensor]) -> bool:
+        # the slots' blocks where they are sharded; the counts stay in ``state``
+        slots = {name: {k: getattr(v, "local", v) for k, v in sub.items()}
+                 for name, sub in state.items() if isinstance(sub, dict)}
         names = list(params)
         g = [grads[k] for k in names]
         if self.accum_iter > 1:
-            acc = [state["acc"][k] for k in names]
+            acc = [slots["acc"][k] for k in names]
             n = state["mini_step"]
             for a, gi in zip(acc, g):  # running mean (optax MultiSteps, Welford)
                 a.add_((gi - a) / (n + 1))
@@ -166,7 +224,7 @@ class Optimizer:
             for a in acc:
                 a.zero_()
         if self.grad_clip is not None:
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(x) for x in g]))
+            norm = global_norm(dict(zip(names, g)), self._shards, self._group)
             if not norm < self.grad_clip:
                 g = [x / norm * self.grad_clip for x in g]
         lr = self._lr(state["count"])
@@ -176,7 +234,7 @@ class Optimizer:
             p = params[k]
             if self.coupled and self._decay(p):
                 gi = gi + self._decay(p) * p
-            p.add_(self.delta(state, k, p, gi, lr, t))
+            p.add_(self.delta(slots, k, p, gi, lr, t))
         return True
 
 
@@ -251,7 +309,7 @@ class Lamb(Adam):
 
     def direction(self, state, k, p, g, t):
         upd = super().direction(state, k, p, g, t)
-        return upd * _trust_ratio(p, upd)
+        return upd * self._trust_ratio(k, p, upd)
 
 
 class Adamax(Optimizer):
@@ -324,7 +382,7 @@ class Lars(Trace):
 
     def delta(self, state, k, p, g, lr, t):
         upd = g + self._decay(p) * p if self._decay(p) else g
-        upd = upd * _trust_ratio(p, upd, self.trust_coefficient)
+        upd = upd * self._trust_ratio(k, p, upd, self.trust_coefficient)
         return self.traced(state, k, -lr * upd)
 
 
@@ -417,10 +475,30 @@ class Adafactor(Optimizer):
             return p.new_zeros(tuple(np.delete(p.shape, d1)))
         return p.new_zeros((1,))
 
+    def slot_axis(self, name, shape, axis):
+        if name not in self.slots:  # the gradient accumulator
+            return axis
+        dims = _factored_dims(tuple(shape))
+        if dims is None:
+            return axis if name == "v" else None
+        d1, d0 = dims
+        cut = {"v_row": d0, "v_col": d1}.get(name)
+        return None if cut is None or cut == axis else axis - (axis > cut)
+
+    def _mean(self, k, x, dim: int, axis, keepdim: bool = False):
+        """The mean of ``x`` over ``dim`` of the whole leaf ``k``: over the group
+        where ``dim`` is ``x``'s sharded ``axis``."""
+        if k not in self._shards or dim != axis:
+            return x.mean(dim=dim, keepdim=keepdim)
+        return group_sum(x.sum(dim=dim, keepdim=keepdim), self._group) / (
+            x.shape[dim] * self._shards[k].parts)
+
     def delta(self, state, k, p, g, lr, t):
         rate = float(np.float32(1.0) - np.float32(t) ** np.float32(-self.decay_rate))
         g2 = g * g + self.eps
-        dims = _factored_dims(tuple(p.shape))
+        shape = self._shards[k].shape if k in self._shards else tuple(p.shape)
+        axis = self._shards[k].axis if k in self._shards else None
+        dims = _factored_dims(shape)
         if dims is None:
             v = state["v"][k]
             v.mul_(rate).add_(g2, alpha=1 - rate)
@@ -428,13 +506,15 @@ class Adafactor(Optimizer):
         else:
             d1, d0 = dims
             v_row, v_col = state["v_row"][k], state["v_col"][k]
-            v_row.mul_(rate).add_(g2.mean(dim=d0), alpha=1 - rate)
-            v_col.mul_(rate).add_(g2.mean(dim=d1), alpha=1 - rate)
-            row = (v_row / v_row.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)).rsqrt()
+            v_row.mul_(rate).add_(self._mean(k, g2, d0, axis), alpha=1 - rate)
+            v_col.mul_(rate).add_(self._mean(k, g2, d1, axis), alpha=1 - rate)
+            row_axis = self.slot_axis("v_row", shape, axis) if axis is not None else None
+            row = (v_row / self._mean(k, v_row, d1 - 1 if d1 > d0 else d1, row_axis,
+                                      keepdim=True)).rsqrt()
             upd = g * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
-        upd = upd / torch.clamp(_rms(upd) / self.clip, min=1.0)
+        upd = upd / torch.clamp(self._rms(k, upd) / self.clip, min=1.0)
         upd = lr * upd
-        upd = upd * torch.clamp(_rms(p), min=self.min_scale)
+        upd = upd * torch.clamp(self._rms(k, p), min=self.min_scale)
         if self.weight_decay:
             upd = upd + self.weight_decay * p
         return -upd

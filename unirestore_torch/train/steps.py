@@ -19,6 +19,13 @@ lq encodes, the diffusion noise and the timesteps (``draw_noise`` draws them
 from a ``torch.Generator``). The JAX package's split step
 (``make_split_train_step``) is not ported: it exists for its compiler, and
 eager autograd over the same cuts gives the same gradients.
+
+Data parallelism (``parallel/``): with a process group the step averages the
+trained leaves' gradients over it before the optimizer update, and its logs
+are the global means, as the JAX step's are over a sharded batch. Under FSDP
+the frozen and trainable trees hold ``Shard`` leaves: the step gathers them
+at its start, reduce-scatters the gradients into the shards and updates the
+shards.
 """
 
 from __future__ import annotations
@@ -27,9 +34,12 @@ import dataclasses
 from collections.abc import Callable
 
 import torch
+import torch.distributed as dist
 
 from .. import bridge
 from ..models import unirestore as UR
+from ..parallel import fsdp as FSDP
+from ..parallel.distributed import process_local_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,13 +68,23 @@ class StepNoise:
     timesteps: torch.Tensor
 
 
+def local_noise(noise: StepNoise, rows: slice) -> StepNoise:
+    """This rank's ``rows`` of the noise of a global batch."""
+    return StepNoise(noise.hq[rows], noise.lq[rows], noise.diffusion[rows],
+                     noise.timesteps[rows])
+
+
 def draw_noise(cfg: UR.UniRestoreConfig, batch: dict, generator: torch.Generator,
-               table: torch.Tensor | None = None) -> StepNoise:
+               table: torch.Tensor | None = None, world: int = 1) -> StepNoise:
     """``StepNoise`` for ``batch`` drawn from ``generator`` (timesteps from
     ``TRAIN_TIMESTEPS``; ``table``, if given, is that table already on the
-    batch's device, so the draw copies nothing from the host)."""
+    batch's device, so the draw copies nothing from the host). With ``world``
+    ranks, ``batch`` holds this rank's rows of a global batch ``world`` times
+    as large: the draws are made at the global shape, the same on every rank,
+    and cut to the rank's rows (``process_local_rows``)."""
     hq = batch["hq"]
     b, h, w, _ = hq.shape
+    b *= world
     shape = (b, h // 8, w // 8, cfg.vae.latent_channels)
 
     def normal():
@@ -73,7 +93,8 @@ def draw_noise(cfg: UR.UniRestoreConfig, batch: dict, generator: torch.Generator
     buf = (torch.tensor(UR.TRAIN_TIMESTEPS, dtype=torch.int32, device=hq.device)
            if table is None else table)
     idx = torch.randint(0, len(buf), (b,), generator=generator, device=hq.device)
-    return StepNoise(normal(), normal(), normal(), buf[idx])
+    noise = StepNoise(normal(), normal(), normal(), buf[idx])
+    return noise if world == 1 else local_noise(noise, process_local_rows(b))
 
 
 def trainable_filter(stage: StageConfig, trainable):
@@ -168,8 +189,19 @@ def with_remat(cfg: UR.UniRestoreConfig) -> UR.UniRestoreConfig:
                                vae=dataclasses.replace(cfg.vae, remat=True))
 
 
+def global_logs(logs: dict, group) -> dict:
+    """The mean of each logged scalar over ``group`` (one all-reduce, in
+    sorted key order; every rank runs the same task)."""
+    keys = sorted(logs)
+    vec = torch.stack([logs[k].float() for k in keys])
+    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=group)
+    vec.div_(dist.get_world_size(group))
+    return dict(zip(keys, vec.unbind()))
+
+
 def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig, tx,
-                    task: str, te_loss_fn: Callable | None = None, remat: bool = True):
+                    task: str, te_loss_fn: Callable | None = None, remat: bool = True,
+                    group=None):
     """The train step for one (stage, task):
 
         step(trainable, opt_state, batch, noise) -> (trainable, opt_state, logs)
@@ -181,16 +213,28 @@ def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
     ``logs`` holds ``compute_losses``' terms and ``train/grad_norm``, the
     global norm of the trained leaves' gradients (not finite if any is not).
     The step's ``task`` attribute names its task.
+
+    With a process ``group`` (data parallelism: ``batch`` and ``noise`` are
+    this rank's rows), every trained leaf's gradient is averaged over the
+    group before the update (``allow_unused`` zeros too, so every rank runs
+    the same collectives), and the losses and the gradient norm logged are
+    the global ones. ``frozen`` and ``trainable`` may hold
+    ``parallel.fsdp.Shard`` leaves (``fsdp_shard``, and ``opt_state`` from
+    ``tx.shard_state``): the step then gathers both trees at its start,
+    reduce-scatters the mean gradients into the shards and updates the
+    shards; the full trees are freed when it returns.
     """
     cfg = with_remat(cfg) if remat else cfg
 
     def step(trainable, opt_state, batch, noise: StepNoise):
-        params = trained_leaves(stage, trainable)
+        full_frozen = FSDP.gather_tree(frozen, group)
+        full = FSDP.gather_tree(trainable, group)
+        params = trained_leaves(stage, full)
         for p in params.values():
             p.requires_grad_(True)
         try:
             with torch.enable_grad():
-                loss, logs = compute_losses(frozen, trainable, cfg, sched, stage, batch,
+                loss, logs = compute_losses(full_frozen, full, cfg, sched, stage, batch,
                                             noise, task, te_loss_fn)
                 grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         finally:
@@ -198,10 +242,14 @@ def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
                 p.requires_grad_(False)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
-        tx.update(opt_state, params, grads)
+        like = trained_leaves(stage, trainable)
         logs = {k: v.detach() for k, v in logs.items()}
-        logs["train/grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads.values()]))
+        if group is not None:
+            grads = FSDP.reduce_gradients(grads, like, group)
+            logs = global_logs(logs, group)
+        tx.update(opt_state, like, grads, group)
+        logs["train/grad_norm"] = FSDP.global_norm({k: g.float() for k, g in grads.items()},
+                                                   like, group)
         return trainable, opt_state, logs
 
     step.task = task
