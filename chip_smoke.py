@@ -251,6 +251,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``chip_smoke.py --worker fit|train ...`` by torchrun. Every (kernel, shape)
    they met that was not held yet is held to its plain version (rows with
    ``"path": "fit_ddp"`` / ``"train_ddp2"``);
+17. (run after phase 16) the 2-D (data, spatial) mesh: ``restore_padded``
+   with a ``spatial_batch_sharding`` of ``make_mesh_2d(1, 2)``, two ranks on
+   the one card over gloo, each restoring half of the height (halo rows,
+   partial sums and attention gathers by hand, ``parallel/spatial.py``): (a)
+   full width, fp32, 256 px, batch 2, 2 steps, the assembled output against
+   the single-process restore on the card within ``REFERENCE_ATOL``, launches
+   per rank the single process's; (b) full width, bf16, 512 px, batch 4, 20
+   steps, exact and deep: finite, launches per rank phase 4's per restore,
+   seconds a restore per rank, peak and held memory per rank against the
+   single-process restore's, the collectives by kind and (a second exact
+   restore with the card synchronised around each) their seconds, the
+   card's busy seconds by kernel family in a one-step restore on each rank
+   and in the single-process one (each rank runs the whole image's
+   attention), the assembled output in uint8 levels and PSNR against the
+   single-process restore of the same batch and noise. The ranks are this
+   script run as
+   ``chip_smoke.py --worker spatial ...`` by torchrun; every (kernel, shape)
+   they met that was not held yet (the grouped conv on haloed slabs) is held
+   to its plain version (rows with ``"path": "spatial"``);
 10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
@@ -267,7 +286,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    graph's launches at capture times its replays; ``train_spade``: phase
    15's twelve steps; ``fit_ddp`` and ``fit_fsdp``: phase 16's world-1 fits;
    ``train_ddp2`` and ``train_fsdp2``: phase 16's two-rank steps, both
-   ranks); each kernel must
+   ranks; ``spatial_exact`` and ``spatial_deep``: phase 17's bf16 restores,
+   both ranks); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -512,6 +532,25 @@ DEEPLAB_RTOL = 1e-4
 DDP_STEPS, DDP_WORLD = 2, 2
 STATE_WORLDS = (2, 4, 8)
 DDP_TIMEOUT = 300
+# phase 17: the 2-D (data, spatial) mesh, ``make_mesh_2d(1, SPATIAL_WORLD)``:
+# SPATIAL_WORLD ranks on the one card over gloo, each restoring a slab of the
+# height (``restore_padded(..., sharding=)``). (a) full width, fp32, 256 px,
+# batch SPATIAL_REF_BATCH, 2 DDIM steps, the assembled output against the
+# single-process fp32 restore of the same inputs and noise on the card within
+# REFERENCE_ATOL; (b) full width, bf16, 512 px, batch SPATIAL_BATCH, STEPS
+# steps in SPATIAL_MODES (phase 4's stride and warmup): seconds a restore per
+# rank, peak and held memory per rank against the single-process restore's,
+# collectives by kind and, in a second exact restore with the card
+# synchronised around each, their seconds; in a profiled one-step restore,
+# the card's busy seconds by kernel family (and one process's); the assembled
+# output in uint8 levels and PSNR against the single-process restore of the
+# same batch and noise; launches per rank as phase 4's per restore (attention
+# runs on the gathered sequence, the grouped conv on haloed slabs)
+SPATIAL_WORLD = 2
+SPATIAL_REF_BATCH, SPATIAL_REF_RES = 2, 256
+SPATIAL_BATCH = 4
+SPATIAL_MODES = (("none", "none", 2, 0), ("deep", "deep", 17, 3))
+SPATIAL_PATHS = {"none": "spatial_exact", "deep": "spatial_deep"}
 
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
@@ -3614,15 +3653,17 @@ def train_worker(out: str) -> None:
 
 
 def worker(args: list) -> int:
-    """A rank of phase 16 under torchrun: ``fit <out> <main argv...>`` or
-    ``train <out>``."""
+    """A rank of phase 16 or 17 under torchrun: ``fit <out> <main argv...>``,
+    ``train <out>`` or ``spatial <out>``."""
     kind, out, *rest = args
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if kind == "fit":
         fit_worker(out, rest)
-    else:
+    elif kind == "train":
         train_worker(out)
+    else:
+        spatial_worker(out)
     return 0
 
 
@@ -3794,6 +3835,227 @@ def run_phase16(K, G, KN, TE, UR, rows, gen, reference16, training, work: Path) 
         f"{result['phase_seconds']:.1f} s")
     return result, paths
 
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the 2-D (data, spatial) mesh
+# ---------------------------------------------------------------------------
+
+
+def spatial_worker(out: str) -> None:
+    """Phase 17, one of ``SPATIAL_WORLD`` ranks on the one card over gloo, on
+    ``make_mesh_2d(1, SPATIAL_WORLD)``: (a) and (b) of ``SPATIAL_MODES``; rank 0
+    then runs the single-process restores of the same inputs and noise while
+    the other ranks wait. Writes ``<out>.<rank>.json``."""
+    import torch.distributed as dist
+
+    from unirestore_torch import bridge
+    from unirestore_torch.models import unirestore as UR
+    from unirestore_torch.nn import kernels as KN
+    from unirestore_torch.parallel import distributed as DIST
+    from unirestore_torch.parallel import mesh as MESH
+
+    DIST.init_distributed(force=True, backend="gloo", device="cuda:0")
+    try:
+        t_start = time.perf_counter()
+        KN.build_all()
+        rank = DIST.rank()
+        sharding = MESH.spatial_batch_sharding(MESH.make_mesh_2d(1, SPATIAL_WORLD))
+        timed = MESH.spatial_batch_sharding(sharding.mesh, timed=True)
+        cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
+        result = {"coordinate": sharding.coordinate, "backend": dist.get_backend()}
+
+        def restore(c, trees, images, noise, steps, task, sh=None):
+            x = images if sh is None else sh.local(images)
+            return UR.restore_padded(*trees, c, UR.schedule(c), x, task, num_inference_steps=steps,
+                                     posterior_noise=noise[0], diffusion_noise=noise[1],
+                                     device="cuda", sharding=sh)
+
+        # (a) fp32 at 256 px against the single-process restore on the card
+        trees = make_params(UR, bridge, cfg, torch.float32, seed=5)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        images = torch.rand((SPATIAL_REF_BATCH, SPATIAL_REF_RES, SPATIAL_REF_RES, 3),
+                            generator=gen, device="cuda")
+        noise = UR.restore_noise(cfg, images.shape, images.dtype, gen, "cuda")
+        KN.reset_counts()
+        got = sharding.assemble(restore(cfg, trees, images, noise, 2, "seg", sharding))
+        ref_a = {"launches": list(counts_of(KN)),
+                 "collectives": dict(sharding.last_context.counts)}
+        if rank == 0:
+            KN.reset_counts()
+            want = restore(cfg, trees, images, noise, 2, "seg")
+            ref_a.update(max_abs_err=(got - want).abs().max().item(),
+                         finite=bool(torch.isfinite(got).all()),
+                         single_launches=list(counts_of(KN)))
+        result["reference"] = ref_a
+        dist.barrier()
+        del trees, got
+        torch.cuda.empty_cache()
+
+        # (b) bf16 at 512 px: the sharded restores, then rank 0's single-process ones
+        trees = make_params(UR, bridge, cfg, torch.bfloat16, seed=1)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        images = torch.rand((SPATIAL_BATCH, RES, RES, 3), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        noise = UR.restore_noise(cfg, images.shape, images.dtype, gen, "cuda")
+        restore(cfg, trees, images, noise, 1, "ir", sharding)  # warm-up: every shape once
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        result["held_gib"] = torch.cuda.memory_allocated() / 2**30
+        result["setup_seconds"] = time.perf_counter() - t_start
+        modes, outs = {}, {}
+        for name, mode, stride, warmup in SPATIAL_MODES:
+            c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride, cache_warmup=warmup)
+            KN.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_local = restore(c, trees, images, noise, STEPS, "ir", sharding)
+            torch.cuda.synchronize()
+            row = {"seconds": time.perf_counter() - t0, "launches": list(counts_of(KN)),
+                   "launches_by_kernel": {kern.symbol: kern.launches for kern in KN.KERNELS},
+                   "shapes": shapes_to_json(KN),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "collectives": dict(sharding.last_context.counts),
+                   "collective_host_s_untimed": sum(sharding.last_context.seconds.values())}
+            outs[name] = sharding.assemble(out_local)
+            row["finite"] = bool(torch.isfinite(outs[name]).all())
+            if name == "none":  # the collectives alone: the card synchronised around each
+                dist.barrier()
+                t0 = time.perf_counter()
+                restore(c, trees, images, noise, STEPS, "ir", timed)
+                torch.cuda.synchronize()
+                ctx = timed.last_context
+                row.update(timed_restore_seconds=time.perf_counter() - t0,
+                           collective_seconds=dict(ctx.seconds))
+                # the card's busy time by kernel family in a one-step restore
+                # (the profiler's cost grows with the collectives): each rank
+                # runs the attention of the whole image
+                dist.barrier()
+                row["profile"] = spatial_profile(lambda: restore(c, trees, images, noise, 1,
+                                                                 "ir", sharding))
+            modes[name] = row
+        dist.barrier()
+        if rank == 0:
+            for name, mode, stride, warmup in SPATIAL_MODES:
+                c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride,
+                                        cache_warmup=warmup)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = restore(c, trees, images, noise, STEPS, "ir")
+                torch.cuda.synchronize()
+                modes[name].update(single_seconds=time.perf_counter() - t0,
+                                   single_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                   uint8_levels=uint8_levels(outs[name], want),
+                                   max_abs_vs_single=(outs[name].float() - want.float()).abs()
+                                   .max().item(),
+                                   psnr_vs_single=psnr_u8(outs[name], want))
+                if "profile" in modes[name]:
+                    modes[name]["single_profile"] = spatial_profile(
+                        lambda: restore(c, trees, images, noise, 1, "ir"))
+        dist.barrier()
+        result["modes"] = modes
+        Path(f"{out}.{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def spatial_profile(fn) -> dict:
+    """``profiled_device(fn)``: the card's busy seconds, those of the repo's
+    attention kernels, and the busy seconds by kernel family."""
+    prof = profiled_device(fn)
+    return {"device_busy_s": prof["device_busy_s"],
+            "attention_s": sum(v for k, v in prof["device_s_by_family"].items()
+                               if "attention" in k),
+            "device_s_by_family": prof["device_s_by_family"]}
+
+
+def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
+    """Phase 17: (a) and (b) in one torchrun of ``SPATIAL_WORLD`` ranks; then
+    phase 3's comparison at every (kernel, shape) (b) met that was not held
+    yet (the grouped conv on haloed slabs). Returns (result, launches by path)."""
+    t0 = time.perf_counter()
+    out = work / "spatial_rank"
+    [(_, sec)] = torchrun((SPATIAL_WORLD, [str(REPO / "chip_smoke.py"), "--worker", "spatial",
+                                           str(out)], work / "spatial.log"))
+    ranks = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(SPATIAL_WORLD)]
+    r0 = ranks[0]
+    ref = r0["reference"]
+    log(f"spatial (a) fp32 {SPATIAL_REF_RES} px batch {SPATIAL_REF_BATCH}, 2 steps, "
+        f"make_mesh_2d(1, {SPATIAL_WORLD}) over {r0['backend']}: assembled vs single-process "
+        f"on the card max abs {ref['max_abs_err']:.3e} (limit {REFERENCE_ATOL}); launches per "
+        f"rank {[r['reference']['launches'] for r in ranks]}, single {ref['single_launches']}; "
+        f"collectives per rank {ref['collectives']}")
+    if not (ref["finite"] and ref["max_abs_err"] <= REFERENCE_ATOL):
+        raise AssertionError(f"spatial (a): sharded and single-process restores differ: {ref}")
+    if any(r["reference"]["launches"] != ref["single_launches"] for r in ranks):
+        raise AssertionError(f"spatial (a): launches per rank "
+                             f"{[r['reference']['launches'] for r in ranks]} != single "
+                             f"{ref['single_launches']}")
+    result = {"world": SPATIAL_WORLD, "backend": r0["backend"], "reference": ref,
+              "held_gib_by_rank": [r["held_gib"] for r in ranks],
+              "setup_seconds_by_rank": [r["setup_seconds"] for r in ranks], "modes": {}}
+    paths, shapes = {}, {kern.symbol: set() for kern in KN.KERNELS}
+    for name, mode, stride, warmup in SPATIAL_MODES:
+        rows_ = [r["modes"][name] for r in ranks]
+        want = list(EXPECTED[name])
+        bad = [row["launches"] for row in rows_ if row["launches"] != want]
+        if bad or not all(row["finite"] for row in rows_):
+            raise AssertionError(f"spatial {name}: launches per rank "
+                                 f"{[row['launches'] for row in rows_]} (expected {want}) or "
+                                 f"non-finite output")
+        paths[SPATIAL_PATHS[name]] = {s: sum(row["launches_by_kernel"][s] for row in rows_)
+                                      for s in rows_[0]["launches_by_kernel"]}
+        for row in rows_:
+            shapes = merge_shapes(shapes, shapes_from_json(row["shapes"]))
+        m = rows_[0]
+        entry = {"mode": mode, "stride": stride, "warmup": warmup,
+                 "seconds_by_rank": [row["seconds"] for row in rows_],
+                 "img_per_s": SPATIAL_BATCH / max(row["seconds"] for row in rows_),
+                 "peak_gib_by_rank": [row["peak_gib"] for row in rows_],
+                 "single_seconds": m["single_seconds"], "single_peak_gib": m["single_peak_gib"],
+                 "collectives_per_rank": m["collectives"], "launches_per_rank": m["launches"],
+                 "uint8_levels_vs_single": m["uint8_levels"],
+                 "max_abs_vs_single": m["max_abs_vs_single"],
+                 "psnr_vs_single": m["psnr_vs_single"]}
+        if "collective_seconds" in m:
+            entry.update(timed_restore_seconds_by_rank=[row["timed_restore_seconds"]
+                                                        for row in rows_],
+                         collective_seconds_by_rank=[row["collective_seconds"] for row in rows_],
+                         collective_share_by_rank=[sum(row["collective_seconds"].values())
+                                                   / row["timed_restore_seconds"]
+                                                   for row in rows_],
+                         profile_by_rank=[row["profile"] for row in rows_],
+                         single_profile=m["single_profile"])
+        result["modes"][name] = entry
+        log(f"spatial (b) {name} bf16 {RES} px batch {SPATIAL_BATCH}, {STEPS} steps: s per "
+            f"restore by rank {entry['seconds_by_rank']} (single process "
+            f"{entry['single_seconds']:.3f} s); peak GiB by rank {entry['peak_gib_by_rank']}, "
+            f"held {result['held_gib_by_rank']}, single-process peak "
+            f"{entry['single_peak_gib']:.2f}; collectives per rank and restore "
+            f"{entry['collectives_per_rank']}"
+            + (f"; with the card synchronised around each: {entry['collective_seconds_by_rank']}"
+               f" s of {entry['timed_restore_seconds_by_rank']} s (share "
+               f"{entry['collective_share_by_rank']}); one-step restore profiled: the card "
+               f"busy {[p['device_busy_s'] for p in entry['profile_by_rank']]} s by rank, "
+               f"attention kernels {[p['attention_s'] for p in entry['profile_by_rank']]} s "
+               f"(single process: busy {entry['single_profile']['device_busy_s']:.4f} s, "
+               f"attention {entry['single_profile']['attention_s']:.4f} s)"
+               if "collective_seconds" in m else "")
+            + f"; vs single process: {entry['uint8_levels_vs_single']} uint8 levels, max abs "
+            f"{entry['max_abs_vs_single']:.3e}, PSNR {entry['psnr_vs_single']:.2f} dB; launches "
+            f"per rank {entry['launches_per_rank']} (phase 4's)")
+    result["torchrun_seconds"] = sec
+    result["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes, rows, gen,
+                                                        path="spatial")
+    result["phase_seconds"] = time.perf_counter() - t0
+    log(f"spatial: {result['shapes_added_to_phase3']} (kernel, shape) pairs held to their plain "
+        f"versions after phase 17; torchrun {sec:.1f} s, phase 17 took "
+        f"{result['phase_seconds']:.1f} s")
+    return result, paths
 
 
 def main() -> int:
@@ -3972,6 +4234,12 @@ def main() -> int:
         del reference16
         torch.cuda.empty_cache()
 
+        # phase 17: restore_padded on height-sharded images, make_mesh_2d(1, 2)
+        # with two gloo ranks on the card; phase 3's comparison at new shapes
+        spatial, spatial_paths = run_phase17(K, G, KN, rows, gen, Path(work))
+        paths.update(spatial_paths)
+        torch.cuda.empty_cache()
+
     # phase 10: report; a path routes to a kernel when its expected count is not 0
     routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
                           for i in range(len(KN.KERNELS))],
@@ -3993,7 +4261,8 @@ def main() -> int:
                   **{SPADE_PATHS[run[0]]: list(EXPECTED[run[0]]) for run in SPADE_RUNS},
                   train_spade=[EXPECTED_TRAIN_SPADE[kern.symbol][0] for kern in KN.KERNELS],
                   **{path: routes["train"] for path in ("fit_ddp", "fit_fsdp", "train_ddp2",
-                                                        "train_fsdp2")})
+                                                        "train_fsdp2")},
+                  **{path: list(EXPECTED[name]) for name, path in SPATIAL_PATHS.items()})
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -4037,6 +4306,7 @@ def main() -> int:
     log(json.dumps({"validate_nr": nr14}))
     log(json.dumps({"spade": spade}))
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"spatial": spatial}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

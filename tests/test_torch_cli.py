@@ -58,7 +58,9 @@ import pytest
 import torch
 
 from test_torch_bridge import to_np
-from test_torch_data import make_smoke_tree
+# same_native_availability is autouse: the port's fits take the corruption
+# path (native kernels or numpy) that the JAX fits took in this process
+from test_torch_data import make_smoke_tree, same_native_availability  # noqa: F401
 from test_torch_eval import filled_init, jax_layout
 from test_torch_tasks import jax_critics
 from test_torch_train import _jax_noise

@@ -36,12 +36,15 @@ import pytest
 import torch
 
 from test_torch_bridge import to_np
-from test_torch_data import make_smoke_tree
+# same_native_availability is autouse: the port's fits take the corruption
+# path (native kernels or numpy) that the JAX fits took in this process
+from test_torch_data import make_smoke_tree, same_native_availability  # noqa: F401
 from test_torch_eval import _fixed_restore, filled_init, jax_layout
 from test_torch_tasks import _randomize_bn
 from test_torch_train import _jax_noise
 from unirestore_torch import bridge, tasks
 from unirestore_torch import config as TC
+from unirestore_torch.data.corruption import imagenet_c as TIC
 from unirestore_torch import main as TMAIN
 from unirestore_torch.models import unirestore as TUR
 from unirestore_torch.tasks import classifier_zoo as TCZ
@@ -50,6 +53,7 @@ from unirestore_torch.train import checkpoints as TCK
 from unirestore_torch.train import engine as TE
 from unirestore_torch.train import optim as TOPT
 from unirestore_tpu import config as JC
+from unirestore_tpu.data.corruption import imagenet_c as JIC
 from unirestore_tpu.models import unirestore as JUR
 from unirestore_tpu.parallel import mesh as JMESH
 from unirestore_tpu.tasks import classifier_zoo as JCZ
@@ -187,6 +191,16 @@ def test_engine_fit_matches_jax(task, smoke128, tmp_path, jax_fits, monkeypatch)
         else:  # the frozen families: bit-unchanged in both
             assert torch.equal(p, before[k]) and torch.equal(want[k], before[k]), k
     assert f"tfa//task_prompts//{task}" in moved
+
+
+def test_port_fits_take_the_jax_corruption_path():
+    """Each package decides at import whether its ImageNet-C copy takes the
+    native kernels, which draw other random numbers than the numpy paths; a
+    worker that imported one copy while another process was still building the
+    library takes numpy there alone, and its fits then see other images (the
+    ``cls`` fit read 41 % of a TFA leaf's entries up to 9.9e-5 from JAX's). The
+    module's fits run with the port's choice pinned to the JAX copy's."""
+    assert TIC._USE_NATIVE == JIC._USE_NATIVE
 
 
 @pytest.fixture(scope="module")

@@ -50,6 +50,21 @@ def same_native_availability(monkeypatch):
     monkeypatch.setattr(TIC, "_USE_NATIVE", JIC._USE_NATIVE)
 
 
+def test_a_copy_without_the_native_kernels_corrupts_otherwise(monkeypatch):
+    """Why the copies are pinned together: with one copy on the native kernels
+    and the other on the numpy paths, the same seeded fog differs."""
+    if not (TNAT.available() and JNAT.available()):
+        pytest.skip("native/libcorruption_kernels.so did not load")
+    img = (np.random.default_rng(3).uniform(size=(48, 40, 3)) * 255).astype(np.uint8)
+
+    def both():
+        return [mod.corrupt(img, 3, "fog", rng=np.random.default_rng(4)) for mod in (TIC, JIC)]
+
+    np.testing.assert_array_equal(*both())
+    monkeypatch.setattr(TIC, "_USE_NATIVE", not JIC._USE_NATIVE)
+    assert not np.array_equal(*both())
+
+
 def _engine(mod, ir_list, workers):
     return mod.DatasetEngine(
         task="ir", train={"type": "div2kost", "resolution": 64, "batch_size": 2},

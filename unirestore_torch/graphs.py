@@ -27,6 +27,7 @@ import torch
 from .device import resolve_device
 from .models import unirestore as UR
 from .nn import kernels as KN
+from .parallel import spatial as SP
 
 MAX_GRAPHS = 16  # the JAX server's MAX_JITS (tools/serve.py)
 
@@ -89,6 +90,11 @@ def _launch_counts() -> dict:
     return {kern.symbol: kern.launches for kern in KN.KERNELS}
 
 
+def _refuse_spatial() -> None:
+    SP.refuse("GraphedRestore", "it captures restore_core, whose resize and reflect-pad read "
+              "the whole image")
+
+
 class GraphedRestore:
     """``restore`` of one model replayed from CUDA graphs, one per key.
 
@@ -122,12 +128,13 @@ class GraphedRestore:
       replaced or freed after a capture (rebinding ``frozen`` / ``trainable``
       leaves needs a new instance).
     - No fallback: a CPU device, or any failure to warm up, capture or
-      replay, raises.
+      replay, raises; so does a spatial context (``parallel/spatial.py``).
 
     ``stats`` maps each key to its ``GraphStats``.
     """
 
     def __init__(self, frozen, trainable, cfg, sched, device=None, max_graphs: int = MAX_GRAPHS):
+        _refuse_spatial()
         dev = resolve_device(device)
         if dev.type != "cuda":
             raise ValueError(f"GraphedRestore needs a CUDA device, got {dev}; "
@@ -145,6 +152,7 @@ class GraphedRestore:
 
     def __call__(self, images, task, generator=None, num_inference_steps=None, *,
                  posterior_noise=None, diffusion_noise=None):
+        _refuse_spatial()
         with torch.inference_mode(), torch.cuda.device(self.device):
             x = torch.as_tensor(images, device=self.device)
             post, diff = UR.restore_noise(self.cfg, UR.padded_shape(x.shape, self.cfg), x.dtype,

@@ -15,6 +15,7 @@ from __future__ import annotations
 from ..nn import grouped_conv as GC
 from ..nn import layers as L
 from ..nn import remat as RM
+from ..parallel import spatial as SP
 from .nafnet import naf_block, naf_block_init
 
 GROUPS = 16
@@ -35,10 +36,16 @@ def ada_naf_v2_init(ini, c: int):
 
 
 def _grouped_conv3(p, x):
-    """The AdaNAF grouped 3x3: the kernel where it takes the shape, else cuDNN's."""
+    """The AdaNAF grouped 3x3: the kernel where it takes the shape, else cuDNN's.
+
+    On a height-sharded slab (``parallel/spatial.py``) the kernel runs on the
+    slab with a halo row of each neighbour, (B, h + 2, W, C), and the first and
+    last output rows, which read the kernel's own zero padding, are dropped."""
     if GC.supported(x.shape, p["w"].shape, GROUPS):
         b = p["b"].to(x.dtype) if "b" in p else None
-        return GC.grouped_conv3(x, p["w"].to(x.dtype), b, GROUPS)
+        if SP.current() is None:
+            return GC.grouped_conv3(x, p["w"].to(x.dtype), b, GROUPS)
+        return GC.grouped_conv3(SP.halo(x, 1, 1), p["w"].to(x.dtype), b, GROUPS)[:, 1:-1]
     return L.conv2d(p, x, padding=1, groups=GROUPS)
 
 

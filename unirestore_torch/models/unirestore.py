@@ -22,6 +22,7 @@ copy nothing from or to the host and so can be captured in a CUDA graph
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -31,6 +32,7 @@ from ..diffusion import schedules as D
 from ..nn import attention as ATT
 from ..nn.init import make_init
 from ..ops import resize as RS
+from ..parallel import spatial as SP
 from . import controller as CTRL
 from . import unet as UN
 from . import vae as VAE
@@ -308,22 +310,67 @@ def restore_padded_core(frozen, trainable, cfg, sched, images, task, posterior_n
         return decode(frozen, trainable, cfg, zt, skips, task)
 
 
+def spatial_levels(cfg, height: int) -> list:
+    """(name, rows) of every map a restore of images ``height`` rows high runs
+    at, down to the UNet's and Controller's coarsest (latent / 8 at sd-turbo's
+    widths)."""
+    n_vae = len(cfg.vae.block_out_channels) - 1
+    out = [("image", height)] + [(f"VAE encoder level {k} (image / {2 ** k})", height // 2 ** k)
+                                 for k in range(1, n_vae + 1)]
+    if cfg.use_cnet:
+        latent = height // 2 ** n_vae
+        n_unet = max(len(cfg.unet.block_out_channels), len(cfg.controller.channel_mult)) - 1
+        out += [(f"UNet level {k} (latent / {2 ** k})", latent // 2 ** k)
+                for k in range(1, n_unet + 1)]
+    return out
+
+
+def check_spatial_heights(cfg, height: int, spatial: int) -> None:
+    """Raise ``ValueError`` naming the first map whose height the ``spatial``
+    ranks do not divide: every level's slab must be whole (and even where it is
+    downsampled). GSPMD pads uneven shards; the port refuses them."""
+    levels = spatial_levels(cfg, height)
+    for k, (name, rows) in enumerate(levels):
+        if rows * 2 ** k != height or rows % spatial:
+            raise ValueError(f"spatial sharding over {spatial} ranks: the {name} is {rows} rows "
+                             f"high (images {height} rows), not a whole slab a rank")
+
+
 def restore_padded(frozen, trainable, cfg, sched, images, task, generator=None,
                    num_inference_steps=None, *, posterior_noise=None,
-                   diffusion_noise=None, device=None):
+                   diffusion_noise=None, device=None, sharding=None):
     """Restore images whose H/W are already multiples of pad_multiple.
 
     ``posterior_noise`` (shape of the /8 latent mean) and ``diffusion_noise``
     (shape of the latents) are used when given, else drawn from ``generator``
     (``restore_noise``); then ``restore_padded_core``.
+
+    With ``sharding`` (``parallel.spatial_batch_sharding``), ``images`` is this
+    rank's block of a global batch (rows over ``data``, a slab of the height
+    over ``spatial``) and the result is this rank's block of the global
+    result (``sharding.assemble`` puts it together). The noise is drawn, or
+    given, at the global latent shape and cut to the rank's block, so that a
+    sharded and a single-process restore take the same numbers from the same
+    seed. A spatial axis of more than one rank runs the restore under the
+    partition context of ``parallel/spatial.py`` (``sharding.last_context``
+    then holds its collective counts), after ``check_spatial_heights``.
     """
+    if sharding is None:
+        SP.refuse("restore_padded without its sharding", "pass sharding= for a rank's slab")
     dev = resolve_device(device)
     with torch.inference_mode():
         images = torch.as_tensor(images, device=dev)
-        post, diff = restore_noise(cfg, images.shape, images.dtype, generator, dev,
+        shape = images.shape if sharding is None else sharding.global_shape(images.shape)
+        ctx = None if sharding is None else sharding.context(shape[1])
+        if ctx is not None:
+            check_spatial_heights(cfg, shape[1], ctx.size)
+        post, diff = restore_noise(cfg, shape, images.dtype, generator, dev,
                                    posterior_noise, diffusion_noise)
-        return restore_padded_core(frozen, trainable, cfg, sched.to(dev), images, task, post,
-                                   diff, num_inference_steps)
+        if sharding is not None:
+            post, diff = (None if n is None else sharding.local(n) for n in (post, diff))
+        with SP.partition(ctx) if ctx is not None else contextlib.nullcontext():
+            return restore_padded_core(frozen, trainable, cfg, sched.to(dev), images, task, post,
+                                       diff, num_inference_steps)
 
 
 def preprocess_shape(h: int, w: int, cfg: UniRestoreConfig):
@@ -348,7 +395,10 @@ def restore_core(frozen, trainable, cfg, sched, images, task, posterior_noise, d
     """The device-only work of ``restore`` (resize and reflect-pad,
     ``restore_padded_core``, crop and resize back): every input already a
     tensor on the device, the noise given. This is what ``graphs.GraphedRestore``
-    captures."""
+    captures. It refuses height-sharded images (``parallel/spatial.py``): the
+    bicubic resize and the reflect-pad read rows of the whole image."""
+    SP.refuse("restore", "its resize and reflect-pad read the whole image; "
+              "use restore_padded with a sharding")
     with torch.inference_mode():
         org_h, org_w = images.shape[1:3]
         h, w, pad_h, pad_w = preprocess_shape(org_h, org_w, cfg)

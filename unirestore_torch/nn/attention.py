@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from ..parallel import spatial as SP
 from . import attention_kernels as K
 from . import layers as L
 
@@ -104,7 +105,19 @@ def _head_major(y, heads: int):
 
 
 def mha(p, x, context=None, heads: int = 8):
-    """Multi-head attention over (B, T, C) with optional (B, S, Cctx) context."""
+    """Multi-head attention over (B, T, C) with optional (B, S, Cctx) context.
+
+    Self-attention over a height-sharded slab's tokens (``parallel/spatial.py``)
+    gathers every rank's tokens to the global (B, T, C), runs whole, so that
+    the routing sees the global T, and keeps this rank's rows: what GSPMD does
+    with a ``pallas_call`` it cannot partition. Cross-attention to the text
+    context runs on the slab."""
+    if context is None and SP.current() is not None:
+        return SP.local_rows(_mha(p, SP.gather_rows(x), None, heads), x.shape[1])
+    return _mha(p, x, context, heads)
+
+
+def _mha(p, x, context, heads: int):
     ctx = x if context is None else context
     b, t, _ = x.shape
     s = ctx.shape[1]

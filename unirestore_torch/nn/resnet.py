@@ -6,8 +6,6 @@ Mirrors ``unirestore_tpu/nn/resnet.py`` (diffusers ``ResnetBlock2D`` /
 
 from __future__ import annotations
 
-import torch.nn.functional as F
-
 from . import layers as L
 
 
@@ -49,10 +47,11 @@ def downsample_init(ini, channels: int):
 
 def downsample(p, x, pad_mode: str = "sym"):
     """Stride-2 3x3 conv. ``pad_mode``: "sym" (UNet, padding=1) or
-    "asym" (VAE encoder, zero-pad bottom/right by one, then VALID)."""
+    "asym" (VAE encoder, zero-pad bottom/right by one, then VALID). Output row
+    i reads input rows 2i - 1 .. 2i + 1 ("sym") or 2i .. 2i + 2 ("asym"): on
+    a height-sharded slab ``L.conv2d`` fetches the row above or below."""
     if pad_mode == "asym":
-        x = F.pad(x, (0, 0, 0, 1, 0, 1))
-        return L.conv2d(p["conv"], x, stride=2, padding="VALID")
+        return L.conv2d(p["conv"], x, stride=2, padding=((0, 1), (0, 1)))
     return L.conv2d(p["conv"], x, stride=2, padding=1)
 
 

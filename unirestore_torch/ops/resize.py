@@ -10,7 +10,9 @@ critics' preprocessing) and 2.4e-4 after CLIP's normalisation (bicubic,
 CLIP-IQA's preprocessing) from the exact positions' (and the JAX
 functions'). Neither antialiases when it shrinks. ``resize_bilinear_ac`` is
 the bilinear gather at ``align_corners=True`` positions (the RefineNet-LW
-top-down upsampling).
+top-down upsampling). Under a spatially sharded restore
+(``parallel/spatial.py``) a resize of the height and a reflect-pad of the
+height raise: they read rows of the whole image.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel import spatial as SP
 
 
 def _cubic_weights(frac: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -63,6 +67,8 @@ def _resize_axis(x, out_size: int, axis: int, kind: str = "linear",
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
+    if axis == 1:
+        SP.refuse("resizing the height", "each output row reads rows of the whole image")
     shape = [1] * x.ndim
     shape[axis] = out_size
     out = 0
@@ -94,5 +100,7 @@ def reflect_pad_hw(x, pad_h: int, pad_w: int):
     """Reflect-pad bottom/right by (pad_h, pad_w)."""
     if pad_h == 0 and pad_w == 0:
         return x
+    if pad_h:
+        SP.refuse("reflect-padding the height", "the padding mirrors the image's last rows")
     y = F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h), mode="reflect")
     return y.permute(0, 2, 3, 1)

@@ -39,6 +39,7 @@ import torch.distributed as dist
 from .. import bridge
 from ..models import unirestore as UR
 from ..parallel import fsdp as FSDP
+from ..parallel import spatial as SP
 from ..parallel.distributed import process_local_rows
 
 
@@ -227,6 +228,8 @@ def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
     cfg = with_remat(cfg) if remat else cfg
 
     def step(trainable, opt_state, batch, noise: StepNoise):
+        SP.refuse("the train step", "the spatial mesh is for inference (its losses, "
+                  "crops and gradients span the image)")
         full_frozen = FSDP.gather_tree(frozen, group)
         full = FSDP.gather_tree(trainable, group)
         params = trained_leaves(stage, full)
