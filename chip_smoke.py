@@ -94,9 +94,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``torch.cuda.set_sync_debug_mode("error")``. Then ``--trainer.resume auto
    --trainer.max_steps 8`` (``last.npz`` at step 8), ``predict`` (one PNG per
    image, each its input's size), a run without validation timed over
-   micro-steps 2-6 with the card synchronised at both ends, and a run
-   profiled over steps 2-6 (``--trainer.profiler``: device busy and idle
-   share). Reported: the timed run's s/step and train img/s beside phase
+   micro-steps 2-6 with the card synchronised at both ends, and a run of
+   ``FIT_PROFILED_STEPS`` micro-steps profiled over steps 2-3
+   (``--trainer.profiler``: device busy and idle share). Reported: the timed run's s/step and train img/s beside phase
    6's, the trainer's own ``[timing]`` p50 (the host time of a step call,
    which does not wait for the card), the loader wait per step, peak
    memory. Every (kernel, shape) the fit, resume and predict launched that
@@ -260,16 +260,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    per rank the single process's; (b) full width, bf16, 512 px, batch 4, 20
    steps, exact and deep: finite, launches per rank phase 4's per restore,
    seconds a restore per rank, peak and held memory per rank against the
-   single-process restore's, the collectives by kind and (a second exact
+   single-process restore's, the collectives by kind and (a one-step exact
    restore with the card synchronised around each) their seconds, the
    card's busy seconds by kernel family in a one-step restore on each rank
    and in the single-process one (each rank runs the whole image's
    attention), the assembled output in uint8 levels and PSNR against the
-   single-process restore of the same batch and noise. The ranks are this
-   script run as
+   single-process restore of the same batch and noise; uneven shards, whose
+   levels from the first the ranks cannot split run whole on both
+   (``models/unirestore.py:spatial_plan``): (c) full width, fp32, 320 px,
+   batch 2, 2 steps (UNet level 3, 5 rows, whole) as (a); (d) full width,
+   bf16, ``restore(..., sharding=)`` of four 500 x 375 originals (resized
+   and padded to 704 x 512; UNet level 3, 11 rows, whole), exact, 20 steps:
+   launches per rank and in one process (140, 280, 0, 0, 3), seconds a
+   restore per rank against one process, collectives by kind (and their
+   seconds in a one-step restore with the card synchronised around each), held and peak
+   memory per rank against one process's peak, the most a whole level added
+   to the card's memory in a one-step restore, uint8 levels and PSNR against
+   one process, the first whole level. The ranks are this script run as
    ``chip_smoke.py --worker spatial ...`` by torchrun; every (kernel, shape)
-   they met that was not held yet (the grouped conv on haloed slabs) is held
-   to its plain version (rows with ``"path": "spatial"``);
+   they met that was not held yet (the grouped conv on haloed slabs, the
+   attention kernels at 704 x 512) is held to its plain version (rows with
+   ``"path": "spatial"``);
 10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``. Per kernel,
    ``launches`` is the sum over the paths that drove it, which
@@ -287,7 +298,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    15's twelve steps; ``fit_ddp`` and ``fit_fsdp``: phase 16's world-1 fits;
    ``train_ddp2`` and ``train_fsdp2``: phase 16's two-rank steps, both
    ranks; ``spatial_exact`` and ``spatial_deep``: phase 17's bf16 restores,
-   both ranks); each kernel must
+   both ranks; ``spatial_restore``: phase 17's (d), both ranks); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -297,6 +308,7 @@ It needs one CUDA device and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -369,10 +381,14 @@ TRAIN_STEPS = 5
 # the smoke tree of tools/make_smoke_data.py at 576 px (576 x 592 images),
 # with dotted overrides only: the DIVF2KOST lists, 6 micro-steps (three AdamW
 # updates at accumulation 2), validation every 3 over 2 batches; then a
-# resume to step 8 and ``predict``; then a profiled run of steps 2-6
+# resume to step 8 and ``predict``; then a run of FIT_PROFILED_STEPS
+# micro-steps profiled over steps 2-3 (the trainer's trace window ends at the
+# run's last step; over steps 2-6, 129k kernels, the profiled run took about
+# five times as long as the same run unprofiled)
 FIT_YAML = REPO / "configs" / "train_stage1.yaml"
 FIT_RES = 576
 FIT_STEPS, FIT_VAL_EVERY, FIT_VAL_BATCHES, FIT_RESUME_STEPS = 6, 3, 2, 8
+FIT_PROFILED_STEPS = 3
 # every micro-step of the fit launches phase 6's per-step counts; every
 # validation restore (batch 1, 512 x 512 after the evaluator's center crop,
 # one DDIM step) one step's Controller and UNet attention (btc 14, bh 7), the
@@ -540,17 +556,39 @@ DDP_TIMEOUT = 300
 # REFERENCE_ATOL; (b) full width, bf16, 512 px, batch SPATIAL_BATCH, STEPS
 # steps in SPATIAL_MODES (phase 4's stride and warmup): seconds a restore per
 # rank, peak and held memory per rank against the single-process restore's,
-# collectives by kind and, in a second exact restore with the card
+# collectives by kind and, in a one-step exact restore with the card
 # synchronised around each, their seconds; in a profiled one-step restore,
 # the card's busy seconds by kernel family (and one process's); the assembled
 # output in uint8 levels and PSNR against the single-process restore of the
 # same batch and noise; launches per rank as phase 4's per restore (attention
 # runs on the gathered sequence, the grouped conv on haloed slabs)
+# Uneven shards (run inside the same ranks): (c) full width, fp32, 320 px,
+# batch SPATIAL_REF_BATCH, 2 steps, whose 5-row UNet level 3 two ranks cannot
+# split, so it runs whole on both: the assembled output against one process
+# on the card within REFERENCE_ATOL, launches per rank one process's; (d) full
+# width, bf16, ``restore(..., sharding=)`` of SPATIAL_BATCH originals of
+# SPATIAL_ORIGINALS (a 500 x 375 photo: resized to 683 x 512 and padded to
+# 704 x 512, whose 11-row UNet level 3 runs whole), exact, STEPS steps: s a
+# restore per rank against one process, collectives by kind (their seconds in
+# a one-step restore with the card synchronised around each), held and peak
+# memory per rank against one process's peak, the most a whole level added
+# to the card's memory, uint8 levels and PSNR against one process, the first
+# whole level; launches per rank SPATIAL_RESTORE_EXPECTED, one process's
 SPATIAL_WORLD = 2
 SPATIAL_REF_BATCH, SPATIAL_REF_RES = 2, 256
+SPATIAL_UNEVEN_RES = 320
 SPATIAL_BATCH = 4
 SPATIAL_MODES = (("none", "none", 2, 0), ("deep", "deep", 17, 3))
-SPATIAL_PATHS = {"none": "spatial_exact", "deep": "spatial_deep"}
+SPATIAL_PATHS = {"none": "spatial_exact", "deep": "spatial_deep", "restore": "spatial_restore"}
+SPATIAL_ORIGINALS = (500, 375)
+# launches per 704 x 512 exact restore at STEPS steps, (btc, bh, stream,
+# btc_out, grouped conv): a step's channel-flat self-attentions are the
+# UNet's five and the Controller's two at latent / 1 (T = 5632); at latent / 2
+# (T = 1408, not a multiple of 256) the UNet's five and the Controller's two
+# take the head-major kernel, as at latent / 4 (T = 352) the UNet's five and
+# the Controller's two; the VAE's mid-block attention (T = 5632, not a
+# multiple of 1024) runs plain, as it does in one process
+SPATIAL_RESTORE_EXPECTED = (140, 280, 0, 0, 3)
 
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
@@ -1924,10 +1962,11 @@ def fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
         f"{timed['host_step_call_p50_s']:.4f} s")
     torch.cuda.empty_cache()
 
-    # profiled: steps 2-6 under torch.profiler (trainer.profiler), no validation
+    # profiled: steps 2-3 under torch.profiler (trainer.profiler), no validation
     KN.reset_counts()
     _, profiled = main_fn(fit_argv("fit", data_dir, work / "profiled", "--trainer.profiler",
-                                   str(work / "trace"), *no_val))
+                                   str(work / "trace"), "--trainer.max_steps",
+                                   str(FIT_PROFILED_STEPS), *no_val))
     shapes = merge_shapes(shapes, kernel_shapes_met(KN))
     prof = profiled.profile
     log(f"profiled fit, steps {prof.get('steps')}: device busy "
@@ -2045,7 +2084,10 @@ def fit2_argv(command, data_dir: Path, root: Path, *extra, steps: int = FIT2_STE
 def profiled_device(fn) -> dict:
     """``fn()`` once under ``torch.profiler``: the card's busy seconds, by
     kernel family (``tools/profile_torch_restore.py:family``) and in all, the
-    number of kernels, and the eight kernel names that took the most time."""
+    number of kernels, and the eight kernel names that took the most time.
+    The card's events are read from the profiler's raw kineto results: the
+    ``prof.events()`` tree of a validation's 50k kernels takes seconds of host
+    time to build, the raw list a tenth of it."""
     import importlib.util
 
     from torch.profiler import ProfilerActivity, profile
@@ -2059,11 +2101,12 @@ def profiled_device(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     by_family, by_name, n = {}, {}, 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
-            fam, sec = tool.family(evt.name), evt.time_range.elapsed_us() / 1e6
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation():
+            name, sec = evt.name(), evt.duration_ns() / 1e9
+            fam = tool.family(name)
             by_family[fam] = by_family.get(fam, 0.0) + sec
-            by_name[evt.name[:120]] = by_name.get(evt.name[:120], 0.0) + sec
+            by_name[name[:120]] = by_name.get(name[:120], 0.0) + sec
             n += 1
     return {"device_busy_s": sum(by_family.values()), "kernels": n,
             "device_s_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
@@ -3844,9 +3887,9 @@ def run_phase16(K, G, KN, TE, UR, rows, gen, reference16, training, work: Path) 
 
 def spatial_worker(out: str) -> None:
     """Phase 17, one of ``SPATIAL_WORLD`` ranks on the one card over gloo, on
-    ``make_mesh_2d(1, SPATIAL_WORLD)``: (a) and (b) of ``SPATIAL_MODES``; rank 0
-    then runs the single-process restores of the same inputs and noise while
-    the other ranks wait. Writes ``<out>.<rank>.json``."""
+    ``make_mesh_2d(1, SPATIAL_WORLD)``: (a), (c), (b) of ``SPATIAL_MODES`` and
+    (d); rank 0 runs the single-process restores of the same inputs and noise
+    while the other ranks wait. Writes ``<out>.<rank>.json``."""
     import torch.distributed as dist
 
     from unirestore_torch import bridge
@@ -3854,6 +3897,7 @@ def spatial_worker(out: str) -> None:
     from unirestore_torch.nn import kernels as KN
     from unirestore_torch.parallel import distributed as DIST
     from unirestore_torch.parallel import mesh as MESH
+    from unirestore_torch.parallel import spatial as SP
 
     DIST.init_distributed(force=True, backend="gloo", device="cuda:0")
     try:
@@ -3871,25 +3915,31 @@ def spatial_worker(out: str) -> None:
                                      posterior_noise=noise[0], diffusion_noise=noise[1],
                                      device="cuda", sharding=sh)
 
-        # (a) fp32 at 256 px against the single-process restore on the card
-        trees = make_params(UR, bridge, cfg, torch.float32, seed=5)
-        gen = torch.Generator(device="cuda").manual_seed(6)
-        images = torch.rand((SPATIAL_REF_BATCH, SPATIAL_REF_RES, SPATIAL_REF_RES, 3),
-                            generator=gen, device="cuda")
-        noise = UR.restore_noise(cfg, images.shape, images.dtype, gen, "cuda")
-        KN.reset_counts()
-        got = sharding.assemble(restore(cfg, trees, images, noise, 2, "seg", sharding))
-        ref_a = {"launches": list(counts_of(KN)),
-                 "collectives": dict(sharding.last_context.counts)}
-        if rank == 0:
+        def against_single(res, steps, seed):
+            """The fp32 restore of a seeded batch of ``res`` px, 2 steps,
+            assembled, against rank 0's single-process restore."""
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            images = torch.rand((SPATIAL_REF_BATCH, res, res, 3), generator=gen, device="cuda")
+            noise = UR.restore_noise(cfg, images.shape, images.dtype, gen, "cuda")
             KN.reset_counts()
-            want = restore(cfg, trees, images, noise, 2, "seg")
-            ref_a.update(max_abs_err=(got - want).abs().max().item(),
-                         finite=bool(torch.isfinite(got).all()),
-                         single_launches=list(counts_of(KN)))
-        result["reference"] = ref_a
-        dist.barrier()
-        del trees, got
+            got = sharding.assemble(restore(cfg, trees, images, noise, steps, "seg", sharding))
+            ctx = sharding.last_context
+            row = {"launches": list(counts_of(KN)), "collectives": dict(ctx.counts),
+                   "whole_level": ctx.whole_level}
+            if rank == 0:
+                KN.reset_counts()
+                want = restore(cfg, trees, images, noise, steps, "seg")
+                row.update(max_abs_err=(got - want).abs().max().item(),
+                           finite=bool(torch.isfinite(got).all()),
+                           single_launches=list(counts_of(KN)))
+            dist.barrier()
+            return row
+
+        # (a) fp32 at 256 px and (c) at 320 px, uneven, against one process on the card
+        trees = make_params(UR, bridge, cfg, torch.float32, seed=5)
+        result["reference"] = against_single(SPATIAL_REF_RES, 2, 6)
+        result["uneven"] = against_single(SPATIAL_UNEVEN_RES, 2, 8)
+        del trees
         torch.cuda.empty_cache()
 
         # (b) bf16 at 512 px: the sharded restores, then rank 0's single-process ones
@@ -3921,13 +3971,15 @@ def spatial_worker(out: str) -> None:
                    "collective_host_s_untimed": sum(sharding.last_context.seconds.values())}
             outs[name] = sharding.assemble(out_local)
             row["finite"] = bool(torch.isfinite(outs[name]).all())
-            if name == "none":  # the collectives alone: the card synchronised around each
+            if name == "none":  # the collectives alone: the card synchronised around each,
+                # in a one-step restore
                 dist.barrier()
                 t0 = time.perf_counter()
-                restore(c, trees, images, noise, STEPS, "ir", timed)
+                restore(c, trees, images, noise, 1, "ir", timed)
                 torch.cuda.synchronize()
                 ctx = timed.last_context
                 row.update(timed_restore_seconds=time.perf_counter() - t0,
+                           timed_collectives=dict(ctx.counts),
                            collective_seconds=dict(ctx.seconds))
                 # the card's busy time by kernel family in a one-step restore
                 # (the profiler's cost grows with the collectives): each rank
@@ -3958,9 +4010,126 @@ def spatial_worker(out: str) -> None:
                         lambda: restore(c, trees, images, noise, 1, "ir"))
         dist.barrier()
         result["modes"] = modes
+        del outs, out_local
+        torch.cuda.empty_cache()
+        result["restore"] = spatial_full_restore(UR, KN, SP, dist, cfg, trees, sharding, timed,
+                                                 rank)
         Path(f"{out}.{rank}.json").write_text(json.dumps(result))
     finally:
         dist.destroy_process_group()
+
+
+class WholeLevelMemory:
+    """Within the block, the card's memory around every level a sharded
+    restore runs whole: ``parallel.spatial.whole`` is wrapped to read the
+    allocator's peak since the last reading at its entry and exit.
+    ``peak_gib``: the block's peak; ``whole_peak_gib``: the highest allocation
+    while a whole level ran; ``whole_added_gib``: the most one whole level
+    allocated above what was allocated at its entry."""
+
+    def __init__(self, SP):
+        self.SP, self.orig = SP, SP.whole
+        self.peak = self.whole_peak = self.added = 0
+
+    def _read(self) -> int:
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.peak = max(self.peak, peak)
+        return peak
+
+    def __enter__(self):
+        orig = self.orig
+
+        @contextlib.contextmanager
+        def whole():
+            self._read()
+            at_entry = torch.cuda.memory_allocated()
+            with orig():
+                yield
+            peak = self._read()
+            self.whole_peak = max(self.whole_peak, peak)
+            self.added = max(self.added, peak - at_entry)
+
+        torch.cuda.reset_peak_memory_stats()
+        self.SP.whole = whole
+        return self
+
+    def __exit__(self, *exc):
+        self.SP.whole = self.orig
+        self._read()
+
+    def gib(self) -> dict:
+        return {"peak_gib": self.peak / 2**30, "whole_peak_gib": self.whole_peak / 2**30,
+                "whole_added_gib": self.added / 2**30}
+
+
+def spatial_full_restore(UR, KN, SP, dist, cfg, trees, sharding, timed, rank) -> dict:
+    """Phase 17 (d): ``restore(..., sharding=)`` of ``SPATIAL_BATCH`` bf16
+    originals of ``SPATIAL_ORIGINALS``, exact, ``STEPS`` steps; a one-step
+    restore first (every shape once) with the memory of its whole levels
+    read (``WholeLevelMemory``), then the timed one, then a one-step restore
+    with the card synchronised around each collective (``timed``); rank 0
+    then restores the same batch and noise in one process (a one-step
+    warm-up first)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    images = torch.rand((SPATIAL_BATCH, *SPATIAL_ORIGINALS, 3), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    padded = UR.padded_shape(images.shape, cfg)
+    noise = UR.restore_noise(cfg, padded, images.dtype, gen, "cuda")
+
+    def restore(steps, sh=None):
+        x = images if sh is None else sh.local(images)
+        return UR.restore(*trees, cfg, UR.schedule(cfg), x, "ir", num_inference_steps=steps,
+                          posterior_noise=noise[0], diffusion_noise=noise[1], device="cuda",
+                          sharding=sh)
+
+    dist.barrier()
+    with WholeLevelMemory(SP) as mem:
+        restore(1, sharding)
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    KN.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_local = restore(STEPS, sharding)
+    torch.cuda.synchronize()
+    ctx = sharding.last_context
+    row = {"padded": list(padded), "whole_level": ctx.whole_level,
+           "seconds": time.perf_counter() - t0, "launches": list(counts_of(KN)),
+           "launches_by_kernel": {kern.symbol: kern.launches for kern in KN.KERNELS},
+           "shapes": shapes_to_json(KN), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "held_gib": torch.cuda.memory_allocated() / 2**30, "collectives": dict(ctx.counts),
+           "one_step_memory": mem.gib()}
+    got = sharding.assemble(out_local)
+    row["finite"] = bool(torch.isfinite(got).all())
+    row["shape"] = list(got.shape)
+    dist.barrier()
+    t0 = time.perf_counter()
+    restore(1, timed)
+    torch.cuda.synchronize()
+    row.update(timed_one_step_seconds=time.perf_counter() - t0,
+               timed_collectives=dict(timed.last_context.counts),
+               collective_seconds=dict(timed.last_context.seconds))
+    dist.barrier()
+    if rank == 0:
+        restore(1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        KN.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        want = restore(STEPS)
+        torch.cuda.synchronize()
+        row.update(single_seconds=time.perf_counter() - t0,
+                   single_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   single_launches=list(counts_of(KN)),
+                   uint8_levels=uint8_levels(got, want),
+                   max_abs_vs_single=(got.float() - want.float()).abs().max().item(),
+                   psnr_vs_single=psnr_u8(got, want))
+    dist.barrier()
+    return row
 
 
 def spatial_profile(fn) -> dict:
@@ -3973,29 +4142,44 @@ def spatial_profile(fn) -> dict:
             "device_s_by_family": prof["device_s_by_family"]}
 
 
+def check_against_single(ranks, key: str, what: str) -> dict:
+    """(a) or (c): the assembled fp32 restore within ``REFERENCE_ATOL`` of one
+    process on the card, each rank's launches one process's."""
+    ref = ranks[0][key]
+    if not (ref["finite"] and ref["max_abs_err"] <= REFERENCE_ATOL):
+        raise AssertionError(f"spatial {what}: sharded and single-process restores differ: {ref}")
+    if any(r[key]["launches"] != ref["single_launches"] for r in ranks):
+        raise AssertionError(f"spatial {what}: launches per rank "
+                             f"{[r[key]['launches'] for r in ranks]} != single "
+                             f"{ref['single_launches']}")
+    return ref
+
+
 def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
-    """Phase 17: (a) and (b) in one torchrun of ``SPATIAL_WORLD`` ranks; then
-    phase 3's comparison at every (kernel, shape) (b) met that was not held
-    yet (the grouped conv on haloed slabs). Returns (result, launches by path)."""
+    """Phase 17: (a)-(d) in one torchrun of ``SPATIAL_WORLD`` ranks; then
+    phase 3's comparison at every (kernel, shape) (b) and (d) met that was
+    not held yet (the grouped conv on haloed slabs, the attention kernels at
+    704 x 512). Returns (result, launches by path)."""
     t0 = time.perf_counter()
     out = work / "spatial_rank"
     [(_, sec)] = torchrun((SPATIAL_WORLD, [str(REPO / "chip_smoke.py"), "--worker", "spatial",
                                            str(out)], work / "spatial.log"))
     ranks = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(SPATIAL_WORLD)]
     r0 = ranks[0]
-    ref = r0["reference"]
-    log(f"spatial (a) fp32 {SPATIAL_REF_RES} px batch {SPATIAL_REF_BATCH}, 2 steps, "
-        f"make_mesh_2d(1, {SPATIAL_WORLD}) over {r0['backend']}: assembled vs single-process "
-        f"on the card max abs {ref['max_abs_err']:.3e} (limit {REFERENCE_ATOL}); launches per "
-        f"rank {[r['reference']['launches'] for r in ranks]}, single {ref['single_launches']}; "
-        f"collectives per rank {ref['collectives']}")
-    if not (ref["finite"] and ref["max_abs_err"] <= REFERENCE_ATOL):
-        raise AssertionError(f"spatial (a): sharded and single-process restores differ: {ref}")
-    if any(r["reference"]["launches"] != ref["single_launches"] for r in ranks):
-        raise AssertionError(f"spatial (a): launches per rank "
-                             f"{[r['reference']['launches'] for r in ranks]} != single "
-                             f"{ref['single_launches']}")
-    result = {"world": SPATIAL_WORLD, "backend": r0["backend"], "reference": ref,
+    for key, what, res in (("reference", "(a)", SPATIAL_REF_RES),
+                           ("uneven", "(c)", SPATIAL_UNEVEN_RES)):
+        ref = r0[key]
+        log(f"spatial {what} fp32 {res} px batch {SPATIAL_REF_BATCH}, 2 steps, "
+            f"make_mesh_2d(1, {SPATIAL_WORLD}) over {r0['backend']}, first whole level "
+            f"{ref['whole_level']}: assembled vs single-process on the card max abs "
+            f"{ref['max_abs_err']:.3e} (limit {REFERENCE_ATOL}); launches per rank "
+            f"{[r[key]['launches'] for r in ranks]}, single {ref['single_launches']}; "
+            f"collectives per rank {ref['collectives']}")
+        check_against_single(ranks, key, what)
+    if r0["uneven"]["whole_level"] != "UNet level 3 (latent / 8)":
+        raise AssertionError(f"spatial (c): first whole level {r0['uneven']['whole_level']}")
+    result = {"world": SPATIAL_WORLD, "backend": r0["backend"], "reference": r0["reference"],
+              "uneven": r0["uneven"],
               "held_gib_by_rank": [r["held_gib"] for r in ranks],
               "setup_seconds_by_rank": [r["setup_seconds"] for r in ranks], "modes": {}}
     paths, shapes = {}, {kern.symbol: set() for kern in KN.KERNELS}
@@ -4022,8 +4206,9 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
                  "max_abs_vs_single": m["max_abs_vs_single"],
                  "psnr_vs_single": m["psnr_vs_single"]}
         if "collective_seconds" in m:
-            entry.update(timed_restore_seconds_by_rank=[row["timed_restore_seconds"]
-                                                        for row in rows_],
+            entry.update(timed_one_step_restore_seconds_by_rank=[row["timed_restore_seconds"]
+                                                                 for row in rows_],
+                         timed_collectives_per_rank=m["timed_collectives"],
                          collective_seconds_by_rank=[row["collective_seconds"] for row in rows_],
                          collective_share_by_rank=[sum(row["collective_seconds"].values())
                                                    / row["timed_restore_seconds"]
@@ -4037,8 +4222,9 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
             f"held {result['held_gib_by_rank']}, single-process peak "
             f"{entry['single_peak_gib']:.2f}; collectives per rank and restore "
             f"{entry['collectives_per_rank']}"
-            + (f"; with the card synchronised around each: {entry['collective_seconds_by_rank']}"
-               f" s of {entry['timed_restore_seconds_by_rank']} s (share "
+            + (f"; with the card synchronised around each, in a one-step restore: "
+               f"{entry['collective_seconds_by_rank']} s of "
+               f"{entry['timed_one_step_restore_seconds_by_rank']} s (share "
                f"{entry['collective_share_by_rank']}); one-step restore profiled: the card "
                f"busy {[p['device_busy_s'] for p in entry['profile_by_rank']]} s by rank, "
                f"attention kernels {[p['attention_s'] for p in entry['profile_by_rank']]} s "
@@ -4048,6 +4234,56 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
             + f"; vs single process: {entry['uint8_levels_vs_single']} uint8 levels, max abs "
             f"{entry['max_abs_vs_single']:.3e}, PSNR {entry['psnr_vs_single']:.2f} dB; launches "
             f"per rank {entry['launches_per_rank']} (phase 4's)")
+    rows_ = [r["restore"] for r in ranks]
+    d = rows_[0]
+    want = list(SPATIAL_RESTORE_EXPECTED)
+    if (any(row["launches"] != want for row in rows_) or d["single_launches"] != want
+            or not all(row["finite"] for row in rows_)
+            or d["shape"] != [SPATIAL_BATCH, *SPATIAL_ORIGINALS, 3]
+            or d["whole_level"] != "UNet level 3 (latent / 8)"):
+        raise AssertionError(f"spatial (d): launches per rank {[row['launches'] for row in rows_]}"
+                             f", single {d['single_launches']} (expected {want}), shape "
+                             f"{d['shape']}, first whole level {d['whole_level']} or non-finite "
+                             f"output")
+    paths[SPATIAL_PATHS["restore"]] = {s: sum(row["launches_by_kernel"][s] for row in rows_)
+                                       for s in rows_[0]["launches_by_kernel"]}
+    for row in rows_:
+        shapes = merge_shapes(shapes, shapes_from_json(row["shapes"]))
+    peak = max(row["peak_gib"] for row in rows_)
+    result["restore"] = entry = {
+        "originals": [SPATIAL_BATCH, *SPATIAL_ORIGINALS, 3], "padded": d["padded"],
+        "whole_level": d["whole_level"], "steps": STEPS,
+        "seconds_by_rank": [row["seconds"] for row in rows_],
+        "img_per_s": SPATIAL_BATCH / max(row["seconds"] for row in rows_),
+        "single_seconds": d["single_seconds"], "collectives_per_rank": d["collectives"],
+        "held_gib_by_rank": [row["held_gib"] for row in rows_],
+        "peak_gib_by_rank": [row["peak_gib"] for row in rows_],
+        "single_peak_gib": d["single_peak_gib"],
+        "one_step_memory_by_rank": [row["one_step_memory"] for row in rows_],
+        "whole_added_share_of_peak": max(row["one_step_memory"]["whole_added_gib"]
+                                         for row in rows_) / peak,
+        "timed_one_step_seconds_by_rank": [row["timed_one_step_seconds"] for row in rows_],
+        "timed_collectives_per_rank": d["timed_collectives"],
+        "collective_seconds_by_rank": [row["collective_seconds"] for row in rows_],
+        "collective_share_by_rank": [sum(row["collective_seconds"].values())
+                                     / row["timed_one_step_seconds"] for row in rows_],
+        "launches_per_rank": d["launches"], "uint8_levels_vs_single": d["uint8_levels"],
+        "max_abs_vs_single": d["max_abs_vs_single"], "psnr_vs_single": d["psnr_vs_single"]}
+    log(f"spatial (d) restore(sharding=) bf16 {SPATIAL_BATCH} x {SPATIAL_ORIGINALS} originals "
+        f"(padded {d['padded'][1:3]}), exact, {STEPS} steps, first whole level "
+        f"{entry['whole_level']}: s per restore by rank {entry['seconds_by_rank']} (single "
+        f"process {entry['single_seconds']:.3f} s); collectives per rank "
+        f"{entry['collectives_per_rank']}; peak GiB by rank {entry['peak_gib_by_rank']}, held "
+        f"{entry['held_gib_by_rank']}, single-process peak {entry['single_peak_gib']:.2f}; a "
+        f"whole level added at most "
+        f"{[m['whole_added_gib'] for m in entry['one_step_memory_by_rank']]} GiB (share of the "
+        f"peak {entry['whole_added_share_of_peak']:.3f}); with the card synchronised around "
+        f"each, in a one-step restore: {entry['collective_seconds_by_rank']} s of "
+        f"{entry['timed_one_step_seconds_by_rank']} s (share "
+        f"{entry['collective_share_by_rank']}); vs single process: "
+        f"{entry['uint8_levels_vs_single']} uint8 levels, max abs "
+        f"{entry['max_abs_vs_single']:.3e}, PSNR {entry['psnr_vs_single']:.2f} dB; launches per "
+        f"rank {entry['launches_per_rank']} (one process's)")
     result["torchrun_seconds"] = sec
     result["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes, rows, gen,
                                                         path="spatial")
@@ -4262,7 +4498,8 @@ def main() -> int:
                   train_spade=[EXPECTED_TRAIN_SPADE[kern.symbol][0] for kern in KN.KERNELS],
                   **{path: routes["train"] for path in ("fit_ddp", "fit_fsdp", "train_ddp2",
                                                         "train_fsdp2")},
-                  **{path: list(EXPECTED[name]) for name, path in SPATIAL_PATHS.items()})
+                  **{SPATIAL_PATHS[name]: list(EXPECTED[name]) for name in ("none", "deep")},
+                  spatial_restore=list(SPATIAL_RESTORE_EXPECTED))
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]

@@ -23,8 +23,10 @@ JAX package.
 
 In this process: with no context every changed primitive computes today's
 arithmetic bit for bit, a ``make_mesh_2d(1, 1)`` restore is bit-equal to the
-unsharded one, and ``restore``, ``GraphedRestore``, the train step, a height
-resize and the convolutions with no partitioned form raise under a context.
+unsharded one, ``restore`` and ``restore_core`` inside a context,
+``GraphedRestore``, the train step, a height resize and the convolutions with
+no partitioned form raise under a context, and the level plan puts each height
+(``spatial_plan``).
 """
 
 import dataclasses
@@ -414,6 +416,9 @@ def test_whole_image_entry_points_refuse_a_spatial_context():
                         device="cpu")
         with pytest.raises(NotImplementedError, match="restore does not run on height-sharded"):
             TUR.restore_core(frozen, trainable, cfg, sched, images, "ir", None, None, 1)
+        with pytest.raises(NotImplementedError, match="restore does not run on height-sharded"):
+            TUR.restore(frozen, trainable, cfg, sched, images, "ir", torch.Generator(), 1,
+                        device="cpu", sharding=MESH.spatial_batch_sharding(MESH.make_mesh_2d(1, 1)))
         with pytest.raises(NotImplementedError, match="without its sharding"):
             TUR.restore_padded(frozen, trainable, cfg, sched, images, "ir", torch.Generator(), 1,
                                device="cpu")
@@ -447,13 +452,35 @@ def test_whole_image_entry_points_refuse_a_spatial_context():
                                                (128, 32, "VAE encoder level 3"),
                                                (100, 8, "image")])
 def test_heights_that_do_not_divide_are_refused(res, spatial, level):
+    """A level whose rows the ranks do not split runs whole, with every level
+    below it; only images whose height the ranks do not divide are refused,
+    naming the image (``restore`` may run such padded images whole)."""
     cfg = TUR.tiny_config()
-    with pytest.raises(ValueError, match=f"the {level}"):
-        TUR.check_spatial_heights(cfg, res, spatial)
+    names = [n for n, _ in TUR.spatial_levels(cfg, res)]
+    if level == "image":
+        with pytest.raises(ValueError, match="the image is 100 rows high"):
+            TUR.spatial_plan(cfg, res, spatial)
+        assert TUR.spatial_plan(cfg, res, spatial, image_whole=True) == (0, "image")
+        return
+    depth, name = TUR.spatial_plan(cfg, res, spatial)
+    assert name.startswith(level) and names[depth] == name
+
+
+@pytest.mark.parametrize("res,spatial,level", [(512, 8, None), (576, 2, "UNet level 3"),
+                                               (704, 4, "UNet level 2"), (704, 2, "UNet level 3")])
+def test_level_plan_of_the_full_config(res, spatial, level):
+    """sd-turbo's widths: 512 px splits every level over 8 ranks; 576 px on 2
+    runs whole from the 9-row level; a 500 x 375 photo's 704 px on 4 from the
+    22-row level (UNet level 1 splits, 11 rows a rank), on 2 from the 11-row
+    level."""
+    depth, name = TUR.spatial_plan(TUR.UniRestoreConfig(), res, spatial)
+    assert (name if level is None else name.split(" (")[0]) == level
+    if level is not None:
+        assert TUR.spatial_levels(TUR.UniRestoreConfig(), res)[depth][0] == name
 
 
 def test_heights_that_divide_pass():
-    TUR.check_spatial_heights(TUR.tiny_config(), 128, 2)
-    TUR.check_spatial_heights(TUR.UniRestoreConfig(), 512, 8)
+    assert TUR.spatial_plan(TUR.tiny_config(), 128, 2) == (None, None)
+    assert TUR.spatial_plan(TUR.UniRestoreConfig(), 512, 8) == (None, None)
     names = [n for n, _ in TUR.spatial_levels(TUR.UniRestoreConfig(), 512)]
     assert names[-1] == "UNet level 3 (latent / 8)" and len(names) == 7

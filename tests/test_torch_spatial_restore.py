@@ -16,9 +16,10 @@ noise recomputed from its key and injected (``tests/test_torch_pipeline.py``):
   out-projection-fused route against JAX's ``restore_padded`` at 2e-4 (the
   whole-restore tolerance);
 - on ``make_mesh_2d(2, 2)`` (four ranks, batch 4: rows over ``data``, height
-  over ``spatial``) the exact restore, assembled, at 2e-4; and a 64 px batch
-  on ``make_mesh_2d(1, 4)`` refused, naming the UNet level one row cannot
-  split.
+  over ``spatial``) the exact restore, assembled, at 2e-4; and the exact
+  restore of a 64 px batch of 2 on ``make_mesh_2d(1, 4)``, whose UNet levels
+  2 and 3 (2 and 1 rows) four ranks cannot split and so run whole, against
+  JAX's at 2e-4.
 
 The exact JAX restore runs once at batch 4; the batch-2 runs hold their
 output to its first two rows (each row's restore reads only its own image
@@ -75,13 +76,9 @@ def _four_ranks(rank, world, payload):
            "none": sharded_restore(sharding, port_trees(payload, cfg), cfg, payload["images"],
                                    "ir", payload["noise"])}
     narrow = MESH.spatial_batch_sharding(MESH.make_mesh_2d(1, world))
-    try:
-        TUR.restore_padded(*port_trees(payload, cfg), cfg, TUR.schedule(cfg),
-                           narrow.local(torch.zeros(1, 64, 64, 3)), "ir",
-                           torch.Generator().manual_seed(0), STEPS, device="cpu",
-                           sharding=narrow)
-    except ValueError as e:
-        res["uneven_error"] = str(e)
+    res["uneven"] = sharded_restore(narrow, port_trees(payload, cfg), cfg, payload["images64"],
+                                    "ir", payload["noise64"])
+    res["uneven_whole_level"] = narrow.last_context.whole_level
     return res
 
 
@@ -100,6 +97,8 @@ def _reference():
     images = np.random.default_rng(42).uniform(size=(BATCH, RES, RES, 3)).astype(np.float32)
     rng = jax.random.PRNGKey(43)
     noise = tuple(n.numpy() for n in _jax_noise(JUR.tiny_config(), images.shape, rng))
+    images64 = np.random.default_rng(44).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    noise64 = tuple(n.numpy() for n in _jax_noise(JUR.tiny_config(), images64.shape, rng))
 
     def reference():
         fj, tj = (jax.tree.map(jnp.asarray, t) for t in trees)
@@ -112,9 +111,13 @@ def _reference():
             sched = JUR.schedule(cj)
             out[mode] = np.asarray(jax.jit(lambda f, t, x, r: JUR.restore_padded(
                 f, t, cj, sched, x, "ir", r, STEPS))(fj, tj, x, rng))
+        out["uneven"] = np.asarray(jax.jit(lambda f, t, x, r: JUR.restore_padded(
+            f, t, JUR.tiny_config(), JUR.schedule(JUR.tiny_config()), x, "ir", r, STEPS))(
+                fj, tj, images64, rng))
         return out
 
-    return {"trees": trees, "images": images, "noise": noise}, reference
+    return {"trees": trees, "images": images, "noise": noise, "images64": images64,
+            "noise64": noise64}, reference
 
 
 @pytest.fixture(scope="module")
@@ -157,5 +160,12 @@ def test_sharded_restore_on_mesh_2x2_matches_jax(spatial_runs):
 
 
 def test_uneven_spatial_shards_are_refused(spatial_runs):
-    msg = spatial_runs["four"][0]["uneven_error"]
-    assert "over 4 ranks: the UNet level 2 (latent / 4) is 2 rows high" in msg, msg
+    """Once refused, uneven shards now run: the 64 px batch on four ranks runs
+    the UNet's 2-row and 1-row levels whole and matches JAX."""
+    ranks = spatial_runs["four"]
+    outs = [r["uneven"][0] for r in ranks]
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
+    assert [r["uneven_whole_level"] for r in ranks] == ["UNet level 2 (latent / 4)"] * 4
+    assert outs[0].shape == (2, 64, 64, 3)
+    np.testing.assert_allclose(outs[0], spatial_runs["jax"]["uneven"], **RESTORE_TOL)

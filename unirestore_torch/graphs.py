@@ -91,8 +91,8 @@ def _launch_counts() -> dict:
 
 
 def _refuse_spatial() -> None:
-    SP.refuse("GraphedRestore", "it captures restore_core, whose resize and reflect-pad read "
-              "the whole image")
+    SP.refuse("GraphedRestore", "a CUDA graph cannot capture gloo's host collectives, and NCCL "
+              "takes one rank a card; restore a rank's slab eagerly with restore(sharding=)")
 
 
 class GraphedRestore:

@@ -5,6 +5,11 @@ Maps the degraded latent and the timestep to four 256-channel control maps
 activation; the mid-block output replaces the deepest capture. ControlNet
 zero-init: every ResnetBlock2D conv2 and every attention out-projection
 start at zero.
+
+On a height-sharded restore each stage runs where the plan puts its level
+(``parallel/spatial.py``), as the UNet's level of the same height does: the
+capture at latent / 2^k feeds the UNet's skips at that level in the same
+layout.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from ..nn import attention as A
 from ..nn import embeddings as E
 from ..nn import layers as L
 from ..nn import resnet as R
+from ..parallel import spatial as PS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,21 +103,28 @@ def controller_apply(p, cfg: ControllerConfig, x, timesteps):
     emb = E.timestep_mlp(p["time_embedding"], temb.to(x.dtype))
     kw = {"groups": cfg.norm_num_groups, "eps": cfg.eps}
 
-    h = L.conv2d(p["conv_in"], x, padding=1)
+    with PS.level(0, latent=True):
+        h = L.conv2d(p["conv_in"], x, padding=1)
     captures = []
-    for blk in p["down_blocks"]:
-        for j, res in enumerate(blk["resnets"]):
-            h = R.resnet_block(res, h, emb, **kw)
-            if blk["attentions"]:
-                h = A.spatial_self_attention(blk["attentions"][j], h,
-                                             heads=cfg.num_heads, **kw)
+    for i, blk in enumerate(p["down_blocks"]):
+        with PS.level(i, latent=True):
+            for j, res in enumerate(blk["resnets"]):
+                h = R.resnet_block(res, h, emb, **kw)
+                if blk["attentions"]:
+                    h = A.spatial_self_attention(blk["attentions"][j], h,
+                                                 heads=cfg.num_heads, **kw)
         captures.append(h)  # pre-downsample capture
         if "downsample" in blk:
-            h = R.downsample(blk["downsample"], h)
+            h = PS.descend(lambda x: R.downsample(blk["downsample"], x), h, i + 1, latent=True)
 
-    h = R.resnet_block(p["mid"]["resnet1"], h, emb, **kw)
-    h = A.spatial_self_attention(p["mid"]["attn"], h, heads=cfg.num_heads, **kw)
-    h = R.resnet_block(p["mid"]["resnet2"], h, emb, **kw)
+    with PS.level(len(p["down_blocks"]) - 1, latent=True):
+        h = R.resnet_block(p["mid"]["resnet1"], h, emb, **kw)
+        h = A.spatial_self_attention(p["mid"]["attn"], h, heads=cfg.num_heads, **kw)
+        h = R.resnet_block(p["mid"]["resnet2"], h, emb, **kw)
     captures[-1] = h  # mid replaces the deepest capture (controller.py:141)
 
-    return [R.resnet_block(ft, c, emb, **kw) for ft, c in zip(p["fea_tran"], captures)]
+    out = []
+    for k, (ft, c) in enumerate(zip(p["fea_tran"], captures)):
+        with PS.level(k, latent=True):
+            out.append(R.resnet_block(ft, c, emb, **kw))
+    return out

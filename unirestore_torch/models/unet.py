@@ -8,6 +8,14 @@ eps=1e-5). The Controller's per-scale maps steer it by the control type:
 adapters; ``spade`` modulates the conv2 output of each of the 22
 ResnetBlock2Ds with a SPADE layer (``_resnet_maybe_spade``, JAX
 ``unet.py:201-218``). NHWC maps.
+
+On a height-sharded restore (``parallel/spatial.py``) each level's work runs
+where the plan puts that level (``PS.level``, level k at latent / 2^k, the
+Controller's too): split, or whole on every rank from the first level whose
+rows the ranks cannot split; the downsampler into that level runs on the
+gathered map (``PS.descend``) and the upsampler out of it keeps this rank's
+rows (``PS.ascend``). The SC-Tuner's 1x1 adapters read one pixel and take
+either layout.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from ..nn import layers as L
 from ..nn import remat as RM
 from ..nn import resnet as R
 from ..nn import transformer as T
+from ..parallel import spatial as PS
 from . import scedit as SC
 from . import spade as SP
 
@@ -215,21 +224,24 @@ def unet_encode(p, cfg: UNetConfig, sample, emb, encoder_hidden_states,
     """Down path + mid (SPADE in each resnet under ``spade``) + SC-Tuner skip
     injection under ``scedit``. Returns (h_mid, skips)."""
     spades = _spades(control, control_params)
-    h = L.conv2d(p["conv_in"], sample, padding=1)
+    with PS.level(0, latent=True):
+        h = L.conv2d(p["conv_in"], sample, padding=1)
     skips = [h]
     for i, blk in enumerate(p["down_blocks"]):
-        for j, res in enumerate(blk["resnets"]):
-            attn = blk["attentions"][j] if blk["attentions"] else None
-            sp = spades["down"][i][j] if spades else None
-            h = _unit(cfg, i, res, attn, h, emb, encoder_hidden_states, control, sp)
-            skips.append(h)
+        with PS.level(i, latent=True):
+            for j, res in enumerate(blk["resnets"]):
+                attn = blk["attentions"][j] if blk["attentions"] else None
+                sp = spades["down"][i][j] if spades else None
+                h = _unit(cfg, i, res, attn, h, emb, encoder_hidden_states, control, sp)
+                skips.append(h)
         if "downsample" in blk:
-            h = R.downsample(blk["downsample"], h)
+            h = PS.descend(lambda x: R.downsample(blk["downsample"], x), h, i + 1, latent=True)
             skips.append(h)
 
     sp1, sp2 = spades["mid"] if spades else (None, None)
     args = (cfg, p["mid"], h, emb, encoder_hidden_states, control, sp1, sp2)
-    h = RM.checkpoint(_mid, *args) if cfg.remat else _mid(*args)
+    with PS.level(len(cfg.block_out_channels) - 1, latent=True):
+        h = RM.checkpoint(_mid, *args) if cfg.remat else _mid(*args)
 
     if _use_scedit(control, control_params):
         skips = [SC.csce_adapter(ed, s, control[si])
@@ -256,17 +268,19 @@ def unet_decode(p, cfg: UNetConfig, h, skips, emb, encoder_hidden_states,
     n_levels = len(cfg.block_out_channels)
     deep = None
     for i, blk in enumerate(p["up_blocks"]):
+        lvl = n_levels - 1 - i
         if i == len(p["up_blocks"]) - 1:
             deep = h
-        for j, res in enumerate(blk["resnets"]):
-            h = torch.cat([h, skips.pop()], dim=-1)
-            attn = blk["attentions"][j] if blk["attentions"] else None
-            sp = spades["up"][i][j] if spades else None
-            h = _unit(cfg, n_levels - 1 - i, res, attn, h, emb, encoder_hidden_states,
-                      control, sp)
+        with PS.level(lvl, latent=True):
+            for j, res in enumerate(blk["resnets"]):
+                h = torch.cat([h, skips.pop()], dim=-1)
+                attn = blk["attentions"][j] if blk["attentions"] else None
+                sp = spades["up"][i][j] if spades else None
+                h = _unit(cfg, lvl, res, attn, h, emb, encoder_hidden_states, control, sp)
         if "upsample" in blk:
-            h = R.upsample(blk["upsample"], h)
-    h = _head(p, cfg, h)
+            h = PS.ascend(lambda x: R.upsample(blk["upsample"], x), h, lvl - 1, latent=True)
+    with PS.level(0, latent=True):
+        h = _head(p, cfg, h)
     return (h, deep) if return_deep else h
 
 
@@ -277,14 +291,15 @@ def unet_down_shallow(p, cfg: UNetConfig, sample, emb, encoder_hidden_states,
     injection when configured; under ``spade`` each resnet takes its SPADE at
     scale 0."""
     spades = _spades(control, control_params)
-    h = L.conv2d(p["conv_in"], sample, padding=1)
-    skips = [h]
     blk = p["down_blocks"][0]
-    for j, res in enumerate(blk["resnets"]):
-        attn = blk["attentions"][j] if blk["attentions"] else None
-        sp = spades["down"][0][j] if spades else None
-        h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states, control, sp)
-        skips.append(h)
+    with PS.level(0, latent=True):
+        h = L.conv2d(p["conv_in"], sample, padding=1)
+        skips = [h]
+        for j, res in enumerate(blk["resnets"]):
+            attn = blk["attentions"][j] if blk["attentions"] else None
+            sp = spades["down"][0][j] if spades else None
+            h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states, control, sp)
+            skips.append(h)
     if _use_scedit(control, control_params):
         # the first len(skips) editors are the level-0 ones
         skips = [SC.csce_adapter(ed, s, control[0])
@@ -300,12 +315,13 @@ def unet_up_shallow(p, cfg: UNetConfig, deep, skips0, emb,
     skips = list(skips0)
     blk = p["up_blocks"][-1]
     h = deep
-    for j, res in enumerate(blk["resnets"]):
-        h = torch.cat([h, skips.pop()], dim=-1)
-        attn = blk["attentions"][j] if blk["attentions"] else None
-        sp = spades["up"][-1][j] if spades else None
-        h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states, control, sp)
-    return _head(p, cfg, h)
+    with PS.level(0, latent=True):
+        for j, res in enumerate(blk["resnets"]):
+            h = torch.cat([h, skips.pop()], dim=-1)
+            attn = blk["attentions"][j] if blk["attentions"] else None
+            sp = spades["up"][-1][j] if spades else None
+            h = _unit(cfg, 0, res, attn, h, emb, encoder_hidden_states, control, sp)
+        return _head(p, cfg, h)
 
 
 def unet_apply(p, cfg: UNetConfig, sample, timesteps, encoder_hidden_states,

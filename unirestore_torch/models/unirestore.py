@@ -313,7 +313,7 @@ def restore_padded_core(frozen, trainable, cfg, sched, images, task, posterior_n
 def spatial_levels(cfg, height: int) -> list:
     """(name, rows) of every map a restore of images ``height`` rows high runs
     at, down to the UNet's and Controller's coarsest (latent / 8 at sd-turbo's
-    widths)."""
+    widths); an entry's index is its depth, the halvings below the image."""
     n_vae = len(cfg.vae.block_out_channels) - 1
     out = [("image", height)] + [(f"VAE encoder level {k} (image / {2 ** k})", height // 2 ** k)
                                  for k in range(1, n_vae + 1)]
@@ -325,15 +325,44 @@ def spatial_levels(cfg, height: int) -> list:
     return out
 
 
-def check_spatial_heights(cfg, height: int, spatial: int) -> None:
-    """Raise ``ValueError`` naming the first map whose height the ``spatial``
-    ranks do not divide: every level's slab must be whole (and even where it is
-    downsampled). GSPMD pads uneven shards; the port refuses them."""
+def spatial_plan(cfg, height: int, spatial: int, image_whole: bool = False) -> tuple:
+    """(depth, name) of the first level of a restore of images ``height`` rows
+    high that runs whole on ``spatial`` ranks, or (None, None) where every
+    level splits (``parallel/spatial.py``). A level splits while it is half the
+    level above it and its rows divide into ``spatial`` equal slabs, so that
+    each rank's slab above it was even; from the first that does not, every
+    deeper level runs whole. Images whose height the ranks do not divide raise
+    ``ValueError`` naming the image, as JAX refuses to place such a batch on the
+    mesh, unless ``image_whole`` (``restore``, whose padded images may run
+    whole)."""
     levels = spatial_levels(cfg, height)
-    for k, (name, rows) in enumerate(levels):
-        if rows * 2 ** k != height or rows % spatial:
-            raise ValueError(f"spatial sharding over {spatial} ranks: the {name} is {rows} rows "
-                             f"high (images {height} rows), not a whole slab a rank")
+    if height % spatial:
+        if not image_whole:
+            raise ValueError(f"spatial sharding over {spatial} ranks: the image is {height} "
+                             f"rows high, not a whole slab a rank")
+        return 0, levels[0][0]
+    for k in range(1, len(levels)):
+        (_, above), (name, rows) = levels[k - 1], levels[k]
+        if rows * 2 != above or rows % spatial:
+            return k, name
+    return None, None
+
+
+def spatial_context(cfg, sharding, height: int, image_whole: bool = False):
+    """``sharding``'s partition context for images ``height`` rows high, with
+    ``spatial_plan``'s whole levels; None on a spatial axis of one rank."""
+    if sharding.shape[1] == 1:
+        return None
+    first, name = spatial_plan(cfg, height, sharding.shape[1], image_whole)
+    return sharding.context(height, first_whole=first, whole_level=name,
+                            latent_depth=len(cfg.vae.block_out_channels) - 1)
+
+
+def _local_noise(sharding, ctx, noise):
+    """This rank's block of the global (posterior, diffusion) noise: its rows,
+    and its slab of the height where the latent splits."""
+    split = ctx is not None and not ctx.runs_whole(ctx.latent_depth)
+    return tuple(None if n is None else sharding.local(n, split) for n in noise)
 
 
 def restore_padded(frozen, trainable, cfg, sched, images, task, generator=None,
@@ -349,11 +378,12 @@ def restore_padded(frozen, trainable, cfg, sched, images, task, generator=None,
     rank's block of a global batch (rows over ``data``, a slab of the height
     over ``spatial``) and the result is this rank's block of the global
     result (``sharding.assemble`` puts it together). The noise is drawn, or
-    given, at the global latent shape and cut to the rank's block, so that a
-    sharded and a single-process restore take the same numbers from the same
-    seed. A spatial axis of more than one rank runs the restore under the
-    partition context of ``parallel/spatial.py`` (``sharding.last_context``
-    then holds its collective counts), after ``check_spatial_heights``.
+    given, at the global latent shape and cut to the rank's block (its whole
+    height where the latent runs whole), so that a sharded and a
+    single-process restore take the same numbers from the same seed. A spatial
+    axis of more than one rank runs the restore under the partition context of
+    ``parallel/spatial.py`` with ``spatial_plan``'s whole levels
+    (``sharding.last_context`` then holds the plan and the collective counts).
     """
     if sharding is None:
         SP.refuse("restore_padded without its sharding", "pass sharding= for a rank's slab")
@@ -361,13 +391,11 @@ def restore_padded(frozen, trainable, cfg, sched, images, task, generator=None,
     with torch.inference_mode():
         images = torch.as_tensor(images, device=dev)
         shape = images.shape if sharding is None else sharding.global_shape(images.shape)
-        ctx = None if sharding is None else sharding.context(shape[1])
-        if ctx is not None:
-            check_spatial_heights(cfg, shape[1], ctx.size)
+        ctx = None if sharding is None else spatial_context(cfg, sharding, shape[1])
         post, diff = restore_noise(cfg, shape, images.dtype, generator, dev,
                                    posterior_noise, diffusion_noise)
         if sharding is not None:
-            post, diff = (None if n is None else sharding.local(n) for n in (post, diff))
+            post, diff = _local_noise(sharding, ctx, (post, diff))
         with SP.partition(ctx) if ctx is not None else contextlib.nullcontext():
             return restore_padded_core(frozen, trainable, cfg, sched.to(dev), images, task, post,
                                        diff, num_inference_steps)
@@ -390,39 +418,93 @@ def padded_shape(images_shape, cfg: UniRestoreConfig) -> tuple:
     return (b, h + pad_h, w + pad_w, c)
 
 
+def _refuse_restore() -> None:
+    SP.refuse("restore", "it resizes and reflect-pads whole images; give restore the rank's "
+              "slab with sharding= outside any spatial context")
+
+
+def _preprocess(images, cfg):
+    """Resize (bicubic) and reflect-pad whole images; (padded, (h, w))."""
+    org_h, org_w = images.shape[1:3]
+    h, w, pad_h, pad_w = preprocess_shape(org_h, org_w, cfg)
+    x = images
+    if (h, w) != (org_h, org_w):
+        x = RS.resize_bicubic(x, (h, w))
+    return RS.reflect_pad_hw(x, pad_h, pad_w), (h, w)
+
+
+def _postprocess(preds, size, org_size):
+    """Crop whole padded predictions to ``size`` and resize them back to ``org_size``."""
+    preds = preds[:, :size[0], :size[1]]
+    if tuple(size) != tuple(org_size):
+        preds = RS.resize_bicubic(preds, org_size)
+    return preds
+
+
 def restore_core(frozen, trainable, cfg, sched, images, task, posterior_noise, diffusion_noise,
                  num_inference_steps=None):
     """The device-only work of ``restore`` (resize and reflect-pad,
     ``restore_padded_core``, crop and resize back): every input already a
     tensor on the device, the noise given. This is what ``graphs.GraphedRestore``
-    captures. It refuses height-sharded images (``parallel/spatial.py``): the
-    bicubic resize and the reflect-pad read rows of the whole image."""
-    SP.refuse("restore", "its resize and reflect-pad read the whole image; "
-              "use restore_padded with a sharding")
+    captures. It runs on whole images and refuses a spatial context
+    (``parallel/spatial.py``): the bicubic resize and the reflect-pad read rows
+    of the whole image."""
+    _refuse_restore()
     with torch.inference_mode():
-        org_h, org_w = images.shape[1:3]
-        h, w, pad_h, pad_w = preprocess_shape(org_h, org_w, cfg)
-        x = images
-        if (h, w) != (org_h, org_w):
-            x = RS.resize_bicubic(x, (h, w))
-        x = RS.reflect_pad_hw(x, pad_h, pad_w)
+        x, size = _preprocess(images, cfg)
         preds = restore_padded_core(frozen, trainable, cfg, sched, x, task, posterior_noise,
                                     diffusion_noise, num_inference_steps)
-        preds = preds[:, :h, :w]
-        if (h, w) != (org_h, org_w):
-            preds = RS.resize_bicubic(preds, (org_h, org_w))
-        return preds
+        return _postprocess(preds, size, images.shape[1:3])
+
+
+def _restore_sharded(frozen, trainable, cfg, sched, images, task, noise, num_inference_steps,
+                     sharding):
+    """``restore`` of this rank's block of a global batch (rows over ``data``,
+    a slab of the height over ``spatial``): the rank gathers its rows' whole
+    originals, resizes and pads them whole, runs ``restore_padded_core`` on its
+    slab of the padded batch under the plan's context (on the whole padded
+    batch where the ranks cannot split its height), gathers the padded output,
+    crops and resizes it back whole, and returns its slab of that."""
+    org = sharding.global_shape(images.shape)
+    ctx = spatial_context(cfg, sharding, padded_shape(org, cfg)[1], image_whole=True)
+    if ctx is None:  # one rank along the height: the block holds whole images
+        return restore_core(frozen, trainable, cfg, sched, images, task,
+                            *_local_noise(sharding, ctx, noise), num_inference_steps)
+    x, size = _preprocess(ctx.gather(images), cfg)
+    post, diff = _local_noise(sharding, ctx, noise)
+    if ctx.runs_whole(0):
+        preds = restore_padded_core(frozen, trainable, cfg, sched, x, task, post, diff,
+                                    num_inference_steps)
+    else:
+        with SP.partition(ctx):
+            preds = restore_padded_core(frozen, trainable, cfg, sched, ctx.slab(x), task, post,
+                                        diff, num_inference_steps)
+        preds = ctx.gather(preds)
+    return ctx.slab(_postprocess(preds, size, org[1:3]))
 
 
 def restore(frozen, trainable, cfg, sched, images, task, generator=None,
             num_inference_steps=None, *, posterior_noise=None, diffusion_noise=None,
-            device=None):
+            device=None, sharding=None):
     """Full restore: the inputs to the device, the noise (``restore_noise``),
-    then ``restore_core``."""
+    then ``restore_core``.
+
+    With ``sharding`` (``parallel.spatial_batch_sharding``), ``images`` is this
+    rank's block of a global batch of originals (rows over ``data``, a slab of
+    the height over ``spatial``, which must divide it) and the result is this
+    rank's block of the global result at the originals' size
+    (``sharding.assemble`` puts it together); the noise is drawn, or given, at
+    the global padded latent shape (``_restore_sharded``). Refused inside a
+    spatial context."""
+    _refuse_restore()
     dev = resolve_device(device)
     with torch.inference_mode():
         x = torch.as_tensor(images, device=dev)
-        post, diff = restore_noise(cfg, padded_shape(x.shape, cfg), x.dtype, generator, dev,
-                                   posterior_noise, diffusion_noise)
-        return restore_core(frozen, trainable, cfg, sched.to(dev), x, task, post, diff,
+        shape = x.shape if sharding is None else sharding.global_shape(x.shape)
+        noise = restore_noise(cfg, padded_shape(shape, cfg), x.dtype, generator, dev,
+                              posterior_noise, diffusion_noise)
+        if sharding is not None:
+            return _restore_sharded(frozen, trainable, cfg, sched.to(dev), x, task, noise,
+                                    num_inference_steps, sharding)
+        return restore_core(frozen, trainable, cfg, sched.to(dev), x, task, *noise,
                             num_inference_steps)

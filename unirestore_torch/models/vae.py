@@ -7,6 +7,12 @@ the task prompt through the three TFA adapters. NHWC maps throughout.
 sd-turbo VAE: block_out_channels (128, 256, 512, 512), 2 res layers per
 encoder block (3 per decoder block), 4 latent channels, GroupNorm(32,
 eps=1e-6), single-head mid attention, scaling_factor 0.18215.
+
+On a height-sharded restore each level's work (level k at image / 2^k, the
+CFRM stage and the TFA adapter at the level of their skip) runs where the plan
+puts that level (``parallel/spatial.py``): split, or whole from the first
+level the ranks cannot split, entered through ``PS.descend`` and left through
+``PS.ascend``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from ..nn import attention as A
 from ..nn import layers as L
 from ..nn import remat as RM
 from ..nn import resnet as R
+from ..parallel import spatial as PS
 from . import cfrm as CFRM
 from . import tfa as TFA
 
@@ -158,25 +165,31 @@ def encode_moments(p, x, cfg: VAEConfig, fr_params=None, enable_fr: bool = False
     function stops its gradient there.
     """
     enc = p["encoder"]
-    h = L.conv2d(enc["conv_in"], x * 2.0 - 1.0, padding=1)
+    with PS.level(0):
+        h = L.conv2d(enc["conv_in"], x * 2.0 - 1.0, padding=1)
     skips = []
     blocks = enc["down_blocks"]
     for i, blk in enumerate(blocks[:-1]):
-        for res in blk["resnets"]:
-            h = _res_unit(res, h, cfg)
+        with PS.level(i):
+            for res in blk["resnets"]:
+                h = _res_unit(res, h, cfg)
         if "downsample" in blk:
-            h = R.downsample(blk["downsample"], h, pad_mode="asym")
+            h = PS.descend(lambda x: R.downsample(blk["downsample"], x, pad_mode="asym"), h,
+                           i + 1)
         if enable_fr:
-            h = CFRM.cfrm_stage(fr_params[i], h, remat=cfg.remat)
+            with PS.level(i + 1):
+                h = CFRM.cfrm_stage(fr_params[i], h, remat=cfg.remat)
         skips.append(h)
 
     h = h.detach()
-    for res in blocks[-1]["resnets"]:
-        h = _res_unit(res, h, cfg)
-    h = _mid_block(enc["mid"], h, cfg)
-    h = L.silu(L.group_norm(enc["conv_norm_out"], h, groups=cfg.norm_num_groups, eps=cfg.eps))
-    h = L.conv2d(enc["conv_out"], h, padding=1)
-    moments = L.conv2d(p["quant_conv"], h, padding=0)
+    with PS.level(len(blocks) - 1):
+        for res in blocks[-1]["resnets"]:
+            h = _res_unit(res, h, cfg)
+        h = _mid_block(enc["mid"], h, cfg)
+        h = L.silu(L.group_norm(enc["conv_norm_out"], h, groups=cfg.norm_num_groups,
+                                eps=cfg.eps))
+        h = L.conv2d(enc["conv_out"], h, padding=1)
+        moments = L.conv2d(p["quant_conv"], h, padding=0)
     mean, logvar = moments.chunk(2, dim=-1)
     return mean, torch.clamp(logvar, -30.0, 20.0), skips
 
@@ -208,26 +221,31 @@ def decode(p, z, cfg: VAEConfig, skips=None, tfa_params=None, task=None,
     adapters before the first three up blocks.
     """
     dec = p["decoder"]
-    h = L.conv2d(p["post_quant_conv"], z / cfg.scaling_factor, padding=0)
-    h = L.conv2d(dec["conv_in"], h, padding=1)
-    h = _mid_block(dec["mid"], h, cfg)
+    blocks = dec["up_blocks"]
+    with PS.level(len(blocks) - 1):
+        h = L.conv2d(p["post_quant_conv"], z / cfg.scaling_factor, padding=0)
+        h = L.conv2d(dec["conv_in"], h, padding=1)
+        h = _mid_block(dec["mid"], h, cfg)
 
     use_tfa = tfa_params is not None and task is not None
     if use_tfa:
         prompt = tfa_params["task_prompts"][task]  # (T, D)
         cond = prompt[None].expand((h.shape[0],) + tuple(prompt.shape)).to(h.dtype)
 
-    blocks = dec["up_blocks"]
     for i, blk in enumerate(blocks):
-        if use_tfa and i < len(blocks) - 1:
-            args = (tfa_params["task_editors"][i], h, skips[-i - 1], cond, prompt_len)
-            h, cond = (RM.checkpoint(TFA.task_feature_adapter, *args) if cfg.remat
-                       else TFA.task_feature_adapter(*args))
-        for res in blk["resnets"]:
-            h = _res_unit(res, h, cfg)
+        lvl = len(blocks) - 1 - i
+        with PS.level(lvl):
+            if use_tfa and i < len(blocks) - 1:
+                args = (tfa_params["task_editors"][i], h, skips[-i - 1], cond, prompt_len)
+                h, cond = (RM.checkpoint(TFA.task_feature_adapter, *args) if cfg.remat
+                           else TFA.task_feature_adapter(*args))
+            for res in blk["resnets"]:
+                h = _res_unit(res, h, cfg)
         if "upsample" in blk:
-            h = R.upsample(blk["upsample"], h)
+            h = PS.ascend(lambda x: R.upsample(blk["upsample"], x), h, lvl - 1)
 
-    h = L.silu(L.group_norm(dec["conv_norm_out"], h, groups=cfg.norm_num_groups, eps=cfg.eps))
-    h = L.conv2d(dec["conv_out"], h, padding=1)
+    with PS.level(0):
+        h = L.silu(L.group_norm(dec["conv_norm_out"], h, groups=cfg.norm_num_groups,
+                                eps=cfg.eps))
+        h = L.conv2d(dec["conv_out"], h, padding=1)
     return (h + 1.0) / 2.0

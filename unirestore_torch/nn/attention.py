@@ -113,7 +113,7 @@ def mha(p, x, context=None, heads: int = 8):
     with a ``pallas_call`` it cannot partition. Cross-attention to the text
     context runs on the slab."""
     if context is None and SP.current() is not None:
-        return SP.local_rows(_mha(p, SP.gather_rows(x), None, heads), x.shape[1])
+        return SP.local_rows(_mha(p, SP.gather_rows(x), None, heads))
     return _mha(p, x, context, heads)
 
 

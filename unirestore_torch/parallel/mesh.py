@@ -10,10 +10,11 @@ one of this process alone.
 The 2-D (data, spatial) mesh (``make_mesh_2d``, ``spatial_batch_sharding``,
 JAX ``mesh.py:25-43``) is for spatially sharded inference: each rank holds a
 block of the batch's rows and a slab of the image's height, and
-``models/unirestore.py:restore_padded(..., sharding=)`` runs with the
-partition context of ``spatial.py``, which does by hand the halo exchanges,
-partial reductions and attention gathers that GSPMD inserts for the JAX
-package.
+``models/unirestore.py:restore_padded(..., sharding=)`` and ``restore(...,
+sharding=)`` run with the partition context of ``spatial.py``, which does by
+hand the halo exchanges, partial reductions and attention gathers that GSPMD
+inserts for the JAX package, and runs whole the levels whose rows the ranks
+do not split.
 """
 
 from __future__ import annotations
@@ -110,12 +111,13 @@ class SpatialBatchSharding:
         (d, s), (b, h) = self.shape, local_shape[:2]
         return (b * d, h * s) + tuple(local_shape[2:])
 
-    def local(self, x):
+    def local(self, x, split: bool = True):
         """This rank's contiguous rows (over ``data``) and slab of height (over
-        ``spatial``) of a global NHWC array or tensor."""
+        ``spatial``) of a global NHWC array or tensor; without ``split`` its
+        rows with the whole height (a map that runs whole on every rank)."""
         (d, s), (i, j) = self.shape, self.coordinate
-        return x[_block(x.shape[0], i, d, "global batch"),
-                 _block(x.shape[1], j, s, "image height")]
+        rows = x[_block(x.shape[0], i, d, "global batch")]
+        return rows[:, _block(x.shape[1], j, s, "image height")] if split else rows
 
     def assemble(self, x: torch.Tensor) -> torch.Tensor:
         """The global batch from every rank's block ``x`` (one all-gather over
@@ -132,16 +134,18 @@ class SpatialBatchSharding:
         out = out.reshape((d, s) + tuple(x.shape)).transpose(1, 2)
         return out.reshape((d * b, s * h) + tuple(x.shape[2:]))
 
-    def context(self, height: int):
+    def context(self, height: int, **plan):
         """The partition context of a restore of images ``height`` rows high
-        (``parallel/spatial.py``); None when the spatial axis has one rank,
-        whose slab is then the whole image."""
+        (``parallel/spatial.py``), with the levels ``plan`` runs whole
+        (``SpatialContext``'s ``first_whole``, ``whole_level``,
+        ``latent_depth``; none by default); None when the spatial axis has one
+        rank, whose slab is then the whole image."""
         if self.shape[1] == 1:
             return None
         from .spatial import SpatialContext
 
         self.last_context = SpatialContext(self.mesh.get_group("spatial"), self.coordinate[1],
-                                           self.shape[1], height, timed=self.timed)
+                                           self.shape[1], height, timed=self.timed, **plan)
         return self.last_context
 
 

@@ -19,12 +19,25 @@ context set here and does the exchange by hand:
 
 Per-pixel layers (1x1 convolutions, ``linear``, ``layer_norm``, the
 upsampling and gating ops) need nothing. The context is set only by
-``models/unirestore.py:restore_padded`` with a ``sharding`` whose spatial axis
-has more than one rank, for the length of that restore: with no context set
-every function computes what it computes without this module. A primitive that
-spans the image and has no partitioned form raises under the context
-(``refuse``) rather than run on the local slab as if it were the whole image;
-collective failures are not caught.
+``models/unirestore.py:restore_padded`` and ``restore`` with a ``sharding``
+whose spatial axis has more than one rank, for the length of that restore:
+with no context set every function computes what it computes without this
+module. A primitive that spans the image and has no partitioned form raises
+under the context (``refuse``) rather than run on the local slab as if it were
+the whole image; collective failures are not caught.
+
+Uneven shards. Each map of the restore sits at a level, its depth the number
+of halvings below the image (the VAE's levels, then the UNet's and the
+Controller's below the latent). A level splits while its rows divide into
+equal slabs of an even number of rows down to it; from the first level that
+does not (``SpatialContext.first_whole``, the plan ``models/unirestore.py:
+spatial_plan`` makes) every deeper level runs whole: each rank holds the whole
+map and computes it with the context suspended (``level``), which is the
+single-device arithmetic. ``descend`` gathers the map that feeds the
+downsampler into the first whole level, ``ascend`` keeps this rank's rows of
+the upsampler's output where the levels split again. GSPMD instead pads an
+uneven level to ceil(rows / ranks) a device; both compute the single-device
+function.
 """
 
 from __future__ import annotations
@@ -43,21 +56,39 @@ COLLECTIVES = ("halo", "all_reduce", "all_gather")
 class SpatialContext:
     """The spatial process ``group``, this rank's ``index`` along it, the
     number of ranks ``size``, and the global ``height`` of the images being
-    restored. ``counts`` tallies the collectives issued by kind (``COLLECTIVES``)
-    and ``seconds`` their host time; with ``timed`` the card is synchronised
-    before and after each one, so that ``seconds`` reads the collectives alone
-    (off by default: it serialises the host with the card)."""
+    restored. The plan: ``first_whole``, the depth (halvings below the image)
+    of the first level that runs whole, or None where every level splits;
+    ``whole_level``, that level's name; ``latent_depth``, the latent's depth,
+    where the UNet's and the Controller's level 0 sits. ``counts`` tallies the
+    collectives issued by kind (``COLLECTIVES``) and ``seconds`` their host
+    time; with ``timed`` the card is synchronised before and after each one, so
+    that ``seconds`` reads the collectives alone (off by default: it
+    serialises the host with the card)."""
     group: object
     index: int
     size: int
     height: int
     timed: bool = False
+    first_whole: int | None = None
+    whole_level: str | None = None
+    latent_depth: int = 0
     counts: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(COLLECTIVES, 0))
     seconds: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(COLLECTIVES, 0.0))
 
-    def first_row(self, local_rows: int) -> int:
-        """The global index of this rank's first row of a map ``local_rows`` high."""
-        return self.index * local_rows
+    def runs_whole(self, depth: int) -> bool:
+        """Whether the level ``depth`` halvings below the image runs whole."""
+        return self.first_whole is not None and depth >= self.first_whole
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, n, ...) of this rank's rows -> the global (B, size * n, ...):
+        every rank's block along axis 1, in rank order."""
+        g = _gather(self, x, "all_gather")  # (size, B, n, ...)
+        return g.transpose(0, 1).reshape((x.shape[0], self.size * x.shape[1]) + tuple(x.shape[2:]))
+
+    def slab(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of axis 1 of a global ``y`` (which ``size`` divides)."""
+        n = y.shape[1] // self.size
+        return y[:, self.index * n:(self.index + 1) * n]
 
 
 # The context of the restore in progress. One for the process, as
@@ -148,16 +179,68 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     """(B, T_local, ...) tokens of this rank's rows -> the global (B, size *
     T_local, ...): a rank's tokens are a contiguous block of the image's
     row-major tokens, and the ranks hold the blocks in order."""
-    ctx = _CURRENT
-    g = _gather(ctx, x, "all_gather")  # (size, B, T_local, ...)
-    return g.transpose(0, 1).reshape((x.shape[0], ctx.size * x.shape[1]) + tuple(x.shape[2:]))
+    return _CURRENT.gather(x)
 
 
-def local_rows(y: torch.Tensor, n: int) -> torch.Tensor:
-    """This rank's block of ``n`` entries along axis 1 of a global ``y``."""
-    lo = _CURRENT.first_row(n)
-    return y[:, lo:lo + n]
+def local_rows(y: torch.Tensor) -> torch.Tensor:
+    """This rank's block along axis 1 of a global ``y``."""
+    return _CURRENT.slab(y)
 
 
-__all__ = ["COLLECTIVES", "SpatialContext", "all_reduce_sum", "current", "gather_rows",
-           "halo", "local_rows", "partition", "refuse"]
+# -- levels that run whole --------------------------------------------------------------
+
+
+def _depth(k: int, latent: bool) -> int:
+    return _CURRENT.latent_depth + k if latent else k
+
+
+def _whole(k: int, latent: bool) -> bool:
+    return _CURRENT is not None and _CURRENT.runs_whole(_depth(k, latent))
+
+
+@contextlib.contextmanager
+def whole():
+    """Within the block no context is set, whatever is set outside it: the
+    primitives compute the unpartitioned arithmetic of a map every rank holds
+    whole. ``partition`` refuses to nest; this suspends the context and sets
+    it again afterwards."""
+    global _CURRENT
+    saved, _CURRENT = _CURRENT, None
+    try:
+        yield
+    finally:
+        _CURRENT = saved
+
+
+def level(k: int, latent: bool = False):
+    """The block computes maps of the level ``k`` halvings below the image
+    (below the latent with ``latent``): under ``whole`` where the plan runs
+    that level whole, else as it is."""
+    return whole() if _whole(k, latent) else contextlib.nullcontext()
+
+
+def descend(fn, x: torch.Tensor, k: int, latent: bool = False) -> torch.Tensor:
+    """``fn(x)`` for a downsampler ``fn`` from level ``k - 1`` into level
+    ``k``, run where level ``k`` runs; into the first whole level, on ``x``
+    gathered from every rank (one ``all_gather``)."""
+    if not _whole(k, latent):
+        return fn(x)
+    if not _whole(k - 1, latent):
+        x = _CURRENT.gather(x)
+    with whole():
+        return fn(x)
+
+
+def ascend(fn, x: torch.Tensor, k: int, latent: bool = False) -> torch.Tensor:
+    """``fn(x)`` for an upsampler ``fn`` from level ``k + 1`` into level ``k``,
+    run where level ``k + 1`` runs; out of the last whole level, this rank's
+    rows of its whole output."""
+    if not _whole(k + 1, latent):
+        return fn(x)
+    with whole():
+        y = fn(x)
+    return y if _whole(k, latent) else _CURRENT.slab(y)
+
+
+__all__ = ["COLLECTIVES", "SpatialContext", "all_reduce_sum", "ascend", "current", "descend",
+           "gather_rows", "halo", "level", "local_rows", "partition", "refuse", "whole"]
