@@ -55,7 +55,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    1);
 5. the same widths on a 256 px input in fp32, on the card (unfused, fused,
    and unfused replayed from a CUDA graph) and on the CPU (where the kernels'
-   plain versions run): the restores must agree;
+   plain versions run): the restores must agree. The CPU half of this check
+   and of phases 7, 11, 12 and 15's runs in one worker process
+   (``CpuReferences``) while the card phases go on: it draws the same seeded
+   inputs on the card, copies them to the host and computes there; every
+   such check is read before the report. Phases 5 and 7 run after 18 (a)-(c),
+   and phase 15 starts its jobs after its timed restores and steps, so that
+   phases 3, 4, 6, 18 and 15's restores and SPADE step are timed beside no
+   job; the script waits for every job before phase 16. The jobs can run
+   beside phases 8-9 (those of 5 and 7), 12-14 (11 and 12) and 15's
+   optimizers and backbones; the report gives each job's seconds of the
+   script;
 6. the stage-1 training step at full width (sd-turbo widths without TFA,
    512 px, batch 8, bf16 frozen weights and fp32 trainable masters, AdamW
    from the stage-1 YAML's kwargs, remat on) on a seeded synthetic pair: one
@@ -65,6 +75,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    unchanged;
 7. one stage-1 loss and gradient at full width, 256 px, batch 1, fp32, on the
    card and on the CPU: the losses and each family's gradient norm agree;
+18. (its (a)-(c) run after phase 6, (d) after phase 17) the train step's
+   parts in turn (``make_train_step``, the JAX package's split step) on
+   phase 6's cell, against ``monolithic_step`` (every loss in one backward,
+   the design it replaced): (a) from one state, batches and noise, two
+   micro-steps of each (one AdamW update): launches per step phase 6's, the
+   logged losses and every trained leaf after the update bit-equal, each
+   family's gradient norm within TRAIN_GRAD_RTOL; then the two in turns
+   (SPLIT_TURNS) of SPLIT_TURN_STEPS synchronised steps: ms/step and each
+   turn's peak memory; (b) at SPLIT_BIG_BATCH (or the largest multiple of 8
+   at which (a)'s monolithic peak, extrapolated in the batch, fits the card)
+   one warm-up step of each, then the same turns of SPLIT_BIG_STEPS steps:
+   ms/step and peak; (c) the step ended after each part (``stop_after``): ms
+   and peak memory up to it, the trained leaves and optimizer state
+   bit-equal before and after; (d) phase 9's fit command with
+   ``--trainer.split_step true`` for FIT_SPLIT_STEPS micro-steps without
+   validation: launches per micro-step phase 6's, micro-step 2 under
+   ``set_sync_debug_mode("error")``, every logged loss and every leaf of
+   ``last.npz`` bit-equal to phase 9's, and with ``--trainer.stop_after fr``
+   no ``last.npz``;
 8. the restore server (``unirestore_torch.serve``) in this process on
    127.0.0.1 at an ephemeral port: full width, bf16, 20 steps, exact, batch
    4 tiles of 512 px with overlap 64, fused out-projection on. It answers
@@ -231,7 +260,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launch. Every (kernel, shape) met that was not held yet is held to its
    plain version (rows with ``"path": "spade"``). To run it alone from a
    throwaway script: ``nn.kernels.build_all()``, then ``chip_smoke.run_phase15
-   (UR, KN, GR, bridge, TS, OPT, gen)``;
+   (UR, KN, GR, bridge, TS, OPT, gen, refs)`` with ``refs =
+   chip_smoke.CpuReferences()``;
 16. (run after phase 15, before the report) data parallelism
    (``unirestore_torch/parallel``): (a) phase 9's first fit (its YAML,
    overrides and smoke tree; no validation) under ``python -m
@@ -298,12 +328,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    15's twelve steps; ``fit_ddp`` and ``fit_fsdp``: phase 16's world-1 fits;
    ``train_ddp2`` and ``train_fsdp2``: phase 16's two-rank steps, both
    ranks; ``spatial_exact`` and ``spatial_deep``: phase 17's bf16 restores,
-   both ranks; ``spatial_restore``: phase 17's (d), both ranks); each kernel must
+   both ranks; ``spatial_restore``: phase 17's (d), both ranks; ``train_split``:
+   phase 18's full split steps of (a) and (b); ``fit_split``: phase 18's
+   split fit); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
 
-It needs one CUDA device and imports nothing of JAX.
+Each phase prints its seconds (``phase N: ... s (script ... s)``) and the
+report a ``{"phase_seconds": ...}`` line. It needs one CUDA device and
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -377,6 +411,21 @@ GRAPH_SERVE_COUNTS = {"tiled_cold": (0, 280, 4, 560, 6), "tiled": (0, 0, 0, 0, 0
                       "whole": (0, 280, 4, 560, 6), "unknown_task": (0, 0, 0, 0, 0)}
 GRAPH_SERVE_REPLAYS = {(4, RES, RES, 3): 4, (1, 256, 384, 3): 1}
 TRAIN_STEPS = 5
+# phase 18: the step's parts in turn. (a) phase 6's cell, the port's step
+# and ``monolithic_step`` from one state for two micro-steps, then in turns
+# (SPLIT_TURNS) of SPLIT_TURN_STEPS synchronised steps; (b) SPLIT_BIG_BATCH,
+# or the largest multiple of 8 below it at which (a)'s monolithic peak,
+# extrapolated in the batch, stays under SPLIT_MEM_SHARE of the card, in the
+# same turns of SPLIT_BIG_STEPS steps; (c) the step ended after each part,
+# SPLIT_CUT_STEPS steps each; (d) phase 9's fit command with
+# --trainer.split_step true for FIT_SPLIT_STEPS micro-steps
+SPLIT_TURNS = ("mono", "split", "split", "mono")
+SPLIT_TURN_STEPS = 2
+SPLIT_BIG_BATCH = 32
+SPLIT_BIG_STEPS = 2
+SPLIT_MEM_SHARE = 0.9
+SPLIT_CUT_STEPS = 2
+FIT_SPLIT_STEPS = 2
 # phase 9: ``python -m unirestore_torch.main fit`` from the stage-1 YAML on
 # the smoke tree of tools/make_smoke_data.py at 576 px (576 x 592 images),
 # with dotted overrides only: the DIVF2KOST lists, 6 micro-steps (three AdamW
@@ -626,12 +675,24 @@ SM90_DESIGNS = {"attention_sm90.cu": "M2", "attention_stream_sm90.cu": "M2",
 # us, so back-to-back calls of a short kernel measure the host's launch rate
 GRAPH_MS = 0.05
 GRAPH_CALLS = 100
+# the reference worker's CPU threads (``CpuReferences``): the host's other
+# cores stay with the main process, its loaders and the gloo ranks
+REFERENCE_THREADS = 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def process_age() -> float:
+    """Seconds since this process started (its interpreter start included)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
 def card_line() -> str:
@@ -700,6 +761,98 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 def rms_rel(a, b) -> float:
     a, b = a.float(), b.float()
     return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+
+
+# ---------------------------------------------------------------------------
+# the CPU halves of the card-vs-CPU checks (phases 5, 7, 11, 12, 15)
+# ---------------------------------------------------------------------------
+
+
+def reference_worker(jobs, results) -> None:
+    """The reference process: runs each job ``(name, function name, args)``
+    of this module as it arrives and puts ``(name, ok, result or traceback,
+    start, end)``, the last two on the wall clock."""
+    torch.set_num_threads(REFERENCE_THREADS)
+    for name, fn, args in iter(jobs.get, None):
+        start = time.time()
+        try:
+            out = (True, globals()[fn](*args))
+        except BaseException:
+            import traceback
+            out = (False, traceback.format_exc())
+        results.put((name, *out, start, time.time()))
+
+
+class CpuReferences:
+    """One worker process for the CPU halves of the card-vs-CPU checks: the
+    card halves and the other phases go on while the host computes them. A job
+    draws its seeded inputs on the card as the card half does (the same seeds
+    in the same order, so the same values), copies them to the host and runs
+    there; ``result(name)`` waits for its answer, ``idle()`` for every job
+    submitted, so that a timed window after it runs beside no job. ``spans``
+    holds each finished job's (start, end) in seconds of the script."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.jobs, self.results = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=reference_worker, args=(self.jobs, self.results),
+                                daemon=True)
+        self.proc.start()
+        self.done, self.pending, self.spans = {}, set(), {}
+
+    def submit(self, name: str, fn, *args) -> None:
+        self.jobs.put((name, fn.__name__, args))
+        self.pending.add(name)
+
+    def _take(self, name: str) -> None:
+        """Read answers until ``name``'s has come."""
+        import queue
+
+        zero = time.time() - process_age()
+        while name not in self.done:
+            try:
+                got, ok, value, start, end = self.results.get(timeout=10)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise AssertionError(f"the reference worker died (exit code "
+                                         f"{self.proc.exitcode}) before {name}") from None
+                continue
+            self.done[got] = (ok, value)
+            self.spans[got] = (start - zero, end - zero)
+            self.pending.discard(got)
+
+    def idle(self) -> float:
+        """Wait until every submitted job has ended; returns the seconds waited."""
+        t0 = time.perf_counter()
+        for name in sorted(self.pending):
+            self._take(name)
+        return time.perf_counter() - t0
+
+    def result(self, name: str):
+        self._take(name)
+        ok, value = self.done.pop(name)
+        if not ok:
+            raise AssertionError(f"CPU reference {name} failed:\n{value}")
+        return value
+
+    def close(self, wait: bool = True) -> None:
+        """Stop the worker: after its jobs (``wait``) or at once."""
+        import queue
+
+        if wait and self.proc.is_alive():
+            self.jobs.put(None)
+            for _ in range(60):  # a worker exits only once what it put was read
+                self.proc.join(0.5)
+                if not self.proc.is_alive():
+                    break
+                with contextlib.suppress(queue.Empty):
+                    while True:
+                        self.results.get_nowait()
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
 
 
 # ---------------------------------------------------------------------------
@@ -1281,28 +1434,52 @@ def to_cpu(bridge, tree):
                                  tree)
 
 
-def reference_check(UR, KN, GR, bridge, cfg):
-    """Full widths, 256 px, fp32, 2 steps: card (kernels; unfused, fused
-    out-projection, and unfused replayed from a CUDA graph) vs CPU (plain
-    versions)."""
+def restore_reference_inputs(UR, bridge, cfg):
+    """Phase 5's seeded inputs on the card: full-width fp32 parameters, a
+    256 px image and the restore's noise."""
     frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=5)
     gen = torch.Generator(device="cuda").manual_seed(6)
     images = torch.rand((1, 256, 256, 3), generator=gen, device="cuda")
     lat = (1, 32, 32, cfg.vae.latent_channels)
     post = torch.randn(lat, generator=gen, device="cuda")
     diff = torch.randn(lat, generator=gen, device="cuda")
+    return frozen, trainable, images, post, diff
 
-    def run(device, c, tree_f, tree_t):
-        return UR.restore_padded(tree_f, tree_t, c, UR.schedule(c), images.to(device),
-                                 "seg", num_inference_steps=2,
-                                 posterior_noise=post.to(device),
-                                 diffusion_noise=diff.to(device), device=device)
 
+def restore_reference_run(UR, device, cfg, frozen, trainable, images, post, diff):
+    """The 2-step 256 px restore of phase 5 on ``device``."""
+    return UR.restore_padded(frozen, trainable, cfg, UR.schedule(cfg), images.to(device), "seg",
+                             num_inference_steps=2, posterior_noise=post.to(device),
+                             diffusion_noise=diff.to(device), device=device)
+
+
+def restore_reference_cpu(cfg) -> tuple:
+    """Reference job: phase 5's restore (under ``cfg``) on the host, from
+    inputs drawn on the card as the card half draws them. Returns (output,
+    CPU seconds)."""
+    from unirestore_torch import bridge
+    from unirestore_torch.models import unirestore as UR
+
+    frozen, trainable, *xs = restore_reference_inputs(UR, bridge, cfg)
+    frozen, trainable, xs = to_cpu(bridge, frozen), to_cpu(bridge, trainable), [x.cpu() for x in xs]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = restore_reference_run(UR, "cpu", cfg, frozen, trainable, *xs)
+    return out.numpy(), time.perf_counter() - t0
+
+
+def reference_check(UR, KN, GR, bridge, cfg, refs, name="phase 5"):
+    """Full widths, 256 px, fp32, 2 steps: card (kernels; unfused, fused
+    out-projection, and unfused replayed from a CUDA graph) vs CPU (plain
+    versions). The CPU half runs in ``refs``' worker; returns the check,
+    which waits for it and returns the result."""
+    frozen, trainable, images, post, diff = restore_reference_inputs(UR, bridge, cfg)
+    refs.submit(name, restore_reference_cpu, cfg)
     gpu, counts = {}, {}
     for fused in (False, True):
         KN.reset_counts()
-        gpu[fused] = run("cuda", dataclasses.replace(cfg, fused_out_attention=fused),
-                         frozen, trainable).cpu()
+        gpu[fused] = restore_reference_run(UR, "cuda", dataclasses.replace(
+            cfg, fused_out_attention=fused), frozen, trainable, images, post, diff).cpu()
         counts[fused] = dict(zip((kern.symbol for kern in KN.KERNELS), counts_of(KN)))
     # the graph route runs ``restore``: at min_size 256 a 256 px input is
     # neither resized nor padded, so it restores as ``restore_padded`` does
@@ -1311,19 +1488,27 @@ def reference_check(UR, KN, GR, bridge, cfg):
     gpu["graph"] = graphed(images, "seg", num_inference_steps=2, posterior_noise=post,
                            diffusion_noise=diff).cpu()
     (graph_stats,) = graphed.stats.values()
-    del graphed
-    t0 = time.perf_counter()
-    cpu = run("cpu", cfg, to_cpu(bridge, frozen), to_cpu(bridge, trainable))
-    errs = {fused: (out - cpu).abs().max().item() for fused, out in gpu.items()}
-    log(f"reference 256 px fp32, 2 steps: card vs CPU max abs {errs[False]:.3e} unfused, "
-        f"{errs[True]:.3e} fused out-projection, {errs['graph']:.3e} unfused from a CUDA graph "
-        f"(tolerance {REFERENCE_ATOL}); card launches unfused {counts[False]}, fused "
-        f"{counts[True]}, graph at capture {graph_stats.launches} (capture + instantiate "
-        f"{graph_stats.capture_seconds:.3f} s); CPU {time.perf_counter() - t0:.1f} s")
-    for fused, out in gpu.items():
-        if not (torch.isfinite(out).all() and errs[fused] <= REFERENCE_ATOL):
-            raise AssertionError(f"card and CPU restores differ (fused {fused}): "
-                                 f"max abs {errs[fused]:.3e}")
+    del graphed, frozen, trainable
+
+    def check():
+        cpu, cpu_s = refs.result(name)
+        cpu = torch.from_numpy(cpu)
+        errs = {fused: (out - cpu).abs().max().item() for fused, out in gpu.items()}
+        log(f"reference 256 px fp32, 2 steps: card vs CPU max abs {errs[False]:.3e} unfused, "
+            f"{errs[True]:.3e} fused out-projection, {errs['graph']:.3e} unfused from a CUDA "
+            f"graph (tolerance {REFERENCE_ATOL}); card launches unfused {counts[False]}, fused "
+            f"{counts[True]}, graph at capture {graph_stats.launches} (capture + instantiate "
+            f"{graph_stats.capture_seconds:.3f} s); CPU {cpu_s:.1f} s in the reference worker")
+        for fused, out in gpu.items():
+            if not (torch.isfinite(out).all() and errs[fused] <= REFERENCE_ATOL):
+                raise AssertionError(f"card and CPU restores differ (fused {fused}): "
+                                     f"max abs {errs[fused]:.3e}")
+        return {"max_abs_err": errs[False], "max_abs_err_fused": errs[True],
+                "max_abs_err_graph": errs["graph"], "launches": counts[False],
+                "launches_fused": counts[True],
+                "graph_launches_at_capture": graph_stats.launches,
+                "graph_capture_seconds": graph_stats.capture_seconds, "cpu_seconds": cpu_s}
+
     # at 256 px UNet level 0 and Controller stage 0 run T = 1024 (btc, or btc_out
     # when fused), UNet level 1 and Controller stage 1 T = 256 (bh)
     unfused_ran = [s for s, n in counts[False].items() if n == 0 and s != "ur_attention_btc_out"]
@@ -1334,10 +1519,7 @@ def reference_check(UR, KN, GR, bridge, cfg):
     if graph_stats.launches != counts[False]:
         raise AssertionError(f"graph reference restore launches at capture "
                              f"{graph_stats.launches} != eager {counts[False]}")
-    return {"max_abs_err": errs[False], "max_abs_err_fused": errs[True],
-            "max_abs_err_graph": errs["graph"], "launches": counts[False],
-            "launches_fused": counts[True], "graph_launches_at_capture": graph_stats.launches,
-            "graph_capture_seconds": graph_stats.capture_seconds}
+    return check
 
 
 # ---------------------------------------------------------------------------
@@ -1444,51 +1626,80 @@ def run_training(UR, KN, bridge, TS, OPT):
     return result, launches
 
 
-def train_reference_check(UR, KN, bridge, TS, cfg=None):
-    """Phase 7: one stage-1 loss and gradient, full widths, 256 px, fp32, card vs
-    CPU (``cfg``: ``UniRestoreConfig()``, unless given)."""
-    cfg = cfg or UR.UniRestoreConfig()
+def train_reference_inputs(UR, bridge, TS, cfg):
+    """Phase 7's seeded inputs on the card: full-width fp32 parameters, a
+    256 px pair and its noise."""
     frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=7)
     gen = torch.Generator(device="cuda").manual_seed(8)
     batch = synthetic_pair(gen, 1, 256, torch.float32)
-    noise = TS.draw_noise(cfg, batch, gen)
+    return frozen, trainable, batch, TS.draw_noise(cfg, batch, gen)
+
+
+def train_reference_run(UR, TS, cfg, device, frozen, trainable, batch, noise) -> tuple:
+    """Phase 7's stage-1 losses and gradient norms by family on ``device``."""
     stage = TS.StageConfig(train_cfrm=True, train_cnet=True, train_tfa=False)
-    cfg_r = TS.with_remat(cfg)
+    leaves = TS.trained_leaves(stage, trainable)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    nz = TS.StepNoise(noise.hq.to(device), noise.lq.to(device),
+                      noise.diffusion.to(device), noise.timesteps.to(device))
+    loss, logs = TS.compute_losses(frozen, trainable, TS.with_remat(cfg),
+                                   UR.schedule(cfg, device=device), stage,
+                                   {k: v.to(device) for k, v in batch.items()}, nz, "ir")
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    norms = {}
+    for k, g in zip(leaves, grads):
+        fam = k.split("//")[0]
+        norms[fam] = norms.get(fam, 0.0) + g.double().square().sum().item()
+    return {k: v.item() for k, v in logs.items()}, {f: n ** 0.5 for f, n in norms.items()}
 
-    def run(device, tree_f, tree_t):
-        leaves = TS.trained_leaves(stage, tree_t)
-        for p in leaves.values():
-            p.requires_grad_(True)
-        nz = TS.StepNoise(noise.hq.to(device), noise.lq.to(device),
-                          noise.diffusion.to(device), noise.timesteps.to(device))
-        loss, logs = TS.compute_losses(tree_f, tree_t, cfg_r, UR.schedule(cfg, device=device),
-                                       stage, {k: v.to(device) for k, v in batch.items()},
-                                       nz, "ir")
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        norms = {}
-        for k, g in zip(leaves, grads):
-            fam = k.split("//")[0]
-            norms[fam] = norms.get(fam, 0.0) + g.double().square().sum().item()
-        return {k: v.item() for k, v in logs.items()}, {f: n ** 0.5 for f, n in norms.items()}
 
-    KN.reset_counts()
-    gpu_logs, gpu_norms = run("cuda", frozen, trainable)
-    counts = train_counts(KN)
+def train_reference_cpu(cfg) -> tuple:
+    """Reference job: phase 7's step (under ``cfg``) on the host. Returns
+    (logs, norms, CPU seconds)."""
+    from unirestore_torch import bridge
+    from unirestore_torch.models import unirestore as UR
+    from unirestore_torch.train import steps as TS
+
+    frozen, trainable, batch, noise = train_reference_inputs(UR, bridge, TS, cfg)
+    frozen, trainable = to_cpu(bridge, frozen), to_cpu(bridge, trainable)
+    batch = {k: v.cpu() for k, v in batch.items()}
+    noise = TS.StepNoise(*(x.cpu() for x in (noise.hq, noise.lq, noise.diffusion,
+                                             noise.timesteps)))
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cpu_logs, cpu_norms = run("cpu", to_cpu(bridge, frozen), to_cpu(bridge, trainable))
-    cpu_s = time.perf_counter() - t0
-    loss_err = max(abs(gpu_logs[k] - cpu_logs[k]) / abs(cpu_logs[k]) for k in cpu_logs)
-    grad_err = max(abs(gpu_norms[f] - cpu_norms[f]) / cpu_norms[f] for f in cpu_norms)
-    log(f"training reference 256 px fp32: card vs CPU max relative loss error {loss_err:.3e} "
-        f"(limit {TRAIN_LOSS_RTOL}), gradient norm error {grad_err:.3e} "
-        f"(limit {TRAIN_GRAD_RTOL}); norms card {gpu_norms} CPU {cpu_norms}; "
-        f"card launches {counts}; CPU {cpu_s:.1f} s")
-    finite = all(math.isfinite(v) for v in (*gpu_logs.values(), *gpu_norms.values()))
-    if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
-        raise AssertionError("card and CPU training steps differ")
+    logs, norms = train_reference_run(UR, TS, cfg, "cpu", frozen, trainable, batch, noise)
+    return logs, norms, time.perf_counter() - t0
+
+
+def train_reference_check(UR, KN, bridge, TS, refs, cfg=None, name="phase 7"):
+    """Phase 7: one stage-1 loss and gradient, full widths, 256 px, fp32, card vs
+    CPU (``cfg``: ``UniRestoreConfig()``, unless given). The CPU half runs in
+    ``refs``' worker; returns the check, which waits for it."""
+    cfg = cfg or UR.UniRestoreConfig()
+    inputs = train_reference_inputs(UR, bridge, TS, cfg)
+    refs.submit(name, train_reference_cpu, cfg)
+    KN.reset_counts()
+    gpu_logs, gpu_norms = train_reference_run(UR, TS, cfg, "cuda", *inputs)
+    counts = train_counts(KN)
+    del inputs
     if any(counts[s][0] == 0 for s, c in EXPECTED_TRAIN.items() if c[0]):
         raise AssertionError(f"a kernel did not run in the reference training step: {counts}")
-    return {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err, "cpu_seconds": cpu_s}
+
+    def check():
+        cpu_logs, cpu_norms, cpu_s = refs.result(name)
+        loss_err = max(abs(gpu_logs[k] - cpu_logs[k]) / abs(cpu_logs[k]) for k in cpu_logs)
+        grad_err = max(abs(gpu_norms[f] - cpu_norms[f]) / cpu_norms[f] for f in cpu_norms)
+        log(f"training reference 256 px fp32: card vs CPU max relative loss error "
+            f"{loss_err:.3e} (limit {TRAIN_LOSS_RTOL}), gradient norm error {grad_err:.3e} "
+            f"(limit {TRAIN_GRAD_RTOL}); norms card {gpu_norms} CPU {cpu_norms}; "
+            f"card launches {counts}; CPU {cpu_s:.1f} s in the reference worker")
+        finite = all(math.isfinite(v) for v in (*gpu_logs.values(), *gpu_norms.values()))
+        if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
+            raise AssertionError("card and CPU training steps differ")
+        return {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err, "cpu_seconds": cpu_s}
+
+    return check
 
 
 # ---------------------------------------------------------------------------
@@ -2289,36 +2500,19 @@ def run_fit_stage2(KN, bridge, TE, TS, OPT, main_fn, work: Path):
     return result, launches, shapes
 
 
-def train2_reference_check(UR, KN, bridge, TS, TE) -> dict:
-    """Phase 11: one stage-2 loss for ``cls`` and one for ``seg`` and the TFA
-    gradient norm, full widths with the critics, 256 px, fp32, card vs CPU."""
+STAGE2_REF_TASKS = ("cls", "seg")
+
+
+def train2_reference_inputs(UR, bridge, TS, TE):
+    """Phase 11's seeded inputs on the card: the full-width fp32 model with
+    TFA, the critics, and a 256 px pair with labels and its noise for each of
+    ``STAGE2_REF_TASKS``, drawn in turn."""
     cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
     frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=11)
     critics = TE.build_critics("mtl", device="cuda")
-    cpu_trees = (to_cpu(bridge, frozen), to_cpu(bridge, trainable), to_cpu(bridge, critics))
     gen = torch.Generator(device="cuda").manual_seed(12)
-    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True, multi_task=True)
-    cfg_r = TS.with_remat(cfg)
-
-    def run(device, tree_f, tree_t, crit, batch, noise, task):
-        leaves = TS.trained_leaves(stage, tree_t)
-        for p in leaves.values():
-            p.requires_grad_(True)
-        try:
-            nz = TS.StepNoise(*(x.to(device) for x in (noise.hq, noise.lq, noise.diffusion,
-                                                       noise.timesteps)))
-            loss, logs = TS.compute_losses(tree_f, tree_t, cfg_r, UR.schedule(cfg, device=device),
-                                           stage, {k: v.to(device) for k, v in batch.items()},
-                                           nz, task, TE.make_te_loss_fn("mtl", crit))
-            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        finally:
-            for p in leaves.values():
-                p.requires_grad_(False)
-        norm = sum(g.double().square().sum().item() for g in grads if g is not None) ** 0.5
-        return {k: v.item() for k, v in logs.items()}, norm
-
-    out = {}
-    for task in ("cls", "seg"):
+    inputs = {}
+    for task in STAGE2_REF_TASKS:
         batch = synthetic_pair(gen, 1, 256, torch.float32)
         if task == "cls":
             batch["gt"] = torch.tensor([417], device="cuda")
@@ -2326,28 +2520,92 @@ def train2_reference_check(UR, KN, bridge, TS, TE) -> dict:
             labels = torch.randint(0, 19, (1, 256, 256), generator=gen, device="cuda")
             labels[:, :32] = 255
             batch["gt"] = labels
-        noise = TS.draw_noise(cfg, batch, gen)
-        KN.reset_counts()
-        gpu_logs, gpu_norm = run("cuda", frozen, trainable, critics, batch, noise, task)
-        counts = train_counts(KN)
+        inputs[task] = (batch, TS.draw_noise(cfg, batch, gen))
+    return cfg, (frozen, trainable, critics), inputs
+
+
+def train2_reference_run(UR, TS, TE, cfg, device, trees, batch, noise, task) -> tuple:
+    """Phase 11's stage-2 losses of ``task`` and the TFA gradient norm on ``device``."""
+    tree_f, tree_t, crit = trees
+    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True, multi_task=True)
+    leaves = TS.trained_leaves(stage, tree_t)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    try:
+        nz = TS.StepNoise(*(x.to(device) for x in (noise.hq, noise.lq, noise.diffusion,
+                                                   noise.timesteps)))
+        loss, logs = TS.compute_losses(tree_f, tree_t, TS.with_remat(cfg),
+                                       UR.schedule(cfg, device=device), stage,
+                                       {k: v.to(device) for k, v in batch.items()}, nz, task,
+                                       TE.make_te_loss_fn("mtl", crit))
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    finally:
+        for p in leaves.values():
+            p.requires_grad_(False)
+    norm = sum(g.double().square().sum().item() for g in grads if g is not None) ** 0.5
+    return {k: v.item() for k, v in logs.items()}, norm
+
+
+def train2_reference_cpu() -> dict:
+    """Reference job: phase 11's two stage-2 steps on the host. Returns
+    {task: (logs, norm, CPU seconds)}."""
+    from unirestore_torch import bridge
+    from unirestore_torch.models import unirestore as UR
+    from unirestore_torch.train import engine as TE
+    from unirestore_torch.train import steps as TS
+
+    cfg, trees, inputs = train2_reference_inputs(UR, bridge, TS, TE)
+    trees = tuple(to_cpu(bridge, t) for t in trees)
+    inputs = {task: ({k: v.cpu() for k, v in b.items()},
+                     TS.StepNoise(*(x.cpu() for x in (n.hq, n.lq, n.diffusion, n.timesteps))))
+              for task, (b, n) in inputs.items()}
+    torch.cuda.empty_cache()
+    out = {}
+    for task, (batch, noise) in inputs.items():
         t0 = time.perf_counter()
-        cpu_logs, cpu_norm = run("cpu", *cpu_trees, batch, noise, task)
-        cpu_s = time.perf_counter() - t0
-        loss_err = max(abs(gpu_logs[k] - cpu_logs[k]) / abs(cpu_logs[k]) for k in cpu_logs)
-        grad_err = abs(gpu_norm - cpu_norm) / cpu_norm
-        log(f"stage-2 reference {task}, 256 px fp32: card vs CPU max relative loss error "
-            f"{loss_err:.3e} (limit {TRAIN_LOSS_RTOL}), TFA gradient norm {gpu_norm:.6g} vs "
-            f"{cpu_norm:.6g}, error {grad_err:.3e} (limit {TRAIN_GRAD_RTOL}); losses card "
-            f"{gpu_logs} CPU {cpu_logs}; card launches {counts}; CPU {cpu_s:.1f} s")
-        finite = all(math.isfinite(v) for v in (*gpu_logs.values(), gpu_norm))
-        if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
-            raise AssertionError(f"card and CPU stage-2 {task} steps differ")
+        logs, norm = train2_reference_run(UR, TS, TE, cfg, "cpu", trees, batch, noise, task)
+        out[task] = (logs, norm, time.perf_counter() - t0)
+    return out
+
+
+def train2_reference_check(UR, KN, bridge, TS, TE, refs):
+    """Phase 11: one stage-2 loss for ``cls`` and one for ``seg`` and the TFA
+    gradient norm, full widths with the critics, 256 px, fp32, card vs CPU.
+    The CPU half runs in ``refs``' worker; returns the check, which waits
+    for it."""
+    cfg, trees, inputs = train2_reference_inputs(UR, bridge, TS, TE)
+    refs.submit("phase 11", train2_reference_cpu)
+    gpu = {}
+    for task, (batch, noise) in inputs.items():
+        KN.reset_counts()
+        gpu[task] = (*train2_reference_run(UR, TS, TE, cfg, "cuda", trees, batch, noise, task),
+                     train_counts(KN))
+        counts = gpu[task][2]
         if any(counts[s][0] == 0 for s, c in EXPECTED_STAGE2[task].items() if c[0]):
             raise AssertionError(f"a kernel did not run in the stage-2 reference: {counts}")
-        out[task] = {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err,
-                     "tfa_grad_norm_card": gpu_norm, "tfa_grad_norm_cpu": cpu_norm,
-                     "cpu_seconds": cpu_s}
-    return out
+    del trees, inputs
+
+    def check():
+        cpu = refs.result("phase 11")
+        out = {}
+        for task, (gpu_logs, gpu_norm, counts) in gpu.items():
+            cpu_logs, cpu_norm, cpu_s = cpu[task]
+            loss_err = max(abs(gpu_logs[k] - cpu_logs[k]) / abs(cpu_logs[k]) for k in cpu_logs)
+            grad_err = abs(gpu_norm - cpu_norm) / cpu_norm
+            log(f"stage-2 reference {task}, 256 px fp32: card vs CPU max relative loss error "
+                f"{loss_err:.3e} (limit {TRAIN_LOSS_RTOL}), TFA gradient norm {gpu_norm:.6g} vs "
+                f"{cpu_norm:.6g}, error {grad_err:.3e} (limit {TRAIN_GRAD_RTOL}); losses card "
+                f"{gpu_logs} CPU {cpu_logs}; card launches {counts}; CPU {cpu_s:.1f} s in the "
+                "reference worker")
+            finite = all(math.isfinite(v) for v in (*gpu_logs.values(), gpu_norm))
+            if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
+                raise AssertionError(f"card and CPU stage-2 {task} steps differ")
+            out[task] = {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err,
+                         "tfa_grad_norm_card": gpu_norm, "tfa_grad_norm_cpu": cpu_norm,
+                         "cpu_seconds": cpu_s}
+        return out
+
+    return check
 
 
 # ---------------------------------------------------------------------------
@@ -2580,21 +2838,15 @@ def to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def train3_reference_check(UR, KN, bridge, TS, TE) -> dict:
-    """Phase 12: one stage-3 loss through RetinaNet and one through Faster
-    R-CNN and the task prompts' gradient norm, full widths with the critic,
-    256 px, fp32, card vs CPU. The Faster R-CNN sampling draws are the CPU
-    generator's on both sides (``tasks.fasterrcnn.loss_uniforms`` is patched
-    for the comparison), as a CUDA generator draws other numbers."""
-    from unirestore_torch.tasks import fasterrcnn as FRC
+STAGE3_REF_DETECTORS = ("retinanet", "fastrcnn")
 
+
+def train3_reference_inputs(UR, bridge, TS):
+    """Phase 12's seeded inputs on the card: the full-width fp32 model with
+    TFA's four tasks and a 256 px pair with three boxes and its noise."""
     cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg", "det"))
     frozen, trainable = make_params(UR, bridge, cfg, torch.float32, seed=11)
-    cpu_trees = (to_cpu(bridge, frozen), to_cpu(bridge, trainable))
     gen = torch.Generator(device="cuda").manual_seed(14)
-    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True,
-                           tfa_prompts_only=True, multi_task=True)
-    cfg_r = TS.with_remat(cfg)
     batch = synthetic_pair(gen, 1, 256, torch.float32)
     boxes = torch.zeros((1, 64, 4), device="cuda")
     boxes[0, :3] = torch.tensor([[16.0, 24.0, 120.0, 140.0], [100.0, 40.0, 230.0, 200.0],
@@ -2604,57 +2856,109 @@ def train3_reference_check(UR, KN, bridge, TS, TE) -> dict:
     labels = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
     labels[0, :3] = torch.tensor([1, 3, 18])
     batch["gt"] = {"boxes": boxes, "labels": labels, "mask": mask}
-    noise = TS.draw_noise(cfg, batch, gen)
-    draw = FRC.loss_uniforms
+    return cfg, frozen, trainable, batch, TS.draw_noise(cfg, batch, gen)
 
-    def run(device, tree_f, tree_t, crit, downstream):
-        leaves = TS.trained_leaves(stage, tree_t)
+
+def train3_reference_run(UR, TS, TE, cfg, device, frozen, trainable, crit, batch, noise,
+                         downstream) -> tuple:
+    """Phase 12's stage-3 losses through ``downstream`` and the prompts'
+    gradient norm on ``device``."""
+    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True,
+                           tfa_prompts_only=True, multi_task=True)
+    leaves = TS.trained_leaves(stage, trainable)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    try:
+        nz = TS.StepNoise(*(x.to(device) for x in (noise.hq, noise.lq, noise.diffusion,
+                                                   noise.timesteps)))
+        loss, logs = TS.compute_losses(frozen, trainable, TS.with_remat(cfg),
+                                       UR.schedule(cfg, device=device), stage,
+                                       to_device(batch, device), nz, "det",
+                                       TE.make_te_loss_fn("det", crit, downstream))
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    finally:
         for p in leaves.values():
-            p.requires_grad_(True)
-        try:
-            nz = TS.StepNoise(*(x.to(device) for x in (noise.hq, noise.lq, noise.diffusion,
-                                                       noise.timesteps)))
-            loss, logs = TS.compute_losses(tree_f, tree_t, cfg_r, UR.schedule(cfg, device=device),
-                                           stage, to_device(batch, device), nz, "det",
-                                           TE.make_te_loss_fn("det", crit, downstream))
-            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        finally:
-            for p in leaves.values():
-                p.requires_grad_(False)
-        norm = sum(g.double().square().sum().item() for g in grads if g is not None) ** 0.5
-        return {k: v.item() for k, v in logs.items()}, norm
+            p.requires_grad_(False)
+    norm = sum(g.double().square().sum().item() for g in grads if g is not None) ** 0.5
+    return {k: v.item() for k, v in logs.items()}, norm
 
+
+def train3_reference_cpu() -> dict:
+    """Reference job: phase 12's two stage-3 steps on the host, the Faster
+    R-CNN sampling draws from the CPU generator (``loss_uniforms`` on the
+    host). Returns {detector: (logs, norm, CPU seconds)}."""
+    from unirestore_torch import bridge
+    from unirestore_torch.models import unirestore as UR
+    from unirestore_torch.train import engine as TE
+    from unirestore_torch.train import steps as TS
+
+    cfg, frozen, trainable, batch, noise = train3_reference_inputs(UR, bridge, TS)
+    frozen, trainable = to_cpu(bridge, frozen), to_cpu(bridge, trainable)
+    batch = to_device(batch, "cpu")
+    noise = TS.StepNoise(*(x.cpu() for x in (noise.hq, noise.lq, noise.diffusion,
+                                             noise.timesteps)))
     out = {}
+    for downstream in STAGE3_REF_DETECTORS:
+        critics = to_cpu(bridge, TE.build_critics("det", downstream, device="cuda"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        logs, norm = train3_reference_run(UR, TS, TE, cfg, "cpu", frozen, trainable, critics,
+                                          batch, noise, downstream)
+        out[downstream] = (logs, norm, time.perf_counter() - t0)
+    return out
+
+
+def train3_reference_check(UR, KN, bridge, TS, TE, refs):
+    """Phase 12: one stage-3 loss through RetinaNet and one through Faster
+    R-CNN and the task prompts' gradient norm, full widths with the critic,
+    256 px, fp32, card vs CPU. The Faster R-CNN sampling draws are the CPU
+    generator's on both sides (``tasks.fasterrcnn.loss_uniforms`` is patched
+    for the card half), as a CUDA generator draws other numbers. The CPU half
+    runs in ``refs``' worker; returns the check, which waits for it."""
+    from unirestore_torch.tasks import fasterrcnn as FRC
+
+    cfg, frozen, trainable, batch, noise = train3_reference_inputs(UR, bridge, TS)
+    refs.submit("phase 12", train3_reference_cpu)
+    gpu = {}
+    draw = FRC.loss_uniforms
     FRC.loss_uniforms = lambda b, h, w, device: tuple(u.to(device) for u in draw(b, h, w, "cpu"))
     try:
-        for downstream in ("retinanet", "fastrcnn"):
+        for downstream in STAGE3_REF_DETECTORS:
             critics = TE.build_critics("det", downstream, device="cuda")
             KN.reset_counts()
-            gpu_logs, gpu_norm = run("cuda", frozen, trainable, critics, downstream)
-            counts = train_counts(KN)
-            t0 = time.perf_counter()
-            cpu_logs, cpu_norm = run("cpu", *cpu_trees, to_cpu(bridge, critics), downstream)
-            cpu_s = time.perf_counter() - t0
+            gpu[downstream] = (*train3_reference_run(UR, TS, TE, cfg, "cuda", frozen, trainable,
+                                                     critics, batch, noise, downstream),
+                               train_counts(KN))
+            counts = gpu[downstream][2]
+            if any(counts[s][0] == 0 for s, c in EXPECTED_STAGE3.items() if c[0]):
+                raise AssertionError(f"a kernel did not run in the stage-3 reference: {counts}")
+            del critics
+            torch.cuda.empty_cache()
+    finally:
+        FRC.loss_uniforms = draw
+    del frozen, trainable, batch, noise
+
+    def check():
+        cpu = refs.result("phase 12")
+        out = {}
+        for downstream, (gpu_logs, gpu_norm, counts) in gpu.items():
+            cpu_logs, cpu_norm, cpu_s = cpu[downstream]
             loss_err = max(abs(gpu_logs[k] - cpu_logs[k]) / abs(cpu_logs[k]) for k in cpu_logs)
             grad_err = abs(gpu_norm - cpu_norm) / cpu_norm
             log(f"stage-3 reference {downstream}, 256 px fp32: card vs CPU max relative loss "
                 f"error {loss_err:.3e} (limit {TRAIN_LOSS_RTOL}), prompt gradient norm "
                 f"{gpu_norm:.6g} vs {cpu_norm:.6g}, error {grad_err:.3e} (limit "
                 f"{TRAIN_GRAD_RTOL}); losses card {gpu_logs} CPU {cpu_logs}; card launches "
-                f"{counts}; CPU {cpu_s:.1f} s")
+                f"{counts}; CPU {cpu_s:.1f} s in the reference worker")
             finite = all(math.isfinite(v) for v in (*gpu_logs.values(), gpu_norm))
             if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
                 raise AssertionError(f"card and CPU stage-3 {downstream} losses differ")
-            if any(counts[s][0] == 0 for s, c in EXPECTED_STAGE3.items() if c[0]):
-                raise AssertionError(f"a kernel did not run in the stage-3 reference: {counts}")
             out[downstream] = {"loss_rel_err": loss_err, "grad_norm_rel_err": grad_err,
                                "prompt_grad_norm_card": gpu_norm,
                                "prompt_grad_norm_cpu": cpu_norm, "cpu_seconds": cpu_s}
-            del critics
-            torch.cuda.empty_cache()
-    finally:
-        FRC.loss_uniforms = draw
-    return out
+        return out
+
+    return check
 
 
 # ---------------------------------------------------------------------------
@@ -3495,17 +3799,16 @@ def check_deeplab(KN, bridge, gen) -> dict:
     return out
 
 
-def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, train_ms_scedit=None):
-    """Phase 15: the SPADE restores (``run_spade_restores``), the SPADE restore
-    and stage-1 loss and gradient card vs CPU (``reference_check``,
-    ``train_reference_check`` under ``spade_config``), the SPADE step
+def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, refs, train_ms_scedit=None):
+    """Phase 15: the SPADE restores (``run_spade_restores``), the SPADE step
     (``run_spade_training``, beside phase 6's ``train_ms_scedit`` when given),
-    every optimizer and every DeepLab backbone card vs CPU. Returns (result,
-    launches by path, the (shape, dtype) each kernel met)."""
+    the SPADE restore and stage-1 loss and gradient card vs CPU
+    (``reference_check``, ``train_reference_check`` under ``spade_config``;
+    their CPU halves in ``refs``' worker, their checks returned as
+    ``checks``), every optimizer and every DeepLab backbone card vs CPU. Returns (result,
+    launches by path, the (shape, dtype) each kernel met, checks)."""
     t0 = time.perf_counter()
     out, paths, shapes = run_spade_restores(UR, KN, GR, bridge, gen)
-    out["reference"] = reference_check(UR, KN, GR, bridge, spade_config(
-        UR, UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))))
     torch.cuda.empty_cache()
     out["training"], paths["train_spade"], train_shapes = run_spade_training(UR, KN, bridge, TS,
                                                                               OPT, gen)
@@ -3515,13 +3818,19 @@ def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, train_ms_scedit=None):
         out["training"]["scedit_ms_per_step_phase6"] = train_ms_scedit
         out["training"]["spade_share_of_step"] = (spade_ms - train_ms_scedit) / spade_ms
     torch.cuda.empty_cache()
-    out["training"]["reference"] = train_reference_check(UR, KN, bridge, TS, spade_config(UR))
+    # the CPU halves start after the timed restores and steps
+    checks = {"reference": reference_check(UR, KN, GR, bridge, spade_config(
+        UR, UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))), refs,
+        name="phase 15 restore")}
+    torch.cuda.empty_cache()
+    checks["training"] = train_reference_check(UR, KN, bridge, TS, refs, spade_config(UR),
+                                               name="phase 15 training")
     torch.cuda.empty_cache()
     out["optimizers"] = check_optimizers(OPT)
     out["deeplab"] = check_deeplab(KN, bridge, gen)
     out["phase_seconds"] = time.perf_counter() - t0
     log(f"phase 15 took {out['phase_seconds']:.1f} s")
-    return out, paths, shapes
+    return out, paths, shapes, checks
 
 # ---------------------------------------------------------------------------
 # phase 16: data parallelism
@@ -4294,10 +4603,308 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
     return result, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the split train step
+# ---------------------------------------------------------------------------
+
+
+def split_state_snapshot(TS, stage, trainable, opt_state) -> dict:
+    """Clones of the trained leaves and of every tensor of the optimizer state."""
+    out = {f"trainable/{k}": v.clone() for k, v in TS.trained_leaves(stage, trainable).items()}
+    for name, sub in opt_state.items():
+        if isinstance(sub, dict):
+            out.update({f"{name}/{k}": v.clone() for k, v in sub.items()})
+        else:
+            out[name] = sub
+    return out
+
+
+def snapshot_equal(a: dict, b: dict) -> list:
+    """The keys whose values differ between two snapshots."""
+    return [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                                 else a[k] == b[k])]
+
+
+def monolithic_step(frozen, cfg, sched, stage, tx, task, te_loss_fn=None, remat=True,
+                    group=None):
+    """The train step with every loss in one backward, the design the port's
+    step (``steps.make_train_step``) replaced: ``compute_losses``' sum
+    differentiated once over all trained leaves, then the step's own
+    optimizer tail. Its backward starts with every part's saved activations;
+    phase 18 measures what running the parts in turn saves against it, and
+    the CPU tests hold the step to it bit for bit."""
+    from unirestore_torch.parallel import fsdp as FSDP
+    from unirestore_torch.train import steps as TS
+
+    cfg = TS.with_remat(cfg) if remat else cfg
+
+    def step(trainable, opt_state, batch, noise):
+        full_frozen = FSDP.gather_tree(frozen, group)
+        full = FSDP.gather_tree(trainable, group)
+        params = TS.trained_leaves(stage, full)
+        with TS._tracking(params):
+            loss, logs = TS.compute_losses(full_frozen, full, cfg, sched, stage, batch, noise,
+                                           task, te_loss_fn)
+            grads = TS._grads(loss, params)
+        return TS._apply(stage, tx, group, trainable, opt_state, params, grads, logs)
+
+    step.task = task
+    return step
+
+
+def run_split_training(UR, KN, bridge, TS, OPT):
+    """Phase 18 (a)-(c): phase 6's cell under the port's step
+    (``make_train_step``, "split": its parts in turn) and ``monolithic_step``
+    ("mono"). (a) from one set of parameters, batches and noise, two
+    micro-steps of each (one AdamW update at accumulation 2): the logged
+    losses and every trained leaf after the update bit-equal, each family's
+    gradient norm within TRAIN_GRAD_RTOL; then the two in turns (SPLIT_TURNS)
+    of SPLIT_TURN_STEPS steps, each synchronised, with the peak memory of each
+    turn; (b) at SPLIT_BIG_BATCH, or at the largest multiple of 8 below it at
+    which (a)'s monolithic peak, extrapolated in the batch, fits the card, one
+    warm-up step of each and then the same turns of SPLIT_BIG_STEPS steps; (c)
+    the step ended after each part at batch 8: its seconds, and the trained
+    leaves and optimizer state unchanged. Every full step launches
+    EXPECTED_TRAIN. Runs beside no reference job. Returns (result, launches of
+    the port's step by kernel)."""
+    t_phase = time.perf_counter()
+    cfg = UR.UniRestoreConfig()
+    frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=3,
+                                    trainable_dtype=torch.float32)
+    stage = TS.StageConfig(train_cfrm=True, train_cnet=True, train_tfa=False)
+    tx, _ = OPT.build(STAGE1_OPT, STAGE1_SCHED, STAGE1_MAX_STEPS, BATCH, STAGE1_ACCUM, 1)
+    opt_state = tx.init(TS.trained_leaves(stage, trainable))
+    sched = UR.schedule(cfg, device="cuda")
+    steps = {"mono": monolithic_step(frozen, cfg, sched, stage, tx, "ir"),
+             "split": TS.make_train_step(frozen, cfg, sched, stage, tx, "ir")}
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    norms, update = [], tx.update
+
+    def recording(state, params, grads, group=None):
+        """``tx.update``, with each family's gradient norm kept in ``norms``."""
+        fam = {}
+        for k, g in grads.items():
+            f = k.split("//")[0]
+            fam[f] = fam.get(f, 0.0) + g.double().square().sum()
+        norms.append({f: v.sqrt().item() for f, v in fam.items()})
+        return update(state, params, grads, group)
+
+    def inputs(batch_size=BATCH):
+        batch = synthetic_pair(gen, batch_size, RES, torch.bfloat16)
+        return batch, TS.draw_noise(cfg, batch, gen)
+
+    launches = {kern.symbol: 0 for kern in KN.KERNELS}
+
+    def run(kind, tr, state, batch, noise, check=True):
+        """One synchronised step: (seconds, logs as floats)."""
+        KN.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = steps[kind](tr, state, batch, noise)[2]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = train_counts(KN)
+        if check and counts != EXPECTED_TRAIN:
+            raise AssertionError(f"{kind} step: launches {counts} != {EXPECTED_TRAIN}")
+        if kind != "mono":
+            for kern in KN.KERNELS:
+                launches[kern.symbol] += kern.launches
+        logs = {k: v.item() for k, v in logs.items()}
+        if not all(math.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"{kind} step: non-finite logs {logs}")
+        return sec, logs
+
+    def in_turns(batch_size, n):
+        """SPLIT_TURNS of ``n`` steps each: (ms/step, seconds, peak GiB) by kind."""
+        sec, peak = {"mono": [], "split": []}, {"mono": 0.0, "split": 0.0}
+        for kind in SPLIT_TURNS:
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(n):
+                sec[kind].append(run(kind, trainable, opt_state, *inputs(batch_size))[0])
+            peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() / 2**30)
+        return {k: 1e3 * sum(v) / len(v) for k, v in sec.items()}, sec, peak
+
+    def spread(sec):
+        return ", ".join(f"{k} {[round(x * 1e3, 1) for x in v]}" for k, v in sec.items())
+
+    # (a) the same two micro-steps from the same state
+    pairs = [inputs() for _ in range(STAGE1_ACCUM)]
+    start = {k: v.clone() for k, v in TS.trained_leaves(stage, trainable).items()}
+    twin = clone_tree(bridge, trainable)
+    twin_state = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v)
+                  for k, v in opt_state.items()}
+    tx.update = recording
+    got = {"mono": [], "split": []}
+    for kind, tr, state in (("mono", trainable, opt_state), ("split", twin, twin_state)):
+        for batch, noise in pairs:
+            got[kind].append(run(kind, tr, state, batch, noise)[1])
+    tx.update = update
+    norms_by_kind = {"mono": norms[:STAGE1_ACCUM], "split": norms[STAGE1_ACCUM:]}
+    loss_keys = [k for k in got["mono"][0] if k.startswith("train/loss")]
+    unequal = [(i + 1, k, m[k], s[k]) for i, (m, s) in enumerate(zip(got["mono"], got["split"]))
+               for k in loss_keys if m[k] != s[k]]
+    grad_err = max(abs(s[f] - m[f]) / m[f] for m, s in zip(norms_by_kind["mono"],
+                                                          norms_by_kind["split"]) for f in m)
+    mono_leaves = TS.trained_leaves(stage, trainable)
+    split_leaves = TS.trained_leaves(stage, twin)
+    bit_equal = sum(torch.equal(mono_leaves[k], split_leaves[k]) for k in mono_leaves)
+    moved = sum(not torch.equal(mono_leaves[k], start[k]) for k in mono_leaves)
+    log(f"split step (a), from one state, two micro-steps (one AdamW update): logged losses "
+        f"{'bit-equal' if not unequal else f'differ: {unequal}'}; per-family gradient norms "
+        f"mono {norms_by_kind['mono']} split {norms_by_kind['split']}, largest relative "
+        f"difference {grad_err:.3e} (limit {TRAIN_GRAD_RTOL}); trained leaves after the update "
+        f"bit-equal {bit_equal} of {len(mono_leaves)} ({moved} moved); launches per step "
+        f"{EXPECTED_TRAIN} (both)")
+    if unequal or bit_equal != len(mono_leaves):
+        raise AssertionError(f"the step and monolithic_step differ: losses {unequal}, "
+                             f"{len(mono_leaves) - bit_equal} trained leaves")
+    if grad_err > TRAIN_GRAD_RTOL or not moved:
+        raise AssertionError(f"split and monolithic gradients differ ({grad_err}) or nothing "
+                             f"moved ({moved})")
+    check = {"losses_bit_equal": True, "losses": got, "family_grad_norms": norms_by_kind,
+             "grad_norm_rel_err": grad_err, "trained_leaves": len(mono_leaves),
+             "leaves_bit_equal_after_update": bit_equal, "leaves_moved": moved}
+    # the cache keeps its blocks, so that the first turn grows no memory
+    del twin, twin_state, start, pairs, mono_leaves, split_leaves
+
+    # (a) the two in turns, each turn's peak
+    static = torch.cuda.memory_allocated() / 2**30
+    ms, sec, peak = in_turns(BATCH, SPLIT_TURN_STEPS)
+    log(f"split step (a), batch {BATCH}, turns {SPLIT_TURNS} of {SPLIT_TURN_STEPS} steps: "
+        f"mono {ms['mono']:.1f} ms/step, peak {peak['mono']:.2f} GiB; split "
+        f"{ms['split']:.1f} ms/step, peak {peak['split']:.2f} GiB; each step ({spread(sec)}); "
+        f"held before the steps {static:.2f} GiB")
+    cell = {"batch": BATCH, "res": RES, "ms_per_step": ms, "ms_each": sec,
+            "peak_mem_gib": peak, "held_gib": static, "check": check}
+
+    # (b) the memory a user buys: the largest batch (a)'s monolithic peak allows
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    per_8 = peak["mono"] - static
+    big = next(b for b in range(SPLIT_BIG_BATCH, 0, -8)
+               if static + per_8 * b / BATCH <= SPLIT_MEM_SHARE * total)
+    torch.cuda.empty_cache()
+    for kind in ("mono", "split"):  # warm-up
+        run(kind, trainable, opt_state, *inputs(big))
+    ms_big, sec_big, peak_big = in_turns(big, SPLIT_BIG_STEPS)
+    result_big = {"batch": big, "estimated_mono_peak_gib": static + per_8 * big / BATCH,
+                  "card_gib": total, "ms_per_step": ms_big, "ms_each": sec_big,
+                  "peak_mem_gib": peak_big}
+    log(f"split step (b), batch {big} (estimated monolithic peak "
+        f"{result_big['estimated_mono_peak_gib']:.1f} of {total:.1f} GiB), turns {SPLIT_TURNS} "
+        f"of {SPLIT_BIG_STEPS} steps: mono {ms_big['mono']:.1f} ms/step, peak "
+        f"{peak_big['mono']:.2f} GiB; split {ms_big['split']:.1f} ms/step, peak "
+        f"{peak_big['split']:.2f} GiB; each step ({spread(sec_big)})")
+    torch.cuda.empty_cache()
+
+    # (c) the step ended after each part
+    parts = {}
+    batch, noise = inputs()
+    for part in TS.SPLIT_PARTS:
+        steps["cut"] = TS.make_train_step(frozen, cfg, sched, stage, tx, "ir", stop_after=part)
+        before = split_state_snapshot(TS, stage, trainable, opt_state)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sec_cut, logs = zip(*(run("cut", trainable, opt_state, batch, noise, check=False)
+                              for _ in range(SPLIT_CUT_STEPS)))
+        above = (torch.cuda.max_memory_allocated() - held) / 2**30
+        changed = snapshot_equal(before, split_state_snapshot(TS, stage, trainable, opt_state))
+        if changed or list(logs[0]) != ["train/loss"]:
+            raise AssertionError(f"stop_after={part}: changed {changed[:5]}, logs {logs[0]}")
+        parts[part] = {"ms": 1e3 * sum(sec_cut) / len(sec_cut), "loss": logs[0]["train/loss"],
+                       "peak_above_held_gib": above}
+        del before
+    log(f"split step (c), ms and peak GiB above what was held before, up to each part at batch "
+        f"{BATCH} (trained leaves and optimizer state unchanged after each): "
+        + ", ".join(f"{p} {v['ms']:.1f} ms {v['peak_above_held_gib']:.2f} GiB"
+                    for p, v in parts.items())
+        + f"; the whole step: split {ms['split']:.1f} ms {peak['split'] - static:.2f} GiB, mono "
+        f"{ms['mono']:.1f} ms {peak['mono'] - static:.2f} GiB")
+    del steps, frozen, trainable, opt_state
+    torch.cuda.empty_cache()
+    return {"cell": cell, "big_batch": result_big, "parts_ms": parts,
+            "seconds": time.perf_counter() - t_phase}, launches
+
+
+def run_fit_split(KN, bridge, TE, main_fn, work: Path, reference16) -> tuple:
+    """Phase 18 (d): phase 9's fit command with ``--trainer.split_step true``,
+    FIT_SPLIT_STEPS micro-steps without validation: launches per micro-step
+    EXPECTED_TRAIN, the second under ``set_sync_debug_mode("error")``; every
+    logged loss and every leaf of ``last.npz`` bit-equal to phase 9's after
+    the same micro-steps (phase 16's reference: the flag selects no other
+    step). Then ``--trainer.stop_after fr`` for one micro-step: no
+    ``last.npz``. Returns (result, launches of the split fit)."""
+    from unirestore_torch.train import checkpoints as CKPT
+
+    t0 = time.perf_counter()
+    no_val = ("--trainer.val_check_interval", "0", "--trainer.num_sanity_val_steps", "0",
+              "--trainer.log_every_n_steps", "1")
+    split = ("--trainer.split_step", "true")
+    KN.reset_counts()
+    with StepProbe(TE, KN, bridge, sync_steps=(1,)) as probe:
+        _, trainer = main_fn(fit_argv("fit", work / "data", work / "fit_split", *split,
+                                      "--trainer.max_steps", str(FIT_SPLIT_STEPS), *no_val))
+    launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
+    fit_s = time.perf_counter() - t0
+    if not trainer.split_step or len(probe.counts) != FIT_SPLIT_STEPS or any(
+            c != EXPECTED_TRAIN for c in probe.counts):
+        raise AssertionError(f"split fit: launches per micro-step {probe.counts} != "
+                             f"{EXPECTED_TRAIN}")
+    logged = [{k: v for k, v in e.items() if k.startswith("train/")} for e in trainer.logs]
+    unequal = {f"{i + 1} {k}": (got[k], want[k]) for i, (got, want)
+               in enumerate(zip(logged, reference16["logs"])) for k in want
+               if k.startswith("train/loss") and got[k] != want[k]}
+    flat, meta = CKPT.load_checkpoint(str(work / "fit_split" / "checkpoints" / "last.npz"))
+    same = sum(np.array_equal(flat[f"trainable//{k}"], v)
+               for k, v in reference16["trainable"].items())
+    grad_norms = [(e["train/grad_norm"], w["train/grad_norm"])
+                  for e, w in zip(logged, reference16["logs"])]
+    log(f"split fit (phase 9's command, --trainer.split_step true, {FIT_SPLIT_STEPS} "
+        f"micro-steps, no validation): {fit_s:.1f} s; launches per micro-step equal phase 6's, "
+        f"micro-step 2 under set_sync_debug_mode('error'); logged losses vs phase 9's "
+        f"{'bit-equal' if not unequal else unequal}; grad norms (split, phase 9) {grad_norms}; "
+        f"last.npz at step {meta['step']}: {same} of {len(reference16['trainable'])} trainable "
+        "leaves bit-equal to phase 9's")
+    if unequal or same != len(reference16["trainable"]) or meta["step"] != FIT_SPLIT_STEPS:
+        raise AssertionError(f"split fit differs from phase 9's: losses {unequal}, "
+                             f"{len(reference16['trainable']) - same} last.npz leaves")
+    del probe, trainer
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    root = work / "fit_stop"
+    _, stopped = main_fn(fit_argv("fit", work / "data", root, *split, "--trainer.stop_after",
+                                  "fr", "--trainer.max_steps", "1", *no_val))
+    left = sorted(p.name for p in (root / "checkpoints").iterdir()) \
+        if (root / "checkpoints").exists() else []
+    log(f"stop_after fr fit: {time.perf_counter() - t1:.1f} s; logs {stopped.logs}; "
+        f"checkpoints left {left}")
+    if left or [sorted(e) for e in stopped.logs] != [["imgs_per_sec", "step", "train/loss"]]:
+        raise AssertionError(f"stop_after fr: checkpoints {left}, logs {stopped.logs}")
+    torch.cuda.empty_cache()
+    return {"seconds": fit_s, "losses_bit_equal_phase9": not unequal, "unequal": unequal,
+            "grad_norms_split_phase9": grad_norms, "leaves_bit_equal_phase9": same,
+            "stop_after_fr": {"seconds": time.perf_counter() - t1, "logs": stopped.logs,
+                              "checkpoints": left},
+            "phase_seconds": time.perf_counter() - t0}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    refs = CpuReferences()
+    try:
+        rc = run_phases(refs)
+    except BaseException:
+        refs.close(wait=False)
+        raise
+    refs.close()
+    return rc
+
+
+def run_phases(refs) -> int:
+    """Every phase in order; the CPU halves of the card-vs-CPU checks run in
+    ``refs``' worker and are read before the report."""
     from unirestore_torch import bridge, serve
     from unirestore_torch import graphs as GR
     from unirestore_torch import main as TMAIN
@@ -4309,6 +4916,15 @@ def main() -> int:
     from unirestore_torch.train import engine as TE
     from unirestore_torch.train import optim as OPT
     from unirestore_torch.train import steps as TS
+
+    clock = {"start": time.perf_counter(), "last": time.perf_counter()}
+    phase_seconds = {}
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_seconds[name] = now - clock["last"]
+        clock["last"] = now
+        log(f"phase {name}: {phase_seconds[name]:.1f} s (script {process_age():.1f} s)")
 
     # phase 1: environment
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4330,6 +4946,7 @@ def main() -> int:
                 log(f"  ptxas {lib.stem.split('-')[0]}: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {kern.symbol: [] for kern in KN.KERNELS}
+    phase_done("1-2")
 
     # phase 3: kernels against their plain versions
     with torch.inference_mode():
@@ -4340,6 +4957,7 @@ def main() -> int:
     backward = {kern.symbol: check_backward(K, kern, shape, heads, gen)
                 for kern, shape, heads in backward_shapes(K)}
     torch.cuda.empty_cache()
+    phase_done("3")
 
     # phase 4: full-width restore in three modes, and exact on the fused route
     cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
@@ -4353,24 +4971,37 @@ def main() -> int:
     paths.update(graph_paths)
     del frozen, trainable
     torch.cuda.empty_cache()
-
-    # phase 5: agreement with the CPU on a small input
-    reference = reference_check(UR, KN, GR, bridge, cfg)
-    torch.cuda.empty_cache()
+    phase_done("4")
 
     # phase 6: the full-width stage-1 training step
     training, paths["train"] = run_training(UR, KN, bridge, TS, OPT)
     torch.cuda.empty_cache()
+    phase_done("6")
+
+    # phase 18 (a)-(c): phase 6's cell, the step against monolithic_step;
+    # (d) runs after 17
+    split, paths["train_split"] = run_split_training(UR, KN, bridge, TS, OPT)
+    torch.cuda.empty_cache()
+    phase_done("18 (a)-(c)")
+
+    # phase 5: agreement with the CPU on a small input (the CPU half in the
+    # reference worker, from here on beside phases 8 and 9; every such check
+    # is read before the report)
+    checks = {"restore": reference_check(UR, KN, GR, bridge, cfg, refs)}
+    torch.cuda.empty_cache()
+    phase_done("5")
 
     # phase 7: training, card vs CPU
-    training["reference"] = train_reference_check(UR, KN, bridge, TS)
+    checks["training"] = train_reference_check(UR, KN, bridge, TS, refs)
     torch.cuda.empty_cache()
+    phase_done("7")
 
     # phase 8: the restore server, eager and with --cuda-graphs
     serving, paths["serve"], in_process = run_serving(KN, serve, png)
     torch.cuda.empty_cache()
     serving["cuda_graphs"], paths["serve_graph"], _ = run_serving(KN, serve, png, in_process)
     torch.cuda.empty_cache()
+    phase_done("8")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
         # phase 9: fit, resume and predict through the CLI; then phase 3's
@@ -4384,6 +5015,7 @@ def main() -> int:
             f"batch {fit['timed']['batch_size']} (synchronised window) vs phase 6's "
             f"{training['ms_per_step']:.1f} ms/step at batch {BATCH}")
         torch.cuda.empty_cache()
+        phase_done("9")
 
         # phase 11: the stage-2 fit through the CLI on phase 9's smoke tree;
         # phase 3's comparison at the shapes it met that were not held yet;
@@ -4394,11 +5026,12 @@ def main() -> int:
         fit2["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit2_shapes, rows, gen,
                                                           path="fit_stage2")
         torch.cuda.empty_cache()
-        fit2["reference"] = train2_reference_check(UR, KN, bridge, TS, TE)
+        checks["fit2"] = train2_reference_check(UR, KN, bridge, TS, TE, refs)
         fit2["phase_seconds"] = time.perf_counter() - t0
         log(f"stage-2 fit: {fit2['shapes_added_to_phase3']} (kernel, shape) pairs held to "
             f"their plain versions after it; phase 11 took {fit2['phase_seconds']:.1f} s")
         torch.cuda.empty_cache()
+        phase_done("11")
 
         # phase 12: the stage-3 fit through the CLI, chained to the checkpoints
         # of phases 9 and 11; phase 3's comparison at the shapes it met that
@@ -4409,11 +5042,12 @@ def main() -> int:
         fit3["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit3_shapes, rows, gen,
                                                           path="fit_stage3")
         torch.cuda.empty_cache()
-        fit3["reference"] = train3_reference_check(UR, KN, bridge, TS, TE)
+        checks["fit3"] = train3_reference_check(UR, KN, bridge, TS, TE, refs)
         fit3["phase_seconds"] = time.perf_counter() - t0
         log(f"stage-3 fit: {fit3['shapes_added_to_phase3']} (kernel, shape) pairs held to "
             f"their plain versions after it; phase 12 took {fit3['phase_seconds']:.1f} s")
         torch.cuda.empty_cache()
+        phase_done("12")
 
         # phase 13: every probe of the zoos card vs CPU; a fit of the cls and of
         # the seg engine through the CLI; validate runs with the other probe
@@ -4436,6 +5070,7 @@ def main() -> int:
             f"{engines['validate_shapes_added_to_phase3']}; phase 13 took "
             f"{engines['phase_seconds']:.1f} s")
         torch.cuda.empty_cache()
+        phase_done("13")
 
         # phase 14: validate through the CLI in ALL with FID and in NR, the NR
         # suite's networks and FID's Inception card vs CPU; phase 3's comparison
@@ -4448,18 +5083,23 @@ def main() -> int:
             f"their plain versions after it; phase 14 took {nr14['phase_seconds']:.1f} s, peak "
             f"{nr14['peak_mem_gib']:.2f} GiB")
         torch.cuda.empty_cache()
+        phase_done("14")
 
         # phase 15: the SPADE restores and step, every optimizer and every
         # DeepLab backbone; phase 3's comparison at the shapes they met that
         # were not held
-        spade, spade_paths, shapes15 = run_phase15(UR, KN, GR, bridge, TS, OPT, gen,
-                                                   training["ms_per_step"])
+        spade, spade_paths, shapes15, checks15 = run_phase15(UR, KN, GR, bridge, TS, OPT, gen,
+                                                             refs, training["ms_per_step"])
         paths.update(spade_paths)
         spade["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes15, rows, gen,
                                                            path="spade")
         log(f"spade: {spade['shapes_added_to_phase3']} (kernel, shape) pairs held to their "
             "plain versions after phase 15")
         torch.cuda.empty_cache()
+        phase_done("15")
+
+        # phases 16-18 run beside no reference job
+        log(f"waited {refs.idle():.1f} s for the reference worker's jobs to end")
 
         # phase 16: phase 9's fit under torchrun at world size 1 (NCCL), DDP
         # and FSDP; phase 6's cell at two ranks on the card (gloo), DDP and
@@ -4467,14 +5107,37 @@ def main() -> int:
         parallel, parallel_paths = run_phase16(K, G, KN, TE, UR, rows, gen, reference16,
                                                training, Path(work))
         paths.update(parallel_paths)
-        del reference16
         torch.cuda.empty_cache()
+        phase_done("16")
 
         # phase 17: restore_padded on height-sharded images, make_mesh_2d(1, 2)
         # with two gloo ranks on the card; phase 3's comparison at new shapes
         spatial, spatial_paths = run_phase17(K, G, KN, rows, gen, Path(work))
         paths.update(spatial_paths)
         torch.cuda.empty_cache()
+        phase_done("17")
+
+        # phase 18 (d): phase 9's fit with --trainer.split_step true, then
+        # --trainer.stop_after fr
+        split["fit"], paths["fit_split"] = run_fit_split(KN, bridge, TE, TMAIN.main, Path(work),
+                                                         reference16)
+        del reference16
+        torch.cuda.empty_cache()
+        phase_done("18 (d)")
+
+    # the CPU halves of phases 5, 7, 11, 12 and 15, read now
+    t0 = time.perf_counter()
+    reference = checks["restore"]()
+    training["reference"] = checks["training"]()
+    fit2["reference"] = checks["fit2"]()
+    fit3["reference"] = checks["fit3"]()
+    spade["reference"] = checks15["reference"]()
+    spade["training"]["reference"] = checks15["training"]()
+    log(f"card-vs-CPU checks of phases 5, 7, 11, 12 and 15 held; waited "
+        f"{time.perf_counter() - t0:.1f} s for the reference worker; its jobs ran in these "
+        "seconds of the script: " + ", ".join(f"{name} {a:.1f}-{b:.1f}"
+                                              for name, (a, b) in refs.spans.items()))
+    phase_done("CPU references")
 
     # phase 10: report; a path routes to a kernel when its expected count is not 0
     routes = {"restore": [sum(EXPECTED[m][i] for m in ("none", "encoder", "deep"))
@@ -4499,7 +5162,8 @@ def main() -> int:
                   **{path: routes["train"] for path in ("fit_ddp", "fit_fsdp", "train_ddp2",
                                                         "train_fsdp2")},
                   **{SPATIAL_PATHS[name]: list(EXPECTED[name]) for name in ("none", "deep")},
-                  spatial_restore=list(SPATIAL_RESTORE_EXPECTED))
+                  spatial_restore=list(SPATIAL_RESTORE_EXPECTED),
+                  **{path: routes["train"] for path in ("train_split", "fit_split")})
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -4544,6 +5208,11 @@ def main() -> int:
     log(json.dumps({"spade": spade}))
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"spatial": spatial}))
+    split["phase_seconds"] = phase_seconds["18 (a)-(c)"] + phase_seconds["18 (d)"]
+    log(json.dumps({"split_step": split}))
+    phase_done("10")
+    log(json.dumps({"phase_seconds": phase_seconds, "reference_jobs": refs.spans,
+                    "script_seconds": process_age()}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

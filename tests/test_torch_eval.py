@@ -171,8 +171,9 @@ def test_load_config_raises_like_jax():
 def test_build_refuses_what_is_not_ported():
     """The mtl engine of stage 2, the cls and seg engines (with their probe
     zoos), the det engine of stage 3 and the ir engine's NR and ALL
-    ``eval_mode`` and ``compute_fid`` build, and so does ``trainer.fsdp``;
-    the trainer still refuses ``split_step``."""
+    ``eval_mode`` and ``compute_fid`` build, and so do ``trainer.fsdp`` and
+    ``trainer.split_step``; ``trainer.stop_after`` without ``split_step``
+    raises the JAX config's ``ValueError``."""
     cfg = TC.load_config(REPO / "configs" / "train_stage2.yaml")
     engine, _, data, factory = TC.build(cfg, tiny=True, device="cpu")
     assert engine.engine_type == "mtl" and engine.stage.multi_task and engine.stage.train_tfa
@@ -198,8 +199,14 @@ def test_build_refuses_what_is_not_ported():
     cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--trainer.fsdp", "true"])
     assert TC.build(cfg, tiny=True, device="cpu")[1].fsdp
     cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--trainer.split_step", "true"])
-    with pytest.raises(NotImplementedError, match="split_step"):
+    trainer = TC.build(cfg, tiny=True, device="cpu")[1]
+    assert trainer.split_step is True and trainer.stop_after is None
+    cfg = TC.load_config(REPO / "configs" / "val.yaml", ["--trainer.stop_after", "fr"])
+    with pytest.raises(ValueError) as t_err:
         TC.build(cfg, tiny=True, device="cpu")
+    with pytest.raises(ValueError) as j_err:  # the JAX trainer as its config builds it
+        JE.Trainer(split_step=None, stop_after=cfg["trainer"]["stop_after"])
+    assert str(t_err.value) == str(j_err.value) == "trainer.stop_after requires split_step"
 
 
 def _fixed_restore(images, task):

@@ -158,7 +158,8 @@ def build(cfg: dict, tiny: bool = False, device=None):
         seed=cfg.get("seed_everything", 42),
         profiler=t.get("profiler"),
         resume=t.get("resume"),
-        split_step=t.get("split_step"),
+        # None, as the JAX config leaves it
+        split_step=(None if t.get("split_step") is None else bool(t.get("split_step"))),
         fsdp=bool(t.get("fsdp", False)),
         stop_after=t.get("stop_after"),
     )

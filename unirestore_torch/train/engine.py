@@ -40,10 +40,10 @@ Differences from the JAX engine:
   evaluator. A ``det`` batch's ragged targets are padded to 64 boxes
   (``padded_targets``) before the batch is staged, so they reach the card
   with its images.
-- Not offered, each raising with its reason: ``split_step`` and
-  ``stop_after`` (they exist for the TPU's compiler; the JAX package's test
-  ``test_split_step_matches_monolithic`` shows the split step equals the
-  monolithic one).
+- ``split_step`` picks no step: the port has one, which runs the losses one
+  at a time and frees each graph before the next forward (the JAX split
+  step; JAX picks between its two steps by backend and flag). The port takes
+  the key from JAX configs, and ``stop_after`` requires it, as JAX's does.
 - Data parallelism is a process group, one rank per card (``torchrun``; the
   JAX trainer meshes every local device without a flag). Every rank loads the
   same global batch and keeps its rows before the device copy; the step
@@ -316,6 +316,12 @@ class Trainer:
     micro-step's noise (``step`` counts from 0 at the run's first step)
     in place of the seeded generator's draws.
 
+    ``split_step`` (``None`` means ``False``) changes no step: every task
+    runs ``steps.make_train_step``, whose parts run in turn. ``stop_after``
+    (one of ``steps.SPLIT_PARTS``; only with ``split_step``) ends each step
+    after that part: nothing is updated, so the fit skips validation and
+    writes no checkpoint.
+
     Under a process group (``parallel.init_distributed``) the trainer is
     data-parallel over its ``make_mesh()`` (``unirestore_tpu/train/engine.py:
     318-453``): the peak learning rate scales with the world size, as JAX's
@@ -339,16 +345,13 @@ class Trainer:
                  fsdp: bool = False,
                  stop_after: str | None = None,
                  noise_fn=None):
-        if split_step:
-            raise NotImplementedError(
-                "trainer.split_step: the split step exists for the TPU's compiler and is "
-                "not ported; eager autograd over the same cuts gives the monolithic step, "
-                "which the split step equals (tests/test_train.py::"
-                "test_split_step_matches_monolithic)")
-        if stop_after is not None:
-            raise NotImplementedError(
-                "trainer.stop_after warms the TPU compiler's cache through the split step; "
-                "the port compiles nothing ahead of a step")
+        self.split_step = bool(split_step)
+        if stop_after is not None and not self.split_step:
+            raise ValueError("trainer.stop_after requires split_step")
+        if stop_after is not None and stop_after not in ST.SPLIT_PARTS:
+            raise ValueError(f"trainer.stop_after must be one of shared|fr|cn|te, "
+                             f"got {stop_after!r}")
+        self.stop_after = stop_after
         # FSDP (ZeRO-3): trainable, frozen and optimizer state held in shards
         # over the data axis between steps (parallel/fsdp.py)
         self.fsdp = fsdp
@@ -482,7 +485,7 @@ class Trainer:
             if task not in steps_by_task:
                 steps_by_task[task] = ST.make_train_step(
                     engine.frozen, engine.cfg, engine.sched, engine.stage, tx, task,
-                    te_loss_fn=te_fn, group=self.group)
+                    te_loss_fn=te_fn, group=self.group, stop_after=self.stop_after)
             return steps_by_task[task]
 
         # placement (JAX engine.py:377-388): every rank starts from rank 0's
@@ -572,8 +575,8 @@ class Trainer:
                         time.time() - t0, 1e-9)
                     t0 = time.time()
                     self._log(step, logs)
-                if self.val_check_interval and evaluator_factory and \
-                        step % self.val_check_interval == 0:
+                if self.val_check_interval and evaluator_factory and not self.stop_after \
+                        and step % self.val_check_interval == 0:
                     with self._whole(engine):
                         metrics = self.validate(engine, data, evaluator_factory)
                     # crash-recovery state: at most one val interval is lost
@@ -582,9 +585,16 @@ class Trainer:
                                metrics.get("val_monitor", 0.0))
         self._global_batch = None
         final = os.path.join(self.root, "checkpoints", "last.npz")
-        self._save(final, engine.trainable, step, opt_state)
+        if not self.stop_after:
+            self._save(final, engine.trainable, step, opt_state)
         engine.frozen = FSDP.gather_tree(engine.frozen, self.group)
         engine.trainable = FSDP.gather_tree(engine.trainable, self.group)
+        if self.stop_after:
+            # the truncated steps updated nothing: a last.npz would be a
+            # resume point that was never trained
+            print(f"[fit] stop_after={self.stop_after} pass done at step {step}; "
+                  "no checkpoint written", flush=True)
+            return engine
         ts = timer.summary()
         self.timing = {**ts, "loader_wait_mean_s": sum(waits) / max(len(waits), 1),
                        "loader_waits_s": waits, "batch_size": batch_size}

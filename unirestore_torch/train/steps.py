@@ -16,9 +16,15 @@ the critic losses), with the auxiliary IR L1 on non-ir multi-task batches.
 
 Randomness is injected: ``StepNoise`` holds the posterior noise of the hq and
 lq encodes, the diffusion noise and the timesteps (``draw_noise`` draws them
-from a ``torch.Generator``). The JAX package's split step
-(``make_split_train_step``) is not ported: it exists for its compiler, and
-eager autograd over the same cuts gives the same gradients.
+from a ``torch.Generator``).
+
+The train step (``make_train_step``, the JAX package's split step) takes the
+gradients one loss at a time: the CFRM feature loss, the control loss and the
+TFA loss each reach one adapter family, so each family's forward and backward
+run in turn and free their graph before the next family's forward. Its peak
+is the largest part's working set, where one backward of the summed losses
+(``compute_losses``, the tests' reference) starts with every part's saved
+activations.
 
 Data parallelism (``parallel/``): with a process group the step averages the
 trained leaves' gradients over it before the optimizer update, and its logs
@@ -30,6 +36,7 @@ shards.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections.abc import Callable
 
@@ -125,6 +132,33 @@ def _mse(a, b):
     return torch.mean((a.float() - b.float()) ** 2)
 
 
+def _fr_loss(stage: StageConfig, l0, l0_mids, h0, h0_mids):
+    """The weighted CFRM feature loss and its logs (the three skip MSEs, their
+    weighted sum and the latent MSE)."""
+    fr_terms = [_mse(lm, hm) for lm, hm in zip(l0_mids, h0_mids)]
+    loss_fr = sum(w * t for w, t in zip(stage.w_fr, fr_terms))
+    logs = {f"train/loss_layer{i + 1}": t for i, t in enumerate(fr_terms)}
+    logs["train/loss_frenc"] = loss_fr
+    logs["train/loss_enc"] = _mse(l0, h0)
+    return loss_fr, logs
+
+
+def _te_loss(frozen, trainable, cfg: UR.UniRestoreConfig, stage: StageConfig, pred_z0,
+             te_mids, batch: dict, task: str, te_loss_fn: Callable | None):
+    """The TFA decode of ``task`` and its loss (``te_loss_fn`` or the weighted
+    L1), plus the auxiliary ``ir`` decode's L1 on a multi-task batch."""
+    hq = batch["hq"]
+    preds = UR.decode(frozen, trainable, cfg, pred_z0, te_mids, task)
+    if te_loss_fn is not None:
+        loss_te = te_loss_fn(preds, hq, batch.get("gt"), task)
+    else:
+        loss_te = stage.w_te.get(task, 1.0) * torch.mean(torch.abs(preds.float() - hq.float()))
+    if stage.multi_task and task != "ir":
+        preds_ir = UR.decode(frozen, trainable, cfg, pred_z0, te_mids, "ir")
+        loss_te = loss_te + torch.mean(torch.abs(preds_ir.float() - hq.float()))
+    return loss_te
+
+
 def compute_losses(frozen, trainable, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
                    batch: dict, noise: StepNoise, task: str,
                    te_loss_fn: Callable | None = None):
@@ -154,12 +188,9 @@ def compute_losses(frozen, trainable, cfg: UR.UniRestoreConfig, sched, stage: St
 
     loss = torch.zeros((), dtype=torch.float32, device=hq.device)
     if stage.train_cfrm and cfg.use_cfrm:
-        fr_terms = [_mse(lm, hm) for lm, hm in zip(l0_mids, h0_mids)]
-        loss_fr = sum(w * t for w, t in zip(stage.w_fr, fr_terms))
+        loss_fr, fr_logs = _fr_loss(stage, l0, l0_mids, h0, h0_mids)
         loss = loss + loss_fr
-        logs.update({f"train/loss_layer{i + 1}": t for i, t in enumerate(fr_terms)})
-        logs["train/loss_frenc"] = loss_fr
-        logs["train/loss_enc"] = _mse(l0, h0)
+        logs.update(fr_logs)
 
     if stage.train_cnet and cfg.use_cnet:
         loss_cn = _mse(pred_z0, h0)
@@ -168,15 +199,8 @@ def compute_losses(frozen, trainable, cfg: UR.UniRestoreConfig, sched, stage: St
 
     if cfg.use_tfa and stage.train_tfa:
         te_mids = [m.detach() for m in l0_mids] if stage.train_cfrm else l0_mids
-        preds = UR.decode(frozen, trainable, cfg, pred_z0.detach(), te_mids, task)
-        if te_loss_fn is not None:
-            loss_te = te_loss_fn(preds, hq, batch.get("gt"), task)
-        else:
-            loss_te = stage.w_te.get(task, 1.0) * torch.mean(
-                torch.abs(preds.float() - hq.float()))
-        if stage.multi_task and task != "ir":
-            preds_ir = UR.decode(frozen, trainable, cfg, pred_z0.detach(), te_mids, "ir")
-            loss_te = loss_te + torch.mean(torch.abs(preds_ir.float() - hq.float()))
+        loss_te = _te_loss(frozen, trainable, cfg, stage, pred_z0.detach(), te_mids, batch,
+                           task, te_loss_fn)
         loss = loss + loss_te
         logs[f"train/loss_{task}"] = loss_te
 
@@ -200,10 +224,61 @@ def global_logs(logs: dict, group) -> dict:
     return dict(zip(keys, vec.unbind()))
 
 
+def _grads(loss, leaves: dict) -> dict:
+    """d ``loss`` / d ``leaves`` by name (None where it does not reach a leaf);
+    the graph is freed."""
+    return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)))
+
+
+@contextlib.contextmanager
+def _tracking(leaves: dict):
+    """Within the block, ``leaves`` require grad and autograd records."""
+    for p in leaves.values():
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            yield
+    finally:
+        for p in leaves.values():
+            p.requires_grad_(False)
+
+
+def _apply(stage: StageConfig, tx, group, trainable, opt_state, params: dict, grads: dict,
+           logs: dict):
+    """The train step's optimizer tail. ``params`` are the whole trained
+    leaves and ``grads`` their gradients by name: a leaf no loss reached gets
+    zeros (so that every rank runs the same collectives). Then the mean
+    gradients and logs over ``group``, the update of ``trainable``'s trained
+    leaves (or shards) in place, and ``train/grad_norm``."""
+    like = trained_leaves(stage, trainable)
+    grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
+             for k, p in params.items()}
+    logs = {k: v.detach() for k, v in logs.items()}
+    if group is not None:
+        grads = FSDP.reduce_gradients(grads, like, group)
+        logs = global_logs(logs, group)
+    tx.update(opt_state, like, grads, group)
+    logs["train/grad_norm"] = FSDP.global_norm({k: g.float() for k, g in grads.items()},
+                                               like, group)
+    return trainable, opt_state, logs
+
+
+# the parts of the step, in order, and the adapter family each differentiates
+SPLIT_PARTS = ("shared", "fr", "cn", "te")
+_FAMILIES = {"fr": ("cfrm",), "cn": ("controller", "control"), "te": ("tfa",)}
+
+
+def _family(params: dict, part: str) -> dict:
+    """The trained leaves of ``part``'s family, by flat name."""
+    return {k: p for k, p in params.items() if k.split("//", 1)[0] in _FAMILIES[part]}
+
+
 def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig, tx,
                     task: str, te_loss_fn: Callable | None = None, remat: bool = True,
-                    group=None):
-    """The train step for one (stage, task):
+                    group=None, stop_after: str | None = None):
+    """The train step for one (stage, task), one loss at a time (the JAX
+    package's ``make_split_train_step``, ``unirestore_tpu/train/steps.py:
+    224-418``):
 
         step(trainable, opt_state, batch, noise) -> (trainable, opt_state, logs)
 
@@ -215,45 +290,119 @@ def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
     global norm of the trained leaves' gradients (not finite if any is not).
     The step's ``task`` attribute names its task.
 
+    The losses are joined only at ``.detach()`` cuts, and each reaches one
+    adapter family, so the step runs them as parts, each a forward and then
+    ``torch.autograd.grad`` over its family's trained leaves:
+
+    - ``shared``: the hq encode (no CFRM) and the DDPM noising, without grad;
+    - ``fr``: the lq encode with CFRM, gradients of the CFRM feature loss over
+      ``cfrm`` (when the stage trains it);
+    - ``cn``: ``predict_z0``, gradients of the control loss over ``controller``
+      and ``control`` (the SC-Tuner editors or the SPADE blocks);
+    - ``te``: the TFA decode of ``task`` (and the auxiliary ``ir`` decode of a
+      multi-task batch), gradients of the task loss over ``tfa``'s trained
+      leaves (the prompts alone under ``tfa_prompts_only``);
+    - then the optimizer tail: zeros for the leaves no part reached, the mean
+      over ``group``, the update and ``train/grad_norm``.
+
+    A part hands on only detached tensors and its gradients, so its graph is
+    freed before the next part's forward: the activation peak is the largest
+    part's, not the sum. Each trained leaf's gradient comes from one loss,
+    which the sum of ``compute_losses`` passes 1.0, so one backward of that
+    sum gives the same values.
+
     With a process ``group`` (data parallelism: ``batch`` and ``noise`` are
     this rank's rows), every trained leaf's gradient is averaged over the
-    group before the update (``allow_unused`` zeros too, so every rank runs
-    the same collectives), and the losses and the gradient norm logged are
-    the global ones. ``frozen`` and ``trainable`` may hold
-    ``parallel.fsdp.Shard`` leaves (``fsdp_shard``, and ``opt_state`` from
-    ``tx.shard_state``): the step then gathers both trees at its start,
-    reduce-scatters the mean gradients into the shards and updates the
-    shards; the full trees are freed when it returns.
+    group before the update (zeros too, so every rank runs the same
+    collectives), and the losses and the gradient norm logged are the global
+    ones. ``frozen`` and ``trainable`` may hold ``parallel.fsdp.Shard``
+    leaves (``fsdp_shard``, and ``opt_state`` from ``tx.shard_state``): the
+    step then gathers both trees once at its start, reduce-scatters the mean
+    gradients into the shards and updates the shards; the full trees are
+    freed when it returns. The 2-D mesh is refused.
+
+    ``stop_after`` in ``SPLIT_PARTS`` ends the step after that part: it
+    returns ``trainable`` and ``opt_state`` untouched and logs the loss so far
+    (after ``shared``, the mean of the hq latents), as the JAX step does.
     """
+    if stop_after not in (None, *SPLIT_PARTS):
+        raise ValueError(f"stop_after must be one of shared|fr|cn|te, got {stop_after!r}")
     cfg = with_remat(cfg) if remat else cfg
+    need_fr = stage.train_cfrm and cfg.use_cfrm
+    need_cn = stage.train_cnet and cfg.use_cnet
+    need_te = cfg.use_tfa and stage.train_tfa
 
     def step(trainable, opt_state, batch, noise: StepNoise):
         SP.refuse("the train step", "the spatial mesh is for inference (its losses, "
                   "crops and gradients span the image)")
+
+        def truncated(loss):
+            logs = {"train/loss": loss.detach()}
+            return trainable, opt_state, global_logs(logs, group) if group is not None else logs
+
         full_frozen = FSDP.gather_tree(frozen, group)
         full = FSDP.gather_tree(trainable, group)
         params = trained_leaves(stage, full)
-        for p in params.values():
-            p.requires_grad_(True)
-        try:
-            with torch.enable_grad():
-                loss, logs = compute_losses(full_frozen, full, cfg, sched, stage, batch,
-                                            noise, task, te_loss_fn)
-                grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        finally:
-            for p in params.values():
-                p.requires_grad_(False)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), grads)}
-        like = trained_leaves(stage, trainable)
-        logs = {k: v.detach() for k, v in logs.items()}
-        if group is not None:
-            grads = FSDP.reduce_gradients(grads, like, group)
-            logs = global_logs(logs, group)
-        tx.update(opt_state, like, grads, group)
-        logs["train/grad_norm"] = FSDP.global_norm({k: g.float() for k, g in grads.items()},
-                                                   like, group)
-        return trainable, opt_state, logs
+        lq, hq = batch["lq"], batch["hq"]
+        grads, logs = {}, {}
+
+        with torch.no_grad():
+            h0, h0_mids = UR.encode(full_frozen, full, cfg, hq, noise=noise.hq, enable_fr=False)
+            if cfg.use_cnet:
+                zt, _, timesteps = UR.diffuse(sched, h0, noise=noise.diffusion,
+                                              timesteps=noise.timesteps)
+        if stop_after == "shared":
+            return truncated(h0.mean())
+
+        loss = torch.zeros((), dtype=torch.float32, device=hq.device)
+        leaves = _family(params, "fr") if need_fr else {}
+        with _tracking(leaves):
+            l0, l0_mids = UR.encode(full_frozen, full, cfg, lq, noise=noise.lq,
+                                    enable_fr=cfg.use_cfrm)
+            l0 = l0.detach()
+            te_mids = [m.detach() for m in l0_mids] if need_te else None
+            fr = _fr_loss(stage, l0, l0_mids, h0, h0_mids) if need_fr else None
+            # the skips are dead past here (the backward holds what it saved)
+            del l0_mids, h0_mids
+            if fr is not None:
+                grads.update(_grads(fr[0], leaves))
+                loss = loss + fr[0].detach()
+                logs.update({k: v.detach() for k, v in fr[1].items()})
+        if stop_after == "fr":
+            return truncated(loss)
+
+        if cfg.use_cnet:
+            leaves = _family(params, "cn") if need_cn else {}
+            with _tracking(leaves):
+                pred_z0 = UR.predict_z0(full_frozen, full, cfg, sched, zt, l0, timesteps)
+                if need_cn:
+                    loss_cn = _mse(pred_z0, h0)
+                    grads.update(_grads(loss_cn, leaves))
+                    loss = loss + loss_cn.detach()
+                    logs["train/loss_cnet"] = loss_cn.detach()
+            pred_z0 = pred_z0.detach()
+        else:
+            pred_z0 = l0
+        if stop_after == "cn":
+            return truncated(loss)
+
+        if need_te:
+            leaves = _family(params, "te")
+            with _tracking(leaves):
+                loss_te = _te_loss(full_frozen, full, cfg, stage, pred_z0, te_mids, batch, task,
+                                   te_loss_fn)
+                grads.update(_grads(loss_te, leaves))
+            loss = loss + loss_te.detach()
+            logs[f"train/loss_{task}"] = loss_te.detach()
+        if stop_after == "te":
+            return truncated(loss)
+
+        logs["train/loss"] = loss
+        return _apply(stage, tx, group, trainable, opt_state, params, grads, logs)
 
     step.task = task
     return step
+
+
+# the JAX package's name for the same step
+make_split_train_step = make_train_step
