@@ -94,6 +94,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``set_sync_debug_mode("error")``, every logged loss and every leaf of
    ``last.npz`` bit-equal to phase 9's, and with ``--trainer.stop_after fr``
    no ``last.npz``;
+19. (its (a) and (c) run after 18 (a)-(c) and before 5, (b) after 18 (d))
+   the graph-captured step (``graphs.GraphedTrainStep``): (a) on phase 18's
+   build of phase 6's cell, an accumulating and an applying micro-step eager
+   and from the graphs from one state: every log, all 588 trained leaves and
+   every optimizer slot bit-equal; launches at capture ``EXPECTED_TRAIN``,
+   the first call's (two eager warm-ups and the capture) three times it, a
+   replay none; warm-up and capture seconds, held and peak GiB; then eager and
+   graph in turns (GRAPH_TRAIN_TURNS) of synchronised micro-steps, each
+   under ``set_sync_debug_mode("error")``: ms a micro-step; and one pair of
+   each under the profiler: the card's busy time, span and idle share; (b)
+   phase 9's fit command with ``--trainer.cuda_graphs true``: every
+   micro-step's logs and every array of ``last.npz`` bit-equal to phase 9's
+   first fit, launches at micro-step 1 three times phase 6's and none after,
+   every validation restore (replayed by the engine's ``GraphedRestore``)
+   within one uint8 level of the eager route's, s/step over micro-steps 2-6
+   and the loader's wait beside phase 9's timed eager fit; (c) the stage-2
+   step at full width with the critics (batch 1, 512 px, accumulation 1), one
+   ``GraphedTrainStep`` per task (ir, cls, seg) sharing one ``GraphCache``:
+   eager repeats counted in the default mode (the critics' resizes
+   differentiate through ``index_add_``'s atomic adds), then under
+   ``torch.use_deterministic_algorithms(True)`` eager, eager and the graph
+   from one state bit-equal, launches at capture ``EXPECTED_STAGE2``;
 8. the restore server (``unirestore_torch.serve``) in this process on
    127.0.0.1 at an ephemeral port: full width, bf16, 20 steps, exact, batch
    4 tiles of 512 px with overlap 64, fused out-projection on. It answers
@@ -330,7 +352,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ranks; ``spatial_exact`` and ``spatial_deep``: phase 17's bf16 restores,
    both ranks; ``spatial_restore``: phase 17's (d), both ranks; ``train_split``:
    phase 18's full split steps of (a) and (b); ``fit_split``: phase 18's
-   split fit); each kernel must
+   split fit; ``train_graph``: phase 19 (a)'s graph route, the first call's
+   eager warm-ups and capture plus the launches at capture times the
+   replays; ``fit_graph``: phase 19 (b)'s fit, the same with its restore
+   graphs, less the eager restores it compares with); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -347,6 +372,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -422,10 +448,23 @@ TRAIN_STEPS = 5
 SPLIT_TURNS = ("mono", "split", "split", "mono")
 SPLIT_TURN_STEPS = 2
 SPLIT_BIG_BATCH = 32
-SPLIT_BIG_STEPS = 2
+SPLIT_BIG_STEPS = 1  # one step a turn: the 1200 s of the script hold phase 19 too
 SPLIT_MEM_SHARE = 0.9
 SPLIT_CUT_STEPS = 2
 FIT_SPLIT_STEPS = 2
+# phase 19: the graph-captured step (``graphs.GraphedTrainStep``). (a) phase
+# 6's cell (phase 18's build), eager and graph from one state for one
+# accumulating and one applying micro-step, then in turns (GRAPH_TRAIN_TURNS)
+# of GRAPH_TURN_STEPS synchronised micro-steps, then one pair of each route
+# under torch.profiler for the card's idle share; (b) phase 9's fit command
+# with --trainer.cuda_graphs true: FIT_STEPS micro-steps, sanity validation,
+# validation at FIT_STEPS over FIT_GRAPH_VAL_BATCHES batch; (c) one stage-2
+# micro-step of each task (STAGE2_GRAPH_TASKS: batch 1, 512 px, the critics,
+# accumulation 1 so that it applies) eager and from its graph, then in turns
+GRAPH_TRAIN_TURNS = ("eager", "graph", "graph", "eager")
+GRAPH_TURN_STEPS = 2
+FIT_GRAPH_VAL_BATCHES = 1
+STAGE2_GRAPH_TASKS = ("ir", "cls", "seg")
 # phase 9: ``python -m unirestore_torch.main fit`` from the stage-1 YAML on
 # the smoke tree of tools/make_smoke_data.py at 576 px (576 x 592 images),
 # with dotted overrides only: the DIVF2KOST lists, 6 micro-steps (three AdamW
@@ -1895,14 +1934,15 @@ class StepProbe:
     its losses are read (``logs``); with
     ``keep_after`` the trainable tree and the Adam first moments after that
     micro-step are kept. Every micro-step's logged tensors are kept
-    (``step_logs``), read after the fit."""
+    (``step_logs``), read after the fit, and each task's step function
+    (``step_fns``)."""
 
     def __init__(self, TE, KN, bridge, sync_steps=(FIT_SYNC_CHECK_STEP,), timed=False,
                  keep_after=None):
         self.TE, self.KN, self.bridge = TE, KN, bridge
         self.sync_steps, self.timed, self.keep_after = sync_steps, timed, keep_after
         self.counts, self.tasks, self.seconds, self.metrics, self.logs = [], [], [], [], []
-        self.step_logs = []
+        self.step_logs, self.step_fns = [], {}
         self.first, self.first_by_task, self.after = None, {}, None
         self.val_seconds, self.val_args = [], None
 
@@ -1937,6 +1977,7 @@ class StepProbe:
                 probe.logs.append({k: v.item() for k, v in out[2].items()})
             after = train_counts(probe.KN)
             probe.step_logs.append(out[2])
+            probe.step_fns[task] = step_fn
             probe.counts.append({s: tuple(a - b for a, b in zip(after[s], before[s]))
                                  for s in after})
             probe.tasks.append(task)
@@ -2082,9 +2123,14 @@ def fit_in(KN, bridge, TE, TS, OPT, main_fn, png, work: Path):
         engine, trainer = main_fn(fit_argv("fit", data_dir, root))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    reference16 = {"logs": [{k: v.item() for k, v in e.items()}
-                            for e in probe.step_logs[:DDP_STEPS]],
-                   "trainable": bridge.flatten(bridge.to_numpy_tree(probe.after["trainable"]))}
+    # phase 16's, 18's and 19's reference: the first micro-steps' logs and the
+    # trainable tree after them; every micro-step's logs and a copy of
+    # last.npz (the resume below overwrites it)
+    logs_all = [{k: v.item() for k, v in e.items()} for e in probe.step_logs]
+    reference16 = {"logs": logs_all[:DDP_STEPS], "logs_all": logs_all,
+                   "trainable": bridge.flatten(bridge.to_numpy_tree(probe.after["trainable"])),
+                   "last_npz": work / "phase9_last.npz"}
+    shutil.copyfile(root / "checkpoints" / "last.npz", reference16["last_npz"])
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
     shapes = kernel_shapes_met(KN)
@@ -4652,7 +4698,21 @@ def monolithic_step(frozen, cfg, sched, stage, tx, task, te_loss_fn=None, remat=
     return step
 
 
-def run_split_training(UR, KN, bridge, TS, OPT):
+def stage1_cell(UR, bridge, TS, OPT) -> dict:
+    """Phase 6's cell as phases 18 and 19 (a) share it: ``UniRestoreConfig()``
+    at full width, bf16 frozen and fp32 trainable leaves seeded 3, AdamW from
+    the stage-1 YAML's kwargs at accumulation 2, and its state."""
+    cfg = UR.UniRestoreConfig()
+    frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=3,
+                                    trainable_dtype=torch.float32)
+    stage = TS.StageConfig(train_cfrm=True, train_cnet=True, train_tfa=False)
+    tx, _ = OPT.build(STAGE1_OPT, STAGE1_SCHED, STAGE1_MAX_STEPS, BATCH, STAGE1_ACCUM, 1)
+    return {"cfg": cfg, "frozen": frozen, "trainable": trainable, "stage": stage, "tx": tx,
+            "opt_state": tx.init(TS.trained_leaves(stage, trainable)),
+            "sched": UR.schedule(cfg, device="cuda")}
+
+
+def run_split_training(UR, KN, bridge, TS, OPT, cell):
     """Phase 18 (a)-(c): phase 6's cell under the port's step
     (``make_train_step``, "split": its parts in turn) and ``monolithic_step``
     ("mono"). (a) from one set of parameters, batches and noise, two
@@ -4665,16 +4725,12 @@ def run_split_training(UR, KN, bridge, TS, OPT):
     warm-up step of each and then the same turns of SPLIT_BIG_STEPS steps; (c)
     the step ended after each part at batch 8: its seconds, and the trained
     leaves and optimizer state unchanged. Every full step launches
-    EXPECTED_TRAIN. Runs beside no reference job. Returns (result, launches of
-    the port's step by kernel)."""
+    EXPECTED_TRAIN. Runs beside no reference job, on ``cell`` (``stage1_cell``),
+    whose trainable leaves and optimizer state it moves. Returns (result,
+    launches of the port's step by kernel)."""
     t_phase = time.perf_counter()
-    cfg = UR.UniRestoreConfig()
-    frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=3,
-                                    trainable_dtype=torch.float32)
-    stage = TS.StageConfig(train_cfrm=True, train_cnet=True, train_tfa=False)
-    tx, _ = OPT.build(STAGE1_OPT, STAGE1_SCHED, STAGE1_MAX_STEPS, BATCH, STAGE1_ACCUM, 1)
-    opt_state = tx.init(TS.trained_leaves(stage, trainable))
-    sched = UR.schedule(cfg, device="cuda")
+    cfg, frozen, trainable, stage, tx, opt_state, sched = (
+        cell[k] for k in ("cfg", "frozen", "trainable", "stage", "tx", "opt_state", "sched"))
     steps = {"mono": monolithic_step(frozen, cfg, sched, stage, tx, "ir"),
              "split": TS.make_train_step(frozen, cfg, sched, stage, tx, "ir")}
     gen = torch.Generator(device="cuda").manual_seed(18)
@@ -4774,8 +4830,8 @@ def run_split_training(UR, KN, bridge, TS, OPT):
         f"mono {ms['mono']:.1f} ms/step, peak {peak['mono']:.2f} GiB; split "
         f"{ms['split']:.1f} ms/step, peak {peak['split']:.2f} GiB; each step ({spread(sec)}); "
         f"held before the steps {static:.2f} GiB")
-    cell = {"batch": BATCH, "res": RES, "ms_per_step": ms, "ms_each": sec,
-            "peak_mem_gib": peak, "held_gib": static, "check": check}
+    result_cell = {"batch": BATCH, "res": RES, "ms_per_step": ms, "ms_each": sec,
+                   "peak_mem_gib": peak, "held_gib": static, "check": check}
 
     # (b) the memory a user buys: the largest batch (a)'s monolithic peak allows
     total = torch.cuda.get_device_properties(0).total_memory / 2**30
@@ -4821,7 +4877,7 @@ def run_split_training(UR, KN, bridge, TS, OPT):
         f"{ms['mono']:.1f} ms {peak['mono'] - static:.2f} GiB")
     del steps, frozen, trainable, opt_state
     torch.cuda.empty_cache()
-    return {"cell": cell, "big_batch": result_big, "parts_ms": parts,
+    return {"cell": result_cell, "big_batch": result_big, "parts_ms": parts,
             "seconds": time.perf_counter() - t_phase}, launches
 
 
@@ -4886,6 +4942,432 @@ def run_fit_split(KN, bridge, TE, main_fn, work: Path, reference16) -> tuple:
             "stop_after_fr": {"seconds": time.perf_counter() - t1, "logs": stopped.logs,
                               "checkpoints": left},
             "phase_seconds": time.perf_counter() - t0}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the graph-captured train step
+# ---------------------------------------------------------------------------
+
+
+def state_tensors(TS, stage, trainable, opt_state) -> dict:
+    """The trained leaves and every optimizer slot, by name (the tensors themselves)."""
+    out = {f"trainable/{k}": v for k, v in TS.trained_leaves(stage, trainable).items()}
+    for name, sub in opt_state.items():
+        if isinstance(sub, dict):
+            out.update({f"{name}/{k}": v for k, v in sub.items()})
+    return out
+
+
+def restore_state(TS, stage, trainable, opt_state, snapshot: dict) -> None:
+    """Put a ``split_state_snapshot`` back, in place (the tensors keep their addresses)."""
+    for k, t in state_tensors(TS, stage, trainable, opt_state).items():
+        t.copy_(snapshot[k])
+    for k in ("count", "mini_step"):
+        opt_state[k] = snapshot[k]
+
+
+def device_window(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``, the card synchronised after it:
+    ``train/profiling.py:device_summary`` (the card's busy seconds, its span
+    from the first start to the last end, the idle share 1 - busy / span, the
+    kernels) and the host's wall seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unirestore_torch.train import profiling as PROF
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = PROF.device_summary(prof)
+    if not summary:
+        raise AssertionError("the profiled window recorded no device activity")
+    return {**summary, "wall_s": wall}
+
+
+def graph_path_launches(KN, graphs) -> dict:
+    """Each graph's launches at capture (forward and remat recompute, the
+    counters' ``launches``) times its replays, summed by kernel."""
+    out = {kern.symbol: 0 for kern in KN.KERNELS}
+    for stats in graphs:
+        for sym, n in stats.launches.items():
+            out[sym] += (sum(n[:2]) if isinstance(n, tuple) else n) * stats.replays
+    return out
+
+
+def run_graph_training(UR, KN, bridge, TS, GR, cell):
+    """Phase 19 (a): phase 6's cell (``cell``, phase 18's build) on the graph
+    route (``GraphedTrainStep``) and eagerly (``make_train_step``). From one
+    state, the same accumulating and applying micro-steps by each route: the
+    logs, every trained leaf and every optimizer slot after them bit-equal;
+    launches at capture EXPECTED_TRAIN, the graph's first call
+    (TRAIN_WARMUP_STEPS + 1) times it (the eager warm-ups and the capture),
+    a replay none. Then GRAPH_TRAIN_TURNS of GRAPH_TURN_STEPS synchronised
+    micro-steps, each under ``set_sync_debug_mode("error")``: ms/step and
+    each turn's peak; one pair of micro-steps of each route under the
+    profiler: the card's idle share. Beside no reference job. Returns
+    (result, launches of the graph route by kernel)."""
+    t_phase = time.perf_counter()
+    cfg, frozen, trainable, stage, tx, opt_state, sched = (
+        cell[k] for k in ("cfg", "frozen", "trainable", "stage", "tx", "opt_state", "sched"))
+    eager = TS.make_train_step(frozen, cfg, sched, stage, tx, "ir")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def inputs():
+        batch = synthetic_pair(gen, BATCH, RES, torch.bfloat16)
+        return batch, TS.draw_noise(cfg, batch, gen)
+
+    if opt_state["mini_step"]:  # start at an update boundary
+        eager(trainable, opt_state, *inputs())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    graphed = GR.GraphedTrainStep(frozen, cfg, sched, stage, tx, "ir", device="cuda")
+    routes = {"eager": eager, "graph": graphed}
+
+    def run(route, batch, noise, sync_check=False):
+        """One synchronised micro-step: (seconds, logs as floats, launch counts)."""
+        KN.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            logs = routes[route](trainable, opt_state, batch, noise)[2]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        logs = {k: v.item() for k, v in logs.items()}
+        if not all(math.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"{route} micro-step: non-finite logs {logs}")
+        return sec, logs, train_counts(KN)
+
+    # one accumulating and one applying micro-step of each route from one state
+    pairs = [inputs() for _ in range(STAGE1_ACCUM)]
+    start = split_state_snapshot(TS, stage, trainable, opt_state)
+    got = {"eager": [run("eager", *pair) for pair in pairs]}
+    after = {"eager": split_state_snapshot(TS, stage, trainable, opt_state)}
+    restore_state(TS, stage, trainable, opt_state, start)
+    torch.cuda.reset_peak_memory_stats()
+    got["graph"] = [run("graph", *pair) for pair in pairs]
+    peak_first = torch.cuda.max_memory_allocated() / 2**30
+    after["graph"] = split_state_snapshot(TS, stage, trainable, opt_state)
+    (stats,) = graphed.stats.values()
+    zero = {s: (0, 0, 0) for s in EXPECTED_TRAIN}
+    first = {s: tuple((GR.TRAIN_WARMUP_STEPS + 1) * n for n in c)
+             for s, c in EXPECTED_TRAIN.items()}
+    launches_ok = (stats.launches == EXPECTED_TRAIN and got["graph"][0][2] == first
+                   and got["graph"][1][2] == zero
+                   and all(r[2] == EXPECTED_TRAIN for r in got["eager"]))
+    unequal_logs = [(i + 1, k, e[1][k], g[1][k]) for i, (e, g) in
+                    enumerate(zip(got["eager"], got["graph"])) for k in e[1] if e[1][k] != g[1][k]]
+    unequal_state = snapshot_equal(after["eager"], after["graph"])
+    moved = sum(not torch.equal(after["graph"][k], start[k]) for k in start
+                if k.startswith("trainable/"))
+    n_leaves = sum(k.startswith("trainable/") for k in start)
+    n_state = len(start)
+    del start, after
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - reserved) / 2**30
+    log(f"graph step (a), from one state, an accumulating and an applying micro-step: "
+        f"logs {'bit-equal' if not unequal_logs else f'differ: {unequal_logs}'} "
+        f"({len(got['eager'][0][1])} and {len(got['eager'][1][1])} values); trained leaves and "
+        f"optimizer slots after them: {len(unequal_state)} of {n_state} differ, {moved} of "
+        f"{n_leaves} leaves moved; launches at capture {stats.launches}, "
+        f"first call {got['graph'][0][2]}, replay {got['graph'][1][2]}: {launches_ok}; "
+        f"warm-up {stats.warmup_seconds:.3f} s, capture {stats.capture_seconds:.3f} s, first "
+        f"call {got['graph'][0][0]:.3f} s, peak {peak_first:.2f} GiB, held by the graphs "
+        f"{held:.2f} GiB")
+    if unequal_logs or unequal_state or not launches_ok or moved != n_leaves:
+        raise AssertionError(f"graph step differs from the eager step: logs {unequal_logs}, "
+                             f"state {unequal_state[:5]}, launches {launches_ok}, moved {moved}")
+
+    # in turns, each micro-step synchronised and checked for host syncs
+    marks = {"check": time.perf_counter() - t_phase}
+    sec, peak = {"eager": [], "graph": []}, {"eager": 0.0, "graph": 0.0}
+    for route in GRAPH_TRAIN_TURNS:
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(GRAPH_TURN_STEPS):
+            s, _, counts = run(route, *inputs(), sync_check=True)
+            if counts != (EXPECTED_TRAIN if route == "eager" else zero):
+                raise AssertionError(f"{route} turn: launches {counts}")
+            sec[route].append(s)
+        peak[route] = max(peak[route], torch.cuda.max_memory_allocated() / 2**30)
+    ms = {k: 1e3 * sum(v) / len(v) for k, v in sec.items()}
+
+    def pair(route):
+        for batch, noise in [inputs() for _ in range(STAGE1_ACCUM)]:
+            routes[route](trainable, opt_state, batch, noise)
+
+    marks["turns"] = time.perf_counter() - t_phase
+    window = {route: device_window(lambda r=route: pair(r)) for route in ("eager", "graph")}
+    marks["profiled"] = time.perf_counter() - t_phase
+    log(f"graph step (a), batch {BATCH}, turns {GRAPH_TRAIN_TURNS} of {GRAPH_TURN_STEPS} "
+        f"micro-steps (each under set_sync_debug_mode('error')): eager {ms['eager']:.1f} ms, "
+        f"graph {ms['graph']:.1f} ms a micro-step ({(ms['eager'] / ms['graph'] - 1) * 100:+.1f} "
+        f"%; each eager {[round(x * 1e3, 1) for x in sec['eager']]}, graph "
+        f"{[round(x * 1e3, 1) for x in sec['graph']]}); peak eager {peak['eager']:.2f}, graph "
+        f"{peak['graph']:.2f} GiB; profiled pair: eager busy "
+        f"{window['eager']['device_busy_s']:.4f} s of {window['eager']['device_span_s']:.4f} "
+        f"(idle {window['eager']['device_idle_share']:.3f}), graph busy "
+        f"{window['graph']['device_busy_s']:.4f} s of {window['graph']['device_span_s']:.4f} "
+        f"(idle {window['graph']['device_idle_share']:.3f})")
+    launches = graph_path_launches(KN, graphed.stats.values())
+    for kern in KN.KERNELS:  # the first call's eager warm-ups and capture
+        launches[kern.symbol] += sum(got["graph"][0][2][kern.symbol][:2])
+    result = {"batch": BATCH, "res": RES, "launches_at_capture": stats.launches,
+              "warmup_steps": GR.TRAIN_WARMUP_STEPS, "warmup_seconds": stats.warmup_seconds,
+              "capture_seconds": stats.capture_seconds, "first_call_seconds": got["graph"][0][0],
+              "peak_mem_gib_first_call": peak_first, "graph_held_gib": held,
+              "logs": {r: [x[1] for x in v] for r, v in got.items()}, "logs_bit_equal": True,
+              "state_bit_equal": True, "trained_leaves": n_leaves, "ms_per_step": ms,
+              "ms_each": {k: [x * 1e3 for x in v] for k, v in sec.items()},
+              "peak_mem_gib": peak, "profiled_pair": window, "replays": stats.replays,
+              "seconds_at": marks, "seconds": time.perf_counter() - t_phase}
+    del graphed, routes, eager
+    torch.cuda.empty_cache()
+    return result, launches
+
+
+def stage2_batch(gen, task: str) -> dict:
+    """A seeded 512 px batch of one for ``task``, with its labels (``cls``: a
+    class; ``seg``: 19 classes, the top 32 rows ignored)."""
+    batch = synthetic_pair(gen, 1, RES, torch.bfloat16)
+    if task == "cls":
+        batch["gt"] = torch.tensor([417], device="cuda")
+    elif task == "seg":
+        labels = torch.randint(0, 19, (1, RES, RES), generator=gen, device="cuda")
+        labels[:, :32] = 255
+        batch["gt"] = labels
+    return batch
+
+
+def run_graph_stage2(UR, KN, bridge, TS, TE, OPT, GR):
+    """Phase 19 (c): the stage-2 step (full width with TFA, bf16 frozen and fp32
+    TFA masters seeded 19, the critics of ``build_critics("mtl")``, AdamW from
+    the stage-1 YAML's kwargs at accumulation 1, so that each micro-step
+    applies) of each task in STAGE2_GRAPH_TASKS, eager and from its graph (one
+    ``GraphedTrainStep`` a task, sharing one ``GraphCache``, as the trainer's
+    do). The critics' backward runs ``index_select``'s backward
+    (``index_add_``, atomic adds on the card) in the resizes and cuDNN's fp32
+    convolution backward, so two eager micro-steps from one state differ in
+    their last bits: counted first, in the default mode. Then, under
+    ``torch.use_deterministic_algorithms(True)`` (sorted sums, deterministic
+    cuDNN algorithms), from one state: two eager micro-steps and the graph's
+    first call (capture) give bit-equal logs, trained leaves and slots;
+    launches at capture EXPECTED_STAGE2 of the task; then one synchronised
+    micro-step of each route in that mode (the graph's a replay). Returns the
+    result."""
+    t0 = time.perf_counter()
+    cfg = UR.UniRestoreConfig(use_tfa=True, tasks=STAGE2_GRAPH_TASKS)
+    frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=19,
+                                    trainable_dtype=torch.float32)
+    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True, multi_task=True)
+    te_fn = TE.make_te_loss_fn("mtl", TE.build_critics("mtl", device="cuda"))
+    tx, _ = OPT.build(STAGE1_OPT, STAGE1_SCHED, STAGE1_MAX_STEPS, 1, 1, 1)
+    opt_state = tx.init(TS.trained_leaves(stage, trainable))
+    sched = UR.schedule(cfg, device="cuda")
+    cache = GR.GraphCache()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out = {"build_seconds": time.perf_counter() - t0}
+    for task in STAGE2_GRAPH_TASKS:
+        batch = stage2_batch(gen, task)
+        noise = TS.draw_noise(cfg, batch, gen)
+        routes = {"eager": TS.make_train_step(frozen, cfg, sched, stage, tx, task,
+                                              te_loss_fn=te_fn),
+                  "graph": GR.GraphedTrainStep(frozen, cfg, sched, stage, tx, task,
+                                               te_loss_fn=te_fn, device="cuda", cache=cache)}
+        start = split_state_snapshot(TS, stage, trainable, opt_state)
+
+        def micro_step(route):
+            """One synchronised micro-step from ``start``: (logs, state after, seconds)."""
+            restore_state(TS, stage, trainable, opt_state, start)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logs = routes[route](trainable, opt_state, batch, noise)[2]
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+            return ({k: v.item() for k, v in logs.items()},
+                    split_state_snapshot(TS, stage, trainable, opt_state), sec)
+
+        default = [micro_step("eager") for _ in range(2)]
+        spread = snapshot_equal(default[0][1], default[1][1])
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            eager = [micro_step("eager") for _ in range(2)]
+            KN.reset_counts()
+            graph = micro_step("graph")
+            first_counts = train_counts(KN)
+            timed = {route: micro_step(route)[2] for route in ("eager", "graph")}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (stats,) = routes["graph"].stats.values()
+        unequal = snapshot_equal(eager[0][1], graph[1])
+        repeat = snapshot_equal(eager[0][1], eager[1][1])
+        moved = sum(not torch.equal(graph[1][k], start[k]) for k in start
+                    if k.startswith("trainable/"))
+        warm = {s: tuple((GR.TRAIN_WARMUP_STEPS + 1) * n for n in c)
+                for s, c in EXPECTED_STAGE2[task].items()}
+        ok = (eager[0][0] == graph[0] == eager[1][0] and not unequal and not repeat and moved
+              and stats.launches == EXPECTED_STAGE2[task] and first_counts == warm
+              and all(math.isfinite(v) for v in graph[0].values()))
+        same = "bit-equal" if eager[0][0] == graph[0] else (eager[0][0], graph[0])
+        log(f"graph step (c), stage 2 {task}: default mode, two eager micro-steps from one "
+            f"state differ in {len(spread)} of {len(start)} trained leaves and slots; "
+            f"deterministic algorithms: logs eager vs graph {same}, {len(unequal)} leaves and "
+            f"slots differ ({len(repeat)} between the two eager runs; {moved} leaves moved); "
+            f"launches at capture {stats.launches}; warm-up {stats.warmup_seconds:.3f} s, "
+            f"capture {stats.capture_seconds:.3f} s; a micro-step eager "
+            f"{timed['eager'] * 1e3:.1f} ms, replayed {timed['graph'] * 1e3:.1f} ms "
+            f"(default-mode eager {default[1][2] * 1e3:.1f} ms)")
+        if not ok:
+            raise AssertionError(f"stage-2 {task}: the graph step differs from the eager one: "
+                                 f"{unequal[:5]}, eager repeat {repeat[:5]}, launches "
+                                 f"{stats.launches}, first call {first_counts}")
+        out[task] = {"logs": graph[0], "bit_equal": True, "leaves_and_slots": len(start),
+                     "moved": moved, "default_mode_eager_repeat_differ": len(spread),
+                     "launches_at_capture": stats.launches,
+                     "warmup_seconds": stats.warmup_seconds,
+                     "capture_seconds": stats.capture_seconds,
+                     "ms": {"eager": timed["eager"] * 1e3, "graph": timed["graph"] * 1e3,
+                            "eager_default_mode": default[1][2] * 1e3}}
+        del routes, start, default, eager, graph
+    out["seconds"] = time.perf_counter() - t0
+    del frozen, trainable, opt_state, te_fn, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+class RestoreCheck:
+    """Wraps ``UniFIEEngine.restore_fn`` for a fit on the graph route: each
+    restore's answer against the eager route's on the same images (a closure
+    made with ``cuda_graphs`` off), in uint8 levels; the eager restores'
+    launches are kept apart (``eager_launches``)."""
+
+    def __init__(self, TE, KN):
+        self.TE, self.KN = TE, KN
+        self.levels, self.max_abs = [], 0.0
+        self.eager_launches = {kern.symbol: 0 for kern in KN.KERNELS}
+        self.engines = []
+
+    def __enter__(self):
+        check, orig = self, self.TE.UniFIEEngine.restore_fn
+        self.orig = orig
+
+        def restore_fn(engine, *args, **kwargs):
+            graphed = orig(engine, *args, **kwargs)
+            engine.cuda_graphs = False
+            try:
+                eager = orig(engine, *args, **kwargs)
+            finally:
+                engine.cuda_graphs = True
+            if engine not in check.engines:
+                check.engines.append(engine)
+
+            def run(images, task):
+                out = graphed(images, task)
+                before = {kern.symbol: kern.launches for kern in check.KN.KERNELS}
+                ref = eager(images, task)
+                for kern in check.KN.KERNELS:
+                    check.eager_launches[kern.symbol] += kern.launches - before[kern.symbol]
+                qa, qb = (np.clip(np.round(x * 255), 0, 255) for x in (out, ref))
+                check.levels.append(int(np.abs(qa - qb).max()))
+                check.max_abs = max(check.max_abs, float(np.abs(out - ref).max()))
+                return out
+
+            return run
+
+        self.TE.UniFIEEngine.restore_fn = restore_fn
+        return self
+
+    def __exit__(self, *exc):
+        self.TE.UniFIEEngine.restore_fn = self.orig
+        return False
+
+
+def run_fit_graph(KN, bridge, TE, GR, main_fn, work: Path, reference16, eager_timed) -> tuple:
+    """Phase 19 (b): phase 9's fit command with ``--trainer.cuda_graphs true``,
+    FIT_STEPS micro-steps, sanity validation, validation at FIT_STEPS over
+    FIT_GRAPH_VAL_BATCHES batch: every micro-step's logs (losses and gradient
+    norm) and every array of ``last.npz`` (trainable and optimizer state)
+    bit-equal to phase 9's first fit; micro-step 1 launches
+    (TRAIN_WARMUP_STEPS + 1) x EXPECTED_TRAIN (the warm-ups and the capture),
+    the others none, micro-step 2 under ``set_sync_debug_mode("error")``;
+    each validation restore (a ``GraphedRestore`` replay) within one uint8
+    level of the eager route's; s/step over micro-steps 2-FIT_STEPS (the card
+    synchronised at both ends) against phase 9's timed eager fit
+    (``eager_timed``) and the loader's wait. Returns (result, launches of
+    the fit by kernel: the counters less the eager comparisons, plus each
+    graph's launches at capture times its replays)."""
+    from unirestore_torch.train import checkpoints as CKPT
+
+    t0 = time.perf_counter()
+    root = work / "fit_graph"
+    args = ("--trainer.cuda_graphs", "true", "--trainer.val_check_interval", str(FIT_STEPS),
+            "--trainer.limit_val_batches", str(FIT_GRAPH_VAL_BATCHES),
+            "--trainer.log_every_n_steps", "1")
+    KN.reset_counts()
+    with RestoreCheck(TE, KN) as restores, StepProbe(TE, KN, bridge, sync_steps=(1,)) as probe, \
+            WindowTimer(TE, FIT_STEPS) as window:
+        _, trainer = main_fn(fit_argv("fit", work / "data", root, *args))
+    fit_s = time.perf_counter() - t0
+    launches = {kern.symbol: kern.launches - restores.eager_launches[kern.symbol]
+                for kern in KN.KERNELS}
+    steps = list(probe.step_fns.values())
+    restore_graphs = [engine.graphed_restore()[0] for engine in restores.engines]
+    for sym, n in graph_path_launches(KN, [s for g in (*steps, *restore_graphs)
+                                           for s in g.stats.values()]).items():
+        launches[sym] += n
+    first = {s: tuple((GR.TRAIN_WARMUP_STEPS + 1) * n for n in c)
+             for s, c in EXPECTED_TRAIN.items()}
+    zero = {s: (0, 0, 0) for s in EXPECTED_TRAIN}
+    counts_ok = (len(probe.counts) == FIT_STEPS and probe.counts[0] == first
+                 and all(c == zero for c in probe.counts[1:])
+                 and all(isinstance(s, GR.GraphedTrainStep) for s in steps))
+    got = [{k: v.item() for k, v in e.items()} for e in probe.step_logs]
+    unequal = {f"{i + 1} {k}": (g[k], w[k]) for i, (g, w) in
+               enumerate(zip(got, reference16["logs_all"])) for k in w if g[k] != w[k]}
+    flat, meta = CKPT.load_checkpoint(str(root / "checkpoints" / "last.npz"))
+    want, want_meta = CKPT.load_checkpoint(str(reference16["last_npz"]))
+    differ = [k for k in want if not np.array_equal(flat.get(k), want[k])]
+    waits = trainer.timing["loader_waits_s"][1:]
+    timed = {"steps": FIT_STEPS - 1, "wall_s": window.seconds,
+             "s_per_step": window.seconds / (FIT_STEPS - 1),
+             "loader_wait_mean_s": sum(waits) / len(waits),
+             "eager_s_per_step_phase9": eager_timed["s_per_step"],
+             "eager_loader_wait_mean_s_phase9": eager_timed["loader_wait_mean_s"]}
+    (stats,) = steps[0].stats.values()
+    log(f"graph fit (phase 9's command, --trainer.cuda_graphs true, {FIT_STEPS} micro-steps): "
+        f"{fit_s:.1f} s; launches per micro-step {probe.counts[0]} then none: {counts_ok}; "
+        f"warm-up {stats.warmup_seconds:.3f} s, capture {stats.capture_seconds:.3f} s; logs of "
+        f"every micro-step vs phase 9's {'bit-equal' if not unequal else unequal}; last.npz at "
+        f"step {meta['step']}: {len(want) - len(differ)} of {len(want)} arrays bit-equal to "
+        f"phase 9's; {len(restores.levels)} validation restores replayed, largest difference "
+        f"from the eager route {max(restores.levels, default=-1)} uint8 levels (max abs "
+        f"{restores.max_abs:.3e}); micro-steps 2-{FIT_STEPS}: {timed['s_per_step']:.4f} s/step "
+        f"(phase 9's eager {eager_timed['s_per_step']:.4f}), loader wait "
+        f"{timed['loader_wait_mean_s'] * 1e3:.2f} ms/step (phase 9's "
+        f"{eager_timed['loader_wait_mean_s'] * 1e3:.2f})")
+    if (unequal or differ or not counts_ok or meta["step"] != want_meta["step"]
+            or not restores.levels or max(restores.levels) > 1):
+        raise AssertionError(f"graph fit differs from phase 9's: logs {unequal}, last.npz "
+                             f"{differ[:5]}, launches {counts_ok}, restores {restores.levels}")
+    result = {"seconds": fit_s, "logs_bit_equal_phase9": True, "last_npz_arrays_bit_equal":
+              len(want), "launches_first_micro_step": probe.counts[0],
+              "warmup_seconds": stats.warmup_seconds, "capture_seconds": stats.capture_seconds,
+              "validation_restores": len(restores.levels),
+              "restore_uint8_levels_max": max(restores.levels),
+              "restore_max_abs": restores.max_abs, "timed": timed,
+              "restore_graphs": {str(k): dataclasses.asdict(v) for g in restore_graphs
+                                 for k, v in g.stats.items()}}
+    del probe, trainer, restores, steps, restore_graphs
+    torch.cuda.empty_cache()
+    return result, launches
+
 
 
 def main() -> int:
@@ -4980,9 +5462,21 @@ def run_phases(refs) -> int:
 
     # phase 18 (a)-(c): phase 6's cell, the step against monolithic_step;
     # (d) runs after 17
-    split, paths["train_split"] = run_split_training(UR, KN, bridge, TS, OPT)
+    cell = stage1_cell(UR, bridge, TS, OPT)
+    split, paths["train_split"] = run_split_training(UR, KN, bridge, TS, OPT, cell)
     torch.cuda.empty_cache()
     phase_done("18 (a)-(c)")
+
+    # phase 19 (a), (c): the graph-captured step on phase 18's cell, eager and
+    # graph in turns; the stage-2 step of each task from its graph; (b) runs
+    # after 18 (d)
+    graph_step = {}
+    graph_step["cell"], paths["train_graph"] = run_graph_training(UR, KN, bridge, TS, GR, cell)
+    del cell
+    torch.cuda.empty_cache()
+    graph_step["stage2"] = run_graph_stage2(UR, KN, bridge, TS, TE, OPT, GR)
+    torch.cuda.empty_cache()
+    phase_done("19 (a), (c)")
 
     # phase 5: agreement with the CPU on a small input (the CPU half in the
     # reference worker, from here on beside phases 8 and 9; every such check
@@ -5121,9 +5615,15 @@ def run_phases(refs) -> int:
         # --trainer.stop_after fr
         split["fit"], paths["fit_split"] = run_fit_split(KN, bridge, TE, TMAIN.main, Path(work),
                                                          reference16)
-        del reference16
         torch.cuda.empty_cache()
         phase_done("18 (d)")
+
+        # phase 19 (b): phase 9's fit with --trainer.cuda_graphs true
+        graph_step["fit"], paths["fit_graph"] = run_fit_graph(
+            KN, bridge, TE, GR, TMAIN.main, Path(work), reference16, fit["timed"])
+        del reference16
+        torch.cuda.empty_cache()
+        phase_done("19 (b)")
 
     # the CPU halves of phases 5, 7, 11, 12 and 15, read now
     t0 = time.perf_counter()
@@ -5163,7 +5663,9 @@ def run_phases(refs) -> int:
                                                         "train_fsdp2")},
                   **{SPATIAL_PATHS[name]: list(EXPECTED[name]) for name in ("none", "deep")},
                   spatial_restore=list(SPATIAL_RESTORE_EXPECTED),
-                  **{path: routes["train"] for path in ("train_split", "fit_split")})
+                  **{path: routes["train"] for path in ("train_split", "fit_split")},
+                  train_graph=routes["train"])
+    routes["fit_graph"] = routes["fit"]
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -5210,6 +5712,8 @@ def run_phases(refs) -> int:
     log(json.dumps({"spatial": spatial}))
     split["phase_seconds"] = phase_seconds["18 (a)-(c)"] + phase_seconds["18 (d)"]
     log(json.dumps({"split_step": split}))
+    graph_step["phase_seconds"] = phase_seconds["19 (a), (c)"] + phase_seconds["19 (b)"]
+    log(json.dumps({"graph_step": graph_step}, default=str))
     phase_done("10")
     log(json.dumps({"phase_seconds": phase_seconds, "reference_jobs": refs.spans,
                     "script_seconds": process_age()}))

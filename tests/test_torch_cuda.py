@@ -698,3 +698,97 @@ def test_device_prefetch_copies_without_a_host_wait(cuda):
     for g, b in zip(got, batches):
         assert g.device.type == "cuda" and b["task"] == "ir"
         assert torch.equal(g.cpu(), torch.from_numpy(b["hq"]) * 2.0)
+
+
+def _state_of(trainable, opt_state, stage):
+    from unirestore_torch.train import steps as TS
+
+    out = {f"trainable/{k}": v.clone() for k, v in TS.trained_leaves(stage, trainable).items()}
+    for name, sub in opt_state.items():
+        if isinstance(sub, dict):
+            out.update({f"{name}/{k}": v.clone() for k, v in sub.items()})
+        else:
+            out[name] = sub
+    return out
+
+
+def test_graphed_train_step_matches_the_eager_step(cuda, no_tf32):
+    """The tiny stage-1 step (fp32, 128 px, batch 2; AdamW at accumulation 2
+    with a clip that triggers) replayed from CUDA graphs against
+    ``make_train_step`` from one state, over an accumulating and an applying
+    micro-step: every log, trained leaf and optimizer slot bit-equal. A
+    rebound trainable tree is refused."""
+    from unirestore_torch import bridge
+    from unirestore_torch import graphs as GR
+    from unirestore_torch.models import unirestore as UR
+    from unirestore_torch.train import optim as OPT
+    from unirestore_torch.train import steps as TS
+
+    cfg = UR.tiny_config()
+    frozen, trainable = UR.init(cfg, device="cuda", seed=5)
+    sched = UR.schedule(cfg, device="cuda")
+    stage = TS.StageConfig(train_cfrm=True, train_cnet=True)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    inputs = []
+    for _ in range(2):
+        batch = {k: torch.rand((2, 128, 128, 3), generator=gen, device="cuda")
+                 for k in ("lq", "hq")}
+        inputs.append((batch, TS.draw_noise(cfg, batch, gen)))
+    out = {}
+    for route in ("eager", "graph"):
+        tx = OPT.AdamW(1e-3, eps=1e-3, accum_iter=2, grad_clip=1e-3)
+        tr = bridge.unflatten_like({k: v.clone() for k, v in bridge.flatten(trainable).items()},
+                                   trainable)
+        state = tx.init(TS.trained_leaves(stage, tr))
+        if route == "eager":
+            step = TS.make_train_step(frozen, cfg, sched, stage, tx, "ir")
+        else:
+            step = GR.GraphedTrainStep(frozen, cfg, sched, stage, tx, "ir", device=cuda)
+        logs = [{k: v.item() for k, v in step(tr, state, *x)[2].items()} for x in inputs]
+        out[route] = (logs, _state_of(tr, state, stage), step, tx)
+    assert out["eager"][0] == out["graph"][0]
+    for k, v in out["eager"][1].items():
+        same = torch.equal(v, out["graph"][1][k]) if isinstance(v, torch.Tensor) else \
+            v == out["graph"][1][k]
+        assert same, k
+    graphed, tx = out["graph"][2], out["graph"][3]
+    (stats,) = graphed.stats.values()
+    assert (stats.captures, stats.replays) == (1, 2)
+    other = bridge.unflatten_like({k: v.clone() for k, v in bridge.flatten(trainable).items()},
+                                  trainable)
+    with pytest.raises(ValueError, match="not the one captured"):
+        graphed(other, tx.init(TS.trained_leaves(stage, other)), *inputs[0])
+
+
+@pytest.mark.parametrize("name", chip_smoke.OPT_NAMES)
+def test_optimizer_device_scalars_match_host_floats_on_the_card(cuda, name):
+    """Each optimizer's update with its per-update scalars in a
+    ``graphs.ScalarBuffer`` on the card against the host floats, over seven
+    calls at accumulation 3 with a clip that triggers: bit-equal (a divisor
+    is applied as PyTorch applies a host scalar on a CUDA tensor, by its fp32
+    reciprocal)."""
+    from unirestore_torch import graphs as GR
+    from unirestore_torch.train import optim as OPT
+
+    final = {}
+    for route in ("host", "device"):
+        tx = OPT.make_optimizer(name, lr=OPT.make_lr_schedule("onecycle", 1e-2, 12),
+                                weight_decay=0.1, accum_iter=3, grad_clip=0.5)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = {k: 0.5 * torch.randn(s, device="cuda", generator=gen)
+                  for k, s in chip_smoke.OPT_SHAPES.items()}
+        state = tx.init(params)
+        for _ in range(7):
+            grads = {k: torch.randn(v.shape, device="cuda", generator=gen)
+                     for k, v in params.items()}
+            if route == "host":
+                tx.update(state, params, grads)
+                continue
+            applies, host = tx.advance(state)
+            buf = GR.ScalarBuffer(host, cuda)
+            buf.fill(host)
+            tx.apply(state, params, grads, applies, buf.views)
+        final[route] = {**params, **{f"{n}/{k}": t for n, sub in state.items()
+                                     if isinstance(sub, dict) for k, t in sub.items()}}
+    for k, v in final["host"].items():
+        assert torch.equal(v, final["device"][k]), k

@@ -128,6 +128,7 @@ def build(cfg: dict, tiny: bool = False, device=None):
     dev = resolve_device(device)
     etype = engine_type(cfg)
     m = copy.deepcopy(cfg.get("model", {}).get("init_args", {}))
+    t = cfg.get("trainer", {})
     eval_mode = m.get("eval_mode", "FR")
     engine = UniFIEEngine(
         model_kwargs=m.get("model_kwargs", {}),
@@ -141,10 +142,9 @@ def build(cfg: dict, tiny: bool = False, device=None):
         seed=cfg.get("seed_everything", 42),
         compute_dtype="float32" if tiny else "bfloat16",
         device=dev,
+        cuda_graphs=bool(t.get("cuda_graphs", False)),
     )
     engine.engine_type = etype
-
-    t = cfg.get("trainer", {})
     logger = t.get("logger") or {}
     root = (logger.get("init_args", {}) or {}).get("save_dir", "logs")
     trainer = Trainer(
@@ -162,6 +162,7 @@ def build(cfg: dict, tiny: bool = False, device=None):
         split_step=(None if t.get("split_step") is None else bool(t.get("split_step"))),
         fsdp=bool(t.get("fsdp", False)),
         stop_after=t.get("stop_after"),
+        cuda_graphs=bool(t.get("cuda_graphs", False)),
     )
 
     d = cfg.get("data", {}).get("init_args", {})

@@ -35,7 +35,12 @@ Differences from the JAX engine:
   memory, a side stream, depth 2); the frozen weights are held in
   ``compute_dtype`` (bf16 by default) and the trainable masters in fp32, and
   each batch is cast to ``compute_dtype``.
-- Restores run eagerly (the JAX engine keeps an LRU of compiled ones).
+- Restores run eagerly by default. With ``cuda_graphs`` (``trainer.cuda_graphs``)
+  they replay from CUDA graphs (``graphs.GraphedRestore``), an LRU of
+  ``UNIRESTORE_JIT_CACHE_SIZE`` graphs (default 8, at least 1), the JAX
+  engine's LRU of compiled restores (``_jit_cache``); the train step then
+  replays from CUDA graphs too (``graphs.GraphedTrainStep``), as JAX's is
+  compiled.
 - The critics are built once per engine and shared by the fit and the
   evaluator. A ``det`` batch's ragged targets are padded to 64 boxes
   (``padded_targets``) before the batch is staged, so they reach the card
@@ -63,6 +68,7 @@ import numpy as np
 import torch
 
 from .. import bridge, tasks, zoo
+from .. import graphs as GR
 from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..models import unirestore as UR
@@ -195,6 +201,13 @@ class UniFIEEngine:
     across by ``bridge``); the zoo weights and ``ckpt_path`` files still
     apply on top. ``critics``, if given, are the critics by task in place
     of ``build_critics``' (the parity tests hand in the JAX critics).
+
+    ``cuda_graphs`` (off by default; refused on the CPU, under a process
+    group, with FSDP shards, in a spatial context and for ``det``) restores
+    through one ``graphs.GraphedRestore`` of ``restore_cache_size`` graphs:
+    the engine keeps one cast of the trainable tree in ``compute_dtype``,
+    whose addresses the graphs hold, and copies the trainable tree into it
+    before each restore. ``frozen`` must not be rebound once a graph holds it.
     """
 
     engine_type = "ir"
@@ -204,7 +217,8 @@ class UniFIEEngine:
                  eval_mode: str = "FR", save_image: bool = False,
                  need_crop: bool = True, downstream: str | None = None,
                  tiny: bool = False, seed: int = 42,
-                 compute_dtype: str = "bfloat16", device=None, params=None, critics=None):
+                 compute_dtype: str = "bfloat16", device=None, params=None, critics=None,
+                 cuda_graphs: bool = False):
         self.model_kwargs = model_kwargs or {}
         self.optimizer_kwargs = optimizer_kwargs or {
             "opt": "adamw", "base_lr": 1e-4, "base_bsz": 64}
@@ -216,6 +230,13 @@ class UniFIEEngine:
         self.seed = seed
         self.compute_dtype = DTYPES[compute_dtype]
         self.device = resolve_device(device)
+        self.cuda_graphs = cuda_graphs
+        # the graph-captured restores kept, as the JAX engine bounds its
+        # compiled ones (a floor of 1)
+        self.restore_cache_size = max(1, int(os.environ.get("UNIRESTORE_JIT_CACHE_SIZE", "8")))
+        self._graphs = None  # (GraphedRestore, the cast trainable tree it holds)
+        if cuda_graphs:
+            GR.refuse_graph_route("the engine's graph-captured restores", self.device)
 
         cfg, stage = build_model_config(self.model_kwargs)
         if tiny:
@@ -273,9 +294,12 @@ class UniFIEEngine:
         closure restores every call with ``PRNGKey(0)``; ``noise_fn(latent
         shape) -> (posterior, diffusion)`` supplies it instead."""
         dev, dt = self.device, self.compute_dtype
+        if self.cuda_graphs:  # refused before any restore, not at the first
+            self.graphed_restore()
 
         def run(images, task):
-            tr = bridge.cast_tree(self.trainable, dt)
+            graphed, tr = (self.graphed_restore() if self.cuda_graphs
+                           else (None, bridge.cast_tree(self.trainable, dt)))
             x = torch.as_tensor(np.asarray(images), device=dev).to(dt).contiguous()
             noise = {}
             if noise_fn is not None:
@@ -284,11 +308,34 @@ class UniFIEEngine:
                 noise = {"posterior_noise": torch.as_tensor(post, device=dev).to(dt),
                          "diffusion_noise": torch.as_tensor(diff, device=dev).to(dt)}
             gen = torch.Generator(device=dev).manual_seed(0)
-            out = UR.restore(self.frozen, tr, self.cfg, self.sched, x, task, gen,
-                             num_inference_steps, device=dev, **noise)
+            if graphed is not None:
+                out = graphed(x, task, gen, num_inference_steps, **noise)
+            else:
+                out = UR.restore(self.frozen, tr, self.cfg, self.sched, x, task, gen,
+                                 num_inference_steps, device=dev, **noise)
             return out.float().cpu().numpy()
 
         return run
+
+    def graphed_restore(self):
+        """(the engine's ``GraphedRestore``, the cast trainable tree it holds),
+        that tree refreshed from ``trainable`` with ``copy_`` (the restore
+        casts it anew on the eager route). A rebound ``frozen`` tree or a
+        trainable tree of other leaves gets a new instance."""
+        GR.refuse_graph_route("the engine's graph-captured restores", self.device,
+                              trees=(self.frozen, self.trainable),
+                              task="det" if self.engine_type == "det" else None)
+        flat = bridge.flatten(self.trainable)
+        if (self._graphs is None or self._graphs[0].frozen is not self.frozen
+                or bridge.flatten(self._graphs[1]).keys() != flat.keys()):
+            cast = bridge.cast_tree(self.trainable, self.compute_dtype)
+            self._graphs = (GR.GraphedRestore(self.frozen, cast, self.cfg, self.sched,
+                                              self.device, max_graphs=self.restore_cache_size),
+                            cast)
+        graphed, cast = self._graphs
+        for k, t in bridge.flatten(cast).items():
+            t.copy_(flat[k])
+        return graphed, cast
 
     def restore_tiled_fn(self, num_inference_steps: int | None = None,
                          tile: int | None = None, overlap: int = 64,
@@ -322,6 +369,13 @@ class Trainer:
     after that part: nothing is updated, so the fit skips validation and
     writes no checkpoint.
 
+    ``cuda_graphs`` (off by default, as ``serve --cuda-graphs``) makes each
+    task's step a ``graphs.GraphedTrainStep`` (the steps of all tasks share
+    one LRU and memory pool), which gives the eager step's bits; it is
+    refused on the CPU, under a process group, with ``fsdp`` and for
+    ``det``. The engine's restores take their graph route when the engine
+    was built with ``cuda_graphs`` (``config.build`` sets both).
+
     Under a process group (``parallel.init_distributed``) the trainer is
     data-parallel over its ``make_mesh()`` (``unirestore_tpu/train/engine.py:
     318-453``): the peak learning rate scales with the world size, as JAX's
@@ -344,8 +398,13 @@ class Trainer:
                  split_step: bool | None = None,
                  fsdp: bool = False,
                  stop_after: str | None = None,
+                 cuda_graphs: bool = False,
                  noise_fn=None):
         self.split_step = bool(split_step)
+        if cuda_graphs and fsdp:
+            raise ValueError("trainer.cuda_graphs does not take trainer.fsdp: every step "
+                             "gathers the shards over the process group")
+        self.cuda_graphs = cuda_graphs
         if stop_after is not None and not self.split_step:
             raise ValueError("trainer.stop_after requires split_step")
         if stop_after is not None and stop_after not in ST.SPLIT_PARTS:
@@ -480,9 +539,15 @@ class Trainer:
             opt_state = tx.init(ST.trained_leaves(engine.stage, engine.trainable))
 
         steps_by_task = {}
+        graph_cache = GR.GraphCache()
 
         def get_step(task):
-            if task not in steps_by_task:
+            if task not in steps_by_task and self.cuda_graphs:
+                steps_by_task[task] = GR.GraphedTrainStep(
+                    engine.frozen, engine.cfg, engine.sched, engine.stage, tx, task,
+                    te_loss_fn=te_fn, stop_after=self.stop_after, device=dev, group=self.group,
+                    cache=graph_cache)
+            elif task not in steps_by_task:
                 steps_by_task[task] = ST.make_train_step(
                     engine.frozen, engine.cfg, engine.sched, engine.stage, tx, task,
                     te_loss_fn=te_fn, group=self.group, stop_after=self.stop_after)

@@ -31,6 +31,19 @@ changes the parameters in place (no second copy of the trainable tree is
 made). Decay rates raised to the update count are taken in fp32 by repeated
 squaring, as XLA computes optax's ``decay ** count``.
 
+``update`` is two halves. ``advance`` is the host's: it moves ``mini_step``
+and ``count`` (host integers, as checkpoints save them) and returns whether
+the call applies an update and the call's per-update scalars (the
+accumulation divisor, the learning rate and the rule's own: Adam's
+bias-correction divisors, RAdam's rectification, Adafactor's decay rate)
+as host floats. ``apply`` is the device's: it reads the scalars either as
+those floats or as 0-dim fp32 tensors on the device (``graphs.py:
+GraphedTrainStep`` copies them into a static buffer before each replay),
+with the same values: a tensor divisor is applied as PyTorch applies a host
+one (``_divide``), a branch on a scalar becomes a ``torch.where``, and the
+global-norm clip is a ``torch.where`` between the gradient and its scaled
+form in both, so nothing in ``apply`` reads a device value on the host.
+
 Under FSDP (``parallel/fsdp.py``) a parameter may be a ``Shard``, this rank's
 block of the leaf, and its slots are then ``Shard``s of theirs
 (``Optimizer.shard_state``). Elementwise rules update a block as they would
@@ -108,6 +121,29 @@ def _debias(decay: float, count: int) -> float:
     return float(np.float32(1.0) - _pow32(decay, count))
 
 
+def _divisor(name: str, d: float) -> dict:
+    """The per-update divisor ``name`` and, as ``name + "_inv"``, its fp32 reciprocal."""
+    return {name: float(d), f"{name}_inv": float(np.float32(1.0) / np.float32(d))}
+
+
+def _divide(x, s: dict, name: str):
+    """``x`` over the per-update divisor ``s[name]``. PyTorch divides a CUDA
+    tensor by a host scalar as a product with the scalar's fp32 reciprocal,
+    and a CPU tensor by true division; a 0-dim tensor divisor takes the same
+    arithmetic on either device, so results are bit-equal to the host form."""
+    d = s[name]
+    if isinstance(d, torch.Tensor) and x.is_cuda:
+        return x * s[f"{name}_inv"]
+    return x / d
+
+
+def _add_scaled(x, y, c):
+    """``x += c * y`` in place, ``c`` a host float or a 0-dim tensor."""
+    if isinstance(c, torch.Tensor):
+        return x.addcmul_(y, c)
+    return x.add_(y, alpha=c)
+
+
 class Optimizer:
     """The part every optimizer shares: the state, ``MultiSteps`` accumulation
     (a running mean, one update every ``accum_iter`` calls), global-norm
@@ -148,8 +184,14 @@ class Optimizer:
         """The masked decay rate of a leaf: none on 1-D leaves (timm's rule)."""
         return self.weight_decay if self.weight_decay and p.ndim >= 2 else 0.0
 
-    def delta(self, state: dict, k: str, p, g, lr: float, t: int):
-        """The change of leaf ``k`` at update ``t`` (1-based), updating its slots."""
+    def scalars(self, t: int, lr: float) -> dict:
+        """The per-update scalars ``delta`` reads at update ``t`` (1-based) with
+        learning rate ``lr``, as host floats (the same keys at every ``t``)."""
+        return {"lr": lr}
+
+    def delta(self, state: dict, k: str, p, g, s: dict):
+        """The change of leaf ``k``, updating its slots; ``s`` holds the
+        update's ``scalars`` as host floats or 0-dim tensors."""
         raise NotImplementedError
 
     def slot_axis(self, name: str, shape: tuple, axis: int):
@@ -189,23 +231,51 @@ class Optimizer:
             return self._norm(k, x) / math.sqrt(self._shards[k].numel)
         return x.square().mean().sqrt()
 
-    @torch.no_grad()
     def update(self, state: dict, params: Mapping, grads: Mapping[str, torch.Tensor],
                group=None) -> bool:
         """Apply one call's gradients; returns whether the parameters changed.
         A parameter given as a ``Shard`` is updated in its block, with
         ``grads`` holding the block's gradient and whole-leaf sums taken over
         ``group``."""
+        applies, s = self.advance(state)
+        self.apply(state, params, grads, applies, s, group)
+        return applies
+
+    def advance(self, state: dict) -> tuple[bool, dict]:
+        """The host half of one call: moves ``mini_step`` and ``count`` on as
+        the call does and returns (whether it applies an update, its per-update
+        scalars as host floats: ``acc`` and ``acc_inv``, the accumulation
+        divisor, under accumulation; ``scalars(count, lr)`` when it applies).
+        Reads nothing but the two counts."""
+        s = {}
+        if self.accum_iter > 1:
+            n = state["mini_step"]
+            s.update(_divisor("acc", n + 1))
+            if n < self.accum_iter - 1:
+                state["mini_step"] = n + 1
+                return False, s
+            state["mini_step"] = 0
+        lr = self._lr(state["count"])
+        state["count"] += 1
+        return True, {**s, **self.scalars(state["count"], lr)}
+
+    @torch.no_grad()
+    def apply(self, state: dict, params: Mapping, grads: Mapping[str, torch.Tensor],
+              applies: bool, s: dict, group=None) -> None:
+        """The device half of one call, after ``advance`` gave ``applies`` and
+        the scalars ``s`` (host floats, or 0-dim tensors holding their values):
+        the running mean of the gradients under accumulation and, when the
+        call applies, the clip and each leaf's change. Syncs nothing."""
         self._shards = {k: p for k, p in params.items() if isinstance(p, Shard)}
         self._group = group
         try:
-            return self._update(state, {k: getattr(p, "local", p) for k, p in params.items()},
-                                grads)
+            self._apply({k: getattr(p, "local", p) for k, p in params.items()}, state, grads,
+                        applies, s)
         finally:
             self._shards, self._group = {}, None
 
-    def _update(self, state: dict, params: Mapping[str, torch.Tensor],
-                grads: Mapping[str, torch.Tensor]) -> bool:
+    def _apply(self, params: Mapping[str, torch.Tensor], state: dict,
+               grads: Mapping[str, torch.Tensor], applies: bool, s: dict) -> None:
         # the slots' blocks where they are sharded; the counts stay in ``state``
         slots = {name: {k: getattr(v, "local", v) for k, v in sub.items()}
                  for name, sub in state.items() if isinstance(sub, dict)}
@@ -213,29 +283,24 @@ class Optimizer:
         g = [grads[k] for k in names]
         if self.accum_iter > 1:
             acc = [slots["acc"][k] for k in names]
-            n = state["mini_step"]
             for a, gi in zip(acc, g):  # running mean (optax MultiSteps, Welford)
-                a.add_((gi - a) / (n + 1))
-            if n < self.accum_iter - 1:
-                state["mini_step"] = n + 1
-                return False
-            state["mini_step"] = 0
+                a.add_(_divide(gi - a, s, "acc"))
+            if not applies:
+                return
             g = [a.clone() for a in acc]
             for a in acc:
                 a.zero_()
         if self.grad_clip is not None:
+            # the clip's branch as a select: the same values (a NaN norm
+            # scales, as ``not norm < clip`` did), no host read of the norm
             norm = global_norm(dict(zip(names, g)), self._shards, self._group)
-            if not norm < self.grad_clip:
-                g = [x / norm * self.grad_clip for x in g]
-        lr = self._lr(state["count"])
-        state["count"] += 1
-        t = state["count"]
+            keep = norm < self.grad_clip
+            g = [torch.where(keep, x, x / norm * self.grad_clip) for x in g]
         for k, gi in zip(names, g):
             p = params[k]
             if self.coupled and self._decay(p):
                 gi = gi + self._decay(p) * p
-            p.add_(self.delta(slots, k, p, gi, lr, t))
-        return True
+            p.add_(self.delta(slots, k, p, gi, s))
 
 
 class Adam(Optimizer):
@@ -250,27 +315,36 @@ class Adam(Optimizer):
         super().__init__(lr, weight_decay, grad_clip, accum_iter, coupled)
         self.b1, self.b2, self.eps, self.nesterov = b1, b2, eps, nesterov
 
-    def normalized(self, state, k, g, t):
+    def scalars(self, t, lr):
+        """The bias-correction divisors of update ``t`` (``d1``, ``d2``; Nesterov
+        also ``d1_next``, the first moment's at ``t + 1``)."""
+        s = {"lr": lr, **_divisor("d1", _debias(self.b1, t)),
+             **_divisor("d2", _debias(self.b2, t))}
+        if self.nesterov:
+            s.update(_divisor("d1_next", _debias(self.b1, t + 1)))
+        return s
+
+    def normalized(self, state, k, g, s):
         """(bias-corrected first moment, bias-corrected second moment)."""
         mu, nu = state["mu"][k], state["nu"][k]
         mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
         nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
         if self.nesterov:
-            mu_hat = (self.b1 * (mu / _debias(self.b1, t + 1))
-                      + (1 - self.b1) * (g / _debias(self.b1, t)))
+            mu_hat = (self.b1 * _divide(mu, s, "d1_next")
+                      + (1 - self.b1) * _divide(g, s, "d1"))
         else:
-            mu_hat = mu / _debias(self.b1, t)
-        return mu_hat, nu / _debias(self.b2, t)
+            mu_hat = _divide(mu, s, "d1")
+        return mu_hat, _divide(nu, s, "d2")
 
-    def direction(self, state, k, p, g, t):
-        mu_hat, nu_hat = self.normalized(state, k, g, t)
+    def direction(self, state, k, p, g, s):
+        mu_hat, nu_hat = self.normalized(state, k, g, s)
         upd = mu_hat / (nu_hat.sqrt() + self.eps)
         if not self.coupled and self._decay(p):
             upd.add_(p, alpha=self._decay(p))
         return upd
 
-    def delta(self, state, k, p, g, lr, t):
-        return -lr * self.direction(state, k, p, g, t)
+    def delta(self, state, k, p, g, s):
+        return -s["lr"] * self.direction(state, k, p, g, s)
 
 
 class AdamW(Adam):
@@ -287,15 +361,24 @@ class RAdam(Adam):
 
     threshold = 5.0
 
-    def direction(self, state, k, p, g, t):
-        mu_hat, nu_hat = self.normalized(state, k, g, t)
+    def scalars(self, t, lr):
+        """Adam's, and ``rect`` (whether update ``t`` rectifies) with its factor ``r``."""
+        s = super().scalars(t, lr)
         ro_inf = np.float32(2.0 / (1.0 - self.b2) - 1.0)
         b2t = _pow32(self.b2, t)
         ro = np.float32(ro_inf - np.float32(2 * t) * b2t / (np.float32(1.0) - b2t))
-        if ro >= self.threshold:
-            r = np.sqrt(np.float32((ro - 4.0) * (ro - 2.0) * ro_inf)
-                        / np.float32((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
-            upd = float(r) * mu_hat / (nu_hat.sqrt() + self.eps)
+        rect = bool(ro >= self.threshold)
+        r = np.sqrt(np.float32((ro - 4.0) * (ro - 2.0) * ro_inf)
+                    / np.float32((ro_inf - 4.0) * (ro_inf - 2.0) * ro)) if rect else 0.0
+        return {**s, "rect": rect, "r": float(r)}
+
+    def direction(self, state, k, p, g, s):
+        mu_hat, nu_hat = self.normalized(state, k, g, s)
+        rect = s["rect"]
+        if isinstance(rect, torch.Tensor):
+            upd = torch.where(rect > 0, s["r"] * mu_hat / (nu_hat.sqrt() + self.eps), mu_hat)
+        elif rect:
+            upd = s["r"] * mu_hat / (nu_hat.sqrt() + self.eps)
         else:
             upd = mu_hat
         if self._decay(p):
@@ -307,8 +390,8 @@ class Lamb(Adam):
     """optax ``lamb``: ``scale_by_adam`` (eps 1e-6), the masked decay, the
     trust ratio |p| / |update| (1 where a norm is 0), then -lr."""
 
-    def direction(self, state, k, p, g, t):
-        upd = super().direction(state, k, p, g, t)
+    def direction(self, state, k, p, g, s):
+        upd = super().direction(state, k, p, g, s)
         return upd * self._trust_ratio(k, p, upd)
 
 
@@ -323,11 +406,14 @@ class Adamax(Optimizer):
         super().__init__(lr, weight_decay, **kw)
         self.b1, self.b2, self.eps = b1, b2, eps
 
-    def delta(self, state, k, p, g, lr, t):
+    def scalars(self, t, lr):
+        return {"lr": lr, **_divisor("d1", _debias(self.b1, t))}
+
+    def delta(self, state, k, p, g, s):
         mu, nu = state["mu"][k], state["nu"][k]
         mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
         torch.maximum(g.abs() + self.eps, self.b2 * nu, out=nu)
-        return -lr * ((mu / _debias(self.b1, t)) / nu)
+        return -s["lr"] * (_divide(mu, s, "d1") / nu)
 
 
 class Lion(Optimizer):
@@ -341,13 +427,13 @@ class Lion(Optimizer):
         super().__init__(lr, weight_decay, **kw)
         self.b1, self.b2 = b1, b2
 
-    def delta(self, state, k, p, g, lr, t):
+    def delta(self, state, k, p, g, s):
         mu = state["mu"][k]
         upd = torch.sign((1 - self.b1) * g + self.b1 * mu)
         mu.mul_(self.b2).add_(g, alpha=1 - self.b2)
         if self._decay(p):
             upd = upd + self._decay(p) * p
-        return -lr * upd
+        return -s["lr"] * upd
 
 
 class Trace(Optimizer):
@@ -367,11 +453,11 @@ class Trace(Optimizer):
         tr.mul_(self.momentum).add_(u)
         return u + self.momentum * tr if self.nesterov else tr.clone()
 
-    def delta(self, state, k, p, g, lr, t):
+    def delta(self, state, k, p, g, s):
         upd = self.traced(state, k, g)
         if not self.coupled and self._decay(p):
             upd = upd + self._decay(p) * p
-        return -lr * upd
+        return -s["lr"] * upd
 
 
 class Lars(Trace):
@@ -380,10 +466,10 @@ class Lars(Trace):
 
     trust_coefficient = 0.001
 
-    def delta(self, state, k, p, g, lr, t):
+    def delta(self, state, k, p, g, s):
         upd = g + self._decay(p) * p if self._decay(p) else g
         upd = upd * self._trust_ratio(k, p, upd, self.trust_coefficient)
-        return self.traced(state, k, -lr * upd)
+        return self.traced(state, k, -s["lr"] * upd)
 
 
 class RMSprop(Trace):
@@ -397,10 +483,10 @@ class RMSprop(Trace):
         super().__init__(lr, weight_decay, momentum, **kw)
         self.decay, self.eps = decay, eps
 
-    def delta(self, state, k, p, g, lr, t):
+    def delta(self, state, k, p, g, s):
         nu = state["nu"][k]
         nu.mul_(self.decay).addcmul_(g, g, value=1 - self.decay)
-        return self.traced(state, k, -lr * (g * torch.rsqrt(nu + self.eps)))
+        return self.traced(state, k, -s["lr"] * (g * torch.rsqrt(nu + self.eps)))
 
 
 class Adagrad(Optimizer):
@@ -416,11 +502,11 @@ class Adagrad(Optimizer):
     def slot_init(self, name, p):
         return torch.full_like(p, self.initial)
 
-    def delta(self, state, k, p, g, lr, t):
+    def delta(self, state, k, p, g, s):
         sos = state["sum_of_squares"][k]
         sos.addcmul_(g, g)
         inv = torch.where(sos > 0, torch.rsqrt(sos + self.eps), torch.zeros_like(sos))
-        return -lr * (inv * g)
+        return -s["lr"] * (inv * g)
 
 
 class Adadelta(Optimizer):
@@ -434,12 +520,12 @@ class Adadelta(Optimizer):
         super().__init__(lr, weight_decay, **kw)
         self.rho, self.eps = rho, eps
 
-    def delta(self, state, k, p, g, lr, t):
+    def delta(self, state, k, p, g, s):
         e_g, e_x = state["e_g"][k], state["e_x"][k]
         e_g.mul_(self.rho).addcmul_(g, g, value=1 - self.rho)
         upd = (e_x + self.eps).sqrt() / (e_g + self.eps).sqrt() * g
         e_x.mul_(self.rho).addcmul_(upd, upd, value=1 - self.rho)
-        return -lr * upd
+        return -s["lr"] * upd
 
 
 def _factored_dims(shape, min_dim_size_to_factor: int = 128):
@@ -493,27 +579,32 @@ class Adafactor(Optimizer):
         return group_sum(x.sum(dim=dim, keepdim=keepdim), self._group) / (
             x.shape[dim] * self._shards[k].parts)
 
-    def delta(self, state, k, p, g, lr, t):
+    def scalars(self, t, lr):
+        """The moments' decay ``rate`` of update ``t`` and ``rate_c``, 1 - rate."""
         rate = float(np.float32(1.0) - np.float32(t) ** np.float32(-self.decay_rate))
+        return {"lr": lr, "rate": rate, "rate_c": 1 - rate}
+
+    def delta(self, state, k, p, g, s):
+        rate, rate_c = s["rate"], s["rate_c"]
         g2 = g * g + self.eps
         shape = self._shards[k].shape if k in self._shards else tuple(p.shape)
         axis = self._shards[k].axis if k in self._shards else None
         dims = _factored_dims(shape)
         if dims is None:
             v = state["v"][k]
-            v.mul_(rate).add_(g2, alpha=1 - rate)
+            _add_scaled(v.mul_(rate), g2, rate_c)
             upd = g * v.rsqrt()
         else:
             d1, d0 = dims
             v_row, v_col = state["v_row"][k], state["v_col"][k]
-            v_row.mul_(rate).add_(self._mean(k, g2, d0, axis), alpha=1 - rate)
-            v_col.mul_(rate).add_(self._mean(k, g2, d1, axis), alpha=1 - rate)
+            _add_scaled(v_row.mul_(rate), self._mean(k, g2, d0, axis), rate_c)
+            _add_scaled(v_col.mul_(rate), self._mean(k, g2, d1, axis), rate_c)
             row_axis = self.slot_axis("v_row", shape, axis) if axis is not None else None
             row = (v_row / self._mean(k, v_row, d1 - 1 if d1 > d0 else d1, row_axis,
                                       keepdim=True)).rsqrt()
             upd = g * row.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
         upd = upd / torch.clamp(self._rms(k, upd) / self.clip, min=1.0)
-        upd = lr * upd
+        upd = s["lr"] * upd
         upd = upd * torch.clamp(self._rms(k, p), min=self.min_scale)
         if self.weight_decay:
             upd = upd + self.weight_decay * p

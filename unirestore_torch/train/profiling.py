@@ -41,19 +41,21 @@ def device_summary(prof) -> dict:
     """The card's time in a finished profile: summed kernel time
     (``device_busy_s``), first kernel start to last kernel end
     (``device_span_s``), ``device_idle_share`` = 1 - busy / span, and the
-    number of kernels. Empty when no device activity was recorded."""
-    busy_us, n, first, last = 0.0, 0, float("inf"), float("-inf")
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
-            busy_us += evt.time_range.elapsed_us()
-            first, last = min(first, evt.time_range.start), max(last, evt.time_range.end)
+    number of kernels. Empty when no device activity was recorded. Read from
+    the profiler's raw kineto events: ``prof.events()`` first builds a record
+    of every host event, tens of seconds of host time for a training step's
+    trace."""
+    busy_ns, n, first, last = 0, 0, float("inf"), float("-inf")
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation():
+            busy_ns += evt.duration_ns()
+            first, last = min(first, evt.start_ns()), max(last, evt.end_ns())
             n += 1
     if not n:
         return {}
-    span = (last - first) / 1e6
-    return {"device_busy_s": busy_us / 1e6, "device_span_s": span,
-            "device_idle_share": 1.0 - busy_us / 1e6 / span if span > 0 else None,
-            "kernels": n}
+    busy, span = busy_ns / 1e9, (last - first) / 1e9
+    return {"device_busy_s": busy, "device_span_s": span,
+            "device_idle_share": 1.0 - busy / span if span > 0 else None, "kernels": n}
 
 
 def annotate(name: str):

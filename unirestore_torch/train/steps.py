@@ -243,23 +243,45 @@ def _tracking(leaves: dict):
             p.requires_grad_(False)
 
 
+def _filled(params: dict, grads: dict) -> dict:
+    """``grads`` for every leaf of ``params``, zeros where no loss reached one."""
+    return {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
+            for k, p in params.items()}
+
+
+def optimizer_tail(tx, opt_state, like: dict, grads: dict, form: tuple | None = None,
+                   group=None) -> torch.Tensor:
+    """The optimizer tail's body: one call of ``tx`` on the trained leaves
+    ``like`` (tensors or shards) with their mean ``grads``, updating them and
+    ``opt_state`` in place; returns ``train/grad_norm``, the global norm of
+    ``grads``. Eagerly (``form`` None) the call is ``tx.update``. The graph
+    route runs ``tx.advance`` on the host before each replay and passes its
+    ``form``, (whether it applies, the per-update scalars as 0-dim tensors of
+    a static buffer): the body is then ``tx.apply`` alone, which reads no
+    device value on the host, so a CUDA graph holds it
+    (``graphs.py:GraphedTrainStep``, one graph a form)."""
+    if form is None:
+        tx.update(opt_state, like, grads, group)
+    else:
+        tx.apply(opt_state, like, grads, *form, group)
+    return FSDP.global_norm({k: g.float() for k, g in grads.items()}, like, group)
+
+
 def _apply(stage: StageConfig, tx, group, trainable, opt_state, params: dict, grads: dict,
            logs: dict):
     """The train step's optimizer tail. ``params`` are the whole trained
     leaves and ``grads`` their gradients by name: a leaf no loss reached gets
     zeros (so that every rank runs the same collectives). Then the mean
-    gradients and logs over ``group``, the update of ``trainable``'s trained
-    leaves (or shards) in place, and ``train/grad_norm``."""
+    gradients and logs over ``group``, and ``optimizer_tail``: the update of
+    ``trainable``'s trained leaves (or shards) in place, and
+    ``train/grad_norm``."""
     like = trained_leaves(stage, trainable)
-    grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
-             for k, p in params.items()}
+    grads = _filled(params, grads)
     logs = {k: v.detach() for k, v in logs.items()}
     if group is not None:
         grads = FSDP.reduce_gradients(grads, like, group)
         logs = global_logs(logs, group)
-    tx.update(opt_state, like, grads, group)
-    logs["train/grad_norm"] = FSDP.global_norm({k: g.float() for k, g in grads.items()},
-                                               like, group)
+    logs["train/grad_norm"] = optimizer_tail(tx, opt_state, like, grads, group=group)
     return trainable, opt_state, logs
 
 
@@ -271,6 +293,88 @@ _FAMILIES = {"fr": ("cfrm",), "cn": ("controller", "control"), "te": ("tfa",)}
 def _family(params: dict, part: str) -> dict:
     """The trained leaves of ``part``'s family, by flat name."""
     return {k: p for k, p in params.items() if k.split("//", 1)[0] in _FAMILIES[part]}
+
+
+def make_step_parts(cfg: UR.UniRestoreConfig, sched, stage: StageConfig, task: str,
+                    te_loss_fn: Callable | None = None, stop_after: str | None = None):
+    """The parts of the train step (``shared`` -> ``fr`` -> ``cn`` -> ``te``,
+    as ``make_train_step`` describes them) as one body that reads only
+    tensors:
+
+        parts(frozen, trainable, batch, noise) -> (logs, grads)
+
+    ``frozen`` and ``trainable`` are whole trees (``cfg`` as given: the caller
+    turns remat on), ``batch`` and ``noise`` this call's. ``logs`` holds the
+    detached losses (``train/loss`` and the terms ``compute_losses`` logs)
+    and ``grads`` every trained leaf's gradient by flat name, zeros where no
+    part reached one. After a ``stop_after`` part, ``logs`` is only
+    ``train/loss``, the loss so far, and ``grads`` is None."""
+    if stop_after not in (None, *SPLIT_PARTS):
+        raise ValueError(f"stop_after must be one of shared|fr|cn|te, got {stop_after!r}")
+    need_fr = stage.train_cfrm and cfg.use_cfrm
+    need_cn = stage.train_cnet and cfg.use_cnet
+    need_te = cfg.use_tfa and stage.train_tfa
+
+    def parts(frozen, trainable, batch, noise: StepNoise):
+        params = trained_leaves(stage, trainable)
+        lq, hq = batch["lq"], batch["hq"]
+        grads, logs = {}, {}
+
+        with torch.no_grad():
+            h0, h0_mids = UR.encode(frozen, trainable, cfg, hq, noise=noise.hq, enable_fr=False)
+            if cfg.use_cnet:
+                zt, _, timesteps = UR.diffuse(sched, h0, noise=noise.diffusion,
+                                              timesteps=noise.timesteps)
+        if stop_after == "shared":
+            return {"train/loss": h0.mean()}, None
+
+        loss = torch.zeros((), dtype=torch.float32, device=hq.device)
+        leaves = _family(params, "fr") if need_fr else {}
+        with _tracking(leaves):
+            l0, l0_mids = UR.encode(frozen, trainable, cfg, lq, noise=noise.lq,
+                                    enable_fr=cfg.use_cfrm)
+            l0 = l0.detach()
+            te_mids = [m.detach() for m in l0_mids] if need_te else None
+            fr = _fr_loss(stage, l0, l0_mids, h0, h0_mids) if need_fr else None
+            # the skips are dead past here (the backward holds what it saved)
+            del l0_mids, h0_mids
+            if fr is not None:
+                grads.update(_grads(fr[0], leaves))
+                loss = loss + fr[0].detach()
+                logs.update({k: v.detach() for k, v in fr[1].items()})
+        if stop_after == "fr":
+            return {"train/loss": loss}, None
+
+        if cfg.use_cnet:
+            leaves = _family(params, "cn") if need_cn else {}
+            with _tracking(leaves):
+                pred_z0 = UR.predict_z0(frozen, trainable, cfg, sched, zt, l0, timesteps)
+                if need_cn:
+                    loss_cn = _mse(pred_z0, h0)
+                    grads.update(_grads(loss_cn, leaves))
+                    loss = loss + loss_cn.detach()
+                    logs["train/loss_cnet"] = loss_cn.detach()
+            pred_z0 = pred_z0.detach()
+        else:
+            pred_z0 = l0
+        if stop_after == "cn":
+            return {"train/loss": loss}, None
+
+        if need_te:
+            leaves = _family(params, "te")
+            with _tracking(leaves):
+                loss_te = _te_loss(frozen, trainable, cfg, stage, pred_z0, te_mids, batch, task,
+                                   te_loss_fn)
+                grads.update(_grads(loss_te, leaves))
+            loss = loss + loss_te.detach()
+            logs[f"train/loss_{task}"] = loss_te.detach()
+        if stop_after == "te":
+            return {"train/loss": loss}, None
+
+        logs["train/loss"] = loss
+        return logs, _filled(params, grads)
+
+    return parts
 
 
 def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig, tx,
@@ -305,6 +409,10 @@ def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
     - then the optimizer tail: zeros for the leaves no part reached, the mean
       over ``group``, the update and ``train/grad_norm``.
 
+    The parts are one body that reads only tensors (``make_step_parts``) and
+    the tail another (``optimizer_tail``); ``graphs.py:GraphedTrainStep``
+    captures the same two bodies.
+
     A part hands on only detached tensors and its gradients, so its graph is
     freed before the next part's forward: the activation peak is the largest
     part's, not the sum. Each trained leaf's gradient comes from one loss,
@@ -325,80 +433,19 @@ def make_train_step(frozen, cfg: UR.UniRestoreConfig, sched, stage: StageConfig,
     returns ``trainable`` and ``opt_state`` untouched and logs the loss so far
     (after ``shared``, the mean of the hq latents), as the JAX step does.
     """
-    if stop_after not in (None, *SPLIT_PARTS):
-        raise ValueError(f"stop_after must be one of shared|fr|cn|te, got {stop_after!r}")
     cfg = with_remat(cfg) if remat else cfg
-    need_fr = stage.train_cfrm and cfg.use_cfrm
-    need_cn = stage.train_cnet and cfg.use_cnet
-    need_te = cfg.use_tfa and stage.train_tfa
+    parts = make_step_parts(cfg, sched, stage, task, te_loss_fn, stop_after)
 
     def step(trainable, opt_state, batch, noise: StepNoise):
         SP.refuse("the train step", "the spatial mesh is for inference (its losses, "
                   "crops and gradients span the image)")
-
-        def truncated(loss):
-            logs = {"train/loss": loss.detach()}
-            return trainable, opt_state, global_logs(logs, group) if group is not None else logs
-
         full_frozen = FSDP.gather_tree(frozen, group)
         full = FSDP.gather_tree(trainable, group)
-        params = trained_leaves(stage, full)
-        lq, hq = batch["lq"], batch["hq"]
-        grads, logs = {}, {}
-
-        with torch.no_grad():
-            h0, h0_mids = UR.encode(full_frozen, full, cfg, hq, noise=noise.hq, enable_fr=False)
-            if cfg.use_cnet:
-                zt, _, timesteps = UR.diffuse(sched, h0, noise=noise.diffusion,
-                                              timesteps=noise.timesteps)
-        if stop_after == "shared":
-            return truncated(h0.mean())
-
-        loss = torch.zeros((), dtype=torch.float32, device=hq.device)
-        leaves = _family(params, "fr") if need_fr else {}
-        with _tracking(leaves):
-            l0, l0_mids = UR.encode(full_frozen, full, cfg, lq, noise=noise.lq,
-                                    enable_fr=cfg.use_cfrm)
-            l0 = l0.detach()
-            te_mids = [m.detach() for m in l0_mids] if need_te else None
-            fr = _fr_loss(stage, l0, l0_mids, h0, h0_mids) if need_fr else None
-            # the skips are dead past here (the backward holds what it saved)
-            del l0_mids, h0_mids
-            if fr is not None:
-                grads.update(_grads(fr[0], leaves))
-                loss = loss + fr[0].detach()
-                logs.update({k: v.detach() for k, v in fr[1].items()})
-        if stop_after == "fr":
-            return truncated(loss)
-
-        if cfg.use_cnet:
-            leaves = _family(params, "cn") if need_cn else {}
-            with _tracking(leaves):
-                pred_z0 = UR.predict_z0(full_frozen, full, cfg, sched, zt, l0, timesteps)
-                if need_cn:
-                    loss_cn = _mse(pred_z0, h0)
-                    grads.update(_grads(loss_cn, leaves))
-                    loss = loss + loss_cn.detach()
-                    logs["train/loss_cnet"] = loss_cn.detach()
-            pred_z0 = pred_z0.detach()
-        else:
-            pred_z0 = l0
-        if stop_after == "cn":
-            return truncated(loss)
-
-        if need_te:
-            leaves = _family(params, "te")
-            with _tracking(leaves):
-                loss_te = _te_loss(full_frozen, full, cfg, stage, pred_z0, te_mids, batch, task,
-                                   te_loss_fn)
-                grads.update(_grads(loss_te, leaves))
-            loss = loss + loss_te.detach()
-            logs[f"train/loss_{task}"] = loss_te.detach()
-        if stop_after == "te":
-            return truncated(loss)
-
-        logs["train/loss"] = loss
-        return _apply(stage, tx, group, trainable, opt_state, params, grads, logs)
+        logs, grads = parts(full_frozen, full, batch, noise)
+        if grads is None:
+            return trainable, opt_state, global_logs(logs, group) if group is not None else logs
+        return _apply(stage, tx, group, trainable, opt_state, trained_leaves(stage, full), grads,
+                      logs)
 
     step.task = task
     return step
