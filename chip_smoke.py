@@ -62,10 +62,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    such check is read before the report. Phases 5 and 7 run after 18 (a)-(c),
    and phase 15 starts its jobs after its timed restores and steps, so that
    phases 3, 4, 6, 18 and 15's restores and SPADE step are timed beside no
-   job; the script waits for every job before phase 16. The jobs can run
-   beside phases 8-9 (those of 5 and 7), 12-14 (11 and 12) and 15's
-   optimizers and backbones; the report gives each job's seconds of the
-   script;
+   job; the script waits for every job before phase 19 (b). The jobs can run
+   beside phases 8-9 (those of 5 and 7), 12-14 (11 and 12), and 15's
+   optimizers and backbones and phases 16-18 (d) (15's); the report gives
+   each job's seconds of the script;
 6. the stage-1 training step at full width (sd-turbo widths without TFA,
    512 px, batch 8, bf16 frozen weights and fp32 trainable masters, AdamW
    from the stage-1 YAML's kwargs, remat on) on a seeded synthetic pair: one
@@ -75,7 +75,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    unchanged;
 7. one stage-1 loss and gradient at full width, 256 px, batch 1, fp32, on the
    card and on the CPU: the losses and each family's gradient norm agree;
-18. (its (a)-(c) run after phase 6, (d) after phase 17) the train step's
+18. (its (a)-(c) run after phase 6, (d) after phase 15 while phases 16 and
+   17 run their torchrun jobs) the train step's
    parts in turn (``make_train_step``, the JAX package's split step) on
    phase 6's cell, against ``monolithic_step`` (every loss in one backward,
    the design it replaced): (a) from one state, batches and noise, two
@@ -94,7 +95,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``set_sync_debug_mode("error")``, every logged loss and every leaf of
    ``last.npz`` bit-equal to phase 9's, and with ``--trainer.stop_after fr``
    no ``last.npz``;
-19. (its (a) and (c) run after 18 (a)-(c) and before 5, (b) after 18 (d))
+19. (its (a) and (c) run after 18 (a)-(c) and before 5, (b) after 17)
    the graph-captured step (``graphs.GraphedTrainStep``): (a) on phase 18's
    build of phase 6's cell, an accumulating and an applying micro-step eager
    and from the graphs from one state: every log, all 588 trained leaves and
@@ -116,6 +117,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    differentiate through ``index_add_``'s atomic adds), then under
    ``torch.use_deterministic_algorithms(True)`` eager, eager and the graph
    from one state bit-equal, launches at capture ``EXPECTED_STAGE2``;
+20. (after 19 (b), on phase 12's scratch tree) the graph route for stage 3 and
+   for the validation networks: (a) one stage-3 micro-step of RetinaNet and of
+   Faster R-CNN (full width with TFA's four tasks, batch 1, 512 px, three
+   boxes, only the task prompts trained), eager and from a
+   ``GraphedTrainStep``: two eager micro-steps compared in the default mode,
+   then under deterministic algorithms eager, eager and the graph bit-equal
+   (or, where an op names itself as having no deterministic kernel, within
+   phase 12's card-vs-CPU limits), launches at capture ``EXPECTED_STAGE3``,
+   none in a replay, ms a micro-step, warm-up and capture s, the GiB of the
+   graphs' pool; (b) phase 12's RetinaNet fit command for 3 micro-steps at
+   accumulation 3 under deterministic algorithms, eagerly and with
+   ``--trainer.cuda_graphs true``: logs and ``last.npz`` bit-equal, launches
+   three times ``EXPECTED_STAGE3`` at micro-step 1 and none after, validation
+   restores within one uint8 level of eager; (c) every network the JAX
+   package jits in validation (the zoos' probes, the stage-2 probes, LPIPS,
+   the NR networks, Inception) eager and from a ``GraphedCall`` on one
+   seeded batch: bit-equal under deterministic algorithms, no repo-kernel
+   launch, ms a call, busy ms a call of each route, capture s, pool GiB; (d)
+   phase 14's NR and phase 13's cls ``all_ft`` validate commands, the latter
+   over three images of three sizes, eagerly (NR: phase 14's run) and with
+   ``--trainer.cuda_graphs true``: keys and values equal, a second
+   validation on the graph route all replays, captures per image and s per
+   image of the first validation and of the second on each route;
 8. the restore server (``unirestore_torch.serve``) in this process on
    127.0.0.1 at an ephemeral port: full width, bf16, 20 steps, exact, batch
    4 tiles of 512 px with overlap 64, fused out-projection on. It answers
@@ -196,13 +220,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to the host); launches per micro-step and per validation restore as the
    routing implies; the validation keys ``val_lq/map`` and ``val_monitor``;
    ``step=6-...``, ``step=12-...``, ``last.npz`` and a resume to step 13.
-   Then the same with ``--model.init_args.downstream fastrcnn`` for 6
-   micro-steps (one update, one validation of 2 batches, a micro-step under
-   the sync check). Reported: s per micro-step (the card synchronised before
-   and after each, the first left out), the loader wait, peak memory, and
-   each detector's share of a micro-step's device time (profiled, by kernel
-   family). Every (kernel, shape) it met that was not held yet is held to its
-   plain version (rows with ``"path": "fit_stage3"``). Then the RetinaNet and
+   Then the same with ``--model.init_args.downstream fastrcnn`` for 3
+   micro-steps at accumulation 3 (one update, one validation of 2 batches, a
+   micro-step under the sync check). Reported: s per micro-step (the card
+   synchronised before and after each, the first left out), the loader wait,
+   peak memory, and each detector's share of a micro-step's device time
+   (profiled, by kernel family). Every (kernel, shape) it met that was not
+   held yet is held to its plain version (rows with ``"path":
+   "fit_stage3"``). Then the RetinaNet and
    the Faster R-CNN stage-3 losses and the prompts' gradient norm at full
    width, 256 px, fp32, card vs CPU;
 13. (run after phase 12, before the report) the ``cls`` and ``seg`` engines
@@ -256,8 +281,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    card vs CPU, within 1e-4 of the largest |value| on the features before the
    head and on the score, with each one's reach. Reported: validation s per
    image in ALL and NR, FID's compute seconds, host s per image of NIQE and
-   NRQM, ms per call of each network with the card's busy ms and kernels, the
-   NR networks' share of an NR validation's device time (profiled), peak
+   NRQM, ms per call of each network with the card's busy ms and kernels, a
+   second NR validation's s (phase 20 (d)'s eager route), the NR networks'
+   share of an NR validation's device time (profiled), peak
    memory, the phase's seconds. Every (kernel, shape) met that was not held
    yet is held to its plain version (rows with ``"path": "validate_nr"``);
 15. (run after phase 14, before the report) the ``spade`` control type, the
@@ -273,7 +299,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    SPADE stage-1 loss with its per-family gradient norms at 256 px in fp32,
    card vs CPU, as phases 5 and 7; the full-width SPADE stage-1 step (512 px,
    batch 8, remat, bf16 frozen) with AdamW, ``lamb`` and ``adafactor``, one
-   warm-up and three timed steps each: ms/step, train img/s, peak memory,
+   warm-up and two timed steps each: ms/step, train img/s, peak memory,
    launches per step (forward as phase 6's; recompute and backward over the
    whole UNet); every optimizer name of the JAX ``make_optimizer`` over a
    seeded tree (two updates, clip, accumulation 2), card vs CPU; every
@@ -284,7 +310,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    throwaway script: ``nn.kernels.build_all()``, then ``chip_smoke.run_phase15
    (UR, KN, GR, bridge, TS, OPT, gen, refs)`` with ``refs =
    chip_smoke.CpuReferences()``;
-16. (run after phase 15, before the report) data parallelism
+16. (run after phase 15, its torchrun jobs at once with phase 17's and with
+   phase 18 (d) in the script's own process) data parallelism
    (``unirestore_torch/parallel``): (a) phase 9's first fit (its YAML,
    overrides and smoke tree; no validation) under ``python -m
    torch.distributed.run --standalone --nproc_per_node 1`` with
@@ -303,14 +330,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``chip_smoke.py --worker fit|train ...`` by torchrun. Every (kernel, shape)
    they met that was not held yet is held to its plain version (rows with
    ``"path": "fit_ddp"`` / ``"train_ddp2"``);
-17. (run after phase 16) the 2-D (data, spatial) mesh: ``restore_padded``
+17. (run at once with phase 16) the 2-D (data, spatial) mesh: ``restore_padded``
    with a ``spatial_batch_sharding`` of ``make_mesh_2d(1, 2)``, two ranks on
    the one card over gloo, each restoring half of the height (halo rows,
    partial sums and attention gathers by hand, ``parallel/spatial.py``): (a)
    full width, fp32, 256 px, batch 2, 2 steps, the assembled output against
    the single-process restore on the card within ``REFERENCE_ATOL``, launches
-   per rank the single process's; (b) full width, bf16, 512 px, batch 4, 20
-   steps, exact and deep: finite, launches per rank phase 4's per restore,
+   per rank the single process's; (b) full width, bf16, 512 px, batch 4,
+   exact at 5 steps and deep at 20 (its warm-up and stride need 20): finite,
+   launches per rank phase 4's per step,
    seconds a restore per rank, peak and held memory per rank against the
    single-process restore's, the collectives by kind and (a one-step exact
    restore with the card synchronised around each) their seconds, the
@@ -322,8 +350,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``models/unirestore.py:spatial_plan``): (c) full width, fp32, 320 px,
    batch 2, 2 steps (UNet level 3, 5 rows, whole) as (a); (d) full width,
    bf16, ``restore(..., sharding=)`` of four 500 x 375 originals (resized
-   and padded to 704 x 512; UNet level 3, 11 rows, whole), exact, 20 steps:
-   launches per rank and in one process (140, 280, 0, 0, 3), seconds a
+   and padded to 704 x 512; UNet level 3, 11 rows, whole), exact, 5 steps:
+   launches per rank and in one process (35, 70, 0, 0, 3), seconds a
    restore per rank against one process, collectives by kind (and their
    seconds in a one-step restore with the card synchronised around each), held and peak
    memory per rank against one process's peak, the most a whole level added
@@ -355,7 +383,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    split fit; ``train_graph``: phase 19 (a)'s graph route, the first call's
    eager warm-ups and capture plus the launches at capture times the
    replays; ``fit_graph``: phase 19 (b)'s fit, the same with its restore
-   graphs, less the eager restores it compares with); each kernel must
+   graphs, less the eager restores it compares with; ``train_det_graph``:
+   phase 20 (a)'s graph route of both detectors, as ``train_graph``;
+   ``fit_stage3_graph``: phase 20 (b)'s fit, as ``fit_graph``); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -465,6 +495,26 @@ GRAPH_TRAIN_TURNS = ("eager", "graph", "graph", "eager")
 GRAPH_TURN_STEPS = 2
 FIT_GRAPH_VAL_BATCHES = 1
 STAGE2_GRAPH_TASKS = ("ir", "cls", "seg")
+# phase 20: the graph route for stage 3 and for the validation networks. (a)
+# one stage-3 micro-step of each detector (STAGE3_GRAPH_DETECTORS: batch 1,
+# 512 px, three boxes, the full-width model with TFA's four tasks, only the
+# task prompts trained, AdamW at accumulation 1 so that it applies) eager and
+# from its graph, as phase 19 (c); (b) phase 12's RetinaNet fit command with
+# --trainer.cuda_graphs true for FIT3_GRAPH_STEPS micro-steps at that
+# accumulation (one update), validation at the last over
+# FIT3_GRAPH_VAL_BATCHES batch, held to the same command run eagerly without
+# validation, both under deterministic algorithms; (c) every validation
+# network the JAX package jits, eager and from its graph on one seeded batch
+# (GRAPH_NET_CALLS timed calls of each route); (d) phase 14's NR validate,
+# and phase 13's cls all_ft validate over one image of each
+# VAL20_MIXED_SIZES size (so that each network and the restore meets a new
+# input shape at every image of the first validation), eagerly and with
+# --trainer.cuda_graphs true: keys and values equal, captures per image and s
+# per image of the first validation and of a second one on each route
+STAGE3_GRAPH_DETECTORS = ("retinanet", "fastrcnn")
+FIT3_GRAPH_STEPS, FIT3_GRAPH_VAL_BATCHES = 3, 1
+GRAPH_NET_CALLS = 5
+VAL20_MIXED_SIZES = ((576, 592), (512, 640), (544, 704))
 # phase 9: ``python -m unirestore_torch.main fit`` from the stage-1 YAML on
 # the smoke tree of tools/make_smoke_data.py at 576 px (576 x 592 images),
 # with dotted overrides only: the DIVF2KOST lists, 6 micro-steps (three AdamW
@@ -530,11 +580,13 @@ FIT2_RESTORE = {"ir": FIT_RESTORE, "cls": (7, 14, 0, 0, 3), "seg": (0, 21, 0, 0,
 # phase 9's last.npz for frenc and cnet and phase 11's for tedit (the three
 # stages chained), 12 micro-steps (two AdamW updates), validation every 6
 # over 2 batches; then a resume to step 13, and a fit through Faster R-CNN
-# (``downstream: fastrcnn``) of 6 micro-steps: one update, one validation
+# (``downstream: fastrcnn``) of FIT3_FRCNN_STEPS micro-steps at that
+# accumulation: one update, one validation (6 at the YAML's 6 until phase 20
+# needed the seconds)
 FIT3_YAML = REPO / "configs" / "train_stage3.yaml"
 FIT3_STEPS, FIT3_ACCUM, FIT3_VAL_EVERY, FIT3_VAL_BATCHES = 12, 6, 6, 2
 FIT3_RESUME_STEPS = 13
-FIT3_FRCNN_STEPS = 6
+FIT3_FRCNN_STEPS = 3
 FIT3_SYNC_CHECK_STEP = 2  # after the first micro-step has made the cached constants
 # launches per stage-3 micro-step: those of a stage-2 cls or seg micro-step
 # (the det decode and the auxiliary IR decode); no gradient reaches a kernel
@@ -603,9 +655,10 @@ EXPECTED_TRAIN_SPADE = {"ur_attention_btc": (14, 10, 14), "ur_attention_bh": (7,
                         "ur_grouped_conv3": (3, 3, 3)}
 # the SPADE step's optimizers: AdamW (the stage-1 YAML's) and the two names
 # with the most work per step; one warm-up and SPADE_TRAIN_STEPS timed steps
-# each, accumulation 1 so that every step updates
+# each (3 until phase 20 needed the seconds), accumulation 1 so that every
+# step updates
 SPADE_OPTS = ("adamw", "lamb", "adafactor")
-SPADE_TRAIN_STEPS = 3
+SPADE_TRAIN_STEPS = 2
 # every name of the JAX ``make_optimizer``; two updates (accumulation 2, clip,
 # OneCycle) card vs CPU in float64, where the comparison reads the port's
 # arithmetic: in fp32 an element whose coupled-decay input cancels to within
@@ -641,32 +694,38 @@ DDP_TIMEOUT = 300
 # height (``restore_padded(..., sharding=)``). (a) full width, fp32, 256 px,
 # batch SPATIAL_REF_BATCH, 2 DDIM steps, the assembled output against the
 # single-process fp32 restore of the same inputs and noise on the card within
-# REFERENCE_ATOL; (b) full width, bf16, 512 px, batch SPATIAL_BATCH, STEPS
-# steps in SPATIAL_MODES (phase 4's stride and warmup): seconds a restore per
+# REFERENCE_ATOL; (b) full width, bf16, 512 px, batch SPATIAL_BATCH, in
+# SPATIAL_MODES (phase 4's stride and warmup; exact at SPATIAL_STEPS steps, deep
+# at phase 4's STEPS, the fewest at which its stride makes followers): seconds a restore per
 # rank, peak and held memory per rank against the single-process restore's,
 # collectives by kind and, in a one-step exact restore with the card
 # synchronised around each, their seconds; in a profiled one-step restore,
 # the card's busy seconds by kernel family (and one process's); the assembled
 # output in uint8 levels and PSNR against the single-process restore of the
 # same batch and noise; launches per rank as phase 4's per restore (attention
-# runs on the gathered sequence, the grouped conv on haloed slabs)
+# runs on the gathered sequence, the grouped conv on haloed slabs; an exact
+# restore's per step, so that at SPATIAL_STEPS they are exact_launches's)
 # Uneven shards (run inside the same ranks): (c) full width, fp32, 320 px,
 # batch SPATIAL_REF_BATCH, 2 steps, whose 5-row UNet level 3 two ranks cannot
 # split, so it runs whole on both: the assembled output against one process
 # on the card within REFERENCE_ATOL, launches per rank one process's; (d) full
 # width, bf16, ``restore(..., sharding=)`` of SPATIAL_BATCH originals of
 # SPATIAL_ORIGINALS (a 500 x 375 photo: resized to 683 x 512 and padded to
-# 704 x 512, whose 11-row UNet level 3 runs whole), exact, STEPS steps: s a
+# 704 x 512, whose 11-row UNet level 3 runs whole), exact, SPATIAL_STEPS steps: s a
 # restore per rank against one process, collectives by kind (their seconds in
 # a one-step restore with the card synchronised around each), held and peak
 # memory per rank against one process's peak, the most a whole level added
 # to the card's memory, uint8 levels and PSNR against one process, the first
-# whole level; launches per rank SPATIAL_RESTORE_EXPECTED, one process's
+# whole level; launches per rank SPATIAL_RESTORE_EXPECTED's at SPATIAL_STEPS
+# (exact_launches), one process's
 SPATIAL_WORLD = 2
 SPATIAL_REF_BATCH, SPATIAL_REF_RES = 2, 256
 SPATIAL_UNEVEN_RES = 320
 SPATIAL_BATCH = 4
-SPATIAL_MODES = (("none", "none", 2, 0), ("deep", "deep", 17, 3))
+# the exact restores' DDIM steps: gloo's host collectives make a sharded
+# step take about 0.7 s, and the script's 1200 s hold phase 20 too
+SPATIAL_STEPS = 5
+SPATIAL_MODES = (("none", "none", 2, 0, SPATIAL_STEPS), ("deep", "deep", 17, 3, STEPS))
 SPATIAL_PATHS = {"none": "spatial_exact", "deep": "spatial_deep", "restore": "spatial_restore"}
 SPATIAL_ORIGINALS = (500, 375)
 # launches per 704 x 512 exact restore at STEPS steps, (btc, bh, stream,
@@ -677,6 +736,16 @@ SPATIAL_ORIGINALS = (500, 375)
 # the Controller's two; the VAE's mid-block attention (T = 5632, not a
 # multiple of 1024) runs plain, as it does in one process
 SPATIAL_RESTORE_EXPECTED = (140, 280, 0, 0, 3)
+
+
+def exact_launches(at_steps: tuple, steps: int) -> tuple:
+    """An exact restore's launches (btc, bh, stream, btc_out, grouped conv) at
+    ``steps`` DDIM steps from those at STEPS: every step runs the same
+    attentions; the VAE (stream) and the CFRM (grouped conv) run once."""
+    btc, bh, stream, out, gconv = at_steps
+    if any(n % STEPS for n in (btc, bh, out)):
+        raise ValueError(f"{at_steps} is not an exact restore's at {STEPS} steps")
+    return (btc // STEPS * steps, bh // STEPS * steps, stream, out // STEPS * steps, gconv)
 
 # the stage-1 YAML's optimizer surface (configs/train_stage1.yaml): AdamW,
 # base_lr 1e-4 at base batch 64, weight decay 1e-2, OneCycle, 200k steps,
@@ -2738,7 +2807,8 @@ def run_fit_stage3(KN, bridge, TE, TS, OPT, main_fn, work: Path):
     phase 9's smoke tree, chained to the checkpoints of phases 9 and 11, its
     checks, the critic's share of a micro-step, a resume, and a fit through
     Faster R-CNN. Returns (result, launches by kernel of the RetinaNet fit,
-    the (shape, dtype) each kernel met in phase 12)."""
+    the (shape, dtype) each kernel met in phase 12, the RetinaNet fit's s per
+    micro-step, which phase 20 (b) reports beside its own)."""
     root = work / "stage3"
     symbols = [kern.symbol for kern in KN.KERNELS]
     KN.reset_counts()
@@ -2831,7 +2901,8 @@ def run_fit_stage3(KN, bridge, TE, TS, OPT, main_fn, work: Path):
     with StepProbe(TE, KN, bridge, sync_steps=(FIT3_SYNC_CHECK_STEP,), timed=True) as probe:
         engine, trainer = main_fn(fit3_argv(
             "fit", work, frcnn_root, "--model.init_args.downstream", "fastrcnn",
-            "--trainer.max_steps", str(FIT3_FRCNN_STEPS)))
+            "--trainer.max_steps", str(FIT3_FRCNN_STEPS), "--trainer.accumulate_grad_batches",
+            str(FIT3_FRCNN_STEPS), "--trainer.val_check_interval", str(FIT3_FRCNN_STEPS)))
     torch.cuda.synchronize()
     frcnn_s = time.perf_counter() - t0
     frcnn_launches = {kern.symbol: kern.launches for kern in KN.KERNELS}
@@ -2876,7 +2947,7 @@ def run_fit_stage3(KN, bridge, TE, TS, OPT, main_fn, work: Path):
                            "each_s": fsecs, "logs": frcnn_logs, "validation": frcnn_metrics,
                            "validation_launches": frcnn_val, "prompts": frcnn_prompts,
                            "direct_step": fdirect, "critic_share": frcnn_share}}
-    return result, launches, shapes
+    return result, launches, shapes, timing["s_per_micro_step"]
 
 
 def to_device(batch: dict, device) -> dict:
@@ -3490,8 +3561,10 @@ def run_validate_nr(KN, TE, bridge, main_fn, work: Path, gen):
     """Phase 14: ``validate`` from ``configs/val.yaml`` in ALL with FID and in NR
     (two images each): keys, monitors and launches; NIQE and NRQM rerun on the
     run's predictions bit for bit; each neural metric's and the extractor's
-    call timed and checked for syncs; the NR networks' share of an NR
-    validation's device time; then every network card vs CPU. Returns (result,
+    call timed and checked for syncs; a second NR validation timed with the
+    card synchronised at both ends (phase 20 (d)'s eager route); the NR
+    networks' share of an NR validation's device time; then every network
+    card vs CPU. Returns (result,
     launches by path, the (shape, dtype) each kernel met)."""
     from unirestore_torch.evalx import niqe, nrqm
     from unirestore_torch.evalx.nr_suite import NeuralNR
@@ -3544,6 +3617,11 @@ def run_validate_nr(KN, TE, bridge, main_fn, work: Path, gen):
             row["calls"] = neural_calls({"inception": evaluator.fid["lq"].extractor}, pred)
         else:
             nets = {k: m for k, m in evaluator.nr["lq"].items() if isinstance(m, NeuralNR)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.validate(engine, data, factory)
+            torch.cuda.synchronize()
+            row["validation_seconds_second"] = time.perf_counter() - t0
             whole = profiled_device(lambda: trainer.validate(engine, data, factory))
             alone = profiled_device(lambda: [m.scores(pred) for m in nets.values()
                                              for _ in range(VAL14_IMAGES)])
@@ -3595,8 +3673,9 @@ def run_spade_restores(UR, KN, GR, bridge, gen):
     """Phase 15's restores: phase 4's model, batch and noise under SPADE, each
     of SPADE_RUNS eagerly (under ``set_sync_debug_mode("error")``), then
     captured in one ``GraphedRestore`` and replayed once; exact also under
-    ``scedit`` (phase 4's model) eagerly and from a graph, in turns with SPADE,
-    for SPADE's share of the restore. Returns (result, launches by path, the
+    ``scedit`` (phase 4's model) eagerly and from a graph, in turns with SPADE
+    (its exact graph the one captured above), for SPADE's share of the
+    restore. Returns (result, launches by path, the
     (shape, dtype) each kernel met)."""
     base = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
     cfg = spade_config(UR, base)
@@ -3608,6 +3687,7 @@ def run_spade_restores(UR, KN, GR, bridge, gen):
     shapes, outs, paths, result = {s: set() for s in symbols}, {}, {}, {}
     restore(cfg, 1)  # warm-up: every shape once
     restore(dataclasses.replace(cfg, fused_out_attention=True), 1)
+    exact_graph = None
     for name, mode, stride, warmup, fused in SPADE_RUNS:
         c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride, cache_warmup=warmup,
                                 fused_out_attention=fused)
@@ -3659,6 +3739,8 @@ def run_spade_restores(UR, KN, GR, bridge, gen):
             f"{graph_s:.3f} s, {BATCH / graph_s:.3f} img/s (capture + instantiate "
             f"{stats.capture_seconds:.3f} s); launches {counts} (phase 4's), graph vs eager "
             f"{levels} uint8 levels; eager peak {peak:.2f} GiB")
+        if name == "none":
+            exact_graph = graphed
         del graphed, replay
         torch.cuda.empty_cache()
     for name in ("encoder", "deep", "fused"):
@@ -3671,7 +3753,7 @@ def run_spade_restores(UR, KN, GR, bridge, gen):
     # batch and noise, in turns with SPADE (scedit, spade, spade, scedit) per route
     frozen_s, trainable_s = make_params(UR, bridge, base, torch.bfloat16, seed=1)
     graphs = {"scedit": GR.GraphedRestore(frozen_s, trainable_s, base, sched, device="cuda"),
-              "spade": GR.GraphedRestore(frozen, trainable, cfg, sched, device="cuda")}
+              "spade": exact_graph}
     calls = {("scedit", "eager"): lambda: UR.restore(frozen_s, trainable_s, base, sched, images,
                                                      "ir", num_inference_steps=STEPS,
                                                      device="cuda", **noise),
@@ -3680,8 +3762,7 @@ def run_spade_restores(UR, KN, GR, bridge, gen):
                                                            num_inference_steps=STEPS, **noise),
              ("spade", "graph"): lambda: graphs["spade"](images, "ir",
                                                          num_inference_steps=STEPS, **noise)}
-    for model in ("scedit", "spade"):
-        calls[(model, "graph")]()  # capture
+    calls[("scedit", "graph")]()  # capture
     sec = {k: [] for k in calls}
     for route in ("eager", "graph"):
         for model in ("scedit", "spade", "spade", "scedit"):
@@ -3691,7 +3772,7 @@ def run_spade_restores(UR, KN, GR, bridge, gen):
         t_sc, t_sp = (sum(sec[(m, route)]) / 2 for m in ("scedit", "spade"))
         share[route] = {"scedit_s": t_sc, "spade_s": t_sp, "spade_share": (t_sp - t_sc) / t_sp}
     log(f"spade share of an exact restore (in turns with scedit): {share}")
-    del graphs, calls, frozen_s, trainable_s
+    del graphs, calls, frozen_s, trainable_s, exact_graph
     torch.cuda.empty_cache()
     result["spade_params_m"] = n_spade / 1e6
     result["share_of_exact"] = share
@@ -3806,43 +3887,73 @@ def check_optimizers(OPT) -> dict:
     return out
 
 
-def check_deeplab(KN, bridge, gen) -> dict:
-    """Every name of DEEPLAB_NAMES built seeded in fp32 on the card (unit
-    BatchNorm statistics) and run on one seeded 512 x 512 image, against the
-    same tree and image on the CPU: logits within DEEPLAB_RTOL of the largest
-    |logit|, no launch of the repo's kernels; the input's reach (the logits'
-    largest change against a blank image over the largest |logit|), ms per call."""
+def deeplab_reference_cpu(name: str, x: np.ndarray) -> tuple:
+    """``check_deeplab``'s CPU half, in the reference worker: ``name``'s tree
+    built as the card half builds it (seeded on the card), copied to the host
+    and run there on ``x``. Returns (logits, seconds of the CPU call)."""
+    from unirestore_torch import bridge
     from unirestore_torch.nn.init import make_init
     from unirestore_torch.tasks import deeplab as DL
-    out = {}
+    init_fn, apply_fn = DL.deeplab_factory(name)
+    tree = to_cpu(bridge, init_fn(make_init(device="cuda", seed=16)))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = apply_fn(tree, torch.from_numpy(x))
+        return ref.numpy(), time.perf_counter() - t0
+
+
+def check_deeplab(KN, bridge, gen, refs) -> tuple:
+    """Every name of DEEPLAB_NAMES built seeded in fp32 on the card (unit
+    BatchNorm statistics) and run on one seeded 512 x 512 image, against the
+    same tree and image on the CPU (``deeplab_reference_cpu`` in ``refs``'
+    worker): logits within DEEPLAB_RTOL of the largest |logit|, no launch of
+    the repo's kernels; the input's reach (the logits' largest change against
+    a blank image over the largest |logit|), ms per call. Returns (the card
+    halves by name, the check: it reads the CPU halves and returns the rows)."""
+    from unirestore_torch.nn.init import make_init
+    from unirestore_torch.tasks import deeplab as DL
+    card = {}
     for name in DEEPLAB_NAMES:
         init_fn, apply_fn = DL.deeplab_factory(name)
         tree = init_fn(make_init(device="cuda", seed=16))
         x = torch.rand((1, 512, 512, 3), generator=gen, device="cuda")
+        refs.submit(f"phase 15 deeplab {name}", deeplab_reference_cpu, name, x.cpu().numpy())
         with torch.inference_mode():
             got, _, counts = timed(KN, lambda: apply_fn(tree, x))
             ms, timer = cuda_ms(lambda: apply_fn(tree, x), 5), "events"
             blank = apply_fn(tree, torch.zeros_like(x))
-            t0 = time.perf_counter()
-            ref = apply_fn(to_cpu(bridge, tree), x.cpu())
-            cpu_s = time.perf_counter() - t0
-        scale = ref.abs().max().item()
-        err = (got.cpu() - ref).abs().max().item()
-        reach = (got - blank).abs().max().item() / scale
         n_params = sum(v.numel() for v in bridge.flatten(tree).values())
-        out[name] = {"params_m": n_params / 1e6, "logits": list(got.shape), "max_abs_err": err,
-                     "max_abs_logit": scale, "rel_err": err / scale, "input_reach": reach,
-                     "ms": ms, "timer": timer, "repo_kernel_launches": sum(counts), "cpu_s": cpu_s}
-        log(f"deeplab {name}: {n_params / 1e6:.1f} M params, {tuple(x.shape)} -> "
-            f"{tuple(got.shape)}; card vs CPU {err:.3e} of |logit| {scale:.4g} (rel "
-            f"{err / scale:.2e}, limit {DEEPLAB_RTOL}); reach {reach:.3g}; {ms:.3f} ms a call; "
-            f"repo kernel launches {sum(counts)}; CPU {cpu_s:.2f} s")
-        if not (err <= DEEPLAB_RTOL * scale and torch.isfinite(got).all()) or any(counts):
-            raise AssertionError(f"deeplab {name}: card vs CPU {err} > {DEEPLAB_RTOL} x {scale}, "
-                                 f"or repo kernel launches {counts}")
-        del tree, got, ref, blank
+        card[name] = {"got": got.cpu(), "moved": (got - blank).abs().max().item(),
+                      "finite": bool(torch.isfinite(got).all()), "counts": counts, "ms": ms,
+                      "timer": timer, "params_m": n_params / 1e6, "shape": tuple(x.shape)}
+        del tree, got, blank
         torch.cuda.empty_cache()
-    return out
+
+    def check() -> dict:
+        out = {}
+        for name, c in card.items():
+            ref, cpu_s = refs.result(f"phase 15 deeplab {name}")
+            ref = torch.from_numpy(ref)
+            got, counts = c["got"], c["counts"]
+            scale = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            reach = c["moved"] / scale
+            out[name] = {"params_m": c["params_m"], "logits": list(got.shape),
+                         "max_abs_err": err, "max_abs_logit": scale, "rel_err": err / scale,
+                         "input_reach": reach, "ms": c["ms"], "timer": c["timer"],
+                         "repo_kernel_launches": sum(counts), "cpu_s": cpu_s}
+            log(f"deeplab {name}: {c['params_m']:.1f} M params, {c['shape']} -> "
+                f"{tuple(got.shape)}; card vs CPU {err:.3e} of |logit| {scale:.4g} (rel "
+                f"{err / scale:.2e}, limit {DEEPLAB_RTOL}); reach {reach:.3g}; {c['ms']:.3f} ms a "
+                f"call; repo kernel launches {sum(counts)}; CPU {cpu_s:.2f} s "
+                f"({REFERENCE_THREADS} threads, reference worker)")
+            if not (err <= DEEPLAB_RTOL * scale and c["finite"]) or any(counts):
+                raise AssertionError(f"deeplab {name}: card vs CPU {err} > {DEEPLAB_RTOL} x "
+                                     f"{scale}, or repo kernel launches {counts}")
+        return out
+
+    return card, check
 
 
 def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, refs, train_ms_scedit=None):
@@ -3851,8 +3962,10 @@ def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, refs, train_ms_scedit=None):
     the SPADE restore and stage-1 loss and gradient card vs CPU
     (``reference_check``, ``train_reference_check`` under ``spade_config``;
     their CPU halves in ``refs``' worker, their checks returned as
-    ``checks``), every optimizer and every DeepLab backbone card vs CPU. Returns (result,
-    launches by path, the (shape, dtype) each kernel met, checks)."""
+    ``checks``), every optimizer and every DeepLab backbone card vs CPU (the
+    backbones' CPU halves in the worker too, their check ``checks["deeplab"]``).
+    Returns (result, launches by path, the (shape, dtype) each kernel met,
+    checks)."""
     t0 = time.perf_counter()
     out, paths, shapes = run_spade_restores(UR, KN, GR, bridge, gen)
     torch.cuda.empty_cache()
@@ -3873,7 +3986,7 @@ def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, refs, train_ms_scedit=None):
                                                name="phase 15 training")
     torch.cuda.empty_cache()
     out["optimizers"] = check_optimizers(OPT)
-    out["deeplab"] = check_deeplab(KN, bridge, gen)
+    _, checks["deeplab"] = check_deeplab(KN, bridge, gen, refs)
     out["phase_seconds"] = time.perf_counter() - t0
     log(f"phase 15 took {out['phase_seconds']:.1f} s")
     return out, paths, shapes, checks
@@ -3883,14 +3996,11 @@ def run_phase15(UR, KN, GR, bridge, TS, OPT, gen, refs, train_ms_scedit=None):
 # ---------------------------------------------------------------------------
 
 
-def torchrun(*jobs) -> list:
+def torchrun_start(*jobs) -> dict:
     """Each job ``(nproc, args, log_path)`` as ``python -m torch.distributed.run
     --standalone --nproc_per_node nproc args`` (a local rendezvous on a free
     port), all started at once, each one's output in its ``log_path``.
-    Returns [(output, seconds from the start until it was seen to end)];
-    fails with a failed job's output tail. A job still running after
-    ``DDP_TIMEOUT`` s is terminated (torchrun stops its ranks)."""
-    t0 = time.perf_counter()
+    Returns the handle that ``torchrun_wait`` and ``torchrun_stop`` take."""
     running = []
     for nproc, args, log_path in jobs:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -3898,20 +4008,46 @@ def torchrun(*jobs) -> list:
         with open(log_path, "w") as out:
             running.append((subprocess.Popen(cmd, cwd=REPO, stdout=out,
                                              stderr=subprocess.STDOUT), args, log_path))
-    results, failed = [], []
-    for proc, args, log_path in running:
-        try:
-            rc = proc.wait(timeout=max(DDP_TIMEOUT - (time.perf_counter() - t0), 1.0))
-        except subprocess.TimeoutExpired:
+    return {"t0": time.perf_counter(), "running": running}
+
+
+def torchrun_stop(handle: dict) -> None:
+    """Stop every job of ``handle`` still running (torchrun stops its ranks)."""
+    for proc, _, _ in handle["running"]:
+        if proc.poll() is None:
             proc.terminate()
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-            rc = f"timeout after {DDP_TIMEOUT} s"
+    for proc, _, _ in handle["running"]:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def torchrun_wait(handle: dict) -> list:
+    """Waits for every job of ``handle``. Returns, in the jobs' order, [(output,
+    seconds from the start until it was seen to end)], each end polled every
+    0.2 s; fails with a failed job's output tail. Jobs still running
+    ``DDP_TIMEOUT`` s after the start are stopped."""
+    t0, running = handle["t0"], handle["running"]
+    ended = {}
+    while len(ended) < len(running):
+        for i, (proc, _, _) in enumerate(running):
+            if i not in ended and proc.poll() is not None:
+                ended[i] = (proc.returncode, time.perf_counter() - t0)
+        if len(ended) < len(running):
+            if time.perf_counter() - t0 > DDP_TIMEOUT:
+                torchrun_stop(handle)
+                for i, (proc, _, _) in enumerate(running):
+                    ended.setdefault(i, (f"timeout after {DDP_TIMEOUT} s",
+                                         time.perf_counter() - t0))
+                break
+            time.sleep(0.2)
+    results, failed = [], []
+    for i, (_, args, log_path) in enumerate(running):
+        rc, sec = ended[i]
         output = log_path.read_text()
-        results.append((output, time.perf_counter() - t0))
+        results.append((output, sec))
         if rc != 0:
             failed.append(f"torchrun of {args[:3]} exited {rc}:\n{output[-3000:]}")
     if failed:
@@ -4065,28 +4201,33 @@ def worker(args: list) -> int:
     return 0
 
 
-def run_fit_ddp(KN, TE, reference16, work: Path) -> tuple:
-    """Phase 16 (a): phase 9's first fit under torchrun at world size 1 over
-    NCCL, ``DDP_STEPS`` micro-steps, replicated and, at the same time, with
-    ``--trainer.fsdp true``. Each micro-step's launches equal phase 6's, its
-    logged losses are bit-equal to phase 9's same micro-step, and ``last.npz``
-    holds phase 9's trainable tree after those micro-steps bit for bit."""
-    from unirestore_torch.train import checkpoints as CKPT
+FIT_DDP_MODES = (("ddp", ()), ("fsdp", ("--trainer.fsdp", "true")))
 
-    result, paths, shapes = {}, {}, {kern.symbol: set() for kern in KN.KERNELS}
-    modes = (("ddp", ()), ("fsdp", ("--trainer.fsdp", "true")))
+
+def fit_ddp_jobs(work: Path) -> list:
+    """Phase 16 (a)'s torchrun jobs: phase 9's first fit at world size 1 over
+    NCCL for ``DDP_STEPS`` micro-steps, replicated and with ``--trainer.fsdp
+    true``."""
     jobs = []
-    for mode, extra in modes:
+    for mode, extra in FIT_DDP_MODES:
         argv = fit_argv("fit", work / "data", work / f"fit_{mode}", "--trainer.max_steps",
                         str(DDP_STEPS), "--trainer.val_check_interval", "0",
                         "--trainer.num_sanity_val_steps", "0", "--trainer.log_every_n_steps",
                         "1", "--distributed", *extra)
         jobs.append((1, [str(REPO / "chip_smoke.py"), "--worker", "fit",
                          str(work / f"fit_{mode}_rank"), *argv], work / f"fit_{mode}.log"))
-    # the two runs share the card at once: each is mostly process start,
-    # loader and checkpoint, and only their results are compared
-    runs = torchrun(*jobs)
-    for (mode, _), (stdout, sec) in zip(modes, runs):
+    return jobs
+
+
+def run_fit_ddp(KN, TE, reference16, work: Path, runs: list) -> tuple:
+    """Phase 16 (a) from its jobs' ``runs`` (``fit_ddp_jobs``): each
+    micro-step's launches equal phase 6's, its logged losses are bit-equal to
+    phase 9's same micro-step, and ``last.npz`` holds phase 9's trainable tree
+    after those micro-steps bit for bit."""
+    from unirestore_torch.train import checkpoints as CKPT
+
+    result, paths, shapes = {}, {}, {kern.symbol: set() for kern in KN.KERNELS}
+    for (mode, _), (stdout, sec) in zip(FIT_DDP_MODES, runs):
         root, out = work / f"fit_{mode}", work / f"fit_{mode}_rank"
         rank0 = json.loads(Path(f"{out}.0.json").read_text())
         counts = [{s: tuple(c) for s, c in e.items()} for e in rank0["counts"]]
@@ -4106,7 +4247,8 @@ def run_fit_ddp(KN, TE, reference16, work: Path) -> tuple:
                   if not np.array_equal(flat[f"trainable//{k}"], v)]
         grad_norms = [(e["train/grad_norm"], w["train/grad_norm"])
                       for e, w in zip(rank0["logs"], reference16["logs"])]
-        log(f"fit_{mode} (torchrun, NCCL, world 1; both runs at once): {sec:.1f} s; launches "
+        log(f"fit_{mode} (torchrun, NCCL, world 1; beside phase 16 (b) and 17): {sec:.1f} s; "
+            f"launches "
             f"per micro-step equal phase 6's; logged losses of micro-steps 1-{DDP_STEPS} vs phase 9's: "
             f"{'bit-equal' if not unequal else unequal}; last.npz at step {meta['step']}: "
             f"{len(reference16['trainable']) - len(differ)} of {len(reference16['trainable'])} "
@@ -4123,19 +4265,24 @@ def run_fit_ddp(KN, TE, reference16, work: Path) -> tuple:
     return result, paths, shapes
 
 
-def run_train_ddp2(KN, training: dict, work: Path) -> tuple:
-    """Phase 16 (b): phase 6's cell at ``DDP_WORLD`` ranks on the one card over
-    gloo, DDP and then FSDP in one torchrun: launches per rank and step equal phase 6's, the
-    global loss and gradient norm within ``TRAIN_LOSS_RTOL`` /
-    ``TRAIN_GRAD_RTOL`` of phase 6's first ``DDP_STEPS`` steps on the same 8
-    rows and noise."""
+def train_ddp2_job(work: Path) -> tuple:
+    """Phase 16 (b)'s torchrun job: phase 6's cell at ``DDP_WORLD`` ranks on
+    the one card over gloo, DDP and then FSDP."""
+    return (DDP_WORLD, [str(REPO / "chip_smoke.py"), "--worker", "train",
+                        str(work / "train_ddp2_rank")], work / "train_ddp2.log")
+
+
+def run_train_ddp2(KN, training: dict, work: Path, sec: float) -> tuple:
+    """Phase 16 (b) from its job (``train_ddp2_job``), which ran ``sec`` s:
+    launches per rank and step equal phase 6's, the global loss and gradient
+    norm within ``TRAIN_LOSS_RTOL`` / ``TRAIN_GRAD_RTOL`` of phase 6's first
+    ``DDP_STEPS`` steps on the same 8 rows and noise."""
     result, paths, shapes = {}, {}, {kern.symbol: set() for kern in KN.KERNELS}
     out = work / "train_ddp2_rank"
-    [(_, sec)] = torchrun((DDP_WORLD, [str(REPO / "chip_smoke.py"), "--worker", "train",
-                                       str(out)], work / "train_ddp2.log"))
     by_rank = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(DDP_WORLD)]
     backend = by_rank[0]["backend"]
-    log(f"two ranks on one card ({backend}): DDP then FSDP in one torchrun, {sec:.1f} s")
+    log(f"two ranks on one card ({backend}): DDP then FSDP in one torchrun, {sec:.1f} s "
+        f"(beside phase 16 (a) and 17)")
     result["seconds"] = sec
     for mode in ("ddp", "fsdp"):
         ranks = [res[mode] for res in by_rank]
@@ -4211,17 +4358,19 @@ def state_bytes(UR, FSDP) -> dict:
     return out
 
 
-def run_phase16(K, G, KN, TE, UR, rows, gen, reference16, training, work: Path) -> tuple:
-    """Phase 16: (a), (b) and (c); then phase 3's comparison at every (kernel,
+def run_phase16(K, G, KN, TE, UR, rows, gen, reference16, training, work: Path,
+                runs: list) -> tuple:
+    """Phase 16: (a) and (b) from their jobs' ``runs`` (``fit_ddp_jobs``, then
+    ``train_ddp2_job``), and (c); then phase 3's comparison at every (kernel,
     shape) they met that was not held yet. Returns (result, launches by path)."""
     from unirestore_torch.parallel import fsdp as FSDP
 
     t0 = time.perf_counter()
     result = {}
-    result["fit"], paths, shapes = run_fit_ddp(KN, TE, reference16, work)
+    result["fit"], paths, shapes = run_fit_ddp(KN, TE, reference16, work, runs[:2])
     result["fit"]["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes, rows, gen,
                                                                path="fit_ddp")
-    result["train"], train_paths, shapes = run_train_ddp2(KN, training, work)
+    result["train"], train_paths, shapes = run_train_ddp2(KN, training, work, runs[2][1])
     paths.update(train_paths)
     result["train"]["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes, rows, gen,
                                                                  path="train_ddp2")
@@ -4309,14 +4458,14 @@ def spatial_worker(out: str) -> None:
         result["held_gib"] = torch.cuda.memory_allocated() / 2**30
         result["setup_seconds"] = time.perf_counter() - t_start
         modes, outs = {}, {}
-        for name, mode, stride, warmup in SPATIAL_MODES:
+        for name, mode, stride, warmup, steps in SPATIAL_MODES:
             c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride, cache_warmup=warmup)
             KN.reset_counts()
             torch.cuda.reset_peak_memory_stats()
             dist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out_local = restore(c, trees, images, noise, STEPS, "ir", sharding)
+            out_local = restore(c, trees, images, noise, steps, "ir", sharding)
             torch.cuda.synchronize()
             row = {"seconds": time.perf_counter() - t0, "launches": list(counts_of(KN)),
                    "launches_by_kernel": {kern.symbol: kern.launches for kern in KN.KERNELS},
@@ -4345,14 +4494,14 @@ def spatial_worker(out: str) -> None:
             modes[name] = row
         dist.barrier()
         if rank == 0:
-            for name, mode, stride, warmup in SPATIAL_MODES:
+            for name, mode, stride, warmup, steps in SPATIAL_MODES:
                 c = dataclasses.replace(cfg, cache_mode=mode, cache_stride=stride,
                                         cache_warmup=warmup)
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                want = restore(c, trees, images, noise, STEPS, "ir")
+                want = restore(c, trees, images, noise, steps, "ir")
                 torch.cuda.synchronize()
                 modes[name].update(single_seconds=time.perf_counter() - t0,
                                    single_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -4420,7 +4569,7 @@ class WholeLevelMemory:
 
 def spatial_full_restore(UR, KN, SP, dist, cfg, trees, sharding, timed, rank) -> dict:
     """Phase 17 (d): ``restore(..., sharding=)`` of ``SPATIAL_BATCH`` bf16
-    originals of ``SPATIAL_ORIGINALS``, exact, ``STEPS`` steps; a one-step
+    originals of ``SPATIAL_ORIGINALS``, exact, ``SPATIAL_STEPS`` steps; a one-step
     restore first (every shape once) with the memory of its whole levels
     read (``WholeLevelMemory``), then the timed one, then a one-step restore
     with the card synchronised around each collective (``timed``); rank 0
@@ -4448,7 +4597,7 @@ def spatial_full_restore(UR, KN, SP, dist, cfg, trees, sharding, timed, rank) ->
     dist.barrier()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out_local = restore(STEPS, sharding)
+    out_local = restore(SPATIAL_STEPS, sharding)
     torch.cuda.synchronize()
     ctx = sharding.last_context
     row = {"padded": list(padded), "whole_level": ctx.whole_level,
@@ -4475,7 +4624,7 @@ def spatial_full_restore(UR, KN, SP, dist, cfg, trees, sharding, timed, rank) ->
         KN.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        want = restore(STEPS)
+        want = restore(SPATIAL_STEPS)
         torch.cuda.synchronize()
         row.update(single_seconds=time.perf_counter() - t0,
                    single_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -4510,15 +4659,19 @@ def check_against_single(ranks, key: str, what: str) -> dict:
     return ref
 
 
-def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
-    """Phase 17: (a)-(d) in one torchrun of ``SPATIAL_WORLD`` ranks; then
+def spatial_job(work: Path) -> tuple:
+    """Phase 17's torchrun job: (a)-(d) on ``SPATIAL_WORLD`` ranks."""
+    return (SPATIAL_WORLD, [str(REPO / "chip_smoke.py"), "--worker", "spatial",
+                            str(work / "spatial_rank")], work / "spatial.log")
+
+
+def run_phase17(K, G, KN, rows, gen, work: Path, sec: float) -> tuple:
+    """Phase 17 from its job (``spatial_job``), which ran ``sec`` s; then
     phase 3's comparison at every (kernel, shape) (b) and (d) met that was
     not held yet (the grouped conv on haloed slabs, the attention kernels at
     704 x 512). Returns (result, launches by path)."""
     t0 = time.perf_counter()
     out = work / "spatial_rank"
-    [(_, sec)] = torchrun((SPATIAL_WORLD, [str(REPO / "chip_smoke.py"), "--worker", "spatial",
-                                           str(out)], work / "spatial.log"))
     ranks = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(SPATIAL_WORLD)]
     r0 = ranks[0]
     for key, what, res in (("reference", "(a)", SPATIAL_REF_RES),
@@ -4538,9 +4691,9 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
               "held_gib_by_rank": [r["held_gib"] for r in ranks],
               "setup_seconds_by_rank": [r["setup_seconds"] for r in ranks], "modes": {}}
     paths, shapes = {}, {kern.symbol: set() for kern in KN.KERNELS}
-    for name, mode, stride, warmup in SPATIAL_MODES:
+    for name, mode, stride, warmup, steps in SPATIAL_MODES:
         rows_ = [r["modes"][name] for r in ranks]
-        want = list(EXPECTED[name])
+        want = list(EXPECTED[name] if steps == STEPS else exact_launches(EXPECTED[name], steps))
         bad = [row["launches"] for row in rows_ if row["launches"] != want]
         if bad or not all(row["finite"] for row in rows_):
             raise AssertionError(f"spatial {name}: launches per rank "
@@ -4551,7 +4704,7 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
         for row in rows_:
             shapes = merge_shapes(shapes, shapes_from_json(row["shapes"]))
         m = rows_[0]
-        entry = {"mode": mode, "stride": stride, "warmup": warmup,
+        entry = {"mode": mode, "stride": stride, "warmup": warmup, "steps": steps,
                  "seconds_by_rank": [row["seconds"] for row in rows_],
                  "img_per_s": SPATIAL_BATCH / max(row["seconds"] for row in rows_),
                  "peak_gib_by_rank": [row["peak_gib"] for row in rows_],
@@ -4571,7 +4724,7 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
                          profile_by_rank=[row["profile"] for row in rows_],
                          single_profile=m["single_profile"])
         result["modes"][name] = entry
-        log(f"spatial (b) {name} bf16 {RES} px batch {SPATIAL_BATCH}, {STEPS} steps: s per "
+        log(f"spatial (b) {name} bf16 {RES} px batch {SPATIAL_BATCH}, {steps} steps: s per "
             f"restore by rank {entry['seconds_by_rank']} (single process "
             f"{entry['single_seconds']:.3f} s); peak GiB by rank {entry['peak_gib_by_rank']}, "
             f"held {result['held_gib_by_rank']}, single-process peak "
@@ -4588,10 +4741,10 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
                if "collective_seconds" in m else "")
             + f"; vs single process: {entry['uint8_levels_vs_single']} uint8 levels, max abs "
             f"{entry['max_abs_vs_single']:.3e}, PSNR {entry['psnr_vs_single']:.2f} dB; launches "
-            f"per rank {entry['launches_per_rank']} (phase 4's)")
+            f"per rank {entry['launches_per_rank']} (phase 4's at {steps} steps)")
     rows_ = [r["restore"] for r in ranks]
     d = rows_[0]
-    want = list(SPATIAL_RESTORE_EXPECTED)
+    want = list(exact_launches(SPATIAL_RESTORE_EXPECTED, SPATIAL_STEPS))
     if (any(row["launches"] != want for row in rows_) or d["single_launches"] != want
             or not all(row["finite"] for row in rows_)
             or d["shape"] != [SPATIAL_BATCH, *SPATIAL_ORIGINALS, 3]
@@ -4607,7 +4760,7 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
     peak = max(row["peak_gib"] for row in rows_)
     result["restore"] = entry = {
         "originals": [SPATIAL_BATCH, *SPATIAL_ORIGINALS, 3], "padded": d["padded"],
-        "whole_level": d["whole_level"], "steps": STEPS,
+        "whole_level": d["whole_level"], "steps": SPATIAL_STEPS,
         "seconds_by_rank": [row["seconds"] for row in rows_],
         "img_per_s": SPATIAL_BATCH / max(row["seconds"] for row in rows_),
         "single_seconds": d["single_seconds"], "collectives_per_rank": d["collectives"],
@@ -4625,7 +4778,7 @@ def run_phase17(K, G, KN, rows, gen, work: Path) -> tuple:
         "launches_per_rank": d["launches"], "uint8_levels_vs_single": d["uint8_levels"],
         "max_abs_vs_single": d["max_abs_vs_single"], "psnr_vs_single": d["psnr_vs_single"]}
     log(f"spatial (d) restore(sharding=) bf16 {SPATIAL_BATCH} x {SPATIAL_ORIGINALS} originals "
-        f"(padded {d['padded'][1:3]}), exact, {STEPS} steps, first whole level "
+        f"(padded {d['padded'][1:3]}), exact, {SPATIAL_STEPS} steps, first whole level "
         f"{entry['whole_level']}: s per restore by rank {entry['seconds_by_rank']} (single "
         f"process {entry['single_seconds']:.3f} s); collectives per rank "
         f"{entry['collectives_per_rank']}; peak GiB by rank {entry['peak_gib_by_rank']}, held "
@@ -5370,6 +5523,485 @@ def run_fit_graph(KN, bridge, TE, GR, main_fn, work: Path, reference16, eager_ti
 
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the graph route for stage 3 and for the validation networks
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
+    body; yields the messages of the warnings it raised (the ops with no
+    deterministic CUDA kernel name themselves there)."""
+    import warnings
+
+    named: list = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield named
+        finally:
+            torch.use_deterministic_algorithms(False)
+    named.extend(sorted({str(w.message)[:160] for w in caught
+                         if "deterministic" in str(w.message)}))
+    for w in caught:  # the body's other warnings, as they would have shown
+        if "deterministic" not in str(w.message):
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+
+
+def pool_gib(pool) -> float | None:
+    """GiB the caching allocator's segments hold in a CUDA graph's private
+    memory pool (``CUDAGraph.pool()``); None where the snapshot names no
+    segment's pool."""
+    snapshot = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in snapshot):
+        return None
+    return sum(seg["total_size"] for seg in snapshot
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool)) / 2**30
+
+
+def det_batch(gen, res: int) -> dict:
+    """A seeded bf16 pair of one at ``res`` px with phase 12's three boxes
+    (scaled from 256 px) padded to 64."""
+    batch = synthetic_pair(gen, 1, res, torch.bfloat16)
+    scale = res / 256
+    boxes = torch.zeros((1, 64, 4), device="cuda")
+    boxes[0, :3] = scale * torch.tensor([[16.0, 24.0, 120.0, 140.0], [100.0, 40.0, 230.0, 200.0],
+                                         [30.0, 150.0, 90.0, 250.0]])
+    mask = torch.zeros((1, 64), dtype=torch.bool, device="cuda")
+    mask[0, :3] = True
+    labels = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
+    labels[0, :3] = torch.tensor([1, 3, 18])
+    batch["gt"] = {"boxes": boxes, "labels": labels, "mask": mask}
+    return batch
+
+
+def within_train_limits(eager, graph) -> dict:
+    """Phase 12's card-vs-CPU limits between two micro-steps (logs, state
+    snapshot): each loss within TRAIN_LOSS_RTOL relative, the gradient norm
+    and each leaf's and slot's norm of the difference within TRAIN_GRAD_RTOL
+    of its own."""
+    (el, es), (gl, gs) = eager, graph
+    loss = max(abs(gl[k] - el[k]) / max(abs(el[k]), 1e-30) for k in el if k != "train/grad_norm")
+    norm = abs(gl["train/grad_norm"] - el["train/grad_norm"]) / el["train/grad_norm"]
+    state = max(((gs[k].double() - es[k].double()).norm() / es[k].double().norm().clamp_min(1e-30))
+                .item() for k in es if isinstance(es[k], torch.Tensor))
+    return {"loss_rel": loss, "grad_norm_rel": norm, "state_norm_rel": state,
+            "ok": loss <= TRAIN_LOSS_RTOL and norm <= TRAIN_GRAD_RTOL and state <= TRAIN_GRAD_RTOL}
+
+
+def run_graph_stage3(UR, KN, bridge, TS, TE, OPT, GR):
+    """Phase 20 (a): the stage-3 step (full width with TFA's four tasks, bf16
+    frozen and fp32 TFA masters seeded 21, only the task prompts trained,
+    AdamW from the stage-1 YAML's kwargs at accumulation 1) through each
+    detector of STAGE3_GRAPH_DETECTORS on a 512 px batch of one with three
+    boxes, eager and from its graph (a ``GraphedTrainStep`` with a cache of its
+    own: the two steps share a task). Two eager micro-steps from one state
+    are compared in the default mode first; then under deterministic
+    algorithms two eager micro-steps and the graph's first call (two warm-ups
+    and the capture) from one state give bit-equal logs, trained leaves and
+    slots, or, where an op names itself as having no deterministic CUDA
+    kernel, agree within phase 12's card-vs-CPU limits; launches at capture
+    EXPECTED_STAGE3, the first call three times it, a replay none; then one
+    synchronised micro-step of each route in that mode. Returns (result,
+    launches of the graph route by kernel)."""
+    t0 = time.perf_counter()
+    cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg", "det"))
+    frozen, trainable = make_params(UR, bridge, cfg, torch.bfloat16, seed=21,
+                                    trainable_dtype=torch.float32)
+    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True,
+                           tfa_prompts_only=True, multi_task=True)
+    tx, _ = OPT.build(STAGE1_OPT, STAGE1_SCHED, STAGE1_MAX_STEPS, 1, 1, 1)
+    opt_state = tx.init(TS.trained_leaves(stage, trainable))
+    sched = UR.schedule(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    batch = det_batch(gen, RES)
+    noise = TS.draw_noise(cfg, batch, gen)
+    out = {"build_seconds": time.perf_counter() - t0}
+    launches = {kern.symbol: 0 for kern in KN.KERNELS}
+    zero = {s: (0, 0, 0) for s in EXPECTED_STAGE3}
+    warm = {s: tuple((GR.TRAIN_WARMUP_STEPS + 1) * n for n in c)
+            for s, c in EXPECTED_STAGE3.items()}
+    for downstream in STAGE3_GRAPH_DETECTORS:
+        te_fn = TE.make_te_loss_fn("det", TE.build_critics("det", downstream, device="cuda"),
+                                   downstream)
+        routes = {"eager": TS.make_train_step(frozen, cfg, sched, stage, tx, "det",
+                                              te_loss_fn=te_fn),
+                  "graph": GR.GraphedTrainStep(frozen, cfg, sched, stage, tx, "det",
+                                               te_loss_fn=te_fn, device="cuda")}
+        start = split_state_snapshot(TS, stage, trainable, opt_state)
+
+        def micro_step(route):
+            """One synchronised micro-step from ``start``: (logs, state after,
+            seconds, launch counts)."""
+            restore_state(TS, stage, trainable, opt_state, start)
+            torch.cuda.synchronize()
+            KN.reset_counts()
+            t1 = time.perf_counter()
+            logs = routes[route](trainable, opt_state, batch, noise)[2]
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+            return ({k: v.item() for k, v in logs.items()},
+                    split_state_snapshot(TS, stage, trainable, opt_state), sec,
+                    train_counts(KN))
+
+        default = [micro_step("eager") for _ in range(2)]
+        spread = snapshot_equal(default[0][1], default[1][1])
+        with deterministic_algorithms() as named:
+            graph = micro_step("graph")
+            held = pool_gib(routes["graph"]._cache.values()[0].graph.pool())
+            eager = [micro_step("eager") for _ in range(2)]
+            timed = {route: micro_step(route) for route in ("graph", "eager")}
+        (stats,) = routes["graph"].stats.values()
+        unequal = snapshot_equal(eager[0][1], graph[1])
+        repeat = snapshot_equal(eager[0][1], eager[1][1])
+        bit_equal = eager[0][0] == graph[0] == eager[1][0] and not unequal and not repeat
+        limits = None if bit_equal else within_train_limits(eager[0][:2], graph[:2])
+        moved = sum(not torch.equal(graph[1][k], start[k]) for k in start
+                    if k.startswith("trainable/"))
+        counts_ok = (stats.launches == EXPECTED_STAGE3 and graph[3] == warm
+                     and timed["graph"][3] == zero and timed["eager"][3] == EXPECTED_STAGE3)
+        ok = (counts_ok and moved and all(math.isfinite(v) for v in graph[0].values())
+              and (bit_equal or (named and limits["ok"])))
+        log(f"graph step (20 a), stage 3 {downstream}: default mode, two eager micro-steps from "
+            f"one state differ in {len(spread)} of {len(start)} trained leaves and slots; "
+            f"deterministic algorithms: eager vs graph "
+            f"{'bit-equal' if bit_equal else f'differ in {len(unequal)} ({limits})'} "
+            f"({len(repeat)} differ between the two eager runs; {moved} leaves moved); ops "
+            f"without a deterministic kernel named: {named or 'none'}; launches at capture "
+            f"{stats.launches}, first call {graph[3]}, replay {timed['graph'][3]}: {counts_ok}; "
+            f"warm-up {stats.warmup_seconds:.3f} s, capture {stats.capture_seconds:.3f} s, its "
+            f"pool {held} GiB; a micro-step eager {timed['eager'][2] * 1e3:.1f} ms, replayed "
+            f"{timed['graph'][2] * 1e3:.1f} ms (default-mode eager {default[1][2] * 1e3:.1f} ms)")
+        if not ok:
+            raise AssertionError(f"stage-3 {downstream}: the graph step differs from the eager "
+                                 f"one: {unequal[:5]}, eager repeat {repeat[:5]}, limits "
+                                 f"{limits}, launches {stats.launches}, first call {graph[3]}")
+        for sym, n in graph[3].items():
+            launches[sym] += sum(n[:2])
+        for sym, n in graph_path_launches(KN, [stats]).items():
+            launches[sym] += n
+        out[downstream] = {"logs": graph[0], "bit_equal": bit_equal, "limits": limits,
+                           "nondeterministic_ops": named, "leaves_and_slots": len(start),
+                           "moved": moved, "default_mode_eager_repeat_differ": len(spread),
+                           "launches_at_capture": stats.launches,
+                           "warmup_seconds": stats.warmup_seconds,
+                           "capture_seconds": stats.capture_seconds, "pool_gib": held,
+                           "replays": stats.replays,
+                           "ms": {"eager": timed["eager"][2] * 1e3,
+                                  "graph": timed["graph"][2] * 1e3,
+                                  "eager_default_mode": default[1][2] * 1e3}}
+        del routes, start, default, eager, graph, timed, te_fn
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    del frozen, trainable, opt_state
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_fit3_graph(KN, bridge, TE, GR, main_fn, work: Path, eager12_s: float) -> tuple:
+    """Phase 20 (b): phase 12's RetinaNet fit command for FIT3_GRAPH_STEPS
+    micro-steps at that accumulation (one update), under deterministic
+    algorithms (the detector's resizes differentiate through ``index_add_``,
+    whose default CUDA kernel adds atomically): eagerly without validation,
+    the reference, then with ``--trainer.cuda_graphs true`` and validation
+    at the last micro-step over FIT3_GRAPH_VAL_BATCHES batch. Every
+    micro-step's logs and every array of ``last.npz`` bit-equal between the
+    two; eager micro-steps launch EXPECTED_STAGE3 each; on the graph route
+    micro-step 1 launches (TRAIN_WARMUP_STEPS + 1) x EXPECTED_STAGE3, the
+    others none, micro-step 2 under ``set_sync_debug_mode("error")``; each
+    validation restore (a ``GraphedRestore`` replay) within one uint8 level
+    of the eager route's; s per micro-step over micro-steps
+    2-FIT3_GRAPH_STEPS (the card synchronised at both ends) of each route,
+    beside phase 12's default-mode fit (``eager12_s``). Returns (result,
+    launches of the graph fit by kernel: the counters less the eager
+    comparisons, plus each graph's launches at capture times its
+    replays)."""
+    from unirestore_torch.train import checkpoints as CKPT
+
+    t0 = time.perf_counter()
+    args = ("--trainer.max_steps", str(FIT3_GRAPH_STEPS), "--trainer.accumulate_grad_batches",
+            str(FIT3_GRAPH_STEPS), "--trainer.limit_val_batches", str(FIT3_GRAPH_VAL_BATCHES))
+    eager_root = work / "stage3_deterministic"
+    KN.reset_counts()
+    with deterministic_algorithms() as eager_named, \
+            StepProbe(TE, KN, bridge, sync_steps=()) as eager, \
+            WindowTimer(TE, FIT3_GRAPH_STEPS) as eager_window:
+        main_fn(fit3_argv("fit", work, eager_root, *args, "--trainer.val_check_interval", "0"))
+    eager_s = time.perf_counter() - t0
+    if len(eager.counts) != FIT3_GRAPH_STEPS or any(c != EXPECTED_STAGE3 for c in eager.counts):
+        raise AssertionError(f"20 (b) eager reference: launches per micro-step {eager.counts}")
+    reference = [{k: v.item() for k, v in e.items()} for e in eager.step_logs]
+    del eager
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    root = work / "stage3_graph"
+    KN.reset_counts()
+    with deterministic_algorithms() as named, RestoreCheck(TE, KN) as restores, \
+            StepProbe(TE, KN, bridge, sync_steps=(1,)) as probe, \
+            WindowTimer(TE, FIT3_GRAPH_STEPS) as window:
+        engine, trainer = main_fn(fit3_argv("fit", work, root, "--trainer.cuda_graphs", "true",
+                                            "--trainer.val_check_interval",
+                                            str(FIT3_GRAPH_STEPS), *args))
+    fit_s = time.perf_counter() - t0
+    launches = {kern.symbol: kern.launches - restores.eager_launches[kern.symbol]
+                for kern in KN.KERNELS}
+    steps = list(probe.step_fns.values())
+    restore_graphs = [e.graphed_restore()[0] for e in restores.engines]
+    for sym, n in graph_path_launches(KN, [s for g in (*steps, *restore_graphs)
+                                           for s in g.stats.values()]).items():
+        launches[sym] += n
+    first = {s: tuple((GR.TRAIN_WARMUP_STEPS + 1) * n for n in c)
+             for s, c in EXPECTED_STAGE3.items()}
+    zero = {s: (0, 0, 0) for s in EXPECTED_STAGE3}
+    counts_ok = (len(probe.counts) == FIT3_GRAPH_STEPS and probe.counts[0] == first
+                 and all(c == zero for c in probe.counts[1:])
+                 and all(isinstance(s, GR.GraphedTrainStep) for s in steps)
+                 and probe.tasks == ["det"] * FIT3_GRAPH_STEPS)
+    got = [{k: v.item() for k, v in e.items()} for e in probe.step_logs]
+    unequal = {f"{i + 1} {k}": (g[k], w[k]) for i, (g, w) in
+               enumerate(zip(got, reference)) for k in w if g.get(k) != w[k]}
+    flat, meta = CKPT.load_checkpoint(str(root / "checkpoints" / "last.npz"))
+    want, want_meta = CKPT.load_checkpoint(str(eager_root / "checkpoints" / "last.npz"))
+    differ = [k for k in want if not np.array_equal(flat.get(k), want[k])]
+    metrics = probe.metrics
+    waits = trainer.timing["loader_waits_s"][1:]
+    timed = {"micro_steps": FIT3_GRAPH_STEPS - 1, "wall_s": window.seconds,
+             "s_per_micro_step": window.seconds / (FIT3_GRAPH_STEPS - 1),
+             "loader_wait_mean_s": sum(waits) / len(waits),
+             "eager_s_per_micro_step": eager_window.seconds / (FIT3_GRAPH_STEPS - 1),
+             "eager_s_per_micro_step_phase12_default_mode": eager12_s}
+    (stats,) = steps[0].stats.values()
+    log(f"graph fit (20 b; phase 12's RetinaNet command, {FIT3_GRAPH_STEPS} micro-steps, "
+        f"deterministic algorithms): eager reference {eager_s:.1f} s; "
+        f"--trainer.cuda_graphs true {fit_s:.1f} s; launches per micro-step "
+        f"{probe.counts[0]} then none: {counts_ok}; warm-up {stats.warmup_seconds:.3f} s, "
+        f"capture {stats.capture_seconds:.3f} s; logs of every micro-step vs the eager "
+        f"reference's {'bit-equal' if not unequal else unequal}; last.npz at step "
+        f"{meta['step']}: {len(want) - len(differ)} of {len(want)} arrays bit-equal; "
+        f"{len(restores.levels)} validation restores replayed, largest difference from the "
+        f"eager route {max(restores.levels, default=-1)} uint8 levels (max abs "
+        f"{restores.max_abs:.3e}); validation {metrics}; micro-steps 2-{FIT3_GRAPH_STEPS}: "
+        f"{timed['s_per_micro_step']:.4f} s a micro-step (eager "
+        f"{timed['eager_s_per_micro_step']:.4f} in this mode, phase 12's {eager12_s:.4f} in the "
+        f"default mode), loader wait {timed['loader_wait_mean_s'] * 1e3:.2f} ms; ops without a "
+        f"deterministic kernel named: {sorted(set(named) | set(eager_named)) or 'none'}")
+    if (unequal or differ or not counts_ok or meta["step"] != want_meta["step"]
+            or not restores.levels or max(restores.levels) > 1 or len(metrics) != 1
+            or set(metrics[0]) != {"val_lq/map", "val_monitor"}):
+        raise AssertionError(f"stage-3 graph fit differs from the eager reference: logs "
+                             f"{unequal}, last.npz {differ[:5]}, launches {counts_ok}, restores "
+                             f"{restores.levels}, validation {metrics}")
+    result = {"seconds": fit_s, "eager_reference_seconds": eager_s, "logs_bit_equal": True,
+              "last_npz_arrays_bit_equal": len(want), "launches_first_micro_step": first,
+              "warmup_seconds": stats.warmup_seconds, "capture_seconds": stats.capture_seconds,
+              "validation_restores": len(restores.levels),
+              "restore_uint8_levels_max": max(restores.levels),
+              "restore_max_abs": restores.max_abs, "validation": metrics[0], "timed": timed,
+              "nondeterministic_ops": sorted(set(named) | set(eager_named)),
+              "restore_graphs": {str(k): dataclasses.asdict(v) for g in restore_graphs
+                                 for k, v in g.stats.items()}}
+    del probe, engine, trainer, restores, steps, restore_graphs
+    torch.cuda.empty_cache()
+    return result, launches
+
+
+def validation_networks(bridge, TE):
+    """(name, fn(*inputs) -> one tensor, input shapes) of every network the
+    JAX package jits in validation, each built on the card when it is
+    reached: the zoos' probes (each classifier spec, ``dlv3pr50``,
+    ``rflwr101``), the stage-2 probes over the ``mtl`` critics, LPIPS, the NR
+    suite's networks and FID's Inception, seeded."""
+    from unirestore_torch import tasks
+    from unirestore_torch.evalx import lpips as LP
+    from unirestore_torch.evalx import nr_suite as NRS
+    from unirestore_torch.tasks import seg_zoo as SZ
+
+    for name in probe_names():
+        tree, apply = bridge.probe_init(name, "cuda"), probe_apply(name)
+        kind = "seg" if name in SZ._WEIGHTS else "cls"
+        yield name, lambda x, t=tree, a=apply: a(t, x).float(), (PROBE_SHAPES[kind],)
+        del tree
+    critics = TE.build_critics("mtl", device="cuda")
+    for task in ("cls", "seg"):
+        yield (f"mtl_{task}", lambda x, t=task: tasks.critic_apply(t, critics[t], x).float(),
+               (PROBE_SHAPES[task],))
+    del critics
+    model = LP.make_lpips(device="cuda").model
+    yield "lpips", lambda x, y: model(x, y).float(), (NR_SHAPE, NR_SHAPE)
+    del model
+    for name in NRS.NETS:
+        tree, score = bridge.nr_init(name, "cuda"), NRS.NETS[name][1]
+        cast = torch.Tensor.float if name == "inception" else torch.Tensor.double
+        yield name, lambda x, t=tree, f=score, c=cast: c(f(t, x)), (NR_SHAPE,)
+        del tree
+
+
+def run_graph_networks(KN, bridge, TE, EV, GR, gen) -> dict:
+    """Phase 20 (c): every validation network (``validation_networks``) on one
+    seeded batch, eagerly (``evaluators.network_call``) and from its graph
+    (``graphs.GraphedCall``), under deterministic algorithms: the outputs of
+    the first call and of a replay bit-equal to the eager call's; no launch
+    of the repo's kernels; per network the host ms of a call (upload, network,
+    read-back) of each route over GRAPH_NET_CALLS calls, the card's busy ms in
+    a profiled call of each route, the warm-up and capture seconds."""
+    t0 = time.perf_counter()
+    out = {}
+    with deterministic_algorithms() as named:
+        for name, fn, shapes in validation_networks(bridge, TE):
+            xs = [torch.rand(s, generator=gen, device="cuda").cpu().numpy() for s in shapes]
+            eager, graphed = EV.network_call(fn, "cuda"), GR.GraphedCall(fn, "cuda")
+            KN.reset_counts()
+            want = eager(*xs)
+            t1 = time.perf_counter()
+            for _ in range(GRAPH_NET_CALLS):
+                eager(*xs)
+            eager_ms = (time.perf_counter() - t1) / GRAPH_NET_CALLS * 1e3
+            t1 = time.perf_counter()
+            got = graphed(*xs)
+            first_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            for _ in range(GRAPH_NET_CALLS):
+                again = graphed(*xs)
+            graph_ms = (time.perf_counter() - t1) / GRAPH_NET_CALLS * 1e3
+            busy = profiled_device(lambda: graphed(*xs))["device_busy_s"] * 1e3
+            eager_busy = profiled_device(lambda: eager(*xs))["device_busy_s"] * 1e3
+            launches = sum(kern.launches for kern in KN.KERNELS)
+            (stats,) = graphed.stats.values()
+            held = pool_gib(graphed._cache.values()[0].graph.pool())
+            equal = torch.equal(want, got) and torch.equal(want, again)
+            row = {"inputs": [list(s) for s in shapes], "output": list(want.shape),
+                   "bit_equal": equal, "eager_ms": eager_ms, "graph_ms": graph_ms,
+                   "graph_busy_ms": busy, "eager_busy_ms": eager_busy, "first_call_s": first_s,
+                   "warmup_seconds": stats.warmup_seconds,
+                   "capture_seconds": stats.capture_seconds, "pool_gib": held,
+                   "repo_kernel_launches": launches}
+            log(f"graph network (20 c) {name}: {[tuple(s) for s in shapes]} -> "
+                f"{tuple(want.shape)}; replay vs eager {'bit-equal' if equal else 'DIFFERS'}; "
+                f"{eager_ms:.3f} ms a call eager, {graph_ms:.3f} replayed (host clock, to the "
+                f"read-back), card busy {busy:.3f} ms a replay, {eager_busy:.3f} an eager "
+                f"call; warm-up {stats.warmup_seconds:.3f} s, capture "
+                f"{stats.capture_seconds:.3f} s, its pool {held} GiB; repo kernel launches "
+                f"{launches}")
+            if not equal or launches or not torch.isfinite(want.double()).all():
+                raise AssertionError(f"graph network {name}: replay vs eager equal {equal}, "
+                                     f"{launches} repo kernel launches")
+            out[name] = row
+            del eager, graphed, want, got, again, fn
+            torch.cuda.empty_cache()
+    out["nondeterministic_ops"] = named
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mixed_cls_list(work: Path) -> Path:
+    """A cls list of one seeded random image of each VAL20_MIXED_SIZES size."""
+    from unirestore_torch.ops import png
+
+    rng = np.random.default_rng(20)
+    rows = []
+    for i, (h, w) in enumerate(VAL20_MIXED_SIZES):
+        path = work / "data" / "images" / f"cls_mixed{i}.png"
+        path.write_bytes(png.encode(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)))
+        rows.append(f"None {path} {i % 5}")
+    lst = work / "data" / "lists" / "cls_mixed.list"
+    lst.write_text("\n".join(rows) + "\n")
+    return lst
+
+
+def run_validate_graphs(KN, TE, bridge, main_fn, work: Path, nr14: dict) -> dict:
+    """Phase 20 (d): phase 14's NR validate, and phase 13's cls all_ft
+    validate over one image of each VAL20_MIXED_SIZES size, eagerly and then
+    with ``--trainer.cuda_graphs true`` (NR's eager run is phase 14's, its
+    row ``nr14``): the keys and values equal; every restore and network call
+    of a second validation on the graph route is a replay; captures per
+    image and s per image of the first validation (on the graph route the
+    cls run captures at every image) and of the second (its networks and
+    graphs built) on each route."""
+    from unirestore_torch.evalx.nr_suite import NeuralNR
+
+    t0 = time.perf_counter()
+    mixed = mixed_cls_list(work)
+    runs = {"NR": lambda *flag: val14_argv(work, work / "validate20_NR", "NR", False) + [*flag],
+            "cls_all_ft": lambda *flag: fit13_argv(
+                "validate", work, work / "validate20_all_ft", "cls", "all_ft",
+                "--data.init_args.dataset_dict.ImageNet.val", str(mixed),
+                "--trainer.limit_val_batches", str(len(VAL20_MIXED_SIZES)), *flag)}
+    images = {"NR": VAL14_IMAGES, "cls_all_ft": len(VAL20_MIXED_SIZES)}
+    out = {}
+    for name, argv in runs.items():
+        row, got = {}, {}
+        if name == "NR":
+            got["eager"] = nr14["validation"]
+            row["eager"] = {"phase": 14, "run_seconds": nr14["run_seconds"],
+                            "validation_seconds_first": nr14["validation_seconds"],
+                            "validation_s_per_image_first": nr14["validation_s_per_image"],
+                            "captures_per_image_first": 0.0,
+                            "validation_seconds": nr14["validation_seconds_second"],
+                            "validation_s_per_image":
+                                nr14["validation_seconds_second"] / images[name]}
+        routes = (("graph", ("--trainer.cuda_graphs", "true")),)
+        if name != "NR":
+            routes = (("eager", ()), *routes)
+        for route, flag in routes:
+            t1 = time.perf_counter()
+            with StepProbe(TE, KN, bridge) as probe:
+                engine, trainer = main_fn(argv(*flag))
+            run_s = time.perf_counter() - t1
+            (got[route],) = probe.metrics
+            graphs, evaluator, nets = [], None, []
+            if route == "graph":
+                evaluator = probe.val_args[2](probe.val_args[0])
+                nets = ([m.call for m in evaluator.nr["lq"].values() if isinstance(m, NeuralNR)]
+                        if name == "NR" else [c.call for c in evaluator.classifiers.values()])
+                graphs = [*nets, engine.graphed_restore()[0]]
+            before = [sum(s.replays for s in g.stats.values()) for g in graphs]
+            captures = sum(s.captures for g in graphs for s in g.stats.values())
+            KN.reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.validate(*probe.val_args)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t1
+            launches = sum(kern.launches for kern in KN.KERNELS)
+            replayed = [sum(s.replays for s in g.stats.values()) - b
+                        for g, b in zip(graphs, before)]
+            recaptured = sum(s.captures for g in graphs for s in g.stats.values()) - captures
+            row[route] = {"run_seconds": run_s, "validation_seconds_first": probe.val_seconds[0],
+                          "validation_s_per_image_first": probe.val_seconds[0] / images[name],
+                          "captures_per_image_first": captures / images[name],
+                          "validation_seconds": warm_s,
+                          "validation_s_per_image": warm_s / images[name],
+                          "graphs": len(graphs), "captures": captures, "replays": replayed,
+                          "launches": launches}
+            if route == "graph" and (recaptured or launches or not all(replayed)):
+                raise AssertionError(f"graph validate {name}: recaptured {recaptured}, "
+                                     f"launches {launches}, replays {replayed}")
+            del probe, engine, trainer, graphs, evaluator, nets
+            torch.cuda.empty_cache()
+        unequal = {k: (got["graph"].get(k), v) for k, v in got["eager"].items()
+                   if got["graph"].get(k) != v}
+        e, g = row["eager"], row["graph"]
+        log(f"graph validate (20 d) {name} ({images[name]} images): keys and values of the "
+            f"graph route vs the eager "
+            f"{'equal' if not unequal and set(got['graph']) == set(got['eager']) else unequal}; "
+            f"{g['graphs']} graph routes (the networks and the restore), {g['captures']} "
+            f"captures ({g['captures_per_image_first']:.2f} an image); the first validation "
+            f"{e['validation_s_per_image_first']:.3f} s per image eager, "
+            f"{g['validation_s_per_image_first']:.3f} with graphs (captures included); a "
+            f"second validation {e['validation_s_per_image']:.3f} s per image eager, "
+            f"{g['validation_s_per_image']:.3f} replayed (replays {g['replays']}, no "
+            f"capture, {g['launches']} kernel launches); runs {e['run_seconds']:.1f} "
+            f"({'phase 14' if e.get('phase') else 'here'}) and {g['run_seconds']:.1f} s")
+        if unequal or set(got["graph"]) != set(got["eager"]):
+            raise AssertionError(f"graph validate {name}: metrics {unequal}")
+        out[name] = {**row, "validation": got["graph"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5531,8 +6163,8 @@ def run_phases(refs) -> int:
         # of phases 9 and 11; phase 3's comparison at the shapes it met that
         # were not held yet; then the two detectors' losses, card vs CPU
         t0 = time.perf_counter()
-        fit3, paths["fit_stage3"], fit3_shapes = run_fit_stage3(KN, bridge, TE, TS, OPT,
-                                                                TMAIN.main, Path(work))
+        fit3, paths["fit_stage3"], fit3_shapes, eager12_s = run_fit_stage3(
+            KN, bridge, TE, TS, OPT, TMAIN.main, Path(work))
         fit3["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, fit3_shapes, rows, gen,
                                                           path="fit_stage3")
         torch.cuda.empty_cache()
@@ -5592,31 +6224,41 @@ def run_phases(refs) -> int:
         torch.cuda.empty_cache()
         phase_done("15")
 
-        # phases 16-18 run beside no reference job
-        log(f"waited {refs.idle():.1f} s for the reference worker's jobs to end")
+        # phases 16 (a), (b) and 17: their torchrun jobs all at once (each is
+        # mostly process start, gloo collectives and checkpoints, and only
+        # their results are compared), and phase 18 (d) in this process
+        # meanwhile; the reference worker's last jobs end beside them
+        jobs = torchrun_start(*fit_ddp_jobs(Path(work)), train_ddp2_job(Path(work)),
+                              spatial_job(Path(work)))
+        try:
+            # phase 18 (d): phase 9's fit with --trainer.split_step true, then
+            # --trainer.stop_after fr
+            split["fit"], paths["fit_split"] = run_fit_split(KN, bridge, TE, TMAIN.main,
+                                                             Path(work), reference16)
+            torch.cuda.empty_cache()
+            phase_done("18 (d)")
+            runs = torchrun_wait(jobs)
+        finally:
+            torchrun_stop(jobs)
 
         # phase 16: phase 9's fit under torchrun at world size 1 (NCCL), DDP
         # and FSDP; phase 6's cell at two ranks on the card (gloo), DDP and
         # FSDP; the state bytes per rank; phase 3's comparison at new shapes
         parallel, parallel_paths = run_phase16(K, G, KN, TE, UR, rows, gen, reference16,
-                                               training, Path(work))
+                                               training, Path(work), runs[:3])
         paths.update(parallel_paths)
         torch.cuda.empty_cache()
         phase_done("16")
 
         # phase 17: restore_padded on height-sharded images, make_mesh_2d(1, 2)
         # with two gloo ranks on the card; phase 3's comparison at new shapes
-        spatial, spatial_paths = run_phase17(K, G, KN, rows, gen, Path(work))
+        spatial, spatial_paths = run_phase17(K, G, KN, rows, gen, Path(work), runs[3][1])
         paths.update(spatial_paths)
         torch.cuda.empty_cache()
         phase_done("17")
 
-        # phase 18 (d): phase 9's fit with --trainer.split_step true, then
-        # --trainer.stop_after fr
-        split["fit"], paths["fit_split"] = run_fit_split(KN, bridge, TE, TMAIN.main, Path(work),
-                                                         reference16)
-        torch.cuda.empty_cache()
-        phase_done("18 (d)")
+        # phases 19 (b) and 20 run beside no reference job
+        log(f"waited {refs.idle():.1f} s for the reference worker's jobs to end")
 
         # phase 19 (b): phase 9's fit with --trainer.cuda_graphs true
         graph_step["fit"], paths["fit_graph"] = run_fit_graph(
@@ -5624,6 +6266,22 @@ def run_phases(refs) -> int:
         del reference16
         torch.cuda.empty_cache()
         phase_done("19 (b)")
+
+        # phase 20: the graph route for stage 3 (a: each detector's step; b:
+        # phase 12's fit with --trainer.cuda_graphs true) and for every
+        # validation network (c: each eager and replayed; d: the NR and cls
+        # all_ft validate runs with the flag against phases 14 and 13)
+        from unirestore_torch.evalx import evaluators as EV
+        graph20 = {}
+        graph20["stage3"], paths["train_det_graph"] = run_graph_stage3(UR, KN, bridge, TS, TE,
+                                                                       OPT, GR)
+        graph20["fit"], paths["fit_stage3_graph"] = run_fit3_graph(
+            KN, bridge, TE, GR, TMAIN.main, Path(work), eager12_s)
+        graph20["networks"] = run_graph_networks(KN, bridge, TE, EV, GR, gen)
+        graph20["validate"] = run_validate_graphs(KN, TE, bridge, TMAIN.main, Path(work),
+                                                  nr14["NR"])
+        torch.cuda.empty_cache()
+        phase_done("20")
 
     # the CPU halves of phases 5, 7, 11, 12 and 15, read now
     t0 = time.perf_counter()
@@ -5633,6 +6291,7 @@ def run_phases(refs) -> int:
     fit3["reference"] = checks["fit3"]()
     spade["reference"] = checks15["reference"]()
     spade["training"]["reference"] = checks15["training"]()
+    spade["deeplab"] = checks15["deeplab"]()
     log(f"card-vs-CPU checks of phases 5, 7, 11, 12 and 15 held; waited "
         f"{time.perf_counter() - t0:.1f} s for the reference worker; its jobs ran in these "
         "seconds of the script: " + ", ".join(f"{name} {a:.1f}-{b:.1f}"
@@ -5664,8 +6323,10 @@ def run_phases(refs) -> int:
                   **{SPATIAL_PATHS[name]: list(EXPECTED[name]) for name in ("none", "deep")},
                   spatial_restore=list(SPATIAL_RESTORE_EXPECTED),
                   **{path: routes["train"] for path in ("train_split", "fit_split")},
-                  train_graph=routes["train"])
+                  train_graph=routes["train"],
+                  train_det_graph=[EXPECTED_STAGE3[kern.symbol][0] for kern in KN.KERNELS])
     routes["fit_graph"] = routes["fit"]
+    routes["fit_stage3_graph"] = routes["fit_stage3"]
     entries = []
     for i, kern in enumerate(KN.KERNELS):
         r = rows[kern.symbol]
@@ -5714,6 +6375,8 @@ def run_phases(refs) -> int:
     log(json.dumps({"split_step": split}))
     graph_step["phase_seconds"] = phase_seconds["19 (a), (c)"] + phase_seconds["19 (b)"]
     log(json.dumps({"graph_step": graph_step}, default=str))
+    graph20["phase_seconds"] = phase_seconds["20"]
+    log(json.dumps({"graph_stage3_validation": graph20}, default=str))
     phase_done("10")
     log(json.dumps({"phase_seconds": phase_seconds, "reference_jobs": refs.spans,
                     "script_seconds": process_age()}))

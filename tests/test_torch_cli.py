@@ -47,6 +47,7 @@ TensorFlow made unimportable): importing either takes seconds.
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -305,11 +306,17 @@ def test_fit_parity_catches_a_planted_optimizer_fault(smoke, tmp_path, jax_fit, 
 
 
 def _cli(*args):
-    # ``python -m unirestore_torch.main`` with TensorBoard unimportable
+    # ``python -m unirestore_torch.main`` with TensorBoard unimportable, on one
+    # intra-op thread, a test worker's share of the host: beside the suite's
+    # other workers a subprocess with a thread per core spins them against
+    # each other (on an 8-core host the three runs of the fit test took 157 s
+    # beside five busy processes with a thread per core, 32 s with one
+    # thread; 25 s alone)
     run = ("import runpy, sys; sys.modules['torch.utils.tensorboard'] = None; "
            "runpy.run_module('unirestore_torch.main', run_name='__main__', alter_sys=True)")
     res = subprocess.run([sys.executable, "-c", run, *args], cwd=REPO,
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     return res.stdout
 

@@ -792,3 +792,108 @@ def test_optimizer_device_scalars_match_host_floats_on_the_card(cuda, name):
                                      if isinstance(sub, dict) for k, t in sub.items()}}
     for k, v in final["host"].items():
         assert torch.equal(v, final["device"][k]), k
+
+
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("downstream", ["retinanet", "fastrcnn"])
+def test_graphed_det_step_matches_the_eager_step(cuda, no_tf32, deterministic, downstream):
+    """The tiny stage-3 step (fp32, 128 px, batch 1, three boxes padded to
+    ``MAX_BOXES``; only the task prompts train; AdamW at accumulation 1)
+    through the full-width detector, replayed from CUDA graphs against
+    ``make_train_step`` from one state over two micro-steps, under
+    deterministic algorithms (the detectors' resizes differentiate through
+    ``index_add_``): every log, trained leaf and optimizer slot bit-equal."""
+    from unirestore_torch import bridge
+    from unirestore_torch import graphs as GR
+    from unirestore_torch.models import unirestore as UR
+    from unirestore_torch.train import engine as TE
+    from unirestore_torch.train import optim as OPT
+    from unirestore_torch.train import steps as TS
+
+    cfg = UR.tiny_config(tasks=("ir", "det"))
+    frozen, trainable = UR.init(cfg, device="cuda", seed=5)
+    sched = UR.schedule(cfg, device="cuda")
+    stage = TS.StageConfig(train_cfrm=False, train_cnet=False, train_tfa=True,
+                           tfa_prompts_only=True, multi_task=True)
+    te_fn = TE.make_te_loss_fn("det", TE.build_critics("det", downstream, device="cuda"),
+                               downstream)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    inputs = []
+    for _ in range(2):
+        batch = {k: torch.rand((1, 128, 128, 3), generator=gen, device="cuda")
+                 for k in ("lq", "hq")}
+        boxes = torch.zeros((1, TE.MAX_BOXES, 4), device="cuda")
+        boxes[0, :3] = torch.tensor([[8.0, 12.0, 60.0, 70.0], [50.0, 20.0, 120.0, 100.0],
+                                     [16.0, 75.0, 45.0, 125.0]])
+        labels = torch.zeros((1, TE.MAX_BOXES), dtype=torch.int64, device="cuda")
+        labels[0, :3] = torch.tensor([1, 3, 18])
+        mask = torch.zeros((1, TE.MAX_BOXES), dtype=torch.bool, device="cuda")
+        mask[0, :3] = True
+        batch["gt"] = {"boxes": boxes, "labels": labels, "mask": mask}
+        inputs.append((batch, TS.draw_noise(cfg, batch, gen)))
+    out = {}
+    for route in ("eager", "graph"):
+        tx = OPT.AdamW(1e-3, eps=1e-3)
+        tr = bridge.unflatten_like({k: v.clone() for k, v in bridge.flatten(trainable).items()},
+                                   trainable)
+        state = tx.init(TS.trained_leaves(stage, tr))
+        if route == "eager":
+            step = TS.make_train_step(frozen, cfg, sched, stage, tx, "det", te_loss_fn=te_fn)
+        else:
+            step = GR.GraphedTrainStep(frozen, cfg, sched, stage, tx, "det", te_loss_fn=te_fn,
+                                       device=cuda)
+        logs = [{k: v.item() for k, v in step(tr, state, *x)[2].items()} for x in inputs]
+        out[route] = (logs, _state_of(tr, state, stage), step)
+    assert out["eager"][0] == out["graph"][0]
+    assert all(np.isfinite(v) for e in out["graph"][0] for v in e.values())
+    for k, v in out["eager"][1].items():
+        same = torch.equal(v, out["graph"][1][k]) if isinstance(v, torch.Tensor) else \
+            v == out["graph"][1][k]
+        assert same, k
+    moved = [k for k in out["eager"][1] if k.startswith("trainable/")
+             and not torch.equal(out["graph"][1][k],
+                                 TS.trained_leaves(stage, trainable)[k[len("trainable/"):]])]
+    assert "trainable/tfa//task_prompts//det" in moved
+    (stats,) = out["graph"][2].stats.values()
+    assert (stats.captures, stats.replays) == (1, 2)
+
+
+def _network_pairs(name, cuda):
+    """(eager call, graphed call, inputs by call) of a validation network."""
+    from unirestore_torch.evalx import lpips as LP
+    from unirestore_torch.evalx import nr_suite as NRS
+    from unirestore_torch.tasks import classifier_zoo as CZ
+
+    rng = np.random.default_rng(7)
+    shapes = ((1, 224, 224, 3), (1, 256, 320, 3), (1, 224, 224, 3))
+    images = [rng.uniform(size=s).astype(np.float32) for s in shapes]
+    if name == "r50v1":
+        eager, graphed = (CZ.build_classifier("r50v1", device=cuda, cuda_graphs=g)
+                          for g in (False, True))
+        return eager, graphed, graphed.call, [(x,) for x in images]
+    if name == "lpips":
+        eager, graphed = (LP.make_lpips(device=cuda, cuda_graphs=g) for g in (False, True))
+        other = [rng.uniform(size=s).astype(np.float32) for s in shapes]
+        return eager, graphed, graphed.call, list(zip(images, other))
+    eager, graphed = (NRS.build_nr_suite([name], device=cuda, cuda_graphs=g)[name]
+                      for g in (False, True))
+    return eager.scores, graphed.scores, graphed.call, [(x,) for x in images]
+
+
+@pytest.mark.parametrize("name", ["r50v1", "lpips", "nima-koniq"])
+def test_graphed_validation_networks_match_eager(cuda, no_tf32, deterministic, name):
+    """A zoo probe, LPIPS and an NR network built with ``cuda_graphs`` against
+    the same build without it, at two input shapes and the first again: the
+    outputs bit-equal, one capture per shape, the third call a replay."""
+    eager, graphed, call, inputs = _network_pairs(name, cuda)
+    for args in inputs:
+        want, got = eager(*args), graphed(*args)
+        assert want.shape == got.shape and np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
+    assert [(s.captures, s.replays) for s in call.stats.values()] == [(1, 2), (1, 1)]

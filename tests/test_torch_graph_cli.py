@@ -102,8 +102,8 @@ def test_the_engines_graph_route_refuses_what_it_cannot_capture(monkeypatch):
     with SP.partition(_fake_context()):
         with pytest.raises(NotImplementedError, match="restores does not run on height-sharded"):
             engine.restore_fn()(images, "ir")
-    engine.engine_type = "det"
-    with pytest.raises(NotImplementedError, match="no route for the det task"):
+    engine.engine_type = "det"  # has a route: on the CPU it meets the device's refusal
+    with pytest.raises(ValueError, match="graph-captured restores needs a CUDA device, got cpu"):
         engine.restore_fn()
     engine.engine_type = "ir"
     trainable = engine.trainable

@@ -277,7 +277,8 @@ def test_graphed_train_step_refuses_what_it_cannot_capture():
         _graphed(group=object())
     with pytest.raises(ValueError, match="does not take FSDP shards"):
         _graphed(frozen=_sharded(_init()[2][0]))
-    with pytest.raises(NotImplementedError, match="no route for the det task"):
+    # the det task has a route: on the CPU it meets the device's refusal
+    with pytest.raises(ValueError, match="GraphedTrainStep needs a CUDA device, got cpu"):
         _graphed(task="det")
     with SP.partition(_fake_context()):
         with pytest.raises(NotImplementedError,

@@ -130,6 +130,10 @@ def build(cfg: dict, tiny: bool = False, device=None):
     m = copy.deepcopy(cfg.get("model", {}).get("init_args", {}))
     t = cfg.get("trainer", {})
     eval_mode = m.get("eval_mode", "FR")
+    # the graph route of the engine's restores, the train step and every
+    # validation network the JAX package jits; refused on the CPU by the
+    # engine, before any work
+    graphs = bool(t.get("cuda_graphs", False))
     engine = UniFIEEngine(
         model_kwargs=m.get("model_kwargs", {}),
         optimizer_kwargs=m.get("optimizer_kwargs"),
@@ -142,7 +146,7 @@ def build(cfg: dict, tiny: bool = False, device=None):
         seed=cfg.get("seed_everything", 42),
         compute_dtype="float32" if tiny else "bfloat16",
         device=dev,
-        cuda_graphs=bool(t.get("cuda_graphs", False)),
+        cuda_graphs=graphs,
     )
     engine.engine_type = etype
     logger = t.get("logger") or {}
@@ -162,7 +166,7 @@ def build(cfg: dict, tiny: bool = False, device=None):
         split_step=(None if t.get("split_step") is None else bool(t.get("split_step"))),
         fsdp=bool(t.get("fsdp", False)),
         stop_after=t.get("stop_after"),
-        cuda_graphs=bool(t.get("cuda_graphs", False)),
+        cuda_graphs=graphs,
     )
 
     d = cfg.get("data", {}).get("init_args", {})
@@ -170,7 +174,10 @@ def build(cfg: dict, tiny: bool = False, device=None):
 
     # LPIPS, FID's Inception, the NR suite, the critic probes, the probe zoos
     # and the detector are built once, on the engine's device, and reused
-    # across validate() epochs: every metric resets its state in epoch_end
+    # across validate() epochs: every metric resets its state in epoch_end.
+    # With trainer.cuda_graphs each network but the detector replays from
+    # CUDA graphs, as the JAX package jits each (the detector's decode and
+    # host NMS stay eager, as JAX's config.py:242-246 lambdas do)
     _eval_cache = {}
 
     def lpips():
@@ -178,7 +185,7 @@ def build(cfg: dict, tiny: bool = False, device=None):
         # (eval_image_restoration.py:184)
         if "lpips" not in _eval_cache:
             from .evalx.lpips import make_lpips
-            _eval_cache["lpips"] = make_lpips(device=dev)
+            _eval_cache["lpips"] = make_lpips(device=dev, cuda_graphs=graphs)
         return _eval_cache["lpips"]
 
     def evaluator_factory(eng):
@@ -186,7 +193,8 @@ def build(cfg: dict, tiny: bool = False, device=None):
         if etype == "mtl":
             if "mtl_probes" not in _eval_cache:
                 critics = eng.build_critics()
-                _eval_cache["mtl_probes"] = {task: EV.probe(task, critics[task], eng.device)
+                _eval_cache["mtl_probes"] = {task: EV.probe(task, critics[task], eng.device,
+                                                            graphs)
                                              for task in ("cls", "seg")}
             probes = _eval_cache["mtl_probes"]
             return EV.MultiTaskEvaluator(
@@ -202,7 +210,8 @@ def build(cfg: dict, tiny: bool = False, device=None):
             mode = m.get("eval_mode", "single")
             if "cls_zoo" not in _eval_cache:
                 from .tasks import classifier_zoo as CZ
-                _eval_cache["cls_zoo"] = CZ.build_classifier_zoo(mode, device=eng.device)
+                _eval_cache["cls_zoo"] = CZ.build_classifier_zoo(mode, device=eng.device,
+                                                                 cuda_graphs=graphs)
             zoo = _eval_cache["cls_zoo"]
             monitor = {"all_ft": "r50v1_ft", "CUB": "cub_r50"}.get(mode, "r50v1" if zoo else None)
             return EV.ClassificationEvaluator(restore, zoo, monitor=monitor)
@@ -212,7 +221,7 @@ def build(cfg: dict, tiny: bool = False, device=None):
             if "seg_zoo" not in _eval_cache:
                 from .tasks import seg_zoo as SZ
                 _eval_cache["seg_zoo"] = SZ.build_seg_zoo(m.get("eval_mode", "single"),
-                                                          device=eng.device)
+                                                          device=eng.device, cuda_graphs=graphs)
             zoo = _eval_cache["seg_zoo"]
             return EV.SemanticSegmentationEvaluator(
                 restore, zoo, monitor="rflwr101" if "rflwr101" in zoo else None,
@@ -236,14 +245,15 @@ def build(cfg: dict, tiny: bool = False, device=None):
             if "fid" not in _eval_cache:
                 from .evalx.fid import FID
                 from .evalx.inception import make_fid_extractor
-                extractor, dim = make_fid_extractor(device=eng.device)
+                extractor, dim = make_fid_extractor(device=eng.device, cuda_graphs=graphs)
                 _eval_cache["fid"] = {t: FID(extractor, dim) for t in ("hq", "lq")}
             fid = _eval_cache["fid"]
         nr = None
         if eval_mode in ("NR", "ALL"):
             if "nr" not in _eval_cache:
                 from .evalx.nr_suite import build_nr_suite
-                _eval_cache["nr"] = build_nr_suite(m.get("nr_metrics"), device=eng.device)
+                _eval_cache["nr"] = build_nr_suite(m.get("nr_metrics"), device=eng.device,
+                                                   cuda_graphs=graphs)
             nr = _eval_cache["nr"]
         return EV.ImageRestorationEvaluator(
             restore, eval_mode=eval_mode, need_crop=m.get("need_crop", True),

@@ -37,36 +37,62 @@ def _stem(name: str) -> str:
     return os.path.splitext(str(name))[0]
 
 
-def as_probe(apply_fn, device):
-    """A probe over ``apply_fn(images) -> logits`` on tensors: fn(images_nhwc01
-    numpy) -> logits float32 numpy, run in fp32 on ``device``."""
+def network_call(fn, device, cuda_graphs: bool = False):
+    """``call(*arrays) -> tensor on the host``: ``fn`` on the arrays uploaded
+    as fp32 (``upload``) under ``torch.inference_mode``, its one result read
+    back. With ``cuda_graphs`` (``trainer.cuda_graphs``), ``fn`` replays from
+    CUDA graphs, one per input shape (``graphs.GraphedCall``), as the JAX
+    package runs it through ``jax.jit``; refused off a card."""
     import torch
 
-    def run(images):
-        with torch.inference_mode():
-            x = torch.as_tensor(np.asarray(images, np.float32), device=device)
-            return apply_fn(x).float().cpu().numpy()
+    device = torch.device(device)
+    if cuda_graphs:
+        from ..graphs import GraphedCall
+        return GraphedCall(fn, device)
 
+    def call(*arrays):
+        with torch.inference_mode():
+            return fn(*(upload(a, device) for a in arrays)).cpu()
+
+    return call
+
+
+def as_probe(apply_fn, device, cuda_graphs: bool = False):
+    """A probe over ``apply_fn(images) -> logits`` on tensors: fn(images_nhwc01
+    numpy) -> logits float32 numpy, run in fp32 on ``device``, eagerly or with
+    ``cuda_graphs`` replayed (``network_call``; ``fn.call`` is its call)."""
+    call = network_call(lambda x: apply_fn(x).float(), device, cuda_graphs)
+
+    def run(images):
+        return call(images).numpy()
+
+    run.call = call
     return run
 
 
-def upload(images, device):
-    """numpy NHWC -> an fp32 tensor on ``device``; to the card through pinned
-    memory without waiting for it, so that a metric's read-back of its result
-    is the one point of its call where the host waits for the card."""
+def host_tensor(images, device):
+    """numpy (any dtype) -> a contiguous fp32 tensor on the host, in pinned
+    memory where it is bound for a card (``device``), so that its copy to the
+    card need not wait: the one format both routes upload."""
     import torch
 
     x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
-    if device.type == "cuda":
-        return x.pin_memory().to(device, non_blocking=True)
-    return x.to(device)
+    return x.pin_memory() if device.type == "cuda" else x
 
 
-def probe(task: str, critic, device):
-    """The validation probe over a critic (``tasks.critic_apply``)."""
+def upload(images, device):
+    """numpy NHWC -> an fp32 tensor on ``device`` (``host_tensor``), copied
+    without a host wait, so that a metric's read-back of its result is the
+    one point of its call where the host waits for the card."""
+    return host_tensor(images, device).to(device, non_blocking=True)
+
+
+def probe(task: str, critic, device, cuda_graphs: bool = False):
+    """The validation probe over a critic (``tasks.critic_apply``), eagerly or
+    replayed (``as_probe``)."""
     from ..tasks import critic_apply
 
-    return as_probe(lambda x: critic_apply(task, critic, x), device)
+    return as_probe(lambda x: critic_apply(task, critic, x), device, cuda_graphs)
 
 
 def center_crop(img: np.ndarray, upper_h: int, upper_w: int) -> np.ndarray:

@@ -29,7 +29,7 @@ from ..nn import layers as L
 from ..nn.init import make_init
 from ..ops.resize import resize_bilinear
 from ..tasks import resnet as RN
-from .evaluators import upload
+from .evaluators import network_call
 
 DIM = 2048
 SEED = 11
@@ -170,20 +170,23 @@ def inception_v3_features(p, images):
     return x.mean(dim=(1, 2))
 
 
-def make_fid_extractor(params=None, device=None, weights_dir=None, seed: int = SEED):
+def make_fid_extractor(params=None, device=None, weights_dir=None, seed: int = SEED,
+                       cuda_graphs: bool = False):
     """Returns (extract, 2048) for ``evalx.fid.FID``: ``extract(images_nhwc01
     numpy) -> (B, 2048)`` fp32 numpy features, computed in fp32 on ``device``
-    (default: the card) with one read-back a call. Without ``params``: the
+    (default: the card) with one read-back a call; with ``cuda_graphs``
+    replayed from CUDA graphs, one per input shape (``evaluators.
+    network_call``), where the JAX function jits it. Without ``params``: the
     seeded tree with ``<weights_dir>/inception_v3.npz`` merged in where present."""
     dev = resolve_device(device)
     if params is None:
         params, _ = zoo.load_npz_tree("inception_v3",
                                       inception_v3_init(make_init(None, dev, seed=seed)),
                                       weights_dir)
+    call = network_call(lambda x: inception_v3_features(params, x).float(), dev, cuda_graphs)
 
     def extract(images):
-        with torch.inference_mode():
-            return inception_v3_features(params, upload(images, dev)).float().cpu().numpy()
+        return call(images).numpy()
 
-    extract.params = params
+    extract.params, extract.call = params, call
     return extract, DIM

@@ -15,7 +15,6 @@ the JAX function does (values then not comparable to the paper's).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -96,24 +95,26 @@ def bridge(jax_params, *, device=None) -> LPIPS:
     return LPIPS(BR.load_tree(jax_params, lpips_init(device="meta"), device=dev)).to(dev)
 
 
-def make_lpips(model: LPIPS | None = None, *, device=None, weights_dir=None):
+def make_lpips(model: LPIPS | None = None, *, device=None, weights_dir=None,
+               cuda_graphs: bool = False):
     """Returns fn(pred, target) -> per-image LPIPS distances (numpy float32),
     the ``lpips_fn`` the ImageRestorationEvaluator wires into the FR metric
     collection (reference eval_image_restoration.py:184); NHWC numpy in
     [0, 1] in. Without ``model``: weights from ``<weights_dir>/lpips_alex.npz``
-    (``tools/convert_torchvision.py``) over the seeded init."""
+    (``tools/convert_torchvision.py``) over the seeded init. With
+    ``cuda_graphs`` the distance replays from CUDA graphs, one per input
+    shape (``evaluators.network_call``), where the JAX function jits it."""
     from .. import zoo
+    from .evaluators import network_call
 
     dev = resolve_device(device)
     if model is None:
         params, _ = zoo.load_npz_tree("lpips_alex", lpips_init(device=dev), weights_dir)
         model = LPIPS(params)
+    call = network_call(lambda x, y: model(x, y).float(), dev, cuda_graphs)
 
     def distance(pred, target):
-        with torch.inference_mode():
-            d = model(torch.as_tensor(np.asarray(pred, np.float32), device=dev),
-                      torch.as_tensor(np.asarray(target, np.float32), device=dev))
-        return d.float().cpu().numpy()
+        return call(pred, target).numpy()
 
-    distance.model = model
+    distance.model, distance.call = model, call
     return distance

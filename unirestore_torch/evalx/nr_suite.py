@@ -10,7 +10,9 @@ fp32 tree with ``<weights_dir>/<file>.npz`` merged in where present
 (``zoo.load_npz_tree``: the seeded init and a warning when absent; scores
 then have the right shape and protocol but arbitrary values). It runs under
 ``torch.inference_mode`` in fp32 on ``device`` (default: the card) and reads
-its scores back to the host once per ``update``. NIQE and PI are host numpy
+its scores back to the host once per ``update``; with ``cuda_graphs``
+(``trainer.cuda_graphs``) it replays from CUDA graphs, one per input shape,
+as the JAX suite jits each network. NIQE and PI are host numpy
 (``evalx/niqe.py``, ``nrqm.py``), as in the JAX package: classical
 statistics over MSCN coefficients and the NRQM feature groups.
 
@@ -34,7 +36,7 @@ from . import inception as INC
 from . import maniqa as MAN
 from . import musiq as MUS
 from . import nima as NIM
-from .evaluators import upload
+from .evaluators import network_call
 
 # the reference's full 10-metric NR protocol (eval_image_restoration.py:190-203)
 DEFAULT_NR_METRICS = (
@@ -80,17 +82,18 @@ def net_init(name: str, seed: int = SEED, device=None):
 
 class NeuralNR:
     """MeanMetric-style wrapper over ``apply(images) -> scores`` on tensors,
-    run in fp32 on ``device`` with one read-back an update."""
+    run in fp32 on ``device`` with one read-back an update; with
+    ``cuda_graphs`` replayed from CUDA graphs, one per input shape
+    (``evaluators.network_call``), where the JAX suite jits ``apply``."""
 
-    def __init__(self, apply, device):
+    def __init__(self, apply, device, cuda_graphs: bool = False):
         self.apply = apply
         self.device = torch.device(device)
+        self.call = network_call(lambda x: apply(x).double(), self.device, cuda_graphs)
         self.total, self.count = 0.0, 0
 
     def scores(self, images) -> np.ndarray:
-        with torch.inference_mode():
-            s = self.apply(upload(images, self.device))
-            return s.double().cpu().numpy()
+        return self.call(images).numpy()
 
     def update(self, images):
         scores = self.scores(images)
@@ -104,10 +107,10 @@ class NeuralNR:
         self.total, self.count = 0.0, 0
 
 
-def _neural_metric(name: str, seed: int, device, weights_dir):
+def _neural_metric(name: str, seed: int, device, weights_dir, cuda_graphs: bool = False):
     p, _ = zoo.load_npz_tree(NETS[name][2], net_init(name, seed, device), weights_dir)
     score = NETS[name][1]
-    metric = NeuralNR(lambda x: score(p, x), device)
+    metric = NeuralNR(lambda x: score(p, x), device, cuda_graphs)
     metric.params = p
     return metric
 
@@ -138,9 +141,12 @@ class PIMetric:
             self.nrqm.reset()
 
 
-def build_nr_suite(names=None, seed: int = SEED, device=None, weights_dir=None) -> dict:
+def build_nr_suite(names=None, seed: int = SEED, device=None, weights_dir=None,
+                   cuda_graphs: bool = False) -> dict:
     """name -> MeanMetric-style object for the requested NR metrics, the
-    networks on ``device`` (default: the card, which must exist).
+    networks on ``device`` (default: the card, which must exist), each with
+    ``cuda_graphs`` replayed from CUDA graphs (``NeuralNR``; MUSIQ's scale
+    geometry is worked out on the host before the capture, from the shape).
 
     Default: the reference's full 10-metric NR set. NIQE (and so PI) is
     skipped with a warning when no pristine model has been fitted.
@@ -150,7 +156,7 @@ def build_nr_suite(names=None, seed: int = SEED, device=None, weights_dir=None) 
     out = {}
     for name in names:
         if name in NETS and name != "inception":
-            out[name] = _neural_metric(name, seed, dev, weights_dir)
+            out[name] = _neural_metric(name, seed, dev, weights_dir, cuda_graphs)
         elif name in ("niqe", "pi"):
             from .niqe import NIQEMetric
             try:

@@ -17,10 +17,16 @@ step (the per-part jits of its split step, ``unirestore_tpu/train/
 steps.py:286-371``): the parts of ``train/steps.py:make_train_step``
 (``make_step_parts``) captured in one graph, and the optimizer tail
 (``optimizer_tail``) in one graph a form, accumulating or applying, with the
-update's scalars in a static buffer. It gives the eager step's bits.
+update's scalars in a static buffer. It gives the eager step's bits, for
+every task of every stage, the detectors' ``det`` included.
 
-Opt-in: ``restore`` and the step stay eager, and eager is the only route on
-the CPU.
+``GraphedCall`` is the counterpart of ``jax.jit(fn)`` for a network of fixed
+parameters: the validation networks the JAX package jits (the probe zoos,
+the stage-2 probes, LPIPS, FID's Inception, the NR suite) replayed from one
+graph per input shape.
+
+Opt-in: ``restore``, the step and the networks stay eager, and eager is the
+only route on the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.distributed as dist
 
 from . import bridge
 from .device import resolve_device
+from .evalx.evaluators import host_tensor
 from .models import unirestore as UR
 from .nn import kernels as KN
 from .parallel import fsdp as FSDP
@@ -107,13 +114,12 @@ def _refuse_spatial() -> None:
               "takes one rank a card; restore a rank's slab eagerly with restore(sharding=)")
 
 
-def refuse_graph_route(what: str, device=None, *, group=None, trees=(),
-                       task: str | None = None) -> torch.device:
+def refuse_graph_route(what: str, device=None, *, group=None, trees=()) -> torch.device:
     """The CUDA device of a graph route (``GraphedTrainStep``, the engine's
-    graph-captured restores), or an error: in a spatial context, under a
-    process group (a CUDA graph cannot capture gloo's host collectives, and
-    NCCL takes one rank a card), with FSDP ``Shard`` leaves in ``trees``, for
-    the ``det`` task, or off a CUDA device. There is no eager fallback."""
+    graph-captured restores, ``GraphedCall``), or an error: in a spatial
+    context, under a process group (a CUDA graph cannot capture gloo's host
+    collectives, and NCCL takes one rank a card), with FSDP ``Shard`` leaves
+    in ``trees``, or off a CUDA device. There is no eager fallback."""
     SP.refuse(what, "the spatial mesh runs its collectives on the host, which a CUDA graph "
               "cannot capture")
     if group is not None or (dist.is_available() and dist.is_initialized()):
@@ -124,11 +130,6 @@ def refuse_graph_route(what: str, device=None, *, group=None, trees=(),
         if any(isinstance(v, FSDP.Shard) for v in bridge.flatten(tree).values()):
             raise ValueError(f"{what} does not take FSDP shards: every step gathers them "
                              "over the process group; train sharded eagerly")
-    if task == "det":
-        raise NotImplementedError(
-            f"{what} has no route for the det task: the detectors' losses draw from a "
-            "generator inside the loss (tasks/fasterrcnn.py:loss_uniforms) and build their "
-            "anchors in the step; train det with trainer.cuda_graphs false")
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"{what} needs a CUDA device, got {dev}; run it eagerly on the CPU")
@@ -327,6 +328,32 @@ def _noise_fields(noise) -> tuple:
     return noise.hq, noise.lq, noise.diffusion, noise.timesteps
 
 
+def _flat_batch(batch: dict, prefix: tuple = ()) -> dict:
+    """{path: tensor} of a batch in sorted order, a nested dict (a ``det``
+    batch's padded ``gt``: boxes, labels, mask) flattened to its paths."""
+    out = {}
+    for k, v in sorted(batch.items()):
+        if isinstance(v, dict):
+            out.update(_flat_batch(v, (*prefix, k)))
+        elif isinstance(v, torch.Tensor):
+            out[(*prefix, k)] = v
+        else:
+            raise TypeError(f"GraphedTrainStep: batch entry {'.'.join((*prefix, k))!r} is "
+                            "not a tensor")
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    """The batch of ``_flat_batch``'s paths."""
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
 class GraphedTrainStep:
     """``make_train_step``'s step of one (stage, task), replayed from CUDA graphs.
 
@@ -336,12 +363,15 @@ class GraphedTrainStep:
     (trainable, opt_state, logs)``, and gives the same bits; ``task`` names
     its task.
 
-    - Key: the task, the shape and dtype of every batch entry and
-      ``stop_after``. An entry holds the parts' graph and one graph for each
-      form of the optimizer tail (accumulating, applying; only the applying
-      one without accumulation, none after a ``stop_after``). Steps that
+    - Key: the task, the shape and dtype of every batch entry (each of a
+      ``det`` batch's nested ``gt`` dict: boxes, labels and mask padded to
+      ``train/engine.py:MAX_BOXES``) and ``stop_after``. An entry holds the
+      parts' graph and one graph for each form of the optimizer tail
+      (accumulating, applying; only the applying one without accumulation,
+      none after a ``stop_after``). Steps that
       share ``cache`` (a ``GraphCache``; the trainer passes one to the step
-      of each task) keep their graphs in one LRU and one memory pool.
+      of each task) keep their graphs in one LRU and one memory pool; the
+      key starts with the task, so two tasks' steps never share a key.
     - First call of a key: the batch and noise are copied into static device
       buffers; ``TRAIN_WARMUP_STEPS`` eager steps on a side stream, from
       copies of the trained leaves and of the optimizer state (the real ones
@@ -360,9 +390,12 @@ class GraphedTrainStep:
       trainable tree or optimizer state than the captured one (a resume,
       ``load_subtree``) raises: make a new instance. ``frozen`` must not be
       rebound or freed either.
-    - No fallback: a CPU device, a process group, FSDP shards, a spatial
-      context and the ``det`` task are refused (``refuse_graph_route``); a
-      failure to warm up, capture or replay raises.
+    - No fallback: a CPU device, a process group, FSDP shards and a spatial
+      context are refused (``refuse_graph_route``); a failure to warm up,
+      capture or replay raises. The detectors' losses capture as they are:
+      their anchors, tables and Faster R-CNN's sampling draws are device
+      constants that the warm-up makes (``tasks/retinanet.py:on_device``,
+      ``tasks/fasterrcnn.py:loss_uniforms``).
 
     ``stats`` maps each key to its ``GraphStats``; its ``launches`` are
     (forward, remat recompute, backward) by kernel, counted while the parts
@@ -373,7 +406,7 @@ class GraphedTrainStep:
                  remat: bool = True, stop_after: str | None = None, device=None, group=None,
                  cache: GraphCache | None = None):
         self.device = refuse_graph_route("GraphedTrainStep", device, group=group,
-                                         trees=(frozen,), task=task)
+                                         trees=(frozen,))
         cfg = TS.with_remat(cfg) if remat else cfg
         self.parts = TS.make_step_parts(cfg, sched.to(self.device), stage, task, te_loss_fn,
                                         stop_after)
@@ -383,11 +416,8 @@ class GraphedTrainStep:
         self._cache = GraphCache() if cache is None else cache
 
     def key(self, batch: dict) -> tuple:
-        for k, v in batch.items():
-            if not isinstance(v, torch.Tensor):
-                raise TypeError(f"GraphedTrainStep: batch entry {k!r} is not a tensor")
-        return (self.task, tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
-                self.stop_after)
+        return (self.task, tuple((path, tuple(v.shape), v.dtype)
+                                 for path, v in _flat_batch(batch).items()), self.stop_after)
 
     def _forms(self) -> tuple:
         if self.stop_after is not None:
@@ -400,7 +430,7 @@ class GraphedTrainStep:
         return self.tx.advance({"count": opt_state["count"], "mini_step": n})[1]
 
     def __call__(self, trainable, opt_state, batch, noise):
-        refuse_graph_route("GraphedTrainStep", self.device, trees=(trainable,), task=self.task)
+        refuse_graph_route("GraphedTrainStep", self.device, trees=(trainable,))
         with torch.cuda.device(self.device):
             key = self.key(batch)
             g = self._cache.get(key, lambda: self._capture(key, trainable, opt_state, batch,
@@ -409,7 +439,8 @@ class GraphedTrainStep:
                 raise ValueError("GraphedTrainStep: the trainable tree or the optimizer state "
                                  "is not the one captured (its addresses are baked into the "
                                  "graphs); make a new instance for a rebound tree")
-            for buf, src in (*((g.batch[k], batch[k]) for k in g.batch),
+            flat = _flat_batch(batch)
+            for buf, src in (*((g.batch[k], flat[k]) for k in g.batch),
                              *zip(_noise_fields(g.noise), _noise_fields(noise))):
                 if src.shape != buf.shape:
                     raise ValueError(f"GraphedTrainStep: input of shape {tuple(src.shape)} for "
@@ -429,15 +460,17 @@ class GraphedTrainStep:
 
     def _capture(self, key, trainable, opt_state, batch, noise) -> _StepGraph:
         stats = self.stats.setdefault(key, GraphStats())
+        flat = _flat_batch(batch)
         bufs = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
-                for k, v in sorted(batch.items())}
+                for k, v in flat.items()}
         nz = TS.StepNoise(*(torch.empty(x.shape, dtype=x.dtype, device=self.device)
                             for x in _noise_fields(noise)))
         # the buffers hold this call's inputs for the warm-up (the call copies
         # them again before the replay)
-        for buf, src in (*((bufs[k], batch[k]) for k in bufs),
+        for buf, src in (*((bufs[k], flat[k]) for k in bufs),
                          *zip(_noise_fields(nz), _noise_fields(noise))):
             buf.copy_(src)
+        nested = _nest(bufs)  # the batch the parts read: a det batch's gt a dict again
         scalars = {applies: ScalarBuffer(self._form_scalars(opt_state, applies), self.device)
                    for applies in self._forms()}
 
@@ -449,7 +482,7 @@ class GraphedTrainStep:
             tr, state = _copies(self.stage, trainable, opt_state)
             like = TS.trained_leaves(self.stage, tr)
             for _ in range(TRAIN_WARMUP_STEPS):
-                logs, grads = self.parts(self.frozen, tr, bufs, nz)
+                logs, grads = self.parts(self.frozen, tr, nested, nz)
                 for applies, sc in scalars.items():
                     sc.fill(self._form_scalars(state, applies))
                     TS.optimizer_tail(self.tx, state, like, grads, (applies, sc.views))
@@ -466,7 +499,7 @@ class GraphedTrainStep:
         before = _train_counts()
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=pool):
-            logs, grads = self.parts(self.frozen, trainable, bufs, nz)
+            logs, grads = self.parts(self.frozen, trainable, nested, nz)
         stats.launches = {s: tuple(a - b for a, b in zip(n, before[s]))
                           for s, n in _train_counts().items()}
         tails = {}
@@ -480,3 +513,100 @@ class GraphedTrainStep:
         stats.capture_seconds = time.perf_counter() - t0
         stats.captures += 1
         return _StepGraph(graph, bufs, nz, logs, tails, _bound(trainable, opt_state))
+
+
+@dataclasses.dataclass
+class _CallGraph:
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    out: torch.Tensor
+
+
+class GraphedCall:
+    """``fn`` of a network of fixed parameters, replayed from CUDA graphs: the
+    port's counterpart of ``jax.jit(fn)``, with which the JAX package runs its
+    validation networks (``unirestore_tpu/tasks/classifier_zoo.py:76-93``,
+    ``seg_zoo.py:43-60``, ``config.py:213-227``, ``evalx/lpips.py:92``,
+    ``evalx/inception.py:198``, ``evalx/nr_suite.py:64-96``).
+
+    ``GraphedCall(fn, device=None)(*arrays)`` returns
+    ``fn(*inputs)`` as a tensor on the host, where ``inputs`` are the arrays
+    (numpy, any dtype) as fp32 tensors on the card; ``fn`` runs under
+    ``torch.inference_mode`` and returns one tensor.
+
+    - Key: the shape and dtype of every input; one graph per key, at most
+      ``MAX_GRAPHS``, the least recently used evicted, as ``jax.jit`` keeps a
+      program per shape (the seg evaluator's three TTA scales are three).
+    - First call of a key: static input buffers; one eager ``fn`` on a side
+      stream does the one-time work (cuBLAS and cuDNN handles, the constants
+      the networks keep per shape and device: resize taps, position indices,
+      normalisation statistics); then ``fn`` is captured in one graph.
+    - Every call: each array is copied to pinned memory in the eager
+      route's format (``evalx.evaluators.host_tensor``) and from there into
+      its buffer (``copy_``, without a host wait), the graph replays, and its
+      output is read back: the one point of a call where the host waits.
+    - Memory: the graphs of one instance share one memory pool. That is safe
+      because replays run one at a time and each output is read back before
+      the next replay.
+    - No fallback: a CPU device, a process group and a spatial context are
+      refused (``refuse_graph_route``); a failure to warm up, capture or
+      replay raises.
+
+    ``stats`` maps each key to its ``GraphStats`` (the validation networks
+    launch none of the repo's kernels).
+    """
+
+    def __init__(self, fn, device=None):
+        self.device = refuse_graph_route("GraphedCall", device)
+        self.fn = fn
+        self.stats: dict = {}
+        self._cache = GraphCache(MAX_GRAPHS)
+
+    @staticmethod
+    def key(inputs) -> tuple:
+        return tuple((tuple(x.shape), x.dtype) for x in inputs)
+
+    def __call__(self, *arrays) -> torch.Tensor:
+        refuse_graph_route("GraphedCall", self.device)
+        with torch.inference_mode(), torch.cuda.device(self.device):
+            host = [host_tensor(a, self.device) for a in arrays]
+            key = self.key(host)
+            g = self._cache.get(key, lambda: self._capture(key, host))
+            for buf, x in zip(g.inputs, host):
+                buf.copy_(x, non_blocking=True)
+            g.graph.replay()
+            self.stats[key].replays += 1
+            return g.out.cpu()
+
+    def _capture(self, key, host) -> _CallGraph:
+        stats = self.stats.setdefault(key, GraphStats())
+        inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=self.device) for x in host)
+        # the buffers hold this call's inputs for the warm-up (the call copies
+        # them again before the replay)
+        for buf, x in zip(inputs, host):
+            buf.copy_(x, non_blocking=True)
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            self.fn(*inputs)
+        current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        stats.warmup_seconds = time.perf_counter() - t0
+
+        # a live graph's pool, else a new one: a pool whose graphs are all
+        # gone may not be captured into again
+        live = self._cache.values()
+        pool = live[0].graph.pool() if live else torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=pool):
+            out = self.fn(*inputs)
+        stats.capture_seconds = time.perf_counter() - t0
+        stats.launches = {s: n - before[s] for s, n in _launch_counts().items()}
+        stats.captures += 1
+        if not isinstance(out, torch.Tensor):
+            raise TypeError(f"GraphedCall: fn returned {type(out).__name__}, not one tensor")
+        return _CallGraph(graph, inputs, out)

@@ -14,8 +14,9 @@ converted weights file and its class count:
 Each probe is the seeded fp32 tree of its network with
 ``<weights_dir>/<weights>.npz`` merged in where present (else the seeded
 init and a warning, ``zoo.load_npz_tree``), on ``device`` (default: the
-card) in place of the JAX package's ``jit``; it takes numpy [0, 1] NHWC and
-returns fp32 numpy logits (``evalx/evaluators.py:as_probe``).
+card); it takes numpy [0, 1] NHWC and returns fp32 numpy logits
+(``evalx/evaluators.py:as_probe``), eagerly or, with ``cuda_graphs`` in
+place of the JAX package's ``jit``, replayed from CUDA graphs.
 """
 
 from __future__ import annotations
@@ -96,16 +97,19 @@ def classifier_apply(model_type: str, p, images):
     return _spec(model_type)[1](p, images)
 
 
-def build_classifier(model_type: str, seed: int = 7, device=None, weights_dir=None):
-    """Returns ``fn(images_nhwc01) -> logits`` for one probe, on ``device``."""
+def build_classifier(model_type: str, seed: int = 7, device=None, weights_dir=None,
+                     cuda_graphs: bool = False):
+    """Returns ``fn(images_nhwc01) -> logits`` for one probe, on ``device``;
+    with ``cuda_graphs`` replayed from CUDA graphs (``evaluators.as_probe``),
+    where the JAX function takes ``jit``."""
     dev = resolve_device(device)
     _, apply, weights, _ = _spec(model_type)
     p, _ = zoo.load_npz_tree(weights, classifier_init(model_type, seed, dev), weights_dir)
-    return as_probe(lambda x: apply(p, x), dev)
+    return as_probe(lambda x: apply(p, x), dev, cuda_graphs)
 
 
 def build_classifier_zoo(eval_mode: str = "single", seed: int = 7, device=None,
-                         weights_dir=None) -> dict:
+                         weights_dir=None, cuda_graphs: bool = False) -> dict:
     """name -> fn for the eval_mode's probe set."""
-    return {mt: build_classifier(mt, seed, device, weights_dir)
+    return {mt: build_classifier(mt, seed, device, weights_dir, cuda_graphs)
             for mt in model_types_for(eval_mode)}

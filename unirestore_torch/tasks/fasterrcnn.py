@@ -23,8 +23,8 @@ Randomness: the JAX loss draws its sampling scores with ``jax.random.uniform``
 from ``PRNGKey(0)`` when it is given no key, which the JAX engine never gives,
 so every call draws the same sample. Those draws cannot be made in torch, so
 ``fasterrcnn_loss`` takes them as tensors (``uniforms``); without them it
-draws them from a ``torch.Generator`` seeded 0 on each call, the same "one
-fixed sample every step".
+takes ``loss_uniforms``: drawn once from a ``torch.Generator`` seeded 0 and
+kept on the device, the same "one fixed sample every step".
 """
 
 from __future__ import annotations
@@ -36,10 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from ..nn import layers as L
-from ..parallel.distributed import process_local_rows, world_size
+from ..parallel.distributed import process_local_rows, rank, world_size
 from . import resnet as RN
-from .retinanet import (_pairwise_iou, decode_boxes, detector_input, encode_boxes, match,
-                        nms, on_device, take)
+from .retinanet import (_pairwise_iou, check_not_capturing, decode_boxes, detector_input,
+                        encode_boxes, match, nms, on_device, take)
 
 LEVELS = (2, 3, 4, 5)        # P2..P5 (+ P6 for the RPN only)
 ANCHOR_SIZES = (32, 64, 128, 256, 512)   # one per level P2..P6
@@ -289,20 +289,31 @@ def _kth_largest(x, k: int):
     return torch.topk(x, k, dim=-1).values[..., -1:]
 
 
+_UNIFORMS: dict = {}
+
+
 def loss_uniforms(batch: int, h: int, w: int, device):
-    """The sampling scores ``fasterrcnn_loss`` draws when it is given none:
+    """The sampling scores ``fasterrcnn_loss`` takes when it is given none:
     (B, RPN anchors) and (B, post-NMS proposals) uniforms in [0, 1) from a
-    generator on ``device`` seeded 0 on every call. Under data parallelism
-    ``batch`` is this rank's part of a global batch: the uniforms are drawn
-    for the global batch and cut to the rank's rows, as JAX draws one sample
-    for the global batch (``unirestore_tpu/train/engine.py:122-126``)."""
-    n = on_device(rpn_anchors_for_shape, h, w, device=device).shape[0]
-    post = min(POST_NMS, PRE_NMS, n)
-    gen = torch.Generator(device=device).manual_seed(0)
-    total = batch * world_size()
-    rows = process_local_rows(total)
-    return (torch.rand((total, n), generator=gen, device=device)[rows],
-            torch.rand((total, post), generator=gen, device=device)[rows])
+    generator on ``device`` seeded 0. They are drawn once per (batch, h, w,
+    world size, rank, device) and kept, as ``on_device`` keeps its constants,
+    so the loss holds no generator after its first call (a CUDA graph cannot
+    capture one) and copies nothing. Under data parallelism ``batch`` is this
+    rank's part of a global batch: the uniforms are drawn for the global
+    batch and cut to the rank's rows, as JAX draws one sample for the global
+    batch (``unirestore_tpu/train/engine.py:122-126``)."""
+    key = (batch, h, w, world_size(), rank(), str(device))
+    if key not in _UNIFORMS:
+        check_not_capturing(f"loss_uniforms{key[:5]}", device)
+        n = on_device(rpn_anchors_for_shape, h, w, device=device).shape[0]
+        post = min(POST_NMS, PRE_NMS, n)
+        total = batch * world_size()
+        rows = process_local_rows(total)
+        with torch.inference_mode(False):
+            gen = torch.Generator(device=device).manual_seed(0)
+            _UNIFORMS[key] = (torch.rand((total, n), generator=gen, device=device)[rows],
+                              torch.rand((total, post), generator=gen, device=device)[rows])
+    return _UNIFORMS[key]
 
 
 def fasterrcnn_loss(p, images, gt_boxes, gt_labels, gt_mask, num_classes: int = 91,

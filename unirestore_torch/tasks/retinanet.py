@@ -109,12 +109,25 @@ def anchors_for_shape(h: int, w: int) -> np.ndarray:
 _CONSTANTS: dict = {}
 
 
+def check_not_capturing(what: str, device) -> None:
+    """Raise if a CUDA graph is being captured on ``device``'s current stream:
+    a constant missing from a cache would be made there by a copy from the
+    host, which a capture cannot hold. The graph routes' eager warm-up fills
+    the caches first."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} is not on {device} yet and a CUDA graph is being captured: "
+                           "it would copy from the host inside the capture; run the function "
+                           "eagerly once before capturing it")
+
+
 def on_device(make, *args, device) -> torch.Tensor:
     """``make(*args)`` (a numpy array) as a tensor on ``device``, made once per
     (function, arguments, device), so that a loss copies nothing from the host
-    after its first call; a normal tensor even under ``inference_mode``."""
+    after its first call; a normal tensor even under ``inference_mode``. A
+    missing one raises inside a CUDA graph capture (``check_not_capturing``)."""
     key = (make.__module__, make.__qualname__, args, str(device))
     if key not in _CONSTANTS:
+        check_not_capturing(f"{make.__qualname__}{args}", device)
         with torch.inference_mode(False):
             _CONSTANTS[key] = torch.as_tensor(make(*args), device=device)
     return _CONSTANTS[key]

@@ -7,7 +7,10 @@ eval_semantic_segmentation.py:37-50: ``single`` = [dlv3pr50, rflwr101];
 RefineNet-LW-101, each with its own converted weights (``_WEIGHTS``; the
 seeded init and a warning where a file is absent). The monitor is
 ``val_lq/rflwr101``. Each probe takes numpy [0, 1] NHWC and returns fp32
-numpy logits (B, H, W, 19), on ``device`` (default: the card).
+numpy logits (B, H, W, 19), on ``device`` (default: the card), eagerly or,
+with ``cuda_graphs`` in place of the JAX package's ``jit``, replayed from
+CUDA graphs (one per input shape: the evaluator's three TTA scales are
+three, as JAX compiles each).
 """
 
 from __future__ import annotations
@@ -61,16 +64,18 @@ def seg_probe_apply(model_type: str, p, images):
     return _network(model_type)[1](p, images)
 
 
-def build_seg_probe(model_type: str, seed: int = 8, device=None, weights_dir=None):
-    """Returns ``fn(images_nhwc01) -> logits (B, H, W, 19)``, on ``device``."""
+def build_seg_probe(model_type: str, seed: int = 8, device=None, weights_dir=None,
+                    cuda_graphs: bool = False):
+    """Returns ``fn(images_nhwc01) -> logits (B, H, W, 19)``, on ``device``;
+    with ``cuda_graphs`` replayed from CUDA graphs (``evaluators.as_probe``)."""
     dev = resolve_device(device)
     _, apply = _network(model_type)
     p, _ = zoo.load_npz_tree(_WEIGHTS[model_type], seg_probe_init(model_type, seed, dev),
                              weights_dir)
-    return as_probe(lambda x: apply(p, x), dev)
+    return as_probe(lambda x: apply(p, x), dev, cuda_graphs)
 
 
 def build_seg_zoo(eval_mode: str = "single", seed: int = 8, device=None,
-                  weights_dir=None) -> dict:
-    return {mt: build_seg_probe(mt, seed, device, weights_dir)
+                  weights_dir=None, cuda_graphs: bool = False) -> dict:
+    return {mt: build_seg_probe(mt, seed, device, weights_dir, cuda_graphs)
             for mt in model_types_for(eval_mode)}

@@ -40,7 +40,7 @@ Differences from the JAX engine:
   ``UNIRESTORE_JIT_CACHE_SIZE`` graphs (default 8, at least 1), the JAX
   engine's LRU of compiled restores (``_jit_cache``); the train step then
   replays from CUDA graphs too (``graphs.GraphedTrainStep``), as JAX's is
-  compiled.
+  compiled, for every engine type, ``det`` included.
 - The critics are built once per engine and shared by the fit and the
   evaluator. A ``det`` batch's ragged targets are padded to 64 boxes
   (``padded_targets``) before the batch is staged, so they reach the card
@@ -203,7 +203,7 @@ class UniFIEEngine:
     of ``build_critics``' (the parity tests hand in the JAX critics).
 
     ``cuda_graphs`` (off by default; refused on the CPU, under a process
-    group, with FSDP shards, in a spatial context and for ``det``) restores
+    group, with FSDP shards and in a spatial context) restores
     through one ``graphs.GraphedRestore`` of ``restore_cache_size`` graphs:
     the engine keeps one cast of the trainable tree in ``compute_dtype``,
     whose addresses the graphs hold, and copies the trainable tree into it
@@ -323,8 +323,7 @@ class UniFIEEngine:
         casts it anew on the eager route). A rebound ``frozen`` tree or a
         trainable tree of other leaves gets a new instance."""
         GR.refuse_graph_route("the engine's graph-captured restores", self.device,
-                              trees=(self.frozen, self.trainable),
-                              task="det" if self.engine_type == "det" else None)
+                              trees=(self.frozen, self.trainable))
         flat = bridge.flatten(self.trainable)
         if (self._graphs is None or self._graphs[0].frozen is not self.frozen
                 or bridge.flatten(self._graphs[1]).keys() != flat.keys()):
@@ -371,10 +370,12 @@ class Trainer:
 
     ``cuda_graphs`` (off by default, as ``serve --cuda-graphs``) makes each
     task's step a ``graphs.GraphedTrainStep`` (the steps of all tasks share
-    one LRU and memory pool), which gives the eager step's bits; it is
-    refused on the CPU, under a process group, with ``fsdp`` and for
-    ``det``. The engine's restores take their graph route when the engine
-    was built with ``cuda_graphs`` (``config.build`` sets both).
+    one LRU and memory pool: stage 3's ``det`` micro-steps and stage 2's
+    ir, cls and seg alike), which gives the eager step's bits; it is refused
+    on the CPU, under a process group and with ``fsdp``. The engine's
+    restores take their graph route when the engine was built with
+    ``cuda_graphs`` (``config.build`` sets both, and gives the validation
+    networks theirs).
 
     Under a process group (``parallel.init_distributed``) the trainer is
     data-parallel over its ``make_mesh()`` (``unirestore_tpu/train/engine.py:
