@@ -140,6 +140,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``--trainer.cuda_graphs true``: keys and values equal, a second
    validation on the graph route all replays, captures per image and s per
    image of the first validation and of the second on each route;
+21. (after 20) from a checkpoint file to a restore, without JAX: (a) in the
+   reference worker (from phase 7 on, beside phases 8-15), a seeded
+   full-width sd-turbo VAE and UNet written as a diffusers directory
+   (``vae/`` and ``unet/diffusion_pytorch_model.safetensors``, fp32, the 248
+   and 686 keys a real file has) by the script's own writer into a
+   temporary directory outside the repository (free space checked first),
+   then ``python -m unirestore_torch.convert sd_turbo``; in the script,
+   ``zoo.load_frozen_backbone`` over the seed-0 init takes every VAE and
+   UNet leaf from the converted files, bit-equal to the seeded tree; (b)
+   ``cache_quality.sweep`` from the converted directory on exact, encoder
+   (stride 2) and deep (stride 17, warmup 3) at 512 px, batch 4, 20 steps:
+   each output bit-equal to ``restore_padded`` of the seeded tree with the
+   same noise, launches per restore phase 4's of the mode; (c) the sweep as a
+   user runs it, ``python -m unirestore_torch.cache_quality --modes deep
+   --strides 17 --warmups 3`` (beside (a)'s check and (b)): its row equal to
+   (b)'s deep row. Seconds, bytes and tensor counts of each step;
 8. the restore server (``unirestore_torch.serve``) in this process on
    127.0.0.1 at an ephemeral port: full width, bf16, 20 steps, exact, batch
    4 tiles of 512 px with overlap 64, fused out-projection on. It answers
@@ -385,7 +401,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    replays; ``fit_graph``: phase 19 (b)'s fit, the same with its restore
    graphs, less the eager restores it compares with; ``train_det_graph``:
    phase 20 (a)'s graph route of both detectors, as ``train_graph``;
-   ``fit_stage3_graph``: phase 20 (b)'s fit, as ``fit_graph``); each kernel must
+   ``fit_stage3_graph``: phase 20 (b)'s fit, as ``fit_graph``;
+   ``cache_quality``: phase 21 (b)'s three restores); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -397,11 +414,13 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -515,6 +534,15 @@ STAGE3_GRAPH_DETECTORS = ("retinanet", "fastrcnn")
 FIT3_GRAPH_STEPS, FIT3_GRAPH_VAL_BATCHES = 3, 1
 GRAPH_NET_CALLS = 5
 VAL20_MIXED_SIZES = ((576, 592), (512, 640), (544, 704))
+# phase 21: the seeded sd-turbo tree written as a checkpoint (CONVERT_SEED;
+# every leaf drawn, none left constant, so none equals the seed-0 init's), and
+# the quality sweep's configurations with phase 4's mode of each
+CONVERT_SEED = 21
+SWEEP_BATCH = 4
+SWEEP_SPECS = {"exact": "none", "encoder:2:0": "encoder", "deep:17:3": "deep"}
+# free space phase 21 needs beside its two copies of the tree (the fp32
+# safetensors source and the converted npz)
+CONVERT_SPARE_BYTES = 2**30
 # phase 9: ``python -m unirestore_torch.main fit`` from the stage-1 YAML on
 # the smoke tree of tools/make_smoke_data.py at 576 px (576 x 592 images),
 # with dotted overrides only: the DIVF2KOST lists, 6 micro-steps (three AdamW
@@ -6002,23 +6030,267 @@ def run_validate_graphs(KN, TE, bridge, main_fn, work: Path, nr14: dict) -> dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: from a checkpoint file to a restore
+# ---------------------------------------------------------------------------
+
+
+def converted_trees(bridge) -> dict:
+    """Phase 21's seeded full-width VAE and UNet on the host: the seed-
+    CONVERT_SEED init, each constant leaf (norm scales, zero biases) redrawn
+    around its value, so that no leaf equals the seed-0 init's."""
+    from unirestore_torch.models import unet as UN
+    from unirestore_torch.models import vae as VAE
+    from unirestore_torch.nn.init import make_init
+
+    ini = make_init(None, "cpu", seed=CONVERT_SEED)
+    trees = {"vae": VAE.vae_init(ini, VAE.VAEConfig()), "unet": UN.unet_init(ini, UN.UNetConfig())}
+    gen = torch.Generator().manual_seed(CONVERT_SEED)
+    for leaf in bridge.flatten(trees).values():
+        if leaf.min() == leaf.max():
+            leaf.normal_(leaf.flatten()[0].item(), 0.02, generator=gen)
+    return trees
+
+
+def diffusers_name(key: str) -> str:
+    """The name diffusers gives a leaf of the port's VAE or UNet tree (its flat
+    ``//`` key): ``AutoencoderKL`` / ``UNet2DConditionModel`` module paths."""
+    k = re.sub(r"mid//resnet(\d)", lambda m: f"mid_block//resnets//{int(m[1]) - 1}", key)
+    k = k.replace("mid//attn//", "mid_block//attentions//0//")
+    k = re.sub(r"(attentions//\d+//)attn//", r"\1", k)  # the VAE's mid-block attention
+    k = re.sub(r"(attentions//\d+//)blocks//", r"\1transformer_blocks//", k)
+    k = k.replace("ff_in//", "ff//net//0//proj//").replace("ff_out//", "ff//net//2//")
+    k = k.replace("to_out//", "to_out//0//")
+    k = k.replace("downsample//", "downsamplers//0//").replace("upsample//", "upsamplers//0//")
+    stem, leaf = k.rsplit("//", 1)
+    return stem.replace("//", ".") + "." + {"w": "weight", "b": "bias", "scale": "weight",
+                                            "bias": "bias"}[leaf]
+
+
+def diffusers_state_dict(bridge, tree) -> dict:
+    """The port's tree as a diffusers state dict of fp32 numpy arrays: conv
+    kernels OIHW as the port holds them, linear kernels (out, in)."""
+    out = {}
+    for key, t in bridge.flatten(tree).items():
+        arr = t.numpy()
+        if key.endswith("//w") and arr.ndim == 2:
+            arr = arr.T
+        out[diffusers_name(key)] = np.ascontiguousarray(arr, np.float32)
+    return out
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """Write fp32 ``tensors`` as a ``.safetensors`` file (an 8-byte
+    little-endian header length, the JSON header padded with spaces to 8
+    bytes, the data); returns its bytes."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, arr in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for arr in tensors.values():
+            f.write(np.ascontiguousarray(arr, "<f4").data)
+    return 8 + len(raw) + offset
+
+
+def convert_needs_bytes(bridge) -> int:
+    """Free bytes phase 21 needs: the fp32 source and the converted npz of the
+    full-width VAE and UNet, and CONVERT_SPARE_BYTES."""
+    from unirestore_torch.models import unet as UN
+    from unirestore_torch.models import vae as VAE
+    from unirestore_torch.nn.init import make_init
+
+    meta = make_init(device="meta")
+    trees = {"vae": VAE.vae_init(meta, VAE.VAEConfig()), "unet": UN.unet_init(meta, UN.UNetConfig())}
+    return 2 * 4 * sum(t.numel() for t in bridge.flatten(trees).values()) + CONVERT_SPARE_BYTES
+
+
+def convert_reference_cpu(root: str) -> dict:
+    """Reference job: phase 21 (a)'s host work. The seeded tree written as a
+    diffusers sd-turbo directory under ``root/sd-turbo``, converted by
+    ``python -m unirestore_torch.convert sd_turbo`` into ``root/weights``;
+    the source is removed after. Returns seconds, bytes and tensor counts."""
+    from unirestore_torch import bridge
+
+    root = Path(root)
+    src = root / "sd-turbo"
+    t0 = time.perf_counter()
+    trees = converted_trees(bridge)
+    out = {"init_s": time.perf_counter() - t0, "source_bytes": {}, "tensors": {}}
+    t0 = time.perf_counter()
+    for sub in ("vae", "unet"):
+        sd = diffusers_state_dict(bridge, trees.pop(sub))
+        path = src / sub / "diffusion_pytorch_model.safetensors"
+        out["source_bytes"][sub] = write_safetensors(path, sd)
+        out["tensors"][sub] = len(sd)
+        del sd
+    out["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "unirestore_torch.convert", "sd_turbo", str(src),
+                          str(root / "weights")], cwd=REPO, capture_output=True, text=True,
+                         timeout=900)
+    out["convert_s"] = time.perf_counter() - t0
+    out["convert_stdout"] = res.stdout.splitlines()
+    if res.returncode:
+        raise AssertionError(f"the converter exited {res.returncode}:\n{res.stderr[-3000:]}")
+    out["npz_bytes"] = {p.stem: p.stat().st_size for p in (root / "weights").glob("*.npz")}
+    shutil.rmtree(src)
+    return out
+
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """PyTorch's default TF32 flags (cuDNN on, matmul off), which a process
+    started from the command line runs with, restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def run_phase21(UR, KN, bridge, refs, root: Path) -> tuple:
+    """Phase 21: (a) the converted files against the seeded tree, (b) the
+    sweep in this process against direct restores, (c) the sweep's command
+    line (started first, read last). Returns (results, launches of the path)."""
+    from unirestore_torch import cache_quality as CQ
+    from unirestore_torch import zoo
+
+    t_phase = time.perf_counter()
+    result = {"convert": refs.result("phase 21")}
+    conv = result["convert"]
+    wrote = [f"wrote sd_turbo_{sub}.npz ({conv['tensors'][sub]} tensors)" for sub in ("vae", "unet")]
+    if conv["convert_stdout"] != wrote:
+        raise AssertionError(f"converter said {conv['convert_stdout']}, expected {wrote}")
+    weights = root / "weights"
+    spec = next(s for s in SWEEP_SPECS if s.startswith("deep:"))
+    _, stride, warmup = spec.split(":")
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "unirestore_torch.cache_quality", "--modes", "deep",
+                            "--strides", stride, "--warmups", warmup, "--batch", str(SWEEP_BATCH),
+                            "--size", str(RES), "--steps", str(STEPS), "--weights-dir", str(weights)],
+                           cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # the seeded tree drawn again on the host (a thread: the draws release the
+    # GIL) while the files load
+    drawing = concurrent.futures.ThreadPoolExecutor(1)
+    seeded = drawing.submit(converted_trees, bridge)
+    try:
+        # (a) every VAE and UNet leaf from the files, bit-equal to the seeded tree
+        cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
+        frozen, trainable = UR.init(cfg, device="cuda", seed=0)
+        t0 = time.perf_counter()
+        loaded = zoo.load_frozen_backbone(frozen, cfg, weights)
+        torch.cuda.synchronize()
+        result["load_s"] = time.perf_counter() - t0
+        seeded = seeded.result()
+        direct = dict(frozen)
+        bad, leaves = [], 0
+        for part in ("vae", "unet"):
+            want = {k: v.to("cuda") for k, v in bridge.flatten(seeded.pop(part)).items()}
+            got, init = bridge.flatten(loaded[part]), bridge.flatten(frozen[part])
+            leaves += len(want)
+            bad += [f"{part}//{k}" for k in want if k not in got or not torch.equal(got[k], want[k])
+                    or torch.equal(init[k], want[k])]
+            # the seeded tree laid out as bridge.load_tree lays out a file's
+            direct[part] = bridge.unflatten_like(
+                {k: v.contiguous(memory_format=torch.channels_last) if v.ndim == 4 else v
+                 for k, v in want.items()}, frozen[part])
+        result["leaves_from_file"] = leaves - len(bad)
+        log(f"phase 21 (a): {leaves - len(bad)} of {leaves} VAE and UNet leaves taken from the "
+            f"converted files, bit-equal to the seeded tree; source {conv['source_bytes']} bytes "
+            f"written in {conv['write_s']:.1f} s (tree drawn in {conv['init_s']:.1f} s), converted "
+            f"in {conv['convert_s']:.1f} s to {conv['npz_bytes']} bytes, loaded onto the card in "
+            f"{result['load_s']:.1f} s")
+        if bad:
+            raise AssertionError(f"phase 21 (a): {len(bad)} leaves not from the file: {bad[:8]}")
+        # (b) the sweep (its model as cache_quality.build makes it: the seed-0
+        # init with the files merged in, bf16) against restore_padded of the
+        # seeded tree
+        loaded, direct, trainable = (bridge.cast_tree(t, torch.bfloat16)
+                                     for t in (loaded, direct, trainable))
+        del frozen, seeded
+        images, noise = CQ.make_inputs(cfg, SWEEP_BATCH, RES, "cuda")
+        raw, counts = {}, {}
+
+        def seen(spec, out):
+            torch.cuda.synchronize()
+            raw[spec], counts[spec] = out, counts_of(KN)
+            KN.reset_counts()
+
+        launches = {kern.symbol: 0 for kern in KN.KERNELS}
+        with torch_default_tf32():
+            t0 = time.perf_counter()
+            KN.reset_counts()
+            _, rows = CQ.sweep(loaded, trainable, cfg, images, noise, list(SWEEP_SPECS), STEPS,
+                               device="cuda", on_restore=seen)
+            result["sweep_s"] = time.perf_counter() - t0
+            for spec, mode in SWEEP_SPECS.items():
+                for kern, n in zip(KN.KERNELS, counts[spec]):
+                    launches[kern.symbol] += n
+                want = UR.restore_padded(direct, trainable, CQ.config_for(cfg, spec),
+                                         UR.schedule(cfg, device="cuda"), images, "ir",
+                                         num_inference_steps=STEPS, posterior_noise=noise[0],
+                                         diffusion_noise=noise[1], device="cuda")
+                equal = torch.equal(raw[spec], want)
+                result[spec] = {"launches": counts[spec], "bit_equal_direct": equal,
+                                "levels_vs_direct": uint8_levels(raw[spec], want)}
+                if not equal or counts[spec] != EXPECTED[mode] or not torch.isfinite(want).all():
+                    raise AssertionError(f"phase 21 (b) {spec}: {result[spec]}, phase 4's "
+                                         f"launches {EXPECTED[mode]}")
+        result["rows"] = rows
+        log(f"phase 21 (b): the sweep from the converted files, {list(SWEEP_SPECS)} at {RES} px, "
+            f"batch {SWEEP_BATCH}, {STEPS} steps in {result['sweep_s']:.1f} s: each output "
+            f"bit-equal to restore_padded of the seeded tree, launches per restore "
+            f"{[counts[s] for s in SWEEP_SPECS]} (phase 4's); rows {rows}")
+        # (c) the command line's row
+        stdout, stderr = cli.communicate(timeout=900)
+        result["cli_s"] = time.perf_counter() - t_cli
+        if cli.returncode:
+            raise AssertionError(f"cache_quality exited {cli.returncode}:\n{stderr[-3000:]}")
+        cli_rows = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+        result["cli_rows"] = cli_rows
+        deep = [r for r in rows if r["mode"] == "deep"]
+        log(f"phase 21 (c): python -m unirestore_torch.cache_quality --modes deep --strides "
+            f"{stride} --warmups {warmup}: {cli_rows} in {result['cli_s']:.1f} s (beside (a) and "
+            f"(b)), the in-process row {deep}")
+        if cli_rows != deep:
+            raise AssertionError(f"phase 21 (c): the command line's rows {cli_rows} != {deep}")
+    finally:
+        drawing.shutdown(cancel_futures=True)
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     refs = CpuReferences()
+    convert_root = Path(tempfile.mkdtemp(prefix="chip_smoke_convert_"))
     try:
-        rc = run_phases(refs)
+        rc = run_phases(refs, convert_root)
     except BaseException:
         refs.close(wait=False)
         raise
+    finally:
+        shutil.rmtree(convert_root, ignore_errors=True)
     refs.close()
     return rc
 
 
-def run_phases(refs) -> int:
-    """Every phase in order; the CPU halves of the card-vs-CPU checks run in
-    ``refs``' worker and are read before the report."""
+def run_phases(refs, convert_root: Path) -> int:
+    """Every phase in order; the CPU halves of the card-vs-CPU checks and
+    phase 21's conversion run in ``refs``' worker and are read later.
+    ``convert_root`` is phase 21's directory outside the repository."""
     from unirestore_torch import bridge, serve
     from unirestore_torch import graphs as GR
     from unirestore_torch import main as TMAIN
@@ -6120,6 +6392,12 @@ def run_phases(refs) -> int:
     # phase 7: training, card vs CPU
     checks["training"] = train_reference_check(UR, KN, bridge, TS, refs)
     torch.cuda.empty_cache()
+    # phase 21 (a)'s host work in the reference worker from here on
+    need, free = convert_needs_bytes(bridge), shutil.disk_usage(convert_root).free
+    if free < need:
+        raise AssertionError(f"phase 21 needs {need / 2**30:.1f} GiB free under {convert_root}, "
+                             f"{free / 2**30:.1f} GiB are")
+    refs.submit("phase 21", convert_reference_cpu, str(convert_root))
     phase_done("7")
 
     # phase 8: the restore server, eager and with --cuda-graphs
@@ -6283,6 +6561,12 @@ def run_phases(refs) -> int:
         torch.cuda.empty_cache()
         phase_done("20")
 
+    # phase 21: a seeded checkpoint file converted without JAX, then the
+    # cached-mode quality sweep from it, in this process and from its CLI
+    phase21, paths["cache_quality"] = run_phase21(UR, KN, bridge, refs, convert_root)
+    torch.cuda.empty_cache()
+    phase_done("21")
+
     # the CPU halves of phases 5, 7, 11, 12 and 15, read now
     t0 = time.perf_counter()
     reference = checks["restore"]()
@@ -6326,6 +6610,7 @@ def run_phases(refs) -> int:
                   train_graph=routes["train"],
                   train_det_graph=[EXPECTED_STAGE3[kern.symbol][0] for kern in KN.KERNELS])
     routes["fit_graph"] = routes["fit"]
+    routes["cache_quality"] = routes["restore"]
     routes["fit_stage3_graph"] = routes["fit_stage3"]
     entries = []
     for i, kern in enumerate(KN.KERNELS):
@@ -6377,6 +6662,7 @@ def run_phases(refs) -> int:
     log(json.dumps({"graph_step": graph_step}, default=str))
     graph20["phase_seconds"] = phase_seconds["20"]
     log(json.dumps({"graph_stage3_validation": graph20}, default=str))
+    log(json.dumps({"convert_sweep": phase21}))
     phase_done("10")
     log(json.dumps({"phase_seconds": phase_seconds, "reference_jobs": refs.spans,
                     "script_seconds": process_age()}))

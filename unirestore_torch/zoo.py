@@ -1,14 +1,16 @@
 """Pretrained-weight zoo: converted checkpoints where present (mirrors ``unirestore_tpu/zoo.py``).
 
 External weights (sd-turbo VAE/UNet, the null text embedding, LPIPS, the
-stage-2 critics ``resnet50_v1`` and ``deeplabv3plus_resnet50``) are converted
-offline by ``tools/convert_*.py`` into flat ``//``-keyed ``.npz`` files in the
-JAX layout, and ``sd_null_emb.npy``, in a weights directory. This module
-merges them into the port's parameter trees through ``bridge.load_tree``. A
-missing file keeps the seeded init and warns once, as the JAX module does;
-so does a file with no key of the tree. The directory is an argument
-(default ``weights``, relative to the working directory like the JAX
-package's ``./weights``); the port reads no environment variable.
+critics, probes, IQA networks and Inception) are converted offline by
+``python -m unirestore_torch.convert`` (``convert/``; the JAX package's
+``tools/convert_*.py`` write the same files) into flat ``//``-keyed ``.npz``
+files in the JAX layout, and ``sd_null_emb.npy``, in a weights directory.
+This module merges them into the port's parameter trees through
+``bridge.load_tree``. A missing file keeps the seeded init and warns once, as
+the JAX module does; so does a file with no key of the tree. The directory is
+an argument (default ``weights``, relative to the working directory like the
+JAX package's ``./weights``); the port reads no environment variable, except
+that the converters write to ``$UNIRESTORE_WEIGHTS`` as the tools do.
 
 One difference: a leaf whose shape differs from the tree's raises
 ``ValueError`` here, where the JAX module merges it and fails at first use.
@@ -37,7 +39,7 @@ def _warn_once(name: str, path=None) -> None:
     if name not in _WARNED:
         _WARNED.add(name)
         warnings.warn(f"pretrained weights '{name}' not found under {weights_dir(path)} — "
-                      "using random init (convert with tools/convert_*.py)")
+                      "using random init (convert with python -m unirestore_torch.convert)")
 
 
 def _leaf(tree) -> torch.Tensor:
