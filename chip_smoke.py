@@ -56,16 +56,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
 5. the same widths on a 256 px input in fp32, on the card (unfused, fused,
    and unfused replayed from a CUDA graph) and on the CPU (where the kernels'
    plain versions run): the restores must agree. The CPU half of this check
-   and of phases 7, 11, 12 and 15's runs in one worker process
-   (``CpuReferences``) while the card phases go on: it draws the same seeded
-   inputs on the card, copies them to the host and computes there; every
-   such check is read before the report. Phases 5 and 7 run after 18 (a)-(c),
-   and phase 15 starts its jobs after its timed restores and steps, so that
-   phases 3, 4, 6, 18 and 15's restores and SPADE step are timed beside no
-   job; the script waits for every job before phase 19 (b). The jobs can run
-   beside phases 8-9 (those of 5 and 7), 12-14 (11 and 12), and 15's
-   optimizers and backbones and phases 16-18 (d) (15's); the report gives
-   each job's seconds of the script;
+   and of phases 7, 11-15's runs in one worker process (``CpuReferences``)
+   while the card phases go on: it draws the same seeded inputs on the card
+   (or builds the same seeded trees there), copies them to the host and
+   computes there; every such check is read before the report, with phase
+   22's FLOP count, which the worker makes too. Phases 5 and 7 run after 18
+   (a)-(c), and phase 15 starts its jobs after its timed restores and steps,
+   so that phases 3, 4, 22, 6, 18 and 15's restores and SPADE step are timed
+   beside no job; the script waits for every job before phase 19 (b). The
+   jobs can run beside phases 8-9 (those of 5, 7 and 21), 12-14 (11-14),
+   and 15's optimizers and backbones and phases 16-18 (d) (15's, then 22's
+   FLOP count); the report gives each job's seconds of the script;
 6. the stage-1 training step at full width (sd-turbo widths without TFA,
    512 px, batch 8, bf16 frozen weights and fp32 trainable masters, AdamW
    from the stage-1 YAML's kwargs, remat on) on a seeded synthetic pair: one
@@ -156,6 +157,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    user runs it, ``python -m unirestore_torch.cache_quality --modes deep
    --strides 17 --warmups 3`` (beside (a)'s check and (b)): its row equal to
    (b)'s deep row. Seconds, bytes and tensor counts of each step;
+22. (its (a)-(c) right after phase 4, on phase 4's model; (d) after 18
+   (a)-(c), on its cell) the diagnostic tools (``unirestore_torch/
+   diagnostics``, the port of the JAX package's ``tools/profile_components
+   .py``, ``microbench_shapes.py``, ``bench_conv.py`` and
+   ``debug_train_memory.py``): (a) the restore's six components (encode,
+   decode, Controller, UNet, Controller + UNet, 20 DDIM steps) on a batch
+   drawn as phase 4 draws its own, each captured in a CUDA graph: launches
+   of its eager call ``components.expected_launches()``, the replay
+   bit-equal to that call and finite; ms replayed, TFLOP (counted on
+   ``meta`` in the reference worker, read before the report) and MFU, the
+   pipeline estimate and the loop overhead (the eager route is the tool's
+   ``--eager``); (b) the 14 per-shape cases at batch 8
+   (cuDNN convolutions, cuBLAS products), each timed; (c) the conv chains at
+   the three UNet levels, batch 8: ms a chain and a convolution, MFU,
+   ``resblock - conv`` a convolution, im2col and taps within CHAIN_RTOL of
+   conv; (d) the stage-1 ``cn`` part's argument, output and temporary
+   bytes at batch 8, remat on and off. Phase 16 (c) reads its bytes from
+   ``diagnostics.fsdp_memory``;
 8. the restore server (``unirestore_torch.serve``) in this process on
    127.0.0.1 at an ephemeral port: full width, bf16, 20 steps, exact, batch
    4 tiles of 512 px with overlap 64, fused out-projection on. It answers
@@ -402,7 +421,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    graphs, less the eager restores it compares with; ``train_det_graph``:
    phase 20 (a)'s graph route of both detectors, as ``train_graph``;
    ``fit_stage3_graph``: phase 20 (b)'s fit, as ``fit_graph``;
-   ``cache_quality``: phase 21 (b)'s three restores); each kernel must
+   ``cache_quality``: phase 21 (b)'s three restores; ``diagnostics``:
+   phase 22 (a)'s eager first calls of the six components); each kernel must
    have run on every path that routes to it. ``ms``, ``plain_ms``,
    ``bound_ms`` and ``library_ms`` are sums of one call at each of its main-path shapes, which
    ``shapes`` lists one by one.
@@ -434,6 +454,11 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# the one timer and peak that phases 3-22 and ``unirestore_torch.diagnostics``
+# share (GRAPH_MS, GRAPH_CALLS and graph_ms's reasoning beside them there)
+from unirestore_torch.diagnostics.timing import (GRAPH_CALLS, GRAPH_MS, PEAK_BF16_FLOPS,
+                                                 card_line, graph_ms)
 
 REPO = Path(__file__).resolve().parent
 BATCH = 8
@@ -543,6 +568,28 @@ SWEEP_SPECS = {"exact": "none", "encoder:2:0": "encoder", "deep:17:3": "deep"}
 # free space phase 21 needs beside its two copies of the tree (the fp32
 # safetensors source and the converted npz)
 CONVERT_SPARE_BYTES = 2**30
+# phase 22: the diagnostic tools (``unirestore_torch/diagnostics``). (a) the
+# restore's six components on phase 4's model and a batch drawn as phase 4
+# draws its own (from a generator seeded DIAG_SEED, so that no later phase's
+# draws move) on the graph route, DIAG_ITERS replays a timed window (replays
+# read alike to 0.1 %, phase 4), FLOPs counted on ``meta`` in the reference
+# worker (the eager route: ``python -m unirestore_torch.diagnostics
+# components --eager``); (b) the 14 per-shape cases, DIAG_SHAPE_ITERS calls a
+# window; (c) the conv chains, DIAG_CHAIN_ITERS replays a window; (d) on
+# phase 18's cell, warm from its steps, the ``cn`` part's memory with remat
+# on and off
+DIAG_SEED = 22
+DIAG_ITERS = 1
+DIAG_SHAPE_ITERS, DIAG_CHAIN_ITERS = 10, 3
+# a chain of N_CHAIN bf16 convolutions lowered otherwise (im2col, nine taps)
+# against cuDNN's: im2col rounds each output once to bf16 (2^-8 relative)
+# after fp32 sums in another order, taps also rounds its nine partial
+# products and their running sum (the JAX tool's form), and a rounding
+# difference passes on through the chain with gain about 1: six convolutions
+# reach about sqrt(6) 2^-8 = 1e-2 of the largest |value| for im2col and a
+# few times that at most for taps; a misplaced tap or a transposed weight
+# reads O(1)
+CHAIN_RTOL = 2.0 ** -5
 # phase 9: ``python -m unirestore_torch.main fit`` from the stage-1 YAML on
 # the smoke tree of tools/make_smoke_data.py at 576 px (576 x 592 images),
 # with dotted overrides only: the DIVF2KOST lists, 6 micro-steps (three AdamW
@@ -806,15 +853,9 @@ TRAIN_GRAD_RTOL = 1e-3
 SM90_DESIGNS = {"attention_sm90.cu": "M2", "attention_stream_sm90.cu": "M2",
                 "attention_bh_sm90.cu": "M1", "attention_out_sm90.cu": "M2",
                 "grouped_conv_sm90.cu": "M2"}
-# a call shorter than GRAPH_MS is timed by replaying GRAPH_CALLS captured
-# calls: one ctypes call costs 4-9 us of host time and a wrapper call 40-115
-# us, so back-to-back calls of a short kernel measure the host's launch rate
-GRAPH_MS = 0.05
-GRAPH_CALLS = 100
 # the reference worker's CPU threads (``CpuReferences``): the host's other
 # cores stay with the main process, its loaders and the gloo ranks
 REFERENCE_THREADS = 4
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 
@@ -831,13 +872,6 @@ def process_age() -> float:
     return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -848,31 +882,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
-    """Device ms per call of ``fn`` with the host out of the way: ``calls``
-    calls captured in one CUDA graph, replayed ``replays`` times between two
-    events. ``fn`` takes its stream from ``torch.cuda.current_stream()`` when
-    called, so that the capture records it."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capturing stream
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * calls)
 
 
 def host_us(fn, reps: int = 20) -> float:
@@ -3126,26 +3135,42 @@ def probe_apply(name):
     return lambda p, x: CZ.classifier_apply(name, p, x)
 
 
-def check_probes(KN, bridge, gen) -> dict:
+def probe_reference_cpu(name: str, x: np.ndarray) -> tuple:
+    """``check_probes``' CPU half, in the reference worker: ``name``'s tree
+    built as the card half builds it (seeded on the card), copied to the host
+    and run there on ``x``. Returns (logits, seconds of the CPU call)."""
+    from unirestore_torch import bridge
+    tree = to_cpu(bridge, bridge.probe_init(name, "cuda"))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = probe_apply(name)(tree, torch.from_numpy(x))
+        return ref.numpy(), time.perf_counter() - t0
+
+
+def check_probes(KN, bridge, gen, refs):
     """Phase 13: every probe of the zoos (each classifier spec, ``dlv3pr50``
     and ``rflwr101``) built seeded in fp32 on the card and run on one seeded
-    batch (PROBE_SHAPES), against the same tree and batch on the CPU: logits
-    within PROBE_RTOL of the largest |logit|. Reported beside it, how far the
-    input reaches the logits (their largest change against a blank image,
-    over the largest |logit|): with the seeded init's unit BatchNorm
-    statistics a deep stack of convolutions can shrink the signal until the
-    logits are the head's bias, and then the comparison holds the head alone.
-    Per probe: ms per call (events,
-    or graph replay under GRAPH_MS), the repo's kernel launches in a call (0:
-    the probes' attention is einsum, fp32 softmax, einsum), and the device's
-    kernels per call and busy ms by kernel family (profiled)."""
+    batch (PROBE_SHAPES), against the same tree and batch on the CPU
+    (``probe_reference_cpu`` in ``refs``' worker): logits within PROBE_RTOL
+    of the largest |logit|. Reported beside it, how far the input reaches the
+    logits (their largest change against a blank image, over the largest
+    |logit|): with the seeded init's unit BatchNorm statistics a deep stack of
+    convolutions can shrink the signal until the logits are the head's bias,
+    and then the comparison holds the head alone. Per probe: ms per call
+    (events, or graph replay under GRAPH_MS), the repo's kernel launches in a
+    call (0: the probes' attention is einsum, fp32 softmax, einsum), and the
+    device's kernels per call and busy ms by kernel family (profiled).
+    Returns the check: it reads the CPU halves, holds the limits and returns
+    the rows."""
     from unirestore_torch.tasks import seg_zoo as SZ
-    out = {}
+    card = {}
     for name in probe_names():
         apply = probe_apply(name)
         kind = "seg" if name in SZ._WEIGHTS else "cls"
         tree = bridge.probe_init(name, "cuda")
         x = torch.rand(PROBE_SHAPES[kind], generator=gen, device="cuda")
+        refs.submit(f"phase 13 probe {name}", probe_reference_cpu, name, x.cpu().numpy())
         with torch.inference_mode():
             KN.reset_counts()
             got = apply(tree, x)
@@ -3155,34 +3180,45 @@ def check_probes(KN, bridge, gen) -> dict:
                 ms, timer = graph_ms(lambda: apply(tree, x)), "graph"
             prof = profiled_device(lambda: apply(tree, x))
             blank = apply(tree, torch.zeros_like(x))
-            t0 = time.perf_counter()
-            ref = apply(to_cpu(bridge, tree), x.cpu())
-            cpu_s = time.perf_counter() - t0
-        scale = ref.abs().max().item()
-        err = (got.cpu() - ref).abs().max().item()
-        reach = (got - blank).abs().max().item() / scale
         n_params = sum(v.numel() for v in bridge.flatten(tree).values())
-        row = {"shape": list(x.shape), "logits": list(got.shape), "params_m": n_params / 1e6,
-               "max_abs_err": err, "max_abs_logit": scale, "rel_err": err / scale,
-               "input_reach": reach,
-               "ms": ms, "timer": timer, "repo_kernel_launches": launches,
-               "device_kernels_per_call": prof["kernels"],
-               "device_ms_by_family": {k: v * 1e3 for k, v in prof["device_s_by_family"].items()},
-               "cpu_s": cpu_s}
+        card[name] = {
+            "got": got.cpu(), "moved": (got - blank).abs().max().item(),
+            "finite": bool(torch.isfinite(got).all()),
+            "row": {"shape": list(x.shape), "logits": list(got.shape),
+                    "params_m": n_params / 1e6, "ms": ms, "timer": timer,
+                    "repo_kernel_launches": launches,
+                    "device_kernels_per_call": prof["kernels"],
+                    "device_ms_by_family": {k: v * 1e3
+                                            for k, v in prof["device_s_by_family"].items()}}}
+        row = card[name]["row"]
         log(f"probe {name}: {tuple(x.shape)} -> {tuple(got.shape)}, {n_params / 1e6:.1f} M "
-            f"params; card vs CPU max abs {err:.3e} of |logit| {scale:.4g} (rel {err / scale:.2e}, "
-            f"limit {PROBE_RTOL}); the input moves the logits by {reach:.3g} of the largest "
-            f"(against a blank image); {ms:.4f} ms a call ({timer}); {prof['kernels']} device "
-            f"kernels a call, busy {prof['device_busy_s'] * 1e3:.4f} ms "
+            f"params; {ms:.4f} ms a call ({timer}); {prof['kernels']} device kernels a call, "
+            f"busy {prof['device_busy_s'] * 1e3:.4f} ms "
             f"{ {k: round(v, 4) for k, v in row['device_ms_by_family'].items()} }; repo kernel "
-            f"launches {launches}; CPU {cpu_s:.2f} s")
-        if not (err <= PROBE_RTOL * scale and torch.isfinite(got).all()) or launches:
-            raise AssertionError(f"probe {name}: card vs CPU {err} > {PROBE_RTOL} x {scale}, or "
-                                 f"{launches} repo kernel launches")
-        out[name] = row
-        del tree, got, ref
+            f"launches {launches}; its CPU half in the reference worker")
+        if launches:
+            raise AssertionError(f"probe {name}: {launches} repo kernel launches")
+        del tree, got, blank
         torch.cuda.empty_cache()
-    return out
+
+    def check() -> dict:
+        out = {}
+        for name, c in card.items():
+            ref, cpu_s = refs.result(f"phase 13 probe {name}")
+            ref = torch.from_numpy(ref)
+            scale = ref.abs().max().item()
+            err = (c["got"] - ref).abs().max().item()
+            reach = c["moved"] / scale
+            out[name] = {**c["row"], "max_abs_err": err, "max_abs_logit": scale,
+                         "rel_err": err / scale, "input_reach": reach, "cpu_s": cpu_s}
+            log(f"probe {name}: card vs CPU max abs {err:.3e} of |logit| {scale:.4g} (rel "
+                f"{err / scale:.2e}, limit {PROBE_RTOL}); the input moves the logits by "
+                f"{reach:.3g} of the largest (against a blank image); CPU {cpu_s:.2f} s")
+            if not (err <= PROBE_RTOL * scale and c["finite"]):
+                raise AssertionError(f"probe {name}: card vs CPU {err} > {PROBE_RTOL} x {scale}")
+        return out
+
+    return check
 
 
 def fit13_argv(command, work: Path, root: Path, task: str, mode: str, *extra) -> list:
@@ -3488,27 +3524,55 @@ def calibrate_bn(TRN, fn, tree, x) -> int:
     return len(seen)
 
 
-def check_nr_nets(KN, bridge, gen) -> dict:
+def nr_reference_cpu(name: str, x: np.ndarray, stats: dict) -> tuple:
+    """``check_nr_nets``' CPU half, in the reference worker: ``name``'s tree
+    built as the card half builds it (seeded on the card) with the card
+    half's calibrated BatchNorm statistics ``stats`` (flat name: array),
+    copied to the host and run there on ``x``. Returns (features, score,
+    seconds of the CPU call)."""
+    from unirestore_torch import bridge
+    tree = bridge.nr_init(name, "cuda")
+    flat = bridge.flatten(tree)
+    for key, value in stats.items():
+        flat[key].copy_(torch.from_numpy(value))
+    tree = to_cpu(bridge, tree)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        feats, score = nr_parts(name)(tree, torch.from_numpy(x))
+        return feats.numpy(), score.numpy(), time.perf_counter() - t0
+
+
+def check_nr_nets(KN, bridge, gen, refs):
     """Phase 14: every network of the NR suite and FID's Inception, seeded in
     fp32 (BatchNorm statistics set from the batch for NR_CALIBRATED), on one
-    seeded 512 x 512
-    batch on the card and on the CPU: the features before the head and the
-    score within NR_RTOL of their largest |value| on the CPU, no launch of the
-    repo's kernels. Reported beside it, each one's reach (the change of the
-    compared quantity between the batch and a smooth ramp, over its largest
-    magnitude), ms per call (events), and the device's kernels and busy ms per
-    call (profiled)."""
+    seeded 512 x 512 batch on the card and on the CPU (``nr_reference_cpu``
+    in ``refs``' worker, with the card's calibrated statistics): the
+    features before the head and the score within NR_RTOL of their largest
+    |value| on the CPU, no launch of the repo's kernels. Reported beside it,
+    each one's reach (the change of the compared quantity between the batch
+    and a smooth ramp, over its largest magnitude), ms per call (events), and
+    the device's kernels and busy ms per call (profiled). Returns the check:
+    it reads the CPU halves, holds the limits and returns the rows."""
     from unirestore_torch.evalx import nr_suite as NRS
     from unirestore_torch.tasks import resnet as TRN
     x = torch.rand(NR_SHAPE, generator=gen, device="cuda")
     yy = torch.linspace(0, 1, NR_SHAPE[1], device="cuda")[:, None, None]
     xx = torch.linspace(0, 1, NR_SHAPE[2], device="cuda")[None, :, None]
     ramp = ((0.7 * yy + 0.3 * xx + 0.2 * torch.arange(3, device="cuda")) % 1.0)[None]
-    out = {}
+    card = {}
     for name in NRS.NETS:
         parts = nr_parts(name)
         tree = bridge.nr_init(name, "cuda")
-        n_bn = calibrate_bn(TRN, parts, tree, x) if name in NR_CALIBRATED else 0
+        if name in NR_CALIBRATED:
+            fresh = bridge.flatten(bridge.nr_init(name, "cuda"))
+            n_bn = calibrate_bn(TRN, parts, tree, x)
+            stats = {k: v.cpu().numpy() for k, v in bridge.flatten(tree).items()
+                     if not torch.equal(v, fresh[k])}
+            del fresh
+        else:
+            n_bn, stats = 0, {}
+        refs.submit(f"phase 14 NR net {name}", nr_reference_cpu, name, x.cpu().numpy(), stats)
         with torch.inference_mode():
             KN.reset_counts()
             feats, score = parts(tree, x)
@@ -3516,35 +3580,46 @@ def check_nr_nets(KN, bridge, gen) -> dict:
             feats2, score2 = parts(tree, ramp)
             ms = cuda_ms(lambda: parts(tree, x), 5)
             prof = profiled_device(lambda: parts(tree, x))
-            t0 = time.perf_counter()
-            ref_f, ref_s = parts(to_cpu(bridge, tree), x.cpu())
-            cpu_s = time.perf_counter() - t0
-        row = {"features": list(feats.shape), "batchnorms_calibrated": n_bn, "ms": ms,
-               "device_kernels_per_call": prof["kernels"],
-               "device_busy_ms": prof["device_busy_s"] * 1e3,
-               "repo_kernel_launches": launches, "cpu_s": cpu_s}
-        for what, got, ref, other in (("features", feats, ref_f, feats2),
-                                      ("score", score, ref_s, score2)):
-            scale = ref.abs().max().item()
-            err = (got.cpu() - ref).abs().max().item()
-            row[what] = {"max_abs_err": err, "max_abs": scale, "rel_err": err / scale,
-                         "reach": (got - other).abs().max().item() / scale,
-                         "value": got.flatten()[:4].tolist() if what == "score" else None}
-            if not (err <= NR_RTOL * scale and torch.isfinite(got).all()):
-                raise AssertionError(f"NR net {name} {what}: card vs CPU {err} > {NR_RTOL} x "
-                                     f"{scale}")
+        card[name] = {
+            "got": {"features": feats.cpu(), "score": score.cpu()},
+            "moved": {"features": (feats - feats2).abs().max().item(),
+                      "score": (score - score2).abs().max().item()},
+            "finite": bool(torch.isfinite(feats).all() and torch.isfinite(score).all()),
+            "row": {"features": list(feats.shape), "batchnorms_calibrated": n_bn, "ms": ms,
+                    "device_kernels_per_call": prof["kernels"],
+                    "device_busy_ms": prof["device_busy_s"] * 1e3,
+                    "repo_kernel_launches": launches}}
+        log(f"NR net {name}: {tuple(x.shape)} -> features {tuple(feats.shape)}; {ms:.3f} ms a "
+            f"call; {prof['kernels']} device kernels, busy {prof['device_busy_s'] * 1e3:.3f} ms; "
+            f"{n_bn} BatchNorms calibrated; its CPU half in the reference worker")
         if launches:
             raise AssertionError(f"NR net {name}: {launches} launches of the repo's kernels")
-        log(f"NR net {name}: {tuple(x.shape)} -> features {tuple(feats.shape)}; card vs CPU "
-            f"features rel {row['features']['rel_err']:.2e} (reach "
-            f"{row['features']['reach']:.3g}), score rel {row['score']['rel_err']:.2e} (reach "
-            f"{row['score']['reach']:.3g}), limit {NR_RTOL}; {ms:.3f} ms a call; "
-            f"{prof['kernels']} device kernels, busy {prof['device_busy_s'] * 1e3:.3f} ms; "
-            f"{n_bn} BatchNorms calibrated; CPU {cpu_s:.2f} s")
-        out[name] = row
-        del tree, feats, score, ref_f, ref_s
+        del tree, feats, score, feats2, score2
         torch.cuda.empty_cache()
-    return out
+
+    def check() -> dict:
+        out = {}
+        for name, c in card.items():
+            ref_f, ref_s, cpu_s = refs.result(f"phase 14 NR net {name}")
+            row = {**c["row"], "cpu_s": cpu_s}
+            for what, ref in (("features", ref_f), ("score", ref_s)):
+                got, ref = c["got"][what], torch.from_numpy(ref)
+                scale = ref.abs().max().item()
+                err = (got - ref).abs().max().item()
+                row[what] = {"max_abs_err": err, "max_abs": scale, "rel_err": err / scale,
+                             "reach": c["moved"][what] / scale,
+                             "value": got.flatten()[:4].tolist() if what == "score" else None}
+                if not (err <= NR_RTOL * scale and c["finite"]):
+                    raise AssertionError(f"NR net {name} {what}: card vs CPU {err} > {NR_RTOL} x "
+                                         f"{scale}")
+            log(f"NR net {name}: card vs CPU features rel {row['features']['rel_err']:.2e} "
+                f"(reach {row['features']['reach']:.3g}), score rel "
+                f"{row['score']['rel_err']:.2e} (reach {row['score']['reach']:.3g}), limit "
+                f"{NR_RTOL}; CPU {cpu_s:.2f} s")
+            out[name] = row
+        return out
+
+    return check
 
 
 def neural_calls(calls: dict, image) -> dict:
@@ -3585,15 +3660,15 @@ def neural_calls(calls: dict, image) -> dict:
     return out
 
 
-def run_validate_nr(KN, TE, bridge, main_fn, work: Path, gen):
+def run_validate_nr(KN, TE, bridge, main_fn, work: Path, gen, refs):
     """Phase 14: ``validate`` from ``configs/val.yaml`` in ALL with FID and in NR
     (two images each): keys, monitors and launches; NIQE and NRQM rerun on the
     run's predictions bit for bit; each neural metric's and the extractor's
     call timed and checked for syncs; a second NR validation timed with the
     card synchronised at both ends (phase 20 (d)'s eager route); the NR
-    networks' share of an NR validation's device time; then every network
-    card vs CPU. Returns (result,
-    launches by path, the (shape, dtype) each kernel met)."""
+    networks' share of an NR validation's device time; then every network's
+    card half (its CPU half in ``refs``' worker). Returns (result, launches by
+    path, the (shape, dtype) each kernel met, the networks' check)."""
     from unirestore_torch.evalx import niqe, nrqm
     from unirestore_torch.evalx.nr_suite import NeuralNR
     t_phase = time.perf_counter()
@@ -3667,9 +3742,9 @@ def run_validate_nr(KN, TE, bridge, main_fn, work: Path, gen):
         del probe, host, engine, trainer, data, factory, evaluator
         torch.cuda.empty_cache()
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["nets"] = check_nr_nets(KN, bridge, gen)
+    nets = check_nr_nets(KN, bridge, gen, refs)
     out["phase_seconds"] = time.perf_counter() - t_phase
-    return out, paths, shapes
+    return out, paths, shapes, nets
 
 
 # ---------------------------------------------------------------------------
@@ -4358,40 +4433,12 @@ def run_train_ddp2(KN, training: dict, work: Path, sec: float) -> tuple:
     return result, paths, shapes
 
 
-def state_bytes(UR, FSDP) -> dict:
-    """Phase 16 (c): persistent bytes per rank of the restore cell's trees,
-    replicated against FSDP (``fsdp_spec``), at each of ``STATE_WORLDS`` ranks:
-    the frozen tree in bf16, the trainable tree in fp32 and AdamW's two fp32
-    slots over it (as ``tools/debug_fsdp_memory.py`` counts them)."""
-    cfg = UR.UniRestoreConfig(use_tfa=True, tasks=("ir", "cls", "seg"))
-    frozen, trainable = UR.init(cfg, device="meta")
-    trees = {"frozen_bf16": (frozen, 2), "trainable_fp32": (trainable, 4),
-             "adamw_slots_fp32": (trainable, 8)}
-    from unirestore_torch import bridge
-    out = {}
-    for n in STATE_WORLDS:
-        rows = {}
-        for name, (tree, nbytes) in trees.items():
-            leaves = list(bridge.flatten(tree).values())
-            rep = sum(v.numel() for v in leaves) * nbytes
-            sharded = sum((v.numel() // n if FSDP.fsdp_spec(v, n) else v.numel())
-                          for v in leaves) * nbytes
-            rows[name] = {"replicated_gib": rep / 2**30, "fsdp_gib": sharded / 2**30}
-        rows["total"] = {k: sum(r[k] for r in rows.values())
-                         for k in ("replicated_gib", "fsdp_gib")}
-        out[n] = rows
-    log("state bytes per rank (GiB, replicated -> FSDP): " + "; ".join(
-        f"n={n}: " + ", ".join(f"{k} {v['replicated_gib']:.3f} -> {v['fsdp_gib']:.3f}"
-                               for k, v in rows.items()) for n, rows in out.items()))
-    return out
-
-
-def run_phase16(K, G, KN, TE, UR, rows, gen, reference16, training, work: Path,
+def run_phase16(K, G, KN, TE, rows, gen, reference16, training, work: Path,
                 runs: list) -> tuple:
     """Phase 16: (a) and (b) from their jobs' ``runs`` (``fit_ddp_jobs``, then
     ``train_ddp2_job``), and (c); then phase 3's comparison at every (kernel,
     shape) they met that was not held yet. Returns (result, launches by path)."""
-    from unirestore_torch.parallel import fsdp as FSDP
+    from unirestore_torch.diagnostics import fsdp_memory as FM
 
     t0 = time.perf_counter()
     result = {}
@@ -4402,7 +4449,11 @@ def run_phase16(K, G, KN, TE, UR, rows, gen, reference16, training, work: Path,
     paths.update(train_paths)
     result["train"]["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes, rows, gen,
                                                                  path="train_ddp2")
-    result["state_bytes"] = state_bytes(UR, FSDP)
+    result["state_bytes"] = FM.state_bytes(STATE_WORLDS)
+    log("state bytes per rank (GiB, replicated -> FSDP; diagnostics.fsdp_memory): " + "; ".join(
+        f"n={n}: " + ", ".join(f"{k} {v['replicated_gib']:.3f} -> {v['fsdp_gib']:.3f}"
+                               for k, v in rows.items())
+        for n, rows in result["state_bytes"].items()))
     result["phase_seconds"] = time.perf_counter() - t0
     log(f"data parallelism: (kernel, shape) pairs held to their plain versions after the "
         f"world-1 fits {result['fit']['shapes_added_to_phase3']}, the two-rank steps "
@@ -6270,6 +6321,115 @@ def run_phase21(UR, KN, bridge, refs, root: Path) -> tuple:
     return result, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the diagnostic tools
+# ---------------------------------------------------------------------------
+
+
+def component_flops_cpu(batch: int) -> dict:
+    """Phase 22 (a)'s FLOPs of each component at ``batch``, counted on the
+    ``meta`` device (in the reference worker: half a minute of host time)."""
+    from unirestore_torch.diagnostics import components as DC
+    return DC.count_flops(batch)
+
+
+def run_phase22(UR, KN, cfg, frozen, trainable, card: str) -> tuple:
+    """Phase 22 (a)-(c): the restore's six components (``diagnostics.
+    components``) on phase 4's model and a batch drawn as phase 4 draws its
+    own, each captured in a CUDA graph: its eager first call's launches
+    ``expected_launches()``, its replay bit-equal to that call and finite;
+    ms of each replayed (TFLOP and MFU once the worker's count is read,
+    ``component_rates``); then the 14 per-shape cases
+    (``diagnostics.shapes``: every case timed) and the conv chains
+    (``diagnostics.conv_chains``: im2col and taps within CHAIN_RTOL of conv).
+    Returns (result, the eager calls' launches by kernel)."""
+    from unirestore_torch.diagnostics import components as DC
+    from unirestore_torch.diagnostics import conv_chains as CC
+    from unirestore_torch.diagnostics import shapes as SH
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(DIAG_SEED)
+    images, noise, _ = restore_inputs(UR, cfg, frozen, trainable, gen)
+    s = DC.setup(cfg, frozen, trainable, images, noise["posterior_noise"],
+                 noise["diffusion_noise"], UR.schedule(cfg, device="cuda"))
+    rows = DC.run(s, iters=DIAG_ITERS)
+    for name, row in rows.items():
+        log(f"components: {name}: {row['graph']['ms']:.3f} ms replayed ({row['graph']['timer']}), "
+            f"launches {row['launches']}, replay vs eager max abs {row['max_abs']:.3e} "
+            f"({'bit-equal' if row['bit_equal'] else 'NOT bit-equal'}), output "
+            f"{row['shape']} {'finite' if row['finite'] else 'NOT finite'}")
+    want = DC.expected_launches()
+    wrong = {name: (row["launches"], want[name]) for name, row in rows.items()
+             if row["launches"] != want[name]}
+    unequal = {name: row["max_abs"] for name, row in rows.items()
+               if not (row["bit_equal"] and row["finite"])}
+    if wrong or unequal:
+        raise AssertionError(f"components: launches (got, want) {wrong}; replay not bit-equal "
+                             f"to the eager call or not finite {unequal}")
+    launches = {kern.symbol: sum(row["launches"][i] for row in rows.values())
+                for i, kern in enumerate(KN.KERNELS)}
+    result = {"components": rows, "summary": {"graph": DC.summary(rows, BATCH, "graph")},
+              "components_seconds": time.perf_counter() - t0}
+    del s, images, noise
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    result["shapes"] = SH.run(BATCH, DIAG_SHAPE_ITERS, card=card,
+                              emit=lambda line: log(f"shapes: {line}"))
+    failed = [row for row in result["shapes"] if "error" in row]
+    if failed:
+        raise AssertionError(f"shapes: cases failed {failed}")
+    result["shapes_seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    result["conv_chains"] = CC.run(BATCH, DIAG_CHAIN_ITERS, card=card,
+                                   emit=lambda line: log(f"conv chains: {line}"))
+    off = {level: {v: rows_[v]["relerr"] for v in ("im2col", "taps")}
+           for level, rows_ in result["conv_chains"].items()
+           if max(rows_[v]["relerr"] for v in ("im2col", "taps")) > CHAIN_RTOL}
+    if off:
+        raise AssertionError(f"conv chains: im2col or taps beyond {CHAIN_RTOL} of conv: {off}")
+    result["conv_chains_seconds"] = time.perf_counter() - t1
+    log(f"diagnostics: every component's launches the routing's and its replay bit-equal; "
+        f"14 shapes timed; im2col and taps within {CHAIN_RTOL} of conv at every level; "
+        f"{time.perf_counter() - t0:.1f} s (components {result['components_seconds']:.1f}, "
+        f"shapes {result['shapes_seconds']:.1f}, chains {result['conv_chains_seconds']:.1f})")
+    return result, launches
+
+
+def component_rates(result: dict, flops: dict, card: str) -> None:
+    """Phase 22 (a)'s rows completed with the reference worker's FLOP count:
+    TFLOP a call, TFLOP/s and MFU replayed; the tool's table logged."""
+    from unirestore_torch.diagnostics import components as DC
+
+    rows = result["components"]
+    for name, row in rows.items():
+        row["flops"] = flops[name]
+        row["graph"].update(DC.rates(row["graph"]["ms"], flops[name]))
+    for line in DC.report(rows, BATCH, DIAG_ITERS, card):
+        log(f"components: {line}" if line.strip() else line)
+
+
+def run_train_memory(TS, cell, card: str) -> dict:
+    """Phase 22 (d): the ``cn`` part (``diagnostics.train_memory``) on phase
+    18's cell at BATCH x RES px, remat on and off, without the tool's warm-up
+    call (phase 18's steps ran the same part at the same shapes): argument,
+    output and temporary bytes; the loss finite."""
+    from unirestore_torch.diagnostics import train_memory as TMEM
+
+    out = {}
+    for remat in (True, False):
+        cfg = TS.with_remat(cell["cfg"]) if remat else cell["cfg"]
+        m = TMEM.measure(cell["frozen"], cell["trainable"], cfg, BATCH, RES, warmup=False)
+        for line in TMEM.report(m, card):
+            log(f"train memory: {line}")
+        if not math.isfinite(m["loss"]) or m["temp_bytes"] <= 0:
+            raise AssertionError(f"train memory (remat {remat}): loss {m['loss']}, temporaries "
+                                 f"{m['temp_bytes']} bytes")
+        out["remat" if remat else "no_remat"] = m
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6294,6 +6454,7 @@ def run_phases(refs, convert_root: Path) -> int:
     from unirestore_torch import bridge, serve
     from unirestore_torch import graphs as GR
     from unirestore_torch import main as TMAIN
+    from unirestore_torch.diagnostics import components as DC
     from unirestore_torch.models import unirestore as UR
     from unirestore_torch.nn import attention_kernels as K
     from unirestore_torch.nn import grouped_conv as G
@@ -6355,9 +6516,15 @@ def run_phases(refs, convert_root: Path) -> int:
     runs, paths = run_modes(UR, KN, cfg, frozen, trainable, gen)
     graph_runs, graph_paths = run_graph_modes(UR, KN, GR, cfg, frozen, trainable, gen)
     paths.update(graph_paths)
-    del frozen, trainable
     torch.cuda.empty_cache()
     phase_done("4")
+
+    # phase 22 (a)-(c): the diagnostic tools on phase 4's model; (d) runs
+    # after 18 (a)-(c)
+    diagnostics, paths["diagnostics"] = run_phase22(UR, KN, cfg, frozen, trainable, card)
+    del frozen, trainable
+    torch.cuda.empty_cache()
+    phase_done("22 (a)-(c)")
 
     # phase 6: the full-width stage-1 training step
     training, paths["train"] = run_training(UR, KN, bridge, TS, OPT)
@@ -6370,6 +6537,10 @@ def run_phases(refs, convert_root: Path) -> int:
     split, paths["train_split"] = run_split_training(UR, KN, bridge, TS, OPT, cell)
     torch.cuda.empty_cache()
     phase_done("18 (a)-(c)")
+
+    # phase 22 (d): the cn part's memory on phase 18's cell, remat on and off
+    diagnostics["train_memory"] = run_train_memory(TS, cell, card)
+    phase_done("22 (d)")
 
     # phase 19 (a), (c): the graph-captured step on phase 18's cell, eager and
     # graph in turns; the stage-2 step of each task from its graph; (b) runs
@@ -6457,7 +6628,8 @@ def run_phases(refs, convert_root: Path) -> int:
         # the seg engine through the CLI; validate runs with the other probe
         # sets; phase 3's comparison at the shapes they met that were not held
         t0 = time.perf_counter()
-        engines = {"probes": check_probes(KN, bridge, gen)}
+        checks["probes"] = check_probes(KN, bridge, gen, refs)
+        engines = {}
         for task in ("cls", "seg"):
             engines[task], paths[f"fit_{task}"], shapes13 = run_engine_fit(
                 KN, bridge, TE, TS, OPT, TMAIN.main, Path(work), task)
@@ -6479,7 +6651,8 @@ def run_phases(refs, convert_root: Path) -> int:
         # phase 14: validate through the CLI in ALL with FID and in NR, the NR
         # suite's networks and FID's Inception card vs CPU; phase 3's comparison
         # at the shapes the restores met that were not held yet
-        nr14, nr_paths, shapes14 = run_validate_nr(KN, TE, bridge, TMAIN.main, Path(work), gen)
+        nr14, nr_paths, shapes14, checks["nr_nets"] = run_validate_nr(KN, TE, bridge, TMAIN.main,
+                                                                      Path(work), gen, refs)
         paths.update(nr_paths)
         nr14["shapes_added_to_phase3"] = check_fit_shapes(K, G, KN, shapes14, rows, gen,
                                                           path="validate_nr")
@@ -6491,7 +6664,9 @@ def run_phases(refs, convert_root: Path) -> int:
 
         # phase 15: the SPADE restores and step, every optimizer and every
         # DeepLab backbone; phase 3's comparison at the shapes they met that
-        # were not held
+        # were not held. Its timed restores and steps run beside no job: the
+        # last CPU halves of phase 14 end first
+        log(f"waited {refs.idle():.1f} s for the reference worker's jobs to end")
         spade, spade_paths, shapes15, checks15 = run_phase15(UR, KN, GR, bridge, TS, OPT, gen,
                                                              refs, training["ms_per_step"])
         paths.update(spade_paths)
@@ -6500,6 +6675,10 @@ def run_phases(refs, convert_root: Path) -> int:
         log(f"spade: {spade['shapes_added_to_phase3']} (kernel, shape) pairs held to their "
             "plain versions after phase 15")
         torch.cuda.empty_cache()
+        # phase 22 (a)'s FLOP count in the reference worker, after phase 15's
+        # jobs and beside phases 16-18 (d) as they are (no timed window), read
+        # before the report
+        refs.submit("phase 22 flops", component_flops_cpu, BATCH)
         phase_done("15")
 
         # phases 16 (a), (b) and 17: their torchrun jobs all at once (each is
@@ -6522,7 +6701,7 @@ def run_phases(refs, convert_root: Path) -> int:
         # phase 16: phase 9's fit under torchrun at world size 1 (NCCL), DDP
         # and FSDP; phase 6's cell at two ranks on the card (gloo), DDP and
         # FSDP; the state bytes per rank; phase 3's comparison at new shapes
-        parallel, parallel_paths = run_phase16(K, G, KN, TE, UR, rows, gen, reference16,
+        parallel, parallel_paths = run_phase16(K, G, KN, TE, rows, gen, reference16,
                                                training, Path(work), runs[:3])
         paths.update(parallel_paths)
         torch.cuda.empty_cache()
@@ -6567,7 +6746,7 @@ def run_phases(refs, convert_root: Path) -> int:
     torch.cuda.empty_cache()
     phase_done("21")
 
-    # the CPU halves of phases 5, 7, 11, 12 and 15, read now
+    # the CPU halves of phases 5, 7, 11-15 and phase 22's FLOP count, read now
     t0 = time.perf_counter()
     reference = checks["restore"]()
     training["reference"] = checks["training"]()
@@ -6576,7 +6755,10 @@ def run_phases(refs, convert_root: Path) -> int:
     spade["reference"] = checks15["reference"]()
     spade["training"]["reference"] = checks15["training"]()
     spade["deeplab"] = checks15["deeplab"]()
-    log(f"card-vs-CPU checks of phases 5, 7, 11, 12 and 15 held; waited "
+    engines["probes"] = checks["probes"]()
+    nr14["nets"] = checks["nr_nets"]()
+    component_rates(diagnostics, refs.result("phase 22 flops"), card)
+    log(f"card-vs-CPU checks of phases 5, 7, 11-15 held; waited "
         f"{time.perf_counter() - t0:.1f} s for the reference worker; its jobs ran in these "
         "seconds of the script: " + ", ".join(f"{name} {a:.1f}-{b:.1f}"
                                               for name, (a, b) in refs.spans.items()))
@@ -6611,6 +6793,8 @@ def run_phases(refs, convert_root: Path) -> int:
                   train_det_graph=[EXPECTED_STAGE3[kern.symbol][0] for kern in KN.KERNELS])
     routes["fit_graph"] = routes["fit"]
     routes["cache_quality"] = routes["restore"]
+    routes["diagnostics"] = [sum(want[i] for want in DC.expected_launches().values())
+                             for i in range(len(KN.KERNELS))]
     routes["fit_stage3_graph"] = routes["fit_stage3"]
     entries = []
     for i, kern in enumerate(KN.KERNELS):
@@ -6663,6 +6847,8 @@ def run_phases(refs, convert_root: Path) -> int:
     graph20["phase_seconds"] = phase_seconds["20"]
     log(json.dumps({"graph_stage3_validation": graph20}, default=str))
     log(json.dumps({"convert_sweep": phase21}))
+    diagnostics["phase_seconds"] = phase_seconds["22 (a)-(c)"] + phase_seconds["22 (d)"]
+    log(json.dumps({"diagnostics": diagnostics}))
     phase_done("10")
     log(json.dumps({"phase_seconds": phase_seconds, "reference_jobs": refs.spans,
                     "script_seconds": process_age()}))

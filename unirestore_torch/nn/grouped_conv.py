@@ -156,6 +156,7 @@ class GroupedConvKernel(cuda_lib.KernelWrapper):
     replaces = "unirestore_tpu/nn/pallas_grouped_conv.py:80"
     base = (library, SOURCE)
     symbols = {torch.bfloat16: ("ur_grouped_conv3_sm90", library_sm90, SOURCE_SM90)}
+    plain = staticmethod(grouped_conv3_plain)
 
     def __call__(self, x, w, b=None, groups: int = 16):
         return GroupedConv3Function.apply(self, x, w, b, groups)
@@ -164,7 +165,7 @@ class GroupedConvKernel(cuda_lib.KernelWrapper):
         tensors = (x, w) if b is None else (x, w, b)
         devices = {t.device.type for t in tensors}
         if devices == {"cpu"}:
-            return grouped_conv3_plain(x, w, b, groups)
+            return self.plain(x, w, b, groups)
         if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
             raise ValueError(f"{self.symbol}: x, w, b must lie on one CUDA device, "
                              f"got {[str(t.device) for t in tensors]}")
